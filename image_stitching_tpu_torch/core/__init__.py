@@ -1,0 +1,1 @@
+"""Host layer: logging, native runtime, image IO, EXIF, checkpoints."""

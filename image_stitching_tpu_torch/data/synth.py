@@ -1,0 +1,168 @@
+"""Synthetic ring captures with ground-truth K/R and EXIF pose payloads.
+
+Port, in numpy, of what `image_stitching_tpu/data/synth.py:117
+make_ring_captures` and `:177 write_capture_dir` reach: a procedural sphere
+texture seen through known cameras (ray = R K^-1 p), written as JPEGs whose
+ImageDescription carries the rig's pose payload, so the whole ingestion
+path runs.  The formulas and the random-number call sequence are the
+reference's, so one seed renders the same scene in both packages.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from ..core import exif as exif_mod
+from ..core import image_io
+from ..geometry.euler import euler_to_rotation_matrix
+
+__all__ = ["sphere_texture_rgb", "render_view", "ring_geometry",
+           "make_ring_captures", "E2E_RING", "write_ring_dir",
+           "write_capture_dir"]
+
+
+def sphere_texture_rgb(lon: np.ndarray, lat: np.ndarray,
+                       seed: int = 7) -> np.ndarray:
+    """Trig base layers, 400 sharp lon/lat boxes and three octaves of cell
+    noise, as float32 0..255 RGB."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros(lon.shape + (3,), np.float32)
+    for c in range(3):
+        acc = np.zeros_like(lon, np.float32)
+        for _ in range(6):
+            fl = rng.integers(1, 9)
+            fm = rng.integers(1, 9)
+            ph1, ph2 = rng.uniform(0, 2 * np.pi, 2)
+            acc += rng.uniform(0.3, 1.0) * np.sin(fl * lon + ph1) * \
+                np.cos(fm * lat + ph2)
+        acc = (acc - acc.min()) / max(acc.max() - acc.min(), 1e-6)
+        out[..., c] = acc
+    # Boxes are evaluated only on the rows whose latitude range can meet
+    # them; the rng call sequence is unchanged by that.
+    row_lo = lat.min(axis=-1)
+    row_hi = lat.max(axis=-1)
+    for _ in range(400):
+        lo = rng.uniform(-np.pi, np.pi)
+        la = rng.uniform(-1.35, 1.15)
+        dlo = rng.uniform(0.02, 0.22)
+        dla = rng.uniform(0.02, 0.16)
+        color = rng.uniform(-0.9, 0.9, 3).astype(np.float32)
+        cand = np.nonzero((row_hi >= la) & (row_lo < la + dla))[0]
+        if cand.size == 0:
+            continue
+        r0, r1 = int(cand[0]), int(cand[-1]) + 1
+        sublon = lon[r0:r1]
+        sublat = lat[r0:r1]
+        dlon = np.mod(sublon - lo + np.pi, 2 * np.pi) - np.pi
+        box = (dlon >= 0) & (dlon < dlo) & (sublat >= la) & \
+            (sublat < la + dla)
+        out[r0:r1][box] += color
+
+    def cell_hash(u, v, salt):
+        s = np.sin(u * 127.1 + v * 311.7 + salt) * 43758.547
+        return (s - np.floor(s)).astype(np.float32)
+    for amp, scale in ((0.22, 60.0), (0.15, 220.0), (0.12, 800.0)):
+        cu = np.floor(lon * scale)
+        cv = np.floor(lat * scale)
+        for c in range(3):
+            out[..., c] += amp * (cell_hash(cu, cv, 17.0 * c + 1.0) - 0.5)
+    out = np.clip(out, 0.0, 1.0)
+    return (out * 255.0).astype(np.float32)
+
+
+def render_view(k, r, hw: Tuple[int, int], seed: int = 7) -> np.ndarray:
+    """The sphere texture seen by camera (k, r) at size hw = (h, w)."""
+    h, w = hw
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64) + 0.0
+    pts = np.stack([xs, ys, np.ones_like(xs)], -1)
+    rk = np.asarray(r, np.float64) @ np.linalg.inv(np.asarray(k, np.float64))
+    rays = pts @ rk.T
+    norm = np.linalg.norm(rays, axis=-1)
+    lon = np.arctan2(rays[..., 0], rays[..., 2])
+    lat = np.arcsin(np.clip(rays[..., 1] / np.maximum(norm, 1e-12), -1, 1))
+    return sphere_texture_rgb(lon.astype(np.float32), lat.astype(np.float32),
+                              seed)
+
+
+def ring_geometry(n_images: int, hw: Tuple[int, int], fov_deg: float,
+                  overlap_ratio: float, pitch_deg: float = 0.0):
+    """(K float64, [R float64]) of a horizontal ring: consecutive yaw step
+    fov * (1 - overlap_ratio)."""
+    h, w = hw
+    focal = (w / 2.0) / math.tan(math.radians(fov_deg) / 2.0)
+    k = np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]],
+                 np.float64)
+    step = math.radians(fov_deg) * (1.0 - overlap_ratio)
+    rs = []
+    for i in range(n_images):
+        eul = np.array([math.radians(pitch_deg), i * step, 0.0], np.float32)
+        rs.append(np.asarray(euler_to_rotation_matrix(eul, "YXZ"),
+                             np.float64))
+    return k, rs
+
+
+def make_ring_captures(n_images: int = 4, hw: Tuple[int, int] = (240, 320),
+                       fov_deg: float = 55.0, pitch_deg: float = 0.0,
+                       overlap_ratio: float = 0.45, seed: int = 7):
+    """A single-ring horizontal panorama: (images, K, Rs), with sigma-4
+    per-view sensor noise."""
+    k, rs = ring_geometry(n_images, hw, fov_deg, overlap_ratio, pitch_deg)
+    rng = np.random.default_rng(seed)
+    images = []
+    for r in rs:
+        view = render_view(k, r, hw, seed)
+        view = view + rng.normal(0.0, 4.0, view.shape).astype(np.float32)
+        images.append(np.clip(view, 0.0, 255.0))
+    return images, k.astype(np.float32), np.stack(
+        [r.astype(np.float32) for r in rs])
+
+
+# The JAX package's BENCH_MODE=e2e ring (`bench.py:102-137`): 8 MP views.
+E2E_RING = dict(n_images=8, hw=(2448, 3264), fov_deg=55.0, overlap_ratio=0.5,
+                seed=7)
+
+
+def _render_noisy(args) -> np.ndarray:
+    """One ring view with sigma-4 noise from its own seed (worker process)."""
+    i, k, r, hw, seed = args
+    view = render_view(k, r, hw, seed)
+    noise = np.random.default_rng(1000 + i).normal(0.0, 4.0, view.shape)
+    return np.clip(view + noise.astype(np.float32), 0.0, 255.0)
+
+
+def write_ring_dir(directory: str, n_images: int, hw: Tuple[int, int],
+                   fov_deg: float, overlap_ratio: float, seed: int = 7):
+    """Render a horizontal ring in a process pool (one view per worker,
+    each with its own noise seed) and write it with EXIF pose payloads.
+    Returns the ground truth (K float64, [R float64]) as written."""
+    import multiprocessing as mp
+    k, rs = ring_geometry(n_images, hw, fov_deg, overlap_ratio)
+    workers = max(1, min(n_images, os.cpu_count() or 1))
+    with mp.get_context("spawn").Pool(workers) as pool:
+        images = pool.map(_render_noisy,
+                          [(i, k, r, hw, seed) for i, r in enumerate(rs)])
+    rs32 = np.stack([r.astype(np.float32) for r in rs])
+    write_capture_dir(directory, images, k.astype(np.float32), rs32)
+    return k.astype(np.float64), [r.astype(np.float64) for r in rs32]
+
+
+def write_capture_dir(directory: str, images: Sequence[np.ndarray], k,
+                      rs) -> List[str]:
+    """Numbered JPEGs with EXIF pose payloads; frames are stored rotated
+    180 degrees, which `orient_capture` undoes on load."""
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for i, img in enumerate(images):
+        path = os.path.join(directory, f"{i}.jpg")
+        stored = image_io.rotate_180(np.clip(img, 0, 255).astype(np.uint8))
+        payload = exif_mod.camera_to_image_description(
+            focal=float(k[1, 1]), ppx=float(k[0, 2]), ppy=float(k[1, 2]),
+            R=rs[i], is_portrait=False)
+        image_io.write_jpeg_with_description(path, stored, payload,
+                                             quality=92)
+        paths.append(path)
+    return paths

@@ -1,0 +1,254 @@
+"""Reprojection bundle adjustment by Levenberg-Marquardt (port of
+`estimation/bundle_adjust.py`, cv::detail::BundleAdjusterReproj).
+
+Seven parameters per camera (focal, ppx, ppy, aspect, Rodrigues rotation);
+rotations are always refined, the intrinsics as the refine mask says.
+Residual: transfer error of each RANSAC-inlier correspondence through
+K_b R_b^T R_a K_a^-1, with the reference's redescending weight (c = 48 px)
+held constant at each linearisation point.  Per-correspondence (2, 14)
+Jacobians come from forward-mode `torch.func.jvp` under `vmap`; the
+normal equations are one dense product (no atomics, so the sums are
+deterministic).  The damped system is solved by Cholesky up to 64 cameras
+and by Jacobi-preconditioned CG above.  The LM loop runs on the host, one
+accept/reject decision per iteration.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.func import jvp, vmap
+
+from ..geometry.camera import Cameras, make_k
+from ..geometry.rotation import matrix_to_rodrigues, rodrigues_to_matrix
+
+__all__ = ["BAProblem", "pack_correspondences", "bundle_adjust"]
+
+
+@dataclasses.dataclass
+class BAProblem:
+    """Packed static-shape correspondence table (numpy)."""
+    cam_i: np.ndarray   # (Q,) int32
+    cam_j: np.ndarray   # (Q,) int32
+    p_i: np.ndarray     # (Q, 2) float32
+    p_j: np.ndarray     # (Q, 2) float32
+    w: np.ndarray       # (Q,) float32 weights (0 = padding)
+
+
+def pack_correspondences(xy: np.ndarray, pair_matches, conf_thresh: float,
+                         max_per_edge: int = 256,
+                         seed: int = 0) -> Optional[BAProblem]:
+    """Host-side: inlier correspondences of every computed pair with
+    confidence > conf_thresh, at most `max_per_edge` each (seeded
+    subsample), padded to a power of two >= 256."""
+    conf = np.asarray(pair_matches.confidence)
+    a_idx = np.asarray(pair_matches.a_idx)
+    b_idx = np.asarray(pair_matches.b_idx)
+    inlier = np.asarray(pair_matches.inlier)
+    xy = np.asarray(xy)
+    rng = np.random.default_rng(seed)
+    cam_i, cam_j, p_i, p_j = [], [], [], []
+    for p, (i, j) in enumerate(zip(np.asarray(pair_matches.ii),
+                                   np.asarray(pair_matches.jj))):
+        i, j = int(i), int(j)
+        if conf[i, j] <= conf_thresh:
+            continue
+        rows = np.nonzero(inlier[p])[0]
+        if len(rows) == 0:
+            continue
+        if len(rows) > max_per_edge:
+            rows = rng.choice(rows, max_per_edge, replace=False)
+        cam_i.append(np.full(len(rows), i, np.int32))
+        cam_j.append(np.full(len(rows), j, np.int32))
+        p_i.append(xy[i][a_idx[p][rows]])
+        p_j.append(xy[j][b_idx[p][rows]])
+    if not cam_i:
+        return None
+    q = sum(len(c) for c in cam_i)
+    bucket = 256
+    while bucket < q:
+        bucket *= 2
+    pad = bucket - q
+    return BAProblem(
+        cam_i=np.pad(np.concatenate(cam_i), (0, pad)),
+        cam_j=np.pad(np.concatenate(cam_j), (0, pad), constant_values=1),
+        p_i=np.pad(np.concatenate(p_i).astype(np.float32),
+                   ((0, pad), (0, 0))),
+        p_j=np.pad(np.concatenate(p_j).astype(np.float32),
+                   ((0, pad), (0, 0))),
+        w=np.pad(np.ones(q, np.float32), (0, pad)))
+
+
+_ROBUST_C = 48.0
+
+
+def _residuals(pvec: torch.Tensor, pi: torch.Tensor,
+               pj: torch.Tensor) -> torch.Tensor:
+    """Unweighted reprojection residuals (Q, 2) given both cameras'
+    parameters per correspondence, pvec (Q, 14)."""
+    fa, pxa, pya, aa = pvec[:, 0], pvec[:, 1], pvec[:, 2], pvec[:, 3]
+    fb, pxb, pyb, ab = pvec[:, 7], pvec[:, 8], pvec[:, 9], pvec[:, 10]
+    ra = rodrigues_to_matrix(pvec[:, 4:7])
+    rb = rodrigues_to_matrix(pvec[:, 11:14])
+    pa = torch.stack([(pi[:, 0] - pxa) / fa, (pi[:, 1] - pya) / (fa * aa),
+                      torch.ones_like(fa)], dim=-1)
+    ray = (ra @ pa[..., None])
+    q = (make_k(fb, ab, pxb, pyb) @ (rb.transpose(-1, -2) @ ray))[..., 0]
+    qz = torch.where(torch.abs(q[:, 2]) < 1e-12, 1e-12, q[:, 2])
+    return torch.stack([pj[:, 0] - q[:, 0] / qz, pj[:, 1] - q[:, 1] / qz],
+                       dim=-1)
+
+
+def _jacobians(pvec: torch.Tensor, pi: torch.Tensor,
+               pj: torch.Tensor) -> torch.Tensor:
+    """(Q, 2, 14) Jacobians by forward mode: one jvp per parameter column,
+    batched with vmap.  Residual q depends only on row q of pvec, so the
+    jvp along column k of every row yields column k of each Jacobian.
+    (Forward mode runs on the batched function: per-sample jacfwd over
+    0-dim tensors promotes tangents to float64 in torch.func.)"""
+    basis = torch.eye(14, dtype=pvec.dtype, device=pvec.device)[:, None, :]
+    basis = basis.expand(14, pvec.shape[0], 14)
+
+    def column(t):
+        return jvp(lambda p: _residuals(p, pi, pj), (pvec,), (t,))[1]
+    return vmap(column)(basis).permute(1, 2, 0)
+
+
+def _robust_weight(r: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - torch.sum(r * r, -1) / (_ROBUST_C ** 2),
+                       min=0.0)
+
+
+class _Problem:
+    """Device copy of a BAProblem with the LM building blocks."""
+
+    def __init__(self, problem: BAProblem, n_cams: int, free: np.ndarray,
+                 device):
+        def t(a, dtype=None):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        self.cam_i = t(problem.cam_i, torch.int64)
+        self.cam_j = t(problem.cam_j, torch.int64)
+        self.p_i = t(problem.p_i, torch.float32)
+        self.p_j = t(problem.p_j, torch.float32)
+        self.w = t(problem.w, torch.float32)
+        self.free = t(free)
+        self.n = n_cams
+
+    def _pvec(self, params):
+        return torch.cat([params[self.cam_i], params[self.cam_j]], dim=1)
+
+    def cost(self, params) -> torch.Tensor:
+        r = _residuals(self._pvec(params), self.p_i, self.p_j)
+        res = r * (_robust_weight(r) * self.w)[:, None]
+        return torch.sum(res * res)
+
+    def normal_eqs(self, params):
+        pvec = self._pvec(params)
+        r = _residuals(pvec, self.p_i, self.p_j)
+        jac = _jacobians(pvec, self.p_i, self.p_j)             # (Q, 2, 14)
+        wq = _robust_weight(r) * self.w
+        res = r * wq[:, None]
+        jac = jac * wq[:, None, None]
+        q = torch.arange(res.shape[0], device=res.device)
+        jf = torch.zeros((res.shape[0], 2, self.n, 7), dtype=res.dtype,
+                         device=res.device)
+        jf[q, :, self.cam_i] = jac[:, :, :7]
+        jf[q, :, self.cam_j] += jac[:, :, 7:]
+        j2 = jf.reshape(-1, self.n * 7)
+        jtj = j2.t() @ j2
+        jtr = j2.t() @ res.reshape(-1)
+        free = self.free
+        jtj = torch.where(free[:, None] & free[None, :], jtj, 0.0)
+        jtj = jtj + torch.diag(torch.where(free, 0.0, 1.0))
+        jtr = torch.where(free, jtr, 0.0)
+        return torch.sum(res * res), jtj, jtr
+
+
+def _cg_solve(a: torch.Tensor, b: torch.Tensor, iters: int = 64):
+    """Jacobi-preconditioned conjugate gradients for small SPD systems."""
+    dinv = 1.0 / torch.clamp(torch.diag(a), min=1e-8)
+    x = torch.zeros_like(b)
+    r = b
+    z = dinv * r
+    p = z
+    rz = torch.dot(r, z)
+    for _ in range(iters):
+        ap = a @ p
+        alpha = rz / torch.clamp(torch.dot(p, ap), min=1e-20)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = dinv * r
+        rz_new = torch.dot(r, z)
+        p = z + rz_new / torch.clamp(rz, min=1e-20) * p
+        rz = rz_new
+    return x
+
+
+def _inner_solve(a: torch.Tensor, b: torch.Tensor, solver: str):
+    if solver == "chol":
+        # 1e-5 jitter bounds the Jacobi-scaled system's condition number
+        # against the gauge null space (global rotation).
+        a = a + 1e-5 * torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+        chol, info = torch.linalg.cholesky_ex(a)
+        if int(info) != 0:
+            return torch.full_like(b, float("nan"))
+        return torch.cholesky_solve(b[:, None], chol)[:, 0]
+    return _cg_solve(a, b)
+
+
+def _free_mask(n_cams: int, refine_mask: str) -> np.ndarray:
+    per_cam = np.zeros(7, bool)
+    m = (refine_mask + "_____")[:5]
+    per_cam[0] = m[0] == "x"   # focal    (0,0)
+    per_cam[1] = m[2] == "x"   # ppx      (0,2)
+    per_cam[2] = m[4] == "x"   # ppy      (1,2)
+    per_cam[3] = m[3] == "x"   # aspect   (1,1)
+    per_cam[4:7] = True        # rotation always refined
+    return np.tile(per_cam, n_cams)
+
+
+def bundle_adjust(cams: Cameras, problem: Optional[BAProblem],
+                  refine_mask: str = "_____", max_iters: int = 25,
+                  solver: Optional[str] = None) -> Cameras:
+    """LM-refine cameras on the reprojection cost; an empty problem
+    returns the seed cameras.  Raises RuntimeError on non-finite output
+    ("Camera parameters adjusting failed.")."""
+    if problem is None:
+        return cams
+    n = len(cams)
+    dev = cams.device
+    prob = _Problem(problem, n, _free_mask(n, refine_mask), dev)
+    solver = solver or ("chol" if n <= 64 else "cg64")
+    params = torch.cat([cams.focal[:, None], cams.ppx[:, None],
+                        cams.ppy[:, None], cams.aspect[:, None],
+                        matrix_to_rodrigues(cams.R)], dim=1).to(torch.float32)
+    c, jtj, jtr = prob.normal_eqs(params)
+    lam = np.float32(1e-3)
+    eye = torch.eye(7 * n, dtype=torch.float32, device=dev)
+    for _ in range(max_iters):
+        if lam >= 1e6:
+            break
+        precond = 1.0 / torch.sqrt(torch.clamp(torch.diag(jtj), min=1e-8))
+        a = jtj * precond[:, None] * precond[None, :] + float(lam) * eye
+        step = precond * _inner_solve(a, precond * jtr, solver)
+        new_p = params - step.reshape(params.shape)
+        new_c = prob.cost(new_p)
+        if bool(torch.isfinite(new_c)) and bool(new_c < c):
+            converged = bool((c - new_c) < 1e-9 * (1.0 + new_c))
+            params = new_p
+            lam = max(np.float32(lam * np.float32(0.3)), np.float32(1e-7))
+            c, jtj, jtr = prob.normal_eqs(params)
+            if converged:
+                break
+        else:
+            lam = np.float32(lam * np.float32(10.0))
+    if not bool(torch.all(torch.isfinite(params))):
+        raise RuntimeError("Camera parameters adjusting failed.")
+    return Cameras(focal=params[:, 0].contiguous(),
+                   aspect=params[:, 3].contiguous(),
+                   ppx=params[:, 1].contiguous(),
+                   ppy=params[:, 2].contiguous(),
+                   R=rodrigues_to_matrix(params[:, 4:7]), t=cams.t)

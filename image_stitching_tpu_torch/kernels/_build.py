@@ -1,0 +1,92 @@
+"""Build and load the hand-written CUDA kernels (`csrc/*.cu`).
+
+The sources are compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/libstitch_kernels_<hash>.so csrc/*.cu
+
+into `image_stitching_tpu_torch/build/`, keyed by a hash of the sources and
+flags, and loaded with ctypes.  Every entry point has a plain C interface:
+device pointers and the CUDA stream are `void*`, and each returns the
+`cudaGetLastError()` code of its launch.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+__all__ = ["load_library", "check_launch", "build_seconds", "NVCC_FLAGS"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_state = {"lib": None, "seconds": None}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _declare(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.orb_sample_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci,
+                                      vp, vp, vp, vp]
+    lib.orb_sample_launch.restype = ci
+    lib.warp_bilinear_launch.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, vp]
+    lib.warp_bilinear_launch.restype = ci
+
+
+def load_library():
+    """Compile (once per source hash) and load the kernel library."""
+    if _state["lib"] is not None:
+        return _state["lib"]
+    sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    path = os.path.join(_BUILD, f"libstitch_kernels_{digest.hexdigest()[:16]}"
+                                ".so")
+    t0 = time.perf_counter()
+    if not os.path.exists(path):
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    _declare(lib)
+    _state["seconds"] = time.perf_counter() - t0
+    _state["lib"] = lib
+    return lib
+
+
+def build_seconds():
+    """Seconds the first `load_library` call took (None before it)."""
+    return _state["seconds"]
+
+
+def check_launch(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")

@@ -1,0 +1,50 @@
+"""Static-shaped keypoint containers (port of `ops/features/types.py`).
+
+Every image yields exactly `max_features` slots with a validity mask.
+Descriptor words are int32 with the bit pattern of the reference's uint32
+words (torch's uint32 lacks most operators).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+__all__ = ["Features"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Features:
+    """xy (..., K, 2) f32; response, angle, size (..., K) f32;
+    octave (..., K) int32; desc (..., K, 8) int32; valid (..., K) bool."""
+
+    xy: torch.Tensor
+    response: torch.Tensor
+    angle: torch.Tensor
+    octave: torch.Tensor
+    size: torch.Tensor
+    desc: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def max_features(self) -> int:
+        return self.xy.shape[-2]
+
+    def count(self) -> torch.Tensor:
+        return torch.sum(self.valid.to(torch.int32), dim=-1)
+
+    def __getitem__(self, idx) -> "Features":
+        return Features(*(getattr(self, f.name)[idx]
+                          for f in dataclasses.fields(self)))
+
+    @classmethod
+    def stack(cls, feats: Sequence["Features"]) -> "Features":
+        return cls(*(torch.stack([getattr(f, fl.name) for f in feats])
+                     for fl in dataclasses.fields(cls)))
+
+    @classmethod
+    def cat(cls, feats: Sequence["Features"]) -> "Features":
+        return cls(*(torch.cat([getattr(f, fl.name) for f in feats])
+                     for fl in dataclasses.fields(cls)))

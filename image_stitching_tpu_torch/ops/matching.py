@@ -1,0 +1,206 @@
+"""All-pairs BestOf2Nearest matching (port of `ops/matching.py`).
+
+Hamming distances over 256-bit descriptors as one float32 matrix product
+plus popcount terms, d = pop(a) + pop(b) - 2 <bits_a, bits_b> (exact: the
+counts are integers below 2^24); 2-NN ratio test in both directions from
+one distance matrix with duplicate suppression; RANSAC homography per
+pair; confidence n_inliers / (8 + 0.3 n_matches) with the conf > 3 -> 0
+near-duplicate rule.  Pairs are batched on a leading axis in chunks that
+bound the (K, K) distance matrices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from .features.types import Features
+from .ransac import ransac_homography
+
+__all__ = ["MatchGraph", "hamming_matrix", "two_nn", "match_pairs",
+           "match_all_pairs"]
+
+
+def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., K, 8) int32 words -> (..., K, 256) float32 bit planes."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1).to(torch.float32)
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor):
+    """(..., Ka, 8) x (..., Kb, 8) int32 -> (..., Ka, Kb) int32 distances."""
+    ba = _unpack_bits(desc_a)
+    bb = _unpack_bits(desc_b)
+    pa = ba.sum(-1)
+    pb = bb.sum(-1)
+    common = ba @ bb.transpose(-1, -2)
+    return (pa[..., :, None] + pb[..., None, :] - 2.0 * common).to(
+        torch.int32)
+
+
+def two_nn(dist: torch.Tensor, valid_b: torch.Tensor):
+    """Per row: (i1, d1, i2, d2) of the two nearest valid columns; ties
+    go to the lower column, as argmin."""
+    big = float(2 ** 30)
+    masked = torch.where(valid_b[..., None, :], dist, big)
+    d1, i1 = torch.min(masked, dim=-1)
+    cols = torch.arange(masked.shape[-1], device=dist.device)
+    masked2 = torch.where(cols == i1[..., None], big, masked)
+    d2, i2 = torch.min(masked2, dim=-1)
+    return i1, d1, i2, d2
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchGraph:
+    """Dense (N, N) per-pair scalars plus (P, M) correspondence tables for
+    the computed pairs ii[p] < jj[p] (`image_stitching_tpu` MatchGraph)."""
+
+    ii: Any
+    jj: Any
+    a_idx: Any
+    b_idx: Any
+    valid: Any
+    inlier: Any
+    h: Any
+    num_inliers: Any
+    confidence: Any
+    num_matches: Any
+
+    def numpy(self) -> "MatchGraph":
+        return MatchGraph(*(np.asarray(getattr(self, f.name).detach().cpu())
+                            if isinstance(getattr(self, f.name), torch.Tensor)
+                            else np.asarray(getattr(self, f.name))
+                            for f in dataclasses.fields(self)))
+
+    def subset(self, indices) -> "MatchGraph":
+        """Host-side re-index onto ascending `indices` (numpy leaves)."""
+        idx = np.asarray(indices)
+        inv = np.full(self.confidence.shape[0], -1, np.int64)
+        inv[idx] = np.arange(len(idx))
+        ii, jj = np.asarray(self.ii), np.asarray(self.jj)
+        keep = (inv[ii] >= 0) & (inv[jj] >= 0)
+        sub = np.ix_(idx, idx)
+        return MatchGraph(
+            ii=inv[ii[keep]].astype(np.int32),
+            jj=inv[jj[keep]].astype(np.int32),
+            a_idx=np.asarray(self.a_idx)[keep],
+            b_idx=np.asarray(self.b_idx)[keep],
+            valid=np.asarray(self.valid)[keep],
+            inlier=np.asarray(self.inlier)[keep],
+            h=np.asarray(self.h)[sub],
+            num_inliers=np.asarray(self.num_inliers)[sub],
+            confidence=np.asarray(self.confidence)[sub],
+            num_matches=np.asarray(self.num_matches)[sub])
+
+
+def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
+                generator=None, n_hyp: int = 512, hyp_idx=None,
+                score_idx=None):
+    """BestOf2NearestMatcher::match for a batch of pairs (leading axis P).
+
+    Returns (a_idx, b_idx, valid, inlier (P, 2K), h (P, 3, 3),
+    num_inliers (P,), confidence (P,)): K forward then K reverse slots."""
+    p, ka = fa.valid.shape
+    kb = fb.valid.shape[1]
+    dev = fa.xy.device
+    dist = hamming_matrix(fa.desc, fb.desc).to(torch.float32)
+    b1, d1, _, d2 = two_nn(dist, fb.valid)
+    a1, rd1, _, rd2 = two_nn(dist.transpose(-1, -2), fa.valid)
+    fwd_ok = (d1 < (1.0 - match_conf) * d2) & fa.valid
+    rev_ok = (rd1 < (1.0 - match_conf) * rd2) & fb.valid
+    ar_b = torch.arange(kb, device=dev).expand(p, -1)
+    dup = torch.gather(fwd_ok, 1, a1) & (torch.gather(b1, 1, a1) == ar_b)
+    rev_ok = rev_ok & ~dup
+    a_idx = torch.cat([torch.arange(ka, device=dev).expand(p, -1), a1], 1)
+    b_idx = torch.cat([b1, ar_b], 1)
+    valid = torch.cat([fwd_ok, rev_ok], 1)
+    src = torch.gather(fa.xy, 1, a_idx[..., None].expand(-1, -1, 2))
+    dst = torch.gather(fb.xy, 1, b_idx[..., None].expand(-1, -1, 2))
+    n_matches = torch.sum(valid, dim=-1)
+    h, inlier, n_inl = ransac_homography(src, dst, valid, generator,
+                                         n_hyp=n_hyp, hyp_idx=hyp_idx,
+                                         score_idx=score_idx)
+    enough = n_matches >= 6
+    conf = torch.where(enough, n_inl.to(torch.float32) /
+                       (8.0 + 0.3 * n_matches.to(torch.float32)), 0.0)
+    conf = torch.where(conf > 3.0, 0.0, conf)
+    inlier = inlier & enough[:, None]
+    h = torch.where(enough[:, None, None], h,
+                    torch.eye(3, dtype=h.dtype, device=dev))
+    return (a_idx.to(torch.int32), b_idx.to(torch.int32), valid, inlier, h,
+            torch.where(enough, n_inl, 0).to(torch.int32), conf)
+
+
+def _pair_chunk(k: int) -> int:
+    """Pairs per batch: bound the (K, K) float32 matrices (~12 B per
+    entry with temporaries) to ~600 MB."""
+    c = max(1, min(64, int(6e8) // max(k * k * 12, 1)))
+    return 1 << (c.bit_length() - 1)
+
+
+def match_all_pairs(feats: Features, generator=None,
+                    match_conf: float = 0.32, n_hyp: int = 512,
+                    range_width: int = -1, pair_cap: int = -1) -> MatchGraph:
+    """All pairs i < j (within `range_width` when > 0) of stacked
+    Features (N, K, ...); lower triangle mirrored with inverted H.
+
+    pair_cap: cap M on correspondence slots per pair; valid matches are
+    compacted to the front first, so only matches beyond M drop."""
+    n, k = feats.xy.shape[0], feats.xy.shape[1]
+    dev = feats.xy.device
+    iu, ju = np.triu_indices(n, 1)
+    if range_width > 0:
+        keep = (ju - iu) < range_width
+        iu, ju = iu[keep], ju[keep]
+    m_slots = 2 * k if pair_cap <= 0 else min(pair_cap, 2 * k)
+    outs = []
+    chunk = _pair_chunk(k)
+    for s in range(0, len(iu), chunk):
+        ii = torch.as_tensor(iu[s:s + chunk], device=dev)
+        jj = torch.as_tensor(ju[s:s + chunk], device=dev)
+        outs.append(match_pairs(feats[ii], feats[jj], match_conf, generator,
+                                n_hyp))
+    if outs:
+        a_idx, b_idx, valid, inlier, h_p, ninl_p, conf_p = (
+            torch.cat(x) for x in zip(*outs))
+    else:
+        a_idx = b_idx = torch.zeros((0, 2 * k), dtype=torch.int32, device=dev)
+        valid = inlier = torch.zeros((0, 2 * k), dtype=torch.bool, device=dev)
+        h_p = torch.zeros((0, 3, 3), device=dev)
+        ninl_p = torch.zeros((0,), dtype=torch.int32, device=dev)
+        conf_p = torch.zeros((0,), device=dev)
+    num_matches = torch.sum(valid, dim=-1).to(torch.int32)
+    if m_slots < 2 * k:
+        order = torch.argsort((~valid).to(torch.uint8), dim=-1,
+                              stable=True)[:, :m_slots]
+        a_idx, b_idx, valid, inlier = (torch.gather(x, 1, order)
+                                       for x in (a_idx, b_idx, valid, inlier))
+    ii = torch.as_tensor(iu, dtype=torch.int64, device=dev)
+    jj = torch.as_tensor(ju, dtype=torch.int64, device=dev)
+
+    def scat(x):
+        out = torch.zeros((n, n) + x.shape[1:], dtype=x.dtype, device=dev)
+        out[ii, jj] = x
+        return out
+    h_u, conf_u, ninl_u, nm_u = (scat(x) for x in (h_p, conf_p, ninl_p,
+                                                   num_matches))
+    eye = torch.eye(3, dtype=h_u.dtype, device=dev)
+    hm = h_u.transpose(0, 1)
+    h_ok = ((conf_u.t() > 0.0)
+            & torch.all(torch.isfinite(hm), dim=(-2, -1))
+            & (torch.abs(torch.linalg.det(hm)) > 1e-12))
+    h_safe = torch.where(h_ok[..., None, None], hm, eye)
+    h_lo = torch.where(h_ok[..., None, None], torch.linalg.inv(h_safe), eye)
+    tri = (torch.arange(n, device=dev)[:, None] <
+           torch.arange(n, device=dev)[None, :])
+    return MatchGraph(
+        ii=ii.to(torch.int32), jj=jj.to(torch.int32), a_idx=a_idx,
+        b_idx=b_idx, valid=valid, inlier=inlier,
+        h=torch.where(tri[..., None, None], h_u, h_lo),
+        num_inliers=torch.where(tri, ninl_u, ninl_u.t()),
+        confidence=torch.where(tri, conf_u, conf_u.t()),
+        num_matches=torch.where(tri, nm_u, nm_u.t()))

@@ -1,0 +1,214 @@
+"""RANSAC homography, batched over a leading pair axis (port of
+`ops/ransac.py`).
+
+Same estimator as the reference: `n_hyp` closed-form 4-point hypotheses
+(unit-square route, no linear solve), scoring on a subsample of at most
+1024 correspondences, the winner's full inlier mask, then four
+Cauchy-weighted DLT refits (IRLS) kept only if they do not lose inliers.
+
+Randomness comes from a `torch.Generator`.  It cannot reproduce the JAX
+threefry stream, so `ransac_homography` also takes the hypothesis and
+scoring indices directly; the parity tests inject the indices the
+reference drew.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = ["apply_h", "h4_closed_form", "dlt_homography",
+           "sample_valid", "sample_valid_distinct", "ransac_homography"]
+
+
+def apply_h(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) x (..., N, 2) -> (..., N, 2) projective transform."""
+    p = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+    q = torch.einsum("...ij,...nj->...ni", h, p)
+    z = q[..., 2:]
+    return q[..., :2] / torch.where(torch.abs(z) < 1e-12, 1e-12, z)
+
+
+def _normalizer(pts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Hartley normalisation (..., 3, 3) from weighted stats of
+    (..., N, 2) points."""
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-6)
+    mean = torch.sum(pts * w[..., None], dim=-2) / wsum[..., None]
+    d = torch.sqrt(torch.sum((pts - mean[..., None, :]) ** 2, dim=-1))
+    mean_d = torch.sum(d * w, dim=-1) / wsum
+    s = 1.4142135623730951 / torch.clamp(mean_d, min=1e-6)
+    zero = torch.zeros_like(s)
+    one = torch.ones_like(s)
+    return torch.stack([
+        torch.stack([s, zero, -s * mean[..., 0]], -1),
+        torch.stack([zero, s, -s * mean[..., 1]], -1),
+        torch.stack([zero, zero, one], -1)], -2)
+
+
+def _adjugate3(m: torch.Tensor) -> torch.Tensor:
+    """inv(M) up to the 1/det factor (homographies are scale-free)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    r0 = torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], -1)
+    r1 = torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], -1)
+    r2 = torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1)
+    return torch.stack([r0, r1, r2], -2)
+
+
+def _quad_h(q: torch.Tensor) -> torch.Tensor:
+    """Projective map unit square -> quad (Heckbert), (..., 4, 2) ->
+    (..., 3, 3)."""
+    x0, y0 = q[..., 0, 0], q[..., 0, 1]
+    x1, y1 = q[..., 1, 0], q[..., 1, 1]
+    x2, y2 = q[..., 2, 0], q[..., 2, 1]
+    x3, y3 = q[..., 3, 0], q[..., 3, 1]
+    sx = x0 - x1 + x2 - x3
+    sy = y0 - y1 + y2 - y3
+    dx1, dy1 = x1 - x2, y1 - y2
+    dx2, dy2 = x3 - x2, y3 - y2
+    den = dx1 * dy2 - dy1 * dx2
+    den = torch.where(torch.abs(den) < 1e-12, 1e-12, den)
+    g = (sx * dy2 - sy * dx2) / den
+    h = (dx1 * sy - dy1 * sx) / den
+    r0 = torch.stack([x1 - x0 + g * x1, x3 - x0 + h * x3, x0], -1)
+    r1 = torch.stack([y1 - y0 + g * y1, y3 - y0 + h * y3, y0], -1)
+    r2 = torch.stack([g, h, torch.ones_like(g)], -1)
+    return torch.stack([r0, r1, r2], -2)
+
+
+def h4_closed_form(s4: torch.Tensor, d4: torch.Tensor) -> torch.Tensor:
+    """4-point homography (..., 4, 2) x (..., 4, 2) -> (..., 3, 3)."""
+    h = _quad_h(d4) @ _adjugate3(_quad_h(s4))
+    h22 = h[..., 2:3, 2:3]
+    return h / torch.where(torch.abs(h22) < 1e-12, 1e-12, h22)
+
+
+def _compact_order(valid: torch.Tensor) -> torch.Tensor:
+    """Indices with the valid slots first, in slot order (stable)."""
+    return torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+
+
+def sample_valid(u: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Uniform picks among the valid slots of each row of (P, M) `valid`,
+    from uniforms u (P, m)."""
+    order = _compact_order(valid)
+    n_valid = torch.clamp(torch.sum(valid, dim=-1, keepdim=True), min=1)
+    pick = torch.minimum((u * n_valid).to(torch.int64), n_valid - 1)
+    return torch.gather(order, -1, pick)
+
+
+def sample_valid_distinct(u: torch.Tensor,
+                          valid: torch.Tensor) -> torch.Tensor:
+    """(P, n_rows, k) indices into the valid slots, distinct within a row,
+    from uniforms u (P, n_rows, k): slot j draws in [0, n_valid - j) and
+    shifts past the earlier picks in ascending order."""
+    order = _compact_order(valid)
+    n_valid = torch.clamp(torch.sum(valid, dim=-1), min=1)[:, None]
+    chosen = []
+    for j in range(u.shape[-1]):
+        rng_j = torch.clamp(n_valid - j, min=1)
+        v = torch.minimum((u[..., j] * rng_j).to(torch.int64), rng_j - 1)
+        if chosen:
+            prev = torch.sort(torch.stack(chosen, -1), dim=-1).values
+            for t in range(j):
+                v = v + (v >= prev[..., t]).to(torch.int64)
+        chosen.append(torch.minimum(v, n_valid - 1))
+    idx = torch.stack(chosen, -1)
+    p, r, k = idx.shape
+    return torch.gather(order, -1, idx.reshape(p, r * k)).reshape(p, r, k)
+
+
+def dlt_homography(src: torch.Tensor, dst: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """Weighted normalised DLT over (P, N, 2) correspondences -> (P, 3, 3):
+    smallest eigenvector of A^T diag(w) A."""
+    tn_s = _normalizer(src, w)
+    tn_d = _normalizer(dst, w)
+    sn = apply_h(tn_s, src)
+    dn = apply_h(tn_d, dst)
+    x, y = sn[..., 0], sn[..., 1]
+    u, v = dn[..., 0], dn[..., 1]
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    row1 = torch.stack([-x, -y, -one, zero, zero, zero, u * x, u * y, u], -1)
+    row2 = torch.stack([zero, zero, zero, -x, -y, -one, v * x, v * y, v], -1)
+    a = torch.cat([row1, row2], dim=-2)                       # (P, 2N, 9)
+    ww = torch.cat([w, w], dim=-1)
+    ata = (a * ww[..., None]).transpose(-1, -2) @ a           # (P, 9, 9)
+    _, evecs = torch.linalg.eigh(ata)
+    hn = evecs[..., :, 0].reshape(-1, 3, 3)
+    h = torch.linalg.inv(tn_d) @ hn @ tn_s
+    h22 = h[..., 2:3, 2:3]
+    return h / torch.where(torch.abs(h22) < 1e-12, 1e-12, h22)
+
+
+def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
+                      valid: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      thresh: float = 3.0, n_hyp: int = 512,
+                      hyp_idx: Optional[torch.Tensor] = None,
+                      score_idx: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RANSAC H per pair.  src, dst (P, M, 2); valid (P, M) bool.
+    Returns (H (P, 3, 3), inlier mask (P, M), n_inliers (P,)).
+
+    hyp_idx (P, n_hyp, 4) and score_idx (P, min(M, 1024)) replace the
+    draws from `generator` when given."""
+    p, m = valid.shape
+    m_score = min(m, 1024)
+    if hyp_idx is None:
+        hyp_idx = sample_valid_distinct(
+            torch.rand((p, n_hyp, 4), generator=generator,
+                       device=src.device), valid)
+    if score_idx is None:
+        score_idx = sample_valid(
+            torch.rand((p, m_score), generator=generator, device=src.device),
+            valid)
+    n_hyp = hyp_idx.shape[1]
+    flat = hyp_idx.reshape(p, -1)
+    s4 = torch.gather(src, 1, flat[..., None].expand(-1, -1, 2)).reshape(
+        p, n_hyp, 4, 2)
+    d4 = torch.gather(dst, 1, flat[..., None].expand(-1, -1, 2)).reshape(
+        p, n_hyp, 4, 2)
+
+    scale = torch.clamp(torch.amax(torch.where(valid[..., None],
+                                               torch.abs(src), 0.0),
+                                   dim=(1, 2)), min=1.0)       # (P,)
+    eye = torch.eye(3, dtype=src.dtype, device=src.device)
+    t = eye.repeat(p, 1, 1)
+    tinv = eye.repeat(p, 1, 1)
+    t[:, 0, 0] = 1.0 / scale
+    t[:, 1, 1] = 1.0 / scale
+    tinv[:, 0, 0] = scale
+    tinv[:, 1, 1] = scale
+    sc = scale[:, None, None, None]
+    h_n = h4_closed_form(s4 / sc, d4 / sc)
+    h_all = torch.einsum("pij,pnjk,pkl->pnil", tinv, h_n, t)
+
+    src_s = torch.gather(src, 1, score_idx[..., None].expand(-1, -1, 2))
+    dst_s = torch.gather(dst, 1, score_idx[..., None].expand(-1, -1, 2))
+    proj = apply_h(h_all, src_s[:, None].expand(-1, n_hyp, -1, -1))
+    err2 = torch.sum((proj - dst_s[:, None]) ** 2, dim=-1)
+    counts = torch.sum(err2 < thresh * thresh, dim=-1)
+    det = torch.abs(torch.linalg.det(h_all))
+    counts = torch.where(det > 1e-8, counts, -1)
+    best = torch.argmax(counts, dim=-1)
+    h_best0 = h_all[torch.arange(p, device=src.device), best]
+
+    def inliers(h):
+        e2 = torch.sum((apply_h(h, src) - dst) ** 2, dim=-1)
+        return (e2 < thresh * thresh) & valid, e2
+    mask0, _ = inliers(h_best0)
+    sig2 = (0.5 * thresh) ** 2
+    h_fit = h_best0
+    for _ in range(4):
+        _, e2 = inliers(h_fit)
+        w = torch.where(valid, 1.0 / (1.0 + e2 / sig2), 0.0)
+        h_fit = dlt_homography(src, dst, w.to(src.dtype))
+    mask, _ = inliers(h_fit)
+    use_fit = torch.sum(mask, -1) >= torch.sum(mask0, -1)
+    h_out = torch.where(use_fit[:, None, None], h_fit, h_best0)
+    mask = torch.where(use_fit[:, None], mask, mask0)
+    return h_out, mask, torch.sum(mask, dim=-1)

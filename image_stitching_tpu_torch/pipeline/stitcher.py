@@ -1,0 +1,332 @@
+"""End-to-end stitch: the main path of
+`image_stitching_tpu/pipeline/stitcher.py`.
+
+Stages: read images and EXIF priors -> ORB features (kernel K1) -> all-pairs
+matching with RANSAC -> biggest connected component -> bundle adjustment
+seeded from the priors -> checkpoint -> wave correction -> median focal ->
+seam-scale spherical warp -> compose-scale fused multiband blend (kernel
+K2) -> result.
+
+This port runs one slice of the reference's configuration surface: the
+legacy uniform decode path, no exposure compensation and the "no" seam
+finder.  `check_slice` raises NotImplementedError for every option outside
+it, so the port never takes another path quietly.  The device is explicit:
+`stitch(..., device="cuda")` raises when no GPU is present, and nothing
+falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import (BlenderType, ExposureCompensatorType, StitchConfig,
+                      WaveCorrectKind)
+from ..core import exif as exif_mod
+from ..core import image_io, persistence
+from ..core.logging import logger, stage_timer
+from ..estimation.bundle_adjust import bundle_adjust, pack_correspondences
+from ..estimation.components import biggest_component
+from ..estimation.wave_correct import wave_correct
+from ..geometry.camera import Cameras
+from ..ops.features.orb import orb_detect_stack
+from ..ops.imgproc import resize, rgb_to_gray, scale_size
+from ..ops.matching import match_all_pairs
+from ..ops.seams import find_seams
+from ..ops.warps import Warper, make_warper, result_roi
+from .compose_fused import fused_compose, warp_stack
+
+__all__ = ["stitch", "StitchResult", "check_slice", "compose_inputs",
+           "ComposeInputs"]
+
+
+@dataclasses.dataclass
+class StitchResult:
+    panorama: torch.Tensor          # float32 (H, W, 3) RGB, on the device
+    mask: torch.Tensor              # bool (H, W), on the device
+    kept_indices: List[int]
+    cameras: Cameras                # at work scale
+    stage_times: Dict[str, float]
+    work_scale: float = 1.0
+
+
+def check_slice(cfg: StitchConfig) -> None:
+    """Raise NotImplementedError naming the first option outside the
+    port's slice."""
+    refused = [
+        ("fast_ingest", cfg.fast_ingest, "True"),
+        ("expos_comp_type", cfg.expos_comp_type != ExposureCompensatorType.NO,
+         cfg.expos_comp_type.value),
+        ("seam_find_type", cfg.seam_find_type != "no", cfg.seam_find_type),
+        ("timelapse", cfg.timelapse, "True"),
+        ("crop_result", cfg.crop_result, "True"),
+        ("use_sharded_compose", cfg.use_sharded_compose, "True"),
+        ("features_type", cfg.features_type != "orb", cfg.features_type),
+        ("warp_type", cfg.warp_type != "spherical", cfg.warp_type),
+        ("ba_cost_func", cfg.ba_cost_func != "reproj", cfg.ba_cost_func),
+        ("matcher_type", cfg.matcher_type != "homography", cfg.matcher_type),
+        ("estimator_type", cfg.estimator_type != "homography",
+         cfg.estimator_type),
+        ("blend_type", cfg.blend_type != BlenderType.MULTI_BAND,
+         cfg.blend_type.value),
+        ("use_sensor_priors", not cfg.use_sensor_priors, "False"),
+        ("find_features", not cfg.find_features, "False"),
+        ("serialize_data", not cfg.serialize_data, "False"),
+        ("infill_dropped", cfg.infill_dropped, "True"),
+        ("save_graph", cfg.save_graph, "True"),
+        ("profile_dir", bool(cfg.profile_dir), cfg.profile_dir),
+    ]
+    for name, outside, value in refused:
+        if outside:
+            raise NotImplementedError(
+                f"{name}={value}: outside the PyTorch port's slice")
+
+
+def _load_priors(paths: Sequence[str]):
+    """EXIF ingestion: (numpy camera fields | None, is_portrait); images
+    without a prior get identity cameras when any image has one."""
+    cams = []
+    is_portrait = False
+    for p in paths:
+        desc = exif_mod.read_image_description(p)
+        prior = None
+        if desc is not None:
+            try:
+                prior = exif_mod.parse_image_description(desc)
+            except (ValueError, IndexError):
+                prior = None
+        if prior is None:
+            cams.append(None)
+            continue
+        is_portrait = prior.is_portrait
+        cams.append(exif_mod.sensor_prior_to_camera(prior))
+    if all(c is None for c in cams):
+        return None, False
+    ident = (1.0, 1.0, 0.0, 0.0, np.eye(3, dtype=np.float32),
+             np.zeros(3, np.float32))
+    cols = list(zip(*[c if c is not None else ident for c in cams]))
+    return dict(focal=np.asarray(cols[0], np.float32),
+                aspect=np.asarray(cols[1], np.float32),
+                ppx=np.asarray(cols[2], np.float32),
+                ppy=np.asarray(cols[3], np.float32),
+                R=np.stack(cols[4]), t=np.stack(cols[5])), is_portrait
+
+
+def _median_focal(focals: np.ndarray) -> float:
+    """Sorted middle (odd) / mean of the middle two (even)."""
+    f = np.sort(np.asarray(focals, np.float64))
+    n = len(f)
+    if n % 2 == 1:
+        return float(f[n // 2])
+    return float(f[n // 2 - 1] + f[n // 2]) * 0.5
+
+
+def _pick_num8(scale_needed: float) -> int:
+    """Smallest DCT numerator num8 in 1..8 with num8/8 >= scale_needed."""
+    return max(1, min(8, math.ceil(8.0 * scale_needed - 1e-9)))
+
+
+@dataclasses.dataclass
+class ComposeInputs:
+    """Compose-scale cameras and ROIs of the kept images."""
+    scale: float                    # compose scale of the full image
+    warper: Warper
+    ks: np.ndarray                  # (N, 3, 3) float32
+    rs: np.ndarray                  # (N, 3, 3) float32
+    corners: List[Tuple[int, int]]
+    sizes: List[Tuple[int, int]]
+    resize_hw: Optional[Tuple[int, int]]  # compose source size, or None
+
+
+def compose_inputs(cameras: Cameras, full_hw: Tuple[int, int],
+                   work_scale: float, compose_megapix: float,
+                   warp_type: str) -> ComposeInputs:
+    """The compose warper, cameras and per-image ROIs for work-scale
+    `cameras` of uniform full-size (h, w) images, as the reference's
+    compose stage sets them up.  The sources are resized only when the
+    scale is more than 0.1 away from 1."""
+    h0, w0 = full_hw
+    scale = 1.0
+    if compose_megapix > 0:
+        scale = min(1.0, float(np.sqrt(compose_megapix * 1e6 / (h0 * w0))))
+    aspect = scale / work_scale
+    cam_np = cameras.numpy()
+    warper = make_warper(warp_type, _median_focal(cam_np["focal"]) * aspect)
+    ks = np.asarray(cameras.scaled(aspect).K().cpu().numpy(), np.float32)
+    rs = np.asarray(cam_np["R"], np.float32)
+    sh, sw = h0, w0
+    resize_hw = None
+    if abs(scale - 1) > 1e-1:
+        sw = int(round(sw * scale))
+        sh = int(round(sh * scale))
+        resize_hw = scale_size(h0, w0, scale)
+    corners, sizes = [], []
+    for i in range(len(ks)):
+        roi = warper.warp_roi((sh, sw), ks[i], rs[i])
+        corners.append((roi[0], roi[1]))
+        sizes.append((roi[2], roi[3]))
+    return ComposeInputs(scale, warper, ks, rs, corners, sizes, resize_hw)
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("stitch(device='cuda'): no CUDA device available")
+    return device
+
+
+def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False,
+                                                     expos_comp_type="no",
+                                                     seam_find_type="no"),
+           output: Optional[str] = None, device="cuda") -> StitchResult:
+    """Stitch a directory or a list of image paths on `device`.  Writes
+    `cfg.result_name` (or `output`) unless output=""."""
+    check_slice(cfg)
+    dev = _resolve_device(device)
+    paths = (image_io.list_images(source) if isinstance(source, str)
+             else list(source))
+    if len(paths) < 2:
+        raise ValueError("Need at least two images to stitch")
+    times: Dict[str, float] = {}
+
+    with stage_timer("Reading images and priors", times, dev):
+        priors, is_portrait = _load_priors(paths)
+        full_sizes = [image_io.probe_oriented_size(p, is_portrait)
+                      for p in paths]
+        area0 = full_sizes[0][0] * full_sizes[0][1]
+        work_scale = 1.0 if cfg.work_megapix < 0 else min(
+            1.0, float(np.sqrt(cfg.work_megapix * 1e6 / area0)))
+        if cfg.work_scale_snap and work_scale < 1.0:
+            num8 = _pick_num8(work_scale)
+            if num8 % 2 == 1 and num8 < 8:
+                num8 += 1
+            work_scale = num8 / 8.0
+        seam_scale = min(1.0, float(np.sqrt(cfg.seam_megapix * 1e6 / area0)))
+        seam_work_aspect = seam_scale / work_scale
+        device_imgs = []
+        for p in paths:
+            im = image_io.orient_capture(image_io.imread(p), is_portrait)
+            device_imgs.append(torch.from_numpy(im).to(dev))
+        full_sizes = [(im.shape[1], im.shape[0]) for im in device_imgs]
+    if priors is None:
+        raise NotImplementedError(
+            "captures without EXIF priors (homography-based camera "
+            "seeding) are outside the PyTorch port's slice")
+    if len(set(full_sizes)) != 1:
+        raise NotImplementedError(
+            "captures of different sizes are outside the PyTorch port's "
+            "slice")
+    n = len(paths)
+
+    with stage_timer("Finding features", times, dev):
+        h0, w0 = full_sizes[0][1], full_sizes[0][0]
+        work_hw = (scale_size(h0, w0, work_scale) if work_scale != 1.0
+                   else (h0, w0))
+        seam_hw = scale_size(h0, w0, seam_scale)
+        grays, seam_list = [], []
+        for im in device_imgs:
+            work = (resize(im, work_hw) if work_scale != 1.0
+                    else im.to(torch.float32))
+            grays.append(rgb_to_gray(work))
+            seam_list.append(torch.clamp(torch.round(resize(im, seam_hw)),
+                                         0, 255).to(torch.uint8))
+        fstack = orb_detect_stack(torch.stack(grays),
+                                  n_features=cfg.num_features,
+                                  pattern=cfg.orb_pattern)
+        seam_stack = torch.stack(seam_list)
+        stack_u8 = torch.stack(device_imgs)
+
+    cameras_all = Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
+
+    with stage_timer("Pairwise matching", times, dev):
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        pm = match_all_pairs(fstack, gen, match_conf=cfg.match_conf,
+                             range_width=cfg.range_width,
+                             pair_cap=cfg.num_features).numpy()
+        xy_host = fstack.xy.cpu().numpy()
+    indices, removed = biggest_component(pm.confidence, cfg.conf_thresh)
+    if removed:
+        logger.info("Removed some images, because can't match them or "
+                    "there are too similar images: (%s).",
+                    ", ".join(str(i + 1) for i in removed))
+    if len(indices) < 2:
+        raise RuntimeError("Need more images: all but one were removed as "
+                           "unmatchable")
+
+    with stage_timer("Bundle adjustment", times, dev):
+        problem = pack_correspondences(xy_host[np.asarray(indices)],
+                                       pm.subset(indices), cfg.conf_thresh)
+        cameras = bundle_adjust(cameras_all[indices], problem,
+                                refine_mask=cfg.ba_refine_mask)
+    persistence.serialize_camera_params(cameras, cfg.checkpoint_dir)
+    persistence.serialize_indices(indices, cfg.checkpoint_dir)
+    if cfg.checkpoint_npz:
+        np.savez(os.path.join(cfg.checkpoint_dir, "cameras.npz"),
+                 indices=np.asarray(indices), **cameras.numpy())
+
+    if cfg.do_wave_correct and cfg.wave_correct != WaveCorrectKind.NO:
+        cameras = dataclasses.replace(
+            cameras, R=wave_correct(cameras.R, cfg.wave_correct))
+
+    sel = torch.as_tensor(indices, device=dev)
+    stack_u8 = stack_u8[sel]
+    seam_stack = seam_stack[sel]
+    n = len(indices)
+    cam_np = cameras.numpy()
+
+    warped_image_scale = _median_focal(cam_np["focal"])
+    with stage_timer("Warping images", times, dev):
+        swa = seam_work_aspect
+        warper = make_warper(cfg.warp_type, warped_image_scale * swa)
+        k_all = np.asarray(cameras.K().cpu().numpy(), np.float32)
+        k_seam = k_all.copy()
+        k_seam[:, 0, :] *= swa
+        k_seam[:, 1, :] *= swa
+        r_all = np.asarray(cam_np["R"], np.float32)
+        rois = [warper.warp_roi(seam_hw, k_seam[i], r_all[i])
+                for i in range(n)]
+        corners = [(r[0], r[1]) for r in rois]
+        # Snap to 64, as the reference does: the pad sizes change which
+        # pixels the padded stack holds, hence the output.
+        _, masks_pad = warp_stack(
+            seam_stack, torch.as_tensor(k_seam, device=dev),
+            torch.as_tensor(r_all, device=dev), warper.scale,
+            torch.as_tensor(np.asarray([[r[0], r[1]] for r in rois],
+                                       np.float32), device=dev),
+            pad_h=-(-max(r[3] for r in rois) // 64) * 64,
+            pad_w=-(-max(r[2] for r in rois) // 64) * 64)
+        masks_host = masks_pad.cpu().numpy()
+        masks_warped = [masks_host[i, :rois[i][3], :rois[i][2]]
+                        for i in range(n)]
+
+    with stage_timer("Finding seams", times, dev):
+        seam_masks = find_seams(masks_warped, cfg.seam_find_type)
+
+    with stage_timer("Compositing", times, dev):
+        comp = compose_inputs(cameras, (h0, w0), work_scale,
+                              cfg.compose_megapix, cfg.warp_type)
+        canvas = result_roi(comp.corners, comp.sizes)
+        if 0 < cfg.compose_strips_mp <= canvas[2] * canvas[3] / 1e6:
+            raise NotImplementedError(
+                f"compose_strips_mp={cfg.compose_strips_mp}: the strip-"
+                "streamed compose is outside the PyTorch port's slice")
+        comp_imgs = (torch.stack([resize(im, comp.resize_hw)
+                                  for im in stack_u8])
+                     if comp.resize_hw is not None else stack_u8)
+        pano, pano_mask = fused_compose(
+            comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
+            comp.sizes, seam_masks, corners,
+            seam_work_aspect * work_scale / comp.scale, cfg.blend_type,
+            cfg.blend_strength)
+
+    out = output if output is not None else cfg.result_name
+    if out:
+        image_io.imwrite(out, pano.cpu().numpy())
+    return StitchResult(panorama=pano, mask=pano_mask,
+                        kept_indices=list(indices), cameras=cameras,
+                        stage_times=times, work_scale=work_scale)

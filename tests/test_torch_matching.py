@@ -1,0 +1,133 @@
+"""Port parity: Hamming 2-NN matching and RANSAC with injected draws.
+
+The reference draws RANSAC hypotheses from the JAX threefry stream, which
+torch cannot reproduce; these tests recompute the reference's draws with
+its own `_sample_valid_distinct` / `_sample_valid` from the same key and
+inject them into the port."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import n, t
+from image_stitching_tpu.data.synth import make_ring_captures
+from image_stitching_tpu.ops import imgproc as jimg
+from image_stitching_tpu.ops import matching as jm
+from image_stitching_tpu.ops import ransac as jr
+from image_stitching_tpu.ops.features import Features as JFeatures
+from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
+from image_stitching_tpu_torch.interop import (features_from_numpy,
+                                               pair_matches_from_numpy)
+from image_stitching_tpu_torch.ops import matching, ransac
+from image_stitching_tpu_torch.ops.features import Features
+
+
+def _assert_h_close(got, want):
+    """H within rtol 1e-4 in the max norm: |dH|max <= 1e-4 |H|max (the
+    eigh/inverse rounding of the IRLS refit acts on the whole matrix, so
+    a small entry may carry more relative error than the matrix)."""
+    want = np.asarray(want)
+    assert np.abs(np.asarray(got) - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _draws(key, valid, n_hyp=512):
+    """The reference's hypothesis and scoring indices for one pair."""
+    v = jnp.asarray(valid)
+    hyp = jr._sample_valid_distinct(key, v, n_hyp, 4)
+    sub = jr._sample_valid(jax.random.fold_in(key, 1), v,
+                           (min(v.shape[0], 1024),))
+    return t(np.asarray(hyp))[None].long(), t(np.asarray(sub))[None].long()
+
+
+@pytest.fixture(scope="module")
+def ring_features():
+    images, _, _ = make_ring_captures(n_images=3, hw=(160, 224), fov_deg=55,
+                                      overlap_ratio=0.55)
+    feats = [orb_detect_and_describe(jimg.rgb_to_gray(jnp.asarray(im)),
+                                     n_features=400) for im in images]
+    return [jax.tree.map(np.asarray, f) for f in feats]
+
+
+def test_hamming_and_two_nn_equal():
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 2 ** 32, (50, 8), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2 ** 32, (70, 8), dtype=np.uint64).astype(np.uint32)
+    b[5] = a[3]                                    # an exact match
+    b[9] = b[5]                                    # and a tie
+    valid = rng.random(70) > 0.1
+    want = np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    got = matching.hamming_matrix(t(a), t(b))
+    np.testing.assert_array_equal(n(got), want)
+    ref = jm._two_nn(jnp.asarray(want, jnp.float32), jnp.asarray(valid))
+    out = matching.two_nn(got.float(), t(valid))
+    for r_, o in zip(ref, out):
+        np.testing.assert_array_equal(n(o), np.asarray(r_))
+
+
+def test_ransac_injected_hypotheses():
+    """Inlier masks and counts equal, H within rtol 1e-4."""
+    rng = np.random.default_rng(1)
+    m = 300
+    src = rng.uniform(0, 400, (m, 2)).astype(np.float32)
+    h_true = np.array([[1.02, 0.03, 40.0], [-0.02, 0.99, -12.0],
+                       [1e-5, -2e-5, 1.0]])
+    q = np.c_[src, np.ones(m)] @ h_true.T
+    dst = (q[:, :2] / q[:, 2:]).astype(np.float32)
+    dst += rng.normal(0, 0.5, dst.shape).astype(np.float32)
+    dst[:60] = rng.uniform(0, 400, (60, 2))        # outliers
+    valid = rng.random(m) > 0.05
+    key = jax.random.PRNGKey(3)
+    h_ref, mask_ref, n_ref = jr.ransac_homography(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), key)
+    hyp, sub = _draws(key, valid)
+    h, mask, cnt = ransac.ransac_homography(
+        t(src)[None], t(dst)[None], t(valid)[None], hyp_idx=hyp,
+        score_idx=sub)
+    assert int(cnt[0]) == int(n_ref)
+    np.testing.assert_array_equal(n(mask[0]), np.asarray(mask_ref))
+    _assert_h_close(n(h[0]), h_ref)
+
+
+@pytest.mark.parametrize("pair", [(0, 1), (1, 2)])
+def test_match_pair_equal_given_identical_descriptors(ring_features, pair):
+    fa, fb = (ring_features[i] for i in pair)
+    key = jax.random.PRNGKey(7)
+    ref = jax.tree.map(np.asarray, jm.match_pair(
+        JFeatures(*map(jnp.asarray, (fa.xy, fa.response, fa.angle, fa.octave,
+                                     fa.size, fa.desc, fa.valid))),
+        JFeatures(*map(jnp.asarray, (fb.xy, fb.response, fb.angle, fb.octave,
+                                     fb.size, fb.desc, fb.valid))), key))
+    hyp, sub = _draws(key, ref.valid)
+    ta = Features.stack([features_from_numpy(fa)])
+    tb = Features.stack([features_from_numpy(fb)])
+    got = matching.match_pairs(ta, tb, hyp_idx=hyp, score_idx=sub)
+    want = pair_matches_from_numpy(ref)
+    for name, g in zip(("a_idx", "b_idx", "valid", "inlier"), got):
+        assert torch.equal(g[0], want[name].to(g.dtype)), name
+    h, ninl, conf = got[4:]
+    assert int(ninl[0]) == int(want["num_inliers"]) > 8
+    np.testing.assert_allclose(float(conf[0]), float(want["confidence"]),
+                               rtol=1e-6)
+    _assert_h_close(n(h[0]), n(want["h"]))
+
+
+def test_match_all_pairs_tables(ring_features):
+    """Deterministic parts of the all-pairs graph (ratio-test matches,
+    pair_cap compaction, counts) equal; confidences agree to within the
+    different random hypotheses."""
+    stack = JFeatures(*(jnp.stack([jnp.asarray(getattr(f, name))
+                                   for f in ring_features])
+                        for name in ("xy", "response", "angle", "octave",
+                                     "size", "desc", "valid")))
+    ref = jax.tree.map(np.asarray, jm.match_all_pairs(
+        stack, jax.random.PRNGKey(0), pair_cap=400))
+    got = matching.match_all_pairs(
+        Features.stack([features_from_numpy(f) for f in ring_features]),
+        torch.Generator().manual_seed(0), pair_cap=400).numpy()
+    for name in ("ii", "jj", "a_idx", "b_idx", "valid", "num_matches"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    np.testing.assert_allclose(got.confidence, ref.confidence, rtol=0,
+                               atol=0.15)
+    assert (got.confidence > 0.95).sum() == (ref.confidence > 0.95).sum()

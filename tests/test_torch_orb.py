@@ -1,0 +1,143 @@
+"""Port parity: ORB detect/describe and kernel K1 (orb_sample)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import cuda_device, n, t
+from image_stitching_tpu.data.synth import make_ring_captures
+from image_stitching_tpu.kernels.orb_sample_pallas import orb_sample_pallas
+from image_stitching_tpu.ops import imgproc as jimg
+from image_stitching_tpu.ops.features import orb as jorb
+from image_stitching_tpu_torch.kernels.orb_sample import (orb_sample,
+                                                          orb_sample_plain)
+from image_stitching_tpu_torch.ops.features import orb as torb
+
+
+def _setup(seed=0, h=120, w=260, k=23):
+    """Random planes and in-border keypoints, as
+    tests/test_orb_sample_pallas.py builds them."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    blur = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    xy = np.stack([rng.uniform(22, w - 23, k),
+                   rng.uniform(22, h - 23, k)], -1).astype(np.float32)
+    pattern = jorb.resolve_pattern(None, 40)
+    pat_xy = n(torb.pattern_xy(pattern, "cpu"))
+    return img, blur, xy, pattern, pat_xy
+
+
+def _moment_scale(img, xy, radius=20):
+    """Sum of |v * d| over each keypoint's disk: the magnitude float32
+    summation error scales with (the moments themselves may cancel)."""
+    ys, xs = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    disk = xs * xs + ys * ys <= radius * radius
+    cx = np.round(xy[:, 0]).astype(int)
+    cy = np.round(xy[:, 1]).astype(int)
+    v = img[cy[:, None] + ys[disk][None], cx[:, None] + xs[disk][None]]
+    return np.stack([(v * np.abs(xs[disk])).sum(1),
+                     (v * np.abs(ys[disk])).sum(1)], -1)
+
+
+def _bits(words):
+    w = np.asarray(words).astype(np.uint32)
+    return (w[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_k1_plain_vs_pallas_interpret(seed):
+    img, blur, xy, pattern, pat_xy = _setup(seed)
+    samples, ang, mom = orb_sample_pallas(
+        jnp.asarray(img), jnp.asarray(blur), jnp.asarray(xy),
+        jnp.asarray(pat_xy), radius=20, span=max(jorb._pattern_span(pattern),
+                                                 20), interpret=True)
+    s, a, m, d = orb_sample_plain(t(img), t(blur), t(xy), t(pat_xy), 20)
+    # Moments: rtol 1e-5 of the disk's |v * d| magnitude (summation order).
+    np.testing.assert_array_less(np.abs(n(m) - np.asarray(mom)),
+                                 1e-5 * _moment_scale(img, xy) + 1e-6)
+    # Angle: both wrappers return atan2(m01, m10); atol 1e-4 rad covers
+    # the moments' summation-order error.
+    np.testing.assert_allclose(n(a), np.asarray(ang), rtol=0, atol=1e-4)
+    # Descriptor bits: the Pallas kernel rotates by m/|m|, the plain
+    # version by cos/sin(atan2(m)); a bit flips only at an exact .5
+    # rounding boundary.  Held to <= 1e-3 of the bits (measured: 0).
+    s_ref = np.asarray(samples)
+    want = _bits(jorb._pack_bits(jnp.asarray(s_ref[:, :256] <
+                                             s_ref[:, 256:])))
+    flips = int((_bits(n(d)) != want).sum())
+    assert flips <= 1e-3 * want.size, flips
+
+
+@pytest.mark.parametrize("seed", [1, 7])
+def test_k1_plain_vs_xla_path_bit_equal(seed):
+    """Against `_orientations` + `_describe_impl`: equal descriptor words,
+    angles within float32 summation error of the moments."""
+    img, blur, xy, pattern, pat_xy = _setup(seed, h=96, w=384, k=41)
+    angle = jorb._orientations(jnp.asarray(img), jnp.asarray(xy), 20)
+    desc = jorb._describe(jnp.asarray(blur), jnp.asarray(xy), angle,
+                          pattern)
+    _, a, _, d = orb_sample_plain(t(img), t(blur), t(xy), t(pat_xy), 20)
+    np.testing.assert_array_equal(n(d), np.asarray(desc).view(np.int32))
+    np.testing.assert_allclose(n(a),
+                               np.asarray(angle), rtol=0, atol=1e-4)
+
+
+def test_k1_wrapper_checks_inputs():
+    img, blur, xy, _, pat_xy = _setup()
+    with pytest.raises(ValueError):
+        orb_sample(t(img), t(blur[:-1]), t(xy), t(pat_xy), 20)
+    with pytest.raises(TypeError):
+        orb_sample(t(img).double(), t(blur), t(xy), t(pat_xy), 20)
+    with pytest.raises(ValueError):
+        orb_sample(t(img), t(blur), t(xy), t(pat_xy)[:, :256], 20)
+
+
+def test_pack_bits_matches_reference():
+    bits = np.random.default_rng(5).random((9, 256)) > 0.5
+    want = np.asarray(jorb._pack_bits(jnp.asarray(bits))).view(np.int32)
+    from image_stitching_tpu_torch.kernels.orb_sample import pack_bits
+    np.testing.assert_array_equal(n(pack_bits(t(bits))), want)
+
+
+@pytest.fixture(scope="module")
+def ring_gray():
+    images, _, _ = make_ring_captures(n_images=2, hw=(160, 224), fov_deg=55,
+                                      overlap_ratio=0.55)
+    return [np.asarray(jimg.rgb_to_gray(jnp.asarray(im))) for im in images]
+
+
+@pytest.mark.parametrize("idx", [0, 1])
+def test_orb_end_to_end_on_ring(ring_gray, idx):
+    """Keypoints, validity and descriptors of the whole detector.  Harris
+    sums may differ in the last ulp from XLA's (fused) order, which moves
+    subpixel offsets by ulps and could reorder near-ties of the top-k; so
+    at least 99% of keypoints must be identical (measured on these
+    captures: 100% of valid flags and descriptors, offsets within 1e-5)."""
+    g = ring_gray[idx]
+    ref = jorb.orb_detect_and_describe(jnp.asarray(g), n_features=400)
+    got = torb.orb_detect_and_describe(t(g), n_features=400)
+    valid = np.asarray(ref.valid)
+    assert (n(got.valid) == valid).mean() >= 0.99
+    assert valid.sum() > 200
+    same_xy = np.all(np.abs(n(got.xy) - np.asarray(ref.xy)) <= 1e-3, -1)
+    same_desc = np.all(n(got.desc) == np.asarray(ref.desc).view(np.int32),
+                       -1)
+    assert (same_xy & same_desc)[valid].mean() >= 0.99
+    np.testing.assert_array_equal(n(got.octave), np.asarray(ref.octave))
+
+
+@pytest.mark.cuda
+def test_k1_kernel_matches_plain_on_cuda():
+    dev = cuda_device()
+    img, blur, xy, _, pat_xy = _setup(2, h=300, w=400, k=300)
+    args = [t(a).to(dev) for a in (img, blur, xy, pat_xy)]
+    before = orb_sample.launches
+    _, a, m, d = orb_sample(*args, 20)
+    torch.cuda.synchronize()
+    assert orb_sample.launches == before + 1
+    assert tuple(a.shape) == (300,) and bool(torch.isfinite(a).all())
+    _, _, m0, d0 = orb_sample_plain(*args, 20)
+    np.testing.assert_array_less(np.abs(n(m) - n(m0)),
+                                 1e-5 * _moment_scale(img, xy) + 1e-6)
+    assert int((_bits(n(d)) != _bits(n(d0))).sum()) <= 1e-4 * 300 * 256

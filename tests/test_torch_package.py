@@ -1,0 +1,151 @@
+"""The port's package boundary: no jax at import, the slice's refusals,
+explicit devices, host IO and the state conversion from the reference."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import n, t
+from image_stitching_tpu.core import exif as jexif
+from image_stitching_tpu.core import persistence as jpersist
+from image_stitching_tpu.data import synth as jsynth
+from image_stitching_tpu.geometry.camera import Cameras as JCameras
+from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
+from image_stitching_tpu_torch.config import StitchConfig
+from image_stitching_tpu_torch.core import exif, image_io, persistence
+from image_stitching_tpu_torch.data import synth
+from image_stitching_tpu_torch.interop import (cameras_from_numpy,
+                                               features_from_numpy)
+from image_stitching_tpu_torch.kernels.orb_sample import orb_sample
+from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
+from image_stitching_tpu_torch.pipeline.stitcher import check_slice, stitch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import image_stitching_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "image_stitching_tpu.")))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_import_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    count, bad = out.stdout.split(" ", 1)
+    assert int(count) >= 25 and bad.strip() == "[]"
+
+
+SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
+
+
+@pytest.mark.parametrize("option,value", [
+    ("fast_ingest", True), ("expos_comp_type", "gain_blocks"),
+    ("seam_find_type", "dp_color"), ("timelapse", True),
+    ("crop_result", True), ("use_sharded_compose", True),
+    ("features_type", "sift"), ("warp_type", "cylindrical"),
+    ("ba_cost_func", "ray"), ("matcher_type", "affine"),
+    ("blend_type", "feather"), ("use_sensor_priors", False)])
+def test_options_outside_slice_raise(option, value):
+    check_slice(StitchConfig(**SLICE))
+    cfg = StitchConfig(**dict(SLICE, **{option: value}))
+    with pytest.raises(NotImplementedError, match=option):
+        check_slice(cfg)
+    with pytest.raises(NotImplementedError, match=option):
+        stitch(["a.jpg", "b.jpg"], cfg, output="", device="cpu")
+
+
+def test_cuda_device_is_explicit():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stitch(["a.jpg", "b.jpg"], StitchConfig(**SLICE), output="",
+               device="cuda")
+
+
+def test_kernel_wrappers_never_fall_back():
+    """A tensor on a device with no kernel raises; only CPU tensors take
+    the plain version."""
+    meta = torch.empty((40, 50), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        orb_sample(meta, meta, torch.empty((3, 2), device="meta"),
+                   torch.empty((2, 512), device="meta"), 20)
+    with pytest.raises(ValueError, match="no kernel"):
+        warp_bilinear(torch.empty((4, 5, 3), device="meta"), meta, meta)
+    with pytest.raises(ValueError):
+        orb_sample(torch.zeros(40, 50), torch.zeros(40, 50, device="meta"),
+                   torch.zeros(3, 2), torch.zeros(2, 512), 20)
+
+
+def test_synth_renders_the_reference_scene():
+    """Same formulas and draws: the port's ring equals the reference's to
+    float32 rounding of the rotation (a few texture-boundary pixels)."""
+    ref, k_ref, rs_ref = jsynth.make_ring_captures(n_images=2, hw=(48, 64))
+    got, k, rs = synth.make_ring_captures(n_images=2, hw=(48, 64))
+    np.testing.assert_allclose(k, k_ref)
+    np.testing.assert_allclose(rs, rs_ref, atol=1e-6)
+    for a, b in zip(got, ref):
+        assert (np.abs(a - b) <= 1e-3).mean() >= 0.99
+
+
+def test_capture_dir_priors_round_trip(tmp_path):
+    images, k, rs = synth.make_ring_captures(n_images=2, hw=(40, 56))
+    paths = synth.write_capture_dir(str(tmp_path), images, k, rs)
+    assert image_io.list_images(str(tmp_path)) == paths
+    desc = exif.read_image_description(paths[1])
+    assert desc == jexif.read_image_description(paths[1])
+    f, a, ppx, ppy, r, _ = exif.sensor_prior_to_camera(
+        exif.parse_image_description(desc))
+    want = jexif.sensor_prior_to_camera(jexif.parse_image_description(desc))
+    assert (f, a, ppx, ppy) == want[:4]
+    np.testing.assert_allclose(r, rs[1], atol=1e-5)
+    img = image_io.orient_capture(image_io.imread(paths[0]), False)
+    assert img.shape == (40, 56, 3)
+    assert image_io.probe_oriented_size(paths[0], True) == (40, 56)
+    assert image_io.codec_name() != "none"
+
+
+def test_checkpoint_text_matches_reference(tmp_path):
+    rng = np.random.default_rng(0)
+    fields = dict(focal=rng.uniform(100, 300, 3).astype(np.float32),
+                  aspect=np.ones(3, np.float32),
+                  ppx=rng.uniform(50, 90, 3).astype(np.float32),
+                  ppy=rng.uniform(40, 60, 3).astype(np.float32),
+                  R=rng.normal(size=(3, 3, 3)).astype(np.float32),
+                  t=np.zeros((3, 3), np.float32))
+    (tmp_path / "j").mkdir()
+    (tmp_path / "p").mkdir()
+    jpersist.serialize_camera_params(JCameras(**fields), str(tmp_path / "j"))
+    persistence.serialize_camera_params(cameras_from_numpy(
+        JCameras(**fields)), str(tmp_path / "p"))
+    persistence.serialize_indices([0, 2, 5], str(tmp_path / "p"))
+    assert (tmp_path / "p" / "cams.data").read_text() == \
+        (tmp_path / "j" / "cams.data").read_text()
+    assert (tmp_path / "p" / "indices.data").read_text() == "0\n2\n5\n"
+
+
+def test_features_from_reference_state():
+    g = np.random.default_rng(1).uniform(0, 255, (90, 120)).astype(
+        np.float32)
+    ref = orb_detect_and_describe(jnp.asarray(g), n_features=50)
+    f = features_from_numpy(ref)
+    assert f.desc.dtype == torch.int32 and f.valid.dtype == torch.bool
+    np.testing.assert_array_equal(n(f.desc).view(np.uint32),
+                                  np.asarray(ref.desc))
+    np.testing.assert_array_equal(n(f.xy), np.asarray(ref.xy))
+    assert int(f.count()) == int(ref.count())
+    assert torch.equal(t(np.asarray(ref.valid)), f.valid)
