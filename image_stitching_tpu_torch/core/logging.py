@@ -22,13 +22,18 @@ __all__ = ["logger", "stage_timer"]
 @contextlib.contextmanager
 def stage_timer(name: str, times: Optional[Dict[str, float]] = None,
                 device: Optional[torch.device] = None):
-    """Time a pipeline stage; synchronises `device` first when it is CUDA."""
+    """Time a pipeline stage; synchronises `device` first when it is CUDA.
+    The stage, fence included, is also a `record_function` range, so a
+    profile can attribute launches and device time to stages."""
     start = time.perf_counter()
+    span = torch.profiler.record_function(name)
+    span.__enter__()
     try:
         yield
     finally:
         if device is not None and torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
+        span.__exit__(None, None, None)
         elapsed = time.perf_counter() - start
         if times is not None:
             times[name] = times.get(name, 0.0) + elapsed

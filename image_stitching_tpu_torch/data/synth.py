@@ -21,8 +21,8 @@ from ..core import image_io
 from ..geometry.euler import euler_to_rotation_matrix
 
 __all__ = ["sphere_texture_rgb", "render_view", "ring_geometry",
-           "make_ring_captures", "E2E_RING", "write_ring_dir",
-           "write_capture_dir"]
+           "make_ring_captures", "E2E_RING", "DEFAULT_RING",
+           "write_ring_dir", "write_capture_dir"]
 
 
 def sphere_texture_rgb(lon: np.ndarray, lat: np.ndarray,
@@ -124,18 +124,27 @@ def make_ring_captures(n_images: int = 4, hw: Tuple[int, int] = (240, 320),
 # The JAX package's BENCH_MODE=e2e ring (`bench.py:102-137`): 8 MP views.
 E2E_RING = dict(n_images=8, hw=(2448, 3264), fov_deg=55.0, overlap_ratio=0.5,
                 seed=7)
+# The same ring with sigma-8 sensor noise, for the default configuration.
+# At sigma 4 its 4000 full-resolution ORB features match some adjacent
+# pairs with inlier ratios above 0.9, so n_inliers / (8 + 0.3 n_matches)
+# exceeds 3 and the reference's near-duplicate rule (cv
+# BestOf2NearestMatcher; `ops/matching.py::match_pairs`) zeroes those
+# pairs; `tools/ring_confidence.py` prints the confidences per noise level.
+DEFAULT_RING = dict(E2E_RING, noise_sigma=8.0)
 
 
 def _render_noisy(args) -> np.ndarray:
-    """One ring view with sigma-4 noise from its own seed (worker process)."""
-    i, k, r, hw, seed = args
+    """One ring view with Gaussian sensor noise from its own seed (worker
+    process)."""
+    i, k, r, hw, seed, sigma = args
     view = render_view(k, r, hw, seed)
-    noise = np.random.default_rng(1000 + i).normal(0.0, 4.0, view.shape)
+    noise = np.random.default_rng(1000 + i).normal(0.0, sigma, view.shape)
     return np.clip(view + noise.astype(np.float32), 0.0, 255.0)
 
 
 def write_ring_dir(directory: str, n_images: int, hw: Tuple[int, int],
-                   fov_deg: float, overlap_ratio: float, seed: int = 7):
+                   fov_deg: float, overlap_ratio: float, seed: int = 7,
+                   noise_sigma: float = 4.0):
     """Render a horizontal ring in a process pool (one view per worker,
     each with its own noise seed) and write it with EXIF pose payloads.
     Returns the ground truth (K float64, [R float64]) as written."""
@@ -144,7 +153,8 @@ def write_ring_dir(directory: str, n_images: int, hw: Tuple[int, int],
     workers = max(1, min(n_images, os.cpu_count() or 1))
     with mp.get_context("spawn").Pool(workers) as pool:
         images = pool.map(_render_noisy,
-                          [(i, k, r, hw, seed) for i, r in enumerate(rs)])
+                          [(i, k, r, hw, seed, noise_sigma)
+                           for i, r in enumerate(rs)])
     rs32 = np.stack([r.astype(np.float32) for r in rs])
     write_capture_dir(directory, images, k.astype(np.float32), rs32)
     return k.astype(np.float64), [r.astype(np.float64) for r in rs32]

@@ -1,11 +1,15 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-The sources are compiled at first use with
+The sources are compiled at first use, one `nvcc -c` per source, all
+started together, then linked into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/libstitch_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu
+         -o build/<name>_<hash>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/libstitch_kernels_<hash>.so build/*_<hash>.o
 
-into `image_stitching_tpu_torch/build/`, keyed by a hash of the sources and
+in `image_stitching_tpu_torch/build/`, keyed by a hash of the sources and
 flags, and loaded with ctypes.  Every entry point has a plain C interface:
 device pointers and the CUDA stream are `void*`, and each returns the
 `cudaGetLastError()` code of its launch.  Nothing here runs at import.
@@ -21,16 +25,18 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["load_library", "check_launch", "build_seconds", "NVCC_FLAGS"]
+__all__ = ["load_library", "check_launch", "build_seconds", "build_log",
+           "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                          "-Xptxas", "-v"]
 
-_state = {"lib": None, "seconds": None}
+_state = {"lib": None, "seconds": None, "log": ""}
 
 
 def _nvcc() -> str:
@@ -52,6 +58,39 @@ def _declare(lib) -> None:
     lib.orb_sample_launch.restype = ci
     lib.warp_bilinear_launch.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, vp]
     lib.warp_bilinear_launch.restype = ci
+    lib.hamming_two_nn_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp,
+                                          vp, vp]
+    lib.hamming_two_nn_launch.restype = ci
+    lib.pyramid_accumulate_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp,
+                                              vp, vp]
+    lib.pyramid_accumulate_launch.restype = ci
+
+
+def _compile(sources, path: str, tag: str) -> None:
+    """One `nvcc -c` per source, all running at once, then one link.
+    Keeps what ptxas reports (registers, shared memory, spills)."""
+    nvcc = _nvcc()
+    objs = [os.path.join(_BUILD, f"{os.path.basename(src)[:-3]}_{tag}.o")
+            for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate() for proc in procs]
+    for src, proc, (out, err) in zip(sources, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                               f"({proc.returncode}):\n{err[-4000:]}")
+        _state["log"] += out + err
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                          capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, path)
 
 
 def load_library():
@@ -63,23 +102,23 @@ def load_library():
     for src in sources:
         with open(src, "rb") as f:
             digest.update(f.read())
-    path = os.path.join(_BUILD, f"libstitch_kernels_{digest.hexdigest()[:16]}"
-                                ".so")
+    tag = digest.hexdigest()[:16]
+    path = os.path.join(_BUILD, f"libstitch_kernels_{tag}.so")
     t0 = time.perf_counter()
     if not os.path.exists(path):
         os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, path)
+        _compile(sources, path, f"{tag}.{os.getpid()}")
     lib = ctypes.CDLL(path)
     _declare(lib)
     _state["seconds"] = time.perf_counter() - t0
     _state["lib"] = lib
     return lib
+
+
+def build_log() -> str:
+    """What ptxas printed while building (empty when the library was
+    already built)."""
+    return _state["log"]
 
 
 def build_seconds():

@@ -1,0 +1,351 @@
+"""GAIN_BLOCKS exposure compensation (port of `ops/exposure.py:64-319,
+351-651`, the `feed_device` route).
+
+cv::detail::BlocksCompensator semantics: each seam-scale warped image is
+tiled into its own block grid (ceil(size / block) blocks of ceil(size /
+blocks) pixels, last block clipped), every block enters one global
+GainCompensator system (alpha 0.01, beta 100, self-counts in the prior
+terms only, intensity the L2 norm of the RGB triple) solved in float64 on
+the host, and each image's gain map is smoothed `nr_filtering` times with
+[1 2 1] / 4 under BORDER_REFLECT_101.
+
+The overlap statistics come from the padded warped stacks on the device,
+as separable one-hot binning products: a pixel's block row depends on y
+alone and its block column on x alone, for both images of a pair, so each
+table is Y^T @ fields @ X with one-hot Y and X (float32 `torch.matmul`;
+the counts are exact integers).  Only the small tables go to the host,
+which maps the ranks back to block indices and assembles the system.
+The compose applies the maps (`pipeline/compose_fused.py::prep_gains`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import ExposureCompensatorType as ECType
+from .seams import bucket_dim, overlap_box, periodic_corner
+
+__all__ = ["ExposureCompensator", "feed_device"]
+
+_ALPHA = 0.01
+_BETA = 100.0
+
+
+@dataclasses.dataclass
+class ExposureCompensator:
+    """Fitted gains.  NO: `gains` (N,) ones.  GAIN_BLOCKS: `gains` (N,
+    Gy_max, Gx_max) float32, zero-padded to the largest grid, and
+    `grid_sizes[i] = (gy_i, gx_i)` image i's own grid."""
+    comp_type: ECType
+    gains: np.ndarray
+    grid_sizes: np.ndarray  # (N, 2) int
+
+
+def _block_grid(w: int, h: int, block: int) -> Tuple[int, int, int, int]:
+    """(grid_w, grid_h, block_w, block_h) with OpenCV's ceil-twice
+    rounding."""
+    gw = (w + block - 1) // block
+    gh = (h + block - 1) // block
+    bw = (w + gw - 1) // gw
+    bh = (h + gh - 1) // gh
+    return gw, gh, bw, bh
+
+
+def _block_rects(grids, sizes, corner, i):
+    """Global-coord rects of image i's blocks at its effective corner."""
+    gw, gh, bw, bh = grids[i]
+    w, h = sizes[i]
+    bx = np.arange(gw) * bw
+    by = np.arange(gh) * bh
+    x0 = (corner[0] + bx)[None, :].repeat(gh, 0).ravel()
+    y0 = (corner[1] + by)[:, None].repeat(gw, 1).ravel()
+    x1 = np.minimum(x0 + bw, corner[0] + w)
+    y1 = np.minimum(y0 + bh, corner[1] + h)
+    return x0, y0, x1, y1
+
+
+def _assemble_pair(n_mat, i_mat, grids, sizes, ci, cj, offs, i, j, cnt,
+                   si, sj):
+    """One pair's (count, per-side intensity sum) tables into the global
+    system, with OpenCV's max(1, countNonZero) floor on intersecting
+    block rects."""
+    gwi, ghi, _, _ = grids[i]
+    gwj, ghj, _, _ = grids[j]
+    bi, bj = gwi * ghi, gwj * ghj
+    xi0, yi0, xi1, yi1 = _block_rects(grids, sizes, ci, i)
+    xj0, yj0, xj1, yj1 = _block_rects(grids, sizes, cj, j)
+    rect_int = ((np.minimum(xi1[:, None], xj1[None, :]) >
+                 np.maximum(xi0[:, None], xj0[None, :])) &
+                (np.minimum(yi1[:, None], yj1[None, :]) >
+                 np.maximum(yi0[:, None], yj0[None, :])))
+    npair = np.where(rect_int, np.maximum(cnt, 1.0), 0.0)
+    sl_i = slice(offs[i], offs[i] + bi)
+    sl_j = slice(offs[j], offs[j] + bj)
+    n_mat[sl_i, sl_j] = npair
+    n_mat[sl_j, sl_i] = npair.T
+    denom = np.maximum(npair, 1.0)[..., None]
+    i_mat[sl_i, sl_j, :] = si / denom
+    i_mat[sl_j, sl_i, :] = (sj / denom).transpose(1, 0, 2)
+
+
+def _solve_gain_system(n_mat: np.ndarray, i_mat: np.ndarray) -> np.ndarray:
+    """One channel of the gain system over B block-images, float64:
+    GainCompensator::singleFeed's A and b; dense least squares up to 512
+    unknowns, a sparse LU above."""
+    b_tot = n_mat.shape[0]
+    eye = np.eye(b_tot, dtype=bool)
+    n_off = np.where(eye, 0.0, n_mat)
+    a = -2.0 * _ALPHA * i_mat * i_mat.T * n_off
+    diag = (_BETA * n_mat.sum(axis=1) +
+            2.0 * _ALPHA * (i_mat * i_mat * n_off).sum(axis=1))
+    a[eye] = diag
+    b = _BETA * n_mat.sum(axis=1)
+    if b_tot <= 512:
+        return np.linalg.lstsq(a, b, rcond=None)[0]
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve
+    x = spsolve(sp.csc_matrix(a), b)
+    # A near-singular system makes spsolve warn and return inf/NaN.
+    if np.all(np.isfinite(x)):
+        return x
+    return np.linalg.lstsq(a, b, rcond=None)[0]
+
+
+def _filter_gain_map(gmap: np.ndarray, iters: int) -> np.ndarray:
+    """sepFilter2D with [0.25 0.5 0.25] on both axes, `iters` times,
+    BORDER_REFLECT_101; length-1 axes are invariant."""
+    for _ in range(iters):
+        for ax in (0, 1):
+            if gmap.shape[ax] == 1:
+                continue
+            pad = [(0, 0)] * gmap.ndim
+            pad[ax] = (1, 1)
+            p = np.pad(gmap, pad, mode="reflect")
+            sl = [slice(None)] * gmap.ndim
+
+            def at(k):
+                s = list(sl)
+                s[ax] = slice(k, k + gmap.shape[ax])
+                return p[tuple(s)]
+            gmap = 0.25 * at(0) + 0.5 * at(1) + 0.25 * at(2)
+    return gmap
+
+
+def _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat, nr_feeds,
+               nr_filtering) -> ExposureCompensator:
+    """Solve (nr_feeds rounds), filter and pad the per-image gain maps."""
+    gains = np.ones((b_tot, 1))
+    for _ in range(max(1, nr_feeds)):
+        i_eff = i_mat * gains[:, None, :]
+        gains[:, 0] *= _solve_gain_system(n_mat, i_eff[..., 0])
+    gy_max = max(g[1] for g in grids)
+    gx_max = max(g[0] for g in grids)
+    out = np.zeros((n, gy_max, gx_max), np.float32)
+    grid_sizes = np.zeros((n, 2), np.int32)
+    for i in range(n):
+        gw, gh, _, _ = grids[i]
+        gm = gains[offs[i]:offs[i] + gw * gh].reshape(gh, gw, 1)
+        out[i, :gh, :gw] = _filter_gain_map(gm, nr_filtering)[..., 0]
+        grid_sizes[i] = (gh, gw)
+    return ExposureCompensator(comp_type, out, grid_sizes)
+
+
+def _snap8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def _rank_cap(bucket_dim_: int, block_size: int) -> int:
+    """Bound (incl. one spare slot) on the distinct (block_i, block_j)
+    rank pairs along one axis of an overlap of at most `bucket_dim_`
+    pixels: every block dim exceeds block_size / 2."""
+    bmin = block_size // 2 + 1
+    return _snap8(2 * (bucket_dim_ // bmin + 2))
+
+
+def _staircase(o_i: int, o_j: int, b_i: int, b_j: int, length: int):
+    """Dense ranks of the (block_i, block_j) index pairs along one axis:
+    (ranks (length,) int64, blk_i (n,), blk_j (n,))."""
+    t = np.arange(length, dtype=np.int64)
+    ri = (o_i + t) // b_i
+    rj = (o_j + t) // b_j
+    key = ri << 20 | rj
+    uniq, inv = np.unique(key, return_inverse=True)
+    return (inv.astype(np.int64), (uniq >> 20).astype(np.int64),
+            (uniq & ((1 << 20) - 1)).astype(np.int64))
+
+
+def _intensity(img: torch.Tensor) -> torch.Tensor:
+    """L2 norm of the RGB triple (GainCompensator's norm(Vec3b))."""
+    return torch.linalg.vector_norm(img.to(torch.float32), dim=-1)
+
+
+def _self_stats_dev(stack, masks, params, gh_cap: int, gw_cap: int):
+    """Own-block stats of every image (`_self_stats_dev`): (N, gh_cap,
+    gw_cap, 2) with [..., 0] the masked pixel counts and [..., 1] the
+    intensity sums on each image's block grid.  params (N, 5) int64
+    device (gw, bw, bh, w, h)."""
+    n, hp, wp = masks.shape
+    dev = masks.device
+    yy = torch.arange(hp, device=dev)
+    xx = torch.arange(wp, device=dev)
+    bw, bh, w, h = (params[:, k, None] for k in (1, 2, 3, 4))
+    ymat = (((yy // bh)[..., None] == torch.arange(gh_cap, device=dev)) &
+            (yy < h)[..., None]).to(torch.float32)        # (N, hp, gh_cap)
+    xmat = (((xx // bw)[..., None] == torch.arange(gw_cap, device=dev)) &
+            (xx < w)[..., None]).to(torch.float32)        # (N, wp, gw_cap)
+    m = (masks > 0).to(torch.float32)
+    fields = torch.stack([m, m * _intensity(stack)], 1)  # (N, 2, hp, wp)
+    a = ymat.transpose(1, 2)[:, None] @ fields            # (N, 2, gh, wp)
+    return (a @ xmat[:, None]).permute(0, 2, 3, 1)        # (N, gh, gw, 2)
+
+
+def _pair_stats_dev(stack, masks, idx_i, idx_j, off_i, off_j, rect_hw,
+                    py_keys, px_keys, bh_b: int, bw_b: int, py_cap: int,
+                    px_cap: int):
+    """Overlap stats of a bucket of T pairs (`_pair_stats_dev`): crops
+    of both images at their overlap offsets, then one-hot binning products
+    over the host-built staircase ranks.  Returns (T, py_cap, px_cap, 3):
+    overlap counts, side-i and side-j intensity sums."""
+    n, hp, wp = masks.shape
+    dev = masks.device
+    stack_p = F.pad(stack, (0, 0, 0, bw_b, 0, bh_b))
+    masks_p = F.pad(masks, (0, bw_b, 0, bh_b))
+    ar_h = torch.arange(bh_b, device=dev)
+    ar_w = torch.arange(bw_b, device=dev)
+
+    def gather(idx, off):
+        rows = off[:, 0].clamp(0, hp)[:, None] + ar_h        # (T, bh_b)
+        cols = off[:, 1].clamp(0, wp)[:, None] + ar_w        # (T, bw_b)
+        sel = (idx[:, None, None], rows[:, :, None], cols[:, None, :])
+        return stack_p[sel], masks_p[sel]
+
+    img_i, msk_i = gather(idx_i, off_i)
+    img_j, msk_j = gather(idx_j, off_j)
+    inside = ((ar_h[None, :, None] < rect_hw[:, 0, None, None]) &
+              (ar_w[None, None, :] < rect_hw[:, 1, None, None]))
+    both = ((msk_i > 0) & (msk_j > 0) & inside).to(torch.float32)
+    fields = torch.stack([both, both * _intensity(img_i),
+                          both * _intensity(img_j)], 1)  # (T, 3, bh, bw)
+    ymat = (py_keys[..., None] == torch.arange(py_cap, device=dev)).to(
+        torch.float32)                                   # (T, bh_b, py_cap)
+    xmat = (px_keys[..., None] == torch.arange(px_cap, device=dev)).to(
+        torch.float32)                                   # (T, bw_b, px_cap)
+    a = ymat.transpose(1, 2)[:, None] @ fields           # (T, 3, py, bw)
+    return (a @ xmat[:, None]).permute(0, 2, 3, 1)       # (T, py, px, 3)
+
+
+def feed_device(corners, sizes, images_dev: torch.Tensor,
+                masks_dev: torch.Tensor,
+                comp_type: ECType = ECType.GAIN_BLOCKS, nr_feeds: int = 1,
+                nr_filtering: int = 2, block_size: int = 64,
+                period=None) -> ExposureCompensator:
+    """Fit the compensator from the padded warped stacks (N, Hp, Wp, 3)
+    u8 / (N, Hp, Wp) u8 on the device, each image's rect at the origin;
+    corners and sizes (w, h) are the seam-scale ROIs.  period: the warped
+    u-axis period that couples cross-dateline pairs."""
+    if isinstance(comp_type, str):
+        comp_type = ECType(comp_type.lower())
+    n = len(sizes)
+    if comp_type == ECType.NO:
+        return ExposureCompensator(comp_type, np.ones(n),
+                                   np.ones((n, 2), np.int32))
+    if comp_type != ECType.GAIN_BLOCKS:
+        raise NotImplementedError(
+            f"expos_comp_type={comp_type.value!r}: the PyTorch port "
+            "implements NO and GAIN_BLOCKS")
+    dev = masks_dev.device
+
+    grids: List[Tuple[int, int, int, int]] = []
+    offs: List[int] = []
+    b_tot = 0
+    for w, h in sizes:
+        g = _block_grid(w, h, block_size)
+        grids.append(g)
+        offs.append(b_tot)
+        b_tot += g[0] * g[1]
+    params = torch.as_tensor(
+        np.asarray([(g[0], g[2], g[3], s[0], s[1])
+                    for g, s in zip(grids, sizes)], np.int64), device=dev)
+    hp, wp = int(masks_dev.shape[1]), int(masks_dev.shape[2])
+    bmin = block_size // 2 + 1
+    self_pend = _self_stats_dev(images_dev, masks_dev, params,
+                                _snap8(hp // bmin + 2), _snap8(wp // bmin + 2))
+
+    buckets = {}
+    for i in range(n):
+        for j in range(i + 1, n):
+            cj = periodic_corner(corners[i], sizes[i], corners[j],
+                                 sizes[j], period)
+            x, y, w, h = overlap_box(corners[i], sizes[i], cj, sizes[j])
+            if w <= 0 or h <= 0:
+                continue
+            buckets.setdefault((bucket_dim(h), bucket_dim(w)), []).append(
+                (i, j, y - corners[i][1], x - corners[i][0], y - cj[1],
+                 x - cj[0], h, w, cj))
+    pair_pend, pair_meta = [], []
+    for (bh_b, bw_b), items in buckets.items():
+        t = len(items)
+        py_cap = _rank_cap(bh_b, block_size)
+        px_cap = _rank_cap(bw_b, block_size)
+        tab = np.zeros((t, 6), np.int64)
+        pyk = np.zeros((t, bh_b), np.int64)
+        pxk = np.zeros((t, bw_b), np.int64)
+        ranks = []
+        for slot, (i, j, oyi, oxi, oyj, oxj, h, w, _cj) in enumerate(items):
+            tab[slot] = (i, j, oyi, oxi, oyj, oxj)
+            ry, ryi_u, ryj_u = _staircase(oyi, oyj, grids[i][3],
+                                          grids[j][3], h)
+            rx, rxi_u, rxj_u = _staircase(oxi, oxj, grids[i][2],
+                                          grids[j][2], w)
+            assert len(ryi_u) < py_cap and len(rxi_u) < px_cap
+            pyk[slot, :h] = ry
+            pxk[slot, :w] = rx
+            ranks.append((ryi_u, ryj_u, rxi_u, rxj_u))
+        tab_d = torch.as_tensor(tab, device=dev)
+        hw_d = torch.as_tensor(np.asarray([it[6:8] for it in items],
+                                          np.int64), device=dev)
+        pair_pend.append(_pair_stats_dev(
+            images_dev, masks_dev, tab_d[:, 0], tab_d[:, 1], tab_d[:, 2:4],
+            tab_d[:, 4:6], hw_d, torch.as_tensor(pyk, device=dev),
+            torch.as_tensor(pxk, device=dev), bh_b, bw_b, py_cap, px_cap))
+        pair_meta.append((items, ranks))
+
+    self_tbl = self_pend.cpu().numpy().astype(np.float64)
+    pair_stats = [p.cpu().numpy().astype(np.float64) for p in pair_pend]
+
+    n_mat = np.zeros((b_tot, b_tot))
+    i_mat = np.zeros((b_tot, b_tot, 1))
+    for i in range(n):
+        gw, gh, _, _ = grids[i]
+        bi = gw * gh
+        ai = offs[i] + np.arange(bi)
+        tbl = self_tbl[i][:gh, :gw]
+        cnt = tbl[..., 0].ravel()
+        n_mat[ai, ai] = np.maximum(cnt, 1.0)
+        i_mat[ai, ai, :] = (tbl[..., 1:].reshape(bi, 1) /
+                            np.maximum(cnt, 1.0)[:, None])
+    for (items, ranks), tbl_t in zip(pair_meta, pair_stats):
+        for slot, (i, j, *rest) in enumerate(items):
+            cj = rest[-1]
+            bi = grids[i][0] * grids[i][1]
+            bj = grids[j][0] * grids[j][1]
+            ryi_u, ryj_u, rxi_u, rxj_u = ranks[slot]
+            tbl = tbl_t[slot][:len(ryi_u), :len(rxi_u)]
+            # Rank pair (p, q) is exactly one (block_i, block_j) pair.
+            bi_g = ryi_u[:, None] * grids[i][0] + rxi_u[None, :]
+            bj_g = ryj_u[:, None] * grids[j][0] + rxj_u[None, :]
+            cnt = np.zeros((bi, bj))
+            si = np.zeros((bi, bj, 1))
+            sj = np.zeros((bi, bj, 1))
+            cnt[bi_g, bj_g] = tbl[..., 0]
+            si[bi_g, bj_g, :] = tbl[..., 1:2]
+            sj[bi_g, bj_g, :] = tbl[..., 2:]
+            _assemble_pair(n_mat, i_mat, grids, sizes, corners[i], cj,
+                           offs, i, j, cnt, si, sj)
+    return _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat,
+                      nr_feeds, nr_filtering)

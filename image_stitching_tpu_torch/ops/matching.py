@@ -1,12 +1,14 @@
 """All-pairs BestOf2Nearest matching (port of `ops/matching.py`).
 
-Hamming distances over 256-bit descriptors as one float32 matrix product
-plus popcount terms, d = pop(a) + pop(b) - 2 <bits_a, bits_b> (exact: the
-counts are integers below 2^24); 2-NN ratio test in both directions from
-one distance matrix with duplicate suppression; RANSAC homography per
-pair; confidence n_inliers / (8 + 0.3 n_matches) with the conf > 3 -> 0
-near-duplicate rule.  Pairs are batched on a leading axis in chunks that
-bound the (K, K) distance matrices.
+The 2-NN of both directions of a pair come from kernel K4
+(`kernels/hamming.py`, `csrc/hamming.cu`), called with (a, b) and then
+(b, a); on CPU tensors its plain version computes the Hamming matrix as a
+float32 bit-plane product, d = pop(a) + pop(b) - 2 <bits_a, bits_b>
+(exact: the counts are integers below 2^24), and takes two masked argmins.
+Then the ratio test in both directions with duplicate suppression; RANSAC
+homography per pair; confidence n_inliers / (8 + 0.3 n_matches) with the
+conf > 3 -> 0 near-duplicate rule.  Pairs are batched on a leading axis in
+chunks that bound the plain version's (K, K) distance matrices.
 """
 
 from __future__ import annotations
@@ -17,41 +19,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..kernels.hamming import hamming_matrix, hamming_two_nn, two_nn
 from .features.types import Features
 from .ransac import ransac_homography
 
 __all__ = ["MatchGraph", "hamming_matrix", "two_nn", "match_pairs",
            "match_all_pairs"]
-
-
-def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
-    """(..., K, 8) int32 words -> (..., K, 256) float32 bit planes."""
-    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    bits = (words[..., None] >> shifts) & 1
-    return bits.reshape(*words.shape[:-1], -1).to(torch.float32)
-
-
-def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor):
-    """(..., Ka, 8) x (..., Kb, 8) int32 -> (..., Ka, Kb) int32 distances."""
-    ba = _unpack_bits(desc_a)
-    bb = _unpack_bits(desc_b)
-    pa = ba.sum(-1)
-    pb = bb.sum(-1)
-    common = ba @ bb.transpose(-1, -2)
-    return (pa[..., :, None] + pb[..., None, :] - 2.0 * common).to(
-        torch.int32)
-
-
-def two_nn(dist: torch.Tensor, valid_b: torch.Tensor):
-    """Per row: (i1, d1, i2, d2) of the two nearest valid columns; ties
-    go to the lower column, as argmin."""
-    big = float(2 ** 30)
-    masked = torch.where(valid_b[..., None, :], dist, big)
-    d1, i1 = torch.min(masked, dim=-1)
-    cols = torch.arange(masked.shape[-1], device=dist.device)
-    masked2 = torch.where(cols == i1[..., None], big, masked)
-    d2, i2 = torch.min(masked2, dim=-1)
-    return i1, d1, i2, d2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,9 +80,8 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
     p, ka = fa.valid.shape
     kb = fb.valid.shape[1]
     dev = fa.xy.device
-    dist = hamming_matrix(fa.desc, fb.desc).to(torch.float32)
-    b1, d1, _, d2 = two_nn(dist, fb.valid)
-    a1, rd1, _, rd2 = two_nn(dist.transpose(-1, -2), fa.valid)
+    b1, d1, _, d2 = hamming_two_nn(fa.desc, fb.desc, fb.valid)
+    a1, rd1, _, rd2 = hamming_two_nn(fb.desc, fa.desc, fa.valid)
     fwd_ok = (d1 < (1.0 - match_conf) * d2) & fa.valid
     rev_ok = (rd1 < (1.0 - match_conf) * rd2) & fb.valid
     ar_b = torch.arange(kb, device=dev).expand(p, -1)

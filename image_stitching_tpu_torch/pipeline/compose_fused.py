@@ -1,17 +1,17 @@
 """Seam-scale warp and fused multiband compose (port of
-`pipeline/compose_fused.py:45,151,215,370,461,536,551`).
+`pipeline/compose_fused.py:45,151,215,370,461,515,536,551`).
 
 Per image, on the device: backward warp of the compose source over a
 padded, band-aligned canvas rect (kernel K2, `kernels/warp_gather.py`,
-with BORDER_REFLECT), the warp-validity mask, the seam mask sampled at
-ratio-scaled warped coordinates, a Laplacian pyramid of the planar
-(4, h, w) image + weight, and an accumulate into the canvas band
-accumulators.  Then one normalise + collapse.  The rect geometry (gap
-3 * 2^nb, band-aligned corners, half-octave bucket dims, canvas clamp) is
-host integer arithmetic copied from the reference, because it sets what
-the pyramid sees at rect borders.  The reference's `lax.scan` over images
-is a Python loop; its `dynamic_update_slice` into the accumulators is an
-in-place slice add.
+with BORDER_REFLECT), the warp-validity mask, the GAIN_BLOCKS exposure
+gain map stretched over the image's ROI, the seam mask sampled at
+ratio-scaled warped coordinates, then the Laplacian pyramid of the planar
+(4, h, w) image + weight accumulated into the canvas band accumulators
+(kernel K5, `kernels/multiband.py`).  Then one normalise + collapse.  The
+rect geometry (gap 3 * 2^nb, band-aligned corners, half-octave bucket
+dims, canvas clamp) is host integer arithmetic copied from the reference,
+because it sets what the pyramid sees at rect borders.  The reference's
+`lax.scan` over images is a Python loop.
 """
 
 from __future__ import annotations
@@ -23,14 +23,17 @@ import numpy as np
 import torch
 
 from ..config import BlenderType
+from ..config import ExposureCompensatorType as ECType
+from ..kernels.multiband import pyramid_accumulate
 from ..kernels.warp_gather import warp_bilinear
 from ..ops.blend import WEIGHT_EPS, num_bands_for
 from ..ops.imgproc import dilate3
-from ..ops.pyr_mat import pyr_down_mm, pyr_up_mm
+from ..ops.pyr_mat import pyr_up_mm
 from ..ops.seams import bucket_dim
 from ..ops.warps import Warper, backward_xy_1d, result_roi
 
-__all__ = ["warp_stack", "compose_rects", "rect_grid", "fused_compose"]
+__all__ = ["warp_stack", "compose_rects", "rect_grid", "prep_gains",
+           "compose_samples", "fused_compose"]
 
 
 def _patch_bilinear(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
@@ -96,14 +99,35 @@ def _interp_matrix(coords: torch.Tensor, n_src: int) -> torch.Tensor:
                        min=0.0)
 
 
-def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float):
+def _gain_sample(us, vs, gain, gain_grid, gain_roi):
+    """The per-image block gain map (Gy_max, Gx_max) stretched over the
+    image's compose-scale ROI with cv2::resize INTER_LINEAR semantics
+    (`_warp_gain_seam`'s "blocks" branch): grid coordinates
+    (p + 0.5) * grid / roi_size - 0.5, edge-clamped, as two banded
+    interpolation-matrix products.  Returns (1, len(vs), len(us))."""
+    gh_i, gw_i = gain_grid[0], gain_grid[1]
+    gx = torch.clamp((us - gain_roi[0] + 0.5) * gw_i / gain_roi[2] - 0.5,
+                     min=0.0)
+    gx = torch.minimum(gx, gw_i - 1.0)
+    gy = torch.clamp((vs - gain_roi[1] + 0.5) * gh_i / gain_roi[3] - 0.5,
+                     min=0.0)
+    gy = torch.minimum(gy, gh_i - 1.0)
+    mv = _interp_matrix(gy, gain.shape[0])
+    mu = _interp_matrix(gx, gain.shape[1])
+    return (mv.t() @ gain @ mu)[None]
+
+
+def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float,
+               gain=None, gain_grid=None, gain_roi=None):
     """Per-image compose sample on the grid us x vs: the K2 image sample
-    (planar (3, h, w)) and the blend weight (h, w) from warp validity and
-    the seam mask."""
+    (planar (3, h, w)) times the block gain when `gain` is given, and the
+    blend weight (h, w) from warp validity and the seam mask."""
     hc, wc = img.shape[0], img.shape[1]
     sx, sy, valid = backward_xy_1d(us, vs, k, r, scale)
     warped = warp_bilinear(img, sx.contiguous(), sy.contiguous())
     wmask = _valid_mask(sx, sy, valid, hc, wc)
+    if gain is not None:
+        warped = warped * _gain_sample(us, vs, gain, gain_grid, gain_roi)
     ratio = torch.tensor(seam_ratio, dtype=torch.float32, device=us.device)
     mx = us * ratio - stl[0]
     my = vs * ratio - stl[1]
@@ -111,32 +135,6 @@ def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float):
             @ _interp_matrix(mx, smask.shape[1]))
     weight = torch.where((sval > 0.5) & wmask, 1.0, 0.0)
     return warped, weight
-
-
-def _accumulate(accs: List[torch.Tensor], images, idxs, ks, rs, scale,
-                tls, canvas_tl, seam_masks, seam_tls, seam_ratio, pad_h: int,
-                pad_w: int, n_bands: int) -> None:
-    """One bucket of images into the band accumulators, in place."""
-    for i in idxs:
-        us, vs = rect_grid(tls[i], pad_h, pad_w, images.device)
-        warped, weight = _warp_seam(images[i], ks[i], rs[i], us, vs, scale,
-                                    seam_masks[i], seam_tls[i], seam_ratio)
-        gauss = [torch.cat([warped, weight[None]], dim=0)]
-        for _ in range(n_bands):
-            gauss.append(pyr_down_mm(gauss[-1]))
-        off = (tls[i] - canvas_tl).to(torch.int32).tolist()
-        for b in range(n_bands + 1):
-            g = gauss[b]
-            lap = (g - pyr_up_mm(gauss[b + 1], g.shape[1:])
-                   if b < n_bands else g)
-            w = g[3:4]
-            val = torch.cat([lap[:3] * w, w], dim=0)
-            gh, gw = g.shape[1], g.shape[2]
-            acc = accs[b]
-            # dynamic_slice start clamping, as in the reference.
-            oy = min(max(off[1] >> b, 0), acc.shape[1] - gh)
-            ox = min(max(off[0] >> b, 0), acc.shape[2] - gw)
-            acc[:, oy:oy + gh, ox:ox + gw] += val
 
 
 def _finalize(accs: List[torch.Tensor], n_bands: int):
@@ -223,28 +221,70 @@ def compose_rects(comp_corners, comp_sizes, blend_type: BlenderType,
                         buckets)
 
 
-def fused_compose(images: torch.Tensor, ks, rs, warper: Warper,
-                  comp_corners, comp_sizes, seam_masks, seam_corners,
-                  seam_ratio: float, blend_type: BlenderType,
-                  blend_strength: float):
-    """Compose an (N, hc, wc, 3) stack into the panorama.  Returns
-    (panorama float32 (H, W, 3), mask bool (H, W)) on the stack's device."""
+def prep_gains(compensator, comp_corners, comp_sizes, device):
+    """Exposure-compensator state -> None (NO) or the GAIN_BLOCKS compose
+    inputs (maps (N, Gy, Gx), grids (N, 2), rois (N, 4)) as float32 device
+    tensors (`_prep_gains`, `compose_fused.py:515-533`): each image's block
+    map stretches over its compose-scale warped ROI."""
+    if compensator is None or compensator.comp_type == ECType.NO:
+        return None
+    if compensator.comp_type != ECType.GAIN_BLOCKS:
+        raise NotImplementedError(
+            f"expos_comp_type={compensator.comp_type.value!r}: the PyTorch "
+            "port composes with NO and GAIN_BLOCKS gains only")
+    rois = [[c[0], c[1], s[0], s[1]] for c, s in zip(comp_corners,
+                                                      comp_sizes)]
+    return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                 for a in (compensator.gains, compensator.grid_sizes, rois))
+
+
+def compose_samples(images: torch.Tensor, ks, rs, warper: Warper,
+                    comp_corners, comp_sizes, seam_masks, seam_corners,
+                    seam_ratio: float, compensator, g: ComposeRects):
+    """What the compose hands K5, rect by rect in its order (buckets
+    sorted by dims): (warped planar (3, ph, pw) float32, weight (ph, pw),
+    band-0 canvas offset (x, y) as host ints) for each image of the
+    (N, hc, wc, 3) stack, with the exposure gains of `compensator` (None or
+    an ExposureCompensator) and the rect geometry `g` of `compose_rects`."""
     dev = images.device
-    g = compose_rects(comp_corners, comp_sizes, blend_type, blend_strength)
-    cx, cy, cw, ch = g.canvas
     smask = _prep_seam_masks(seam_masks, dev)
+    gains = prep_gains(compensator, comp_corners, comp_sizes, dev)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    images_d = images.to(torch.float32)
-    ks_d, rs_d, tls_d, stl_d = f32(ks), f32(rs), f32(g.tls), f32(seam_corners)
-    canvas_tl = f32([cx, cy])
+    ks_d, rs_d, stl_d = f32(ks), f32(rs), f32(seam_corners)
+    cx, cy = g.canvas[0], g.canvas[1]
+    for (bh_i, bw_i), idxs in sorted(g.buckets.items()):
+        for i in idxs:
+            us, vs = rect_grid(g.tls[i], bh_i, bw_i, dev)
+            gain = () if gains is None else (gains[0][i], gains[1][i],
+                                             gains[2][i])
+            warped, weight = _warp_seam(
+                images[i].to(torch.float32), ks_d[i], rs_d[i], us, vs,
+                warper.scale, smask[i], stl_d[i], seam_ratio, *gain)
+            yield (warped.contiguous(), weight,
+                   (g.tls[i][0] - cx, g.tls[i][1] - cy))
+
+
+def fused_compose(images: torch.Tensor, ks, rs, warper: Warper,
+                  comp_corners, comp_sizes, seam_masks, seam_corners,
+                  seam_ratio: float, compensator, blend_type: BlenderType,
+                  blend_strength: float):
+    """Compose an (N, hc, wc, 3) stack into the panorama, with the
+    exposure gains of `compensator` (None or an ExposureCompensator): the
+    compose sample of each rect, K5 into the band accumulators (image
+    after image on one stream, so overlapping rects add in order), then
+    normalise and collapse.  Returns (panorama float32 (H, W, 3), mask
+    bool (H, W)) on the stack's device."""
+    dev = images.device
+    g = compose_rects(comp_corners, comp_sizes, blend_type, blend_strength)
+    cw, ch = g.canvas[2], g.canvas[3]
     accs = [torch.zeros((4, g.canvas_h >> b, g.canvas_w >> b),
                         dtype=torch.float32, device=dev)
             for b in range(g.n_bands + 1)]
-    for (bh_i, bw_i), idxs in sorted(g.buckets.items()):
-        _accumulate(accs, images_d, idxs, ks_d, rs_d, warper.scale, tls_d,
-                    canvas_tl, smask, stl_d, seam_ratio, bh_i, bw_i,
-                    g.n_bands)
+    for warped, weight, off in compose_samples(
+            images, ks, rs, warper, comp_corners, comp_sizes, seam_masks,
+            seam_corners, seam_ratio, compensator, g):
+        pyramid_accumulate(warped, weight, off, accs, g.n_bands)
     pano, mask = _finalize(accs, g.n_bands)
     return pano[:ch, :cw].to(torch.float32), mask[:ch, :cw]

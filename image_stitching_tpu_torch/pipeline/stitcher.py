@@ -2,17 +2,19 @@
 `image_stitching_tpu/pipeline/stitcher.py`.
 
 Stages: read images and EXIF priors -> ORB features (kernel K1) -> all-pairs
-matching with RANSAC -> biggest connected component -> bundle adjustment
-seeded from the priors -> checkpoint -> wave correction -> median focal ->
-seam-scale spherical warp -> compose-scale fused multiband blend (kernel
-K2) -> result.
+matching with RANSAC (kernel K4) -> biggest connected component -> bundle
+adjustment seeded from the priors -> checkpoint -> wave correction ->
+median focal -> seam-scale spherical warp -> GAIN_BLOCKS exposure
+compensation -> DP colour seams -> compose-scale fused multiband blend
+(kernels K2 and K5) -> result.
 
 This port runs one slice of the reference's configuration surface: the
-legacy uniform decode path, no exposure compensation and the "no" seam
-finder.  `check_slice` raises NotImplementedError for every option outside
-it, so the port never takes another path quietly.  The device is explicit:
-`stitch(..., device="cuda")` raises when no GPU is present, and nothing
-falls back to the CPU.
+reference defaults with the legacy uniform decode path in place of fast
+ingest; exposure NO or GAIN_BLOCKS; seams "no", "dp_color" or
+"dp_colorgrad".  `check_slice` raises NotImplementedError for every option
+outside it, so the port never takes another path quietly.  The device is
+explicit: `stitch(..., device="cuda")` raises when no GPU is present, and
+nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ from ..estimation.wave_correct import wave_correct
 from ..geometry.camera import Cameras
 from ..ops.features.orb import orb_detect_stack
 from ..ops.imgproc import resize, rgb_to_gray, scale_size
+from ..ops.exposure import feed_device
 from ..ops.matching import match_all_pairs
 from ..ops.seams import find_seams
-from ..ops.warps import Warper, make_warper, result_roi
+from ..ops.warps import Warper, make_warper, result_roi, u_period
 from .compose_fused import fused_compose, warp_stack
 
 __all__ = ["stitch", "StitchResult", "check_slice", "compose_inputs",
@@ -60,9 +63,11 @@ def check_slice(cfg: StitchConfig) -> None:
     port's slice."""
     refused = [
         ("fast_ingest", cfg.fast_ingest, "True"),
-        ("expos_comp_type", cfg.expos_comp_type != ExposureCompensatorType.NO,
+        ("expos_comp_type", cfg.expos_comp_type not in (
+            ExposureCompensatorType.NO, ExposureCompensatorType.GAIN_BLOCKS),
          cfg.expos_comp_type.value),
-        ("seam_find_type", cfg.seam_find_type != "no", cfg.seam_find_type),
+        ("seam_find_type", cfg.seam_find_type not in (
+            "no", "dp_color", "dp_colorgrad"), cfg.seam_find_type),
         ("timelapse", cfg.timelapse, "True"),
         ("crop_result", cfg.crop_result, "True"),
         ("use_sharded_compose", cfg.use_sharded_compose, "True"),
@@ -180,9 +185,7 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False,
-                                                     expos_comp_type="no",
-                                                     seam_find_type="no"),
+def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False),
            output: Optional[str] = None, device="cuda") -> StitchResult:
     """Stitch a directory or a list of image paths on `device`.  Writes
     `cfg.result_name` (or `output`) unless output=""."""
@@ -292,8 +295,9 @@ def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False,
                 for i in range(n)]
         corners = [(r[0], r[1]) for r in rois]
         # Snap to 64, as the reference does: the pad sizes change which
-        # pixels the padded stack holds, hence the output.
-        _, masks_pad = warp_stack(
+        # pixels the padded stack holds, hence the output.  The stacks
+        # stay on the device for the exposure statistics and the DP seams.
+        images_pad, masks_pad = warp_stack(
             seam_stack, torch.as_tensor(k_seam, device=dev),
             torch.as_tensor(r_all, device=dev), warper.scale,
             torch.as_tensor(np.asarray([[r[0], r[1]] for r in rois],
@@ -304,8 +308,19 @@ def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False,
         masks_warped = [masks_host[i, :rois[i][3], :rois[i][2]]
                         for i in range(n)]
 
+    # Cross-dateline pairs of a full ring sit a u-period apart; the period
+    # re-couples them for exposure and seams.
+    seam_u_period = u_period(warper.proj_name, warper.scale)
+    with stage_timer("Compensating exposure", times, dev):
+        compensator = feed_device(
+            corners, [(r[2], r[3]) for r in rois], images_pad, masks_pad,
+            comp_type=cfg.expos_comp_type, nr_feeds=cfg.expos_comp_nr_feeds,
+            nr_filtering=cfg.expos_comp_nr_filtering,
+            block_size=cfg.expos_comp_block_size, period=seam_u_period)
+
     with stage_timer("Finding seams", times, dev):
-        seam_masks = find_seams(masks_warped, cfg.seam_find_type)
+        seam_masks = find_seams(corners, masks_warped, cfg.seam_find_type,
+                                images_dev=images_pad, period=seam_u_period)
 
     with stage_timer("Compositing", times, dev):
         comp = compose_inputs(cameras, (h0, w0), work_scale,
@@ -321,8 +336,8 @@ def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False,
         pano, pano_mask = fused_compose(
             comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
             comp.sizes, seam_masks, corners,
-            seam_work_aspect * work_scale / comp.scale, cfg.blend_type,
-            cfg.blend_strength)
+            seam_work_aspect * work_scale / comp.scale, compensator,
+            cfg.blend_type, cfg.blend_strength)
 
     out = output if output is not None else cfg.result_name
     if out:

@@ -1,9 +1,11 @@
 """Port parity of the whole slice: both stitch()es on the same captures.
 
 The captures are tests/test_pipeline_e2e.py's (3 images of 160x224, ring
-55 deg FOV, 0.55 overlap, sigma-4 noise), the configuration its small_cfg
-plus the slice's options: no exposure compensation, the "no" seam
-finder, the legacy uniform decode path."""
+55 deg FOV, 0.55 overlap, sigma-4 noise).  Two configurations: its
+small_cfg with no exposure compensation, the "no" seam finder and the
+legacy uniform decode path (`both`); and small_cfg(fast_ingest=False),
+the reference defaults with GAIN_BLOCKS exposure and DP colour seams
+(`both_default`)."""
 
 import os
 
@@ -16,26 +18,35 @@ from _torch_port import n, rel_rotation_deg
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
+from image_stitching_tpu.ops import exposure as jexposure
+from image_stitching_tpu.ops import seams as jseams
 from image_stitching_tpu.pipeline.stitcher import stitch as jstitch
 from image_stitching_tpu_torch.config import StitchConfig
 from image_stitching_tpu_torch.core import image_io
 from image_stitching_tpu_torch.ops.warps import backward_xy_1d
-from image_stitching_tpu_torch.pipeline import compose_fused
+from image_stitching_tpu_torch.pipeline import compose_fused, stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import (compose_inputs,
                                                          stitch)
 
 HW = (160, 224)
 N_IMAGES = 3
-SLICE = dict(num_features=400, compose_megapix=-1, seam_megapix=0.02,
-             fast_ingest=False, expos_comp_type="no", seam_find_type="no")
+SMALL = dict(num_features=400, compose_megapix=-1, seam_megapix=0.02,
+             fast_ingest=False)
+SLICE = dict(SMALL, expos_comp_type="no", seam_find_type="no")
 
 
 @pytest.fixture(scope="module")
-def both(tmp_path_factory):
+def captures(tmp_path_factory):
     d = tmp_path_factory.mktemp("captures")
     images, k, rs = make_ring_captures(n_images=N_IMAGES, hw=HW, fov_deg=55,
                                        overlap_ratio=0.55)
     write_capture_dir(str(d), images, k, rs)
+    return d, rs
+
+
+@pytest.fixture(scope="module")
+def both(captures, tmp_path_factory):
+    d, rs = captures
     run_j = tmp_path_factory.mktemp("run_jax")
     run_t = tmp_path_factory.mktemp("run_torch")
     ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **SLICE),
@@ -125,3 +136,132 @@ def test_compose_geometry_reproduces_k2_inputs(both):
     for want, seen in zip(expect, k2_calls):
         for a, b in zip(want, seen):
             np.testing.assert_array_equal(n(a), n(b))
+
+
+def _recording(owner, name, seen):
+    """Replace owner.name by a wrapper that appends each result to seen;
+    returns the original."""
+    orig = getattr(owner, name)
+
+    def rec(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append(out)
+        return out
+    setattr(owner, name, rec)
+    return orig
+
+
+@pytest.fixture(scope="module")
+def both_default(captures, tmp_path_factory):
+    """Both stitch()es with the reference defaults but fast ingest
+    (GAIN_BLOCKS, dp_color), recording each side's compensator and seam
+    masks."""
+    d, rs = captures
+    run_j = tmp_path_factory.mktemp("run_jax_default")
+    run_t = tmp_path_factory.mktemp("run_torch_default")
+    seen_j, seen_t = {"comp": [], "seams": []}, {"comp": [], "seams": []}
+    patches = [(jexposure, "feed_device", seen_j["comp"]),
+               (jseams, "find_seams", seen_j["seams"]),
+               (stitcher, "feed_device", seen_t["comp"]),
+               (stitcher, "find_seams", seen_t["seams"])]
+    origs = [_recording(o, nm, seen) for o, nm, seen in patches]
+    # What the stitch hands the compose, and what the compose hands K5.
+    seen_t["compose"], seen_t["k5"] = [], []
+    fused = stitcher.fused_compose
+    k5 = compose_fused.pyramid_accumulate
+
+    def fused_rec(*args):
+        seen_t["compose"].append(args)
+        return fused(*args)
+
+    def k5_rec(warped, weight, off, accs, n_bands):
+        seen_t["k5"].append((warped.clone(), weight.clone(), off))
+        return k5(warped, weight, off, accs, n_bands)
+    patches += [(stitcher, "fused_compose", None),
+                (compose_fused, "pyramid_accumulate", None)]
+    origs += [fused, k5]
+    stitcher.fused_compose = fused_rec
+    compose_fused.pyramid_accumulate = k5_rec
+    try:
+        ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **SMALL),
+                      output="")
+        got = stitch(str(d), StitchConfig(checkpoint_dir=str(run_t),
+                                          **SMALL), output="", device="cpu")
+    finally:
+        for (o, nm, _), orig in zip(patches, origs):
+            setattr(o, nm, orig)
+    assert StitchConfig(**SMALL).expos_comp_type.value == "gain_blocks"
+    assert StitchConfig(**SMALL).seam_find_type == "dp_color"
+    return ref, got, rs, seen_j, seen_t
+
+
+def test_default_kept_indices_and_cameras(both_default):
+    """Equal kept indices; relative rotations within 0.05 degrees and focal
+    rtol 1e-3, as for the no-exposure slice."""
+    ref, got, rs, _, _ = both_default
+    assert got.kept_indices == ref.kept_indices == list(range(N_IMAGES))
+    cams = got.cameras.numpy()
+    np.testing.assert_allclose(cams["focal"], np.asarray(ref.cameras.focal),
+                               rtol=1e-3)
+    rr = np.asarray(ref.cameras.R)
+    for a in range(N_IMAGES - 1):
+        ang = rel_rotation_deg(cams["R"][a + 1] @ cams["R"][a].T,
+                               rr[a + 1] @ rr[a].T)
+        assert ang <= 0.05, (a, ang)
+
+
+def test_default_gains_match_reference(both_default):
+    """GAIN_BLOCKS gain maps rtol 1e-4, grid sizes equal."""
+    _, _, _, seen_j, seen_t = both_default
+    (cj,), (ct,) = seen_j["comp"], seen_t["comp"]
+    # The reference returns (compensator, mask bits) when it carries the
+    # warped masks' download along (`extra`).
+    cj = cj[0] if isinstance(cj, tuple) else cj
+    np.testing.assert_array_equal(ct.grid_sizes, cj.grid_sizes)
+    np.testing.assert_allclose(ct.gains, np.asarray(cj.gains), rtol=1e-4)
+    assert np.all(np.isfinite(ct.gains))
+    assert np.all(ct.gains[ct.gains != 0] > 0)
+
+
+def test_default_seam_masks_equal(both_default):
+    """The DP seam masks are equal pixel for pixel and cut the overlaps."""
+    _, _, _, seen_j, seen_t = both_default
+    (mj,), (mt,) = seen_j["seams"], seen_t["seams"]
+    assert len(mt) == len(mj) == N_IMAGES
+    for a, b in zip(mj, mt):
+        np.testing.assert_array_equal(np.asarray(b) > 0, np.asarray(a) > 0)
+    assert sum(int((np.asarray(m) == 0).sum()) for m in mt) > 0
+
+
+def test_default_panorama_matches_reference(both_default):
+    """Shape within 2 px per axis; mean |difference| <= 2 on the common
+    mask."""
+    ref, got, _, _, _ = both_default
+    pj, pt = np.asarray(ref.panorama), n(got.panorama)
+    assert abs(pj.shape[0] - pt.shape[0]) <= 2
+    assert abs(pj.shape[1] - pt.shape[1]) <= 2
+    h, w = min(pj.shape[0], pt.shape[0]), min(pj.shape[1], pt.shape[1])
+    common = np.asarray(ref.mask)[:h, :w] & n(got.mask)[:h, :w]
+    assert common.mean() > 0.9
+    assert np.abs(pj[:h, :w] - pt[:h, :w])[common].mean() <= 2.0
+
+
+def test_compose_samples_reproduce_k5_inputs(both_default):
+    """compose_samples, given what the stitch handed fused_compose, yields
+    exactly the (warped, weight, offset) the compose passed K5, in its
+    order: what the GPU smoke checks K5 on is the main path's input."""
+    _, _, _, _, seen_t = both_default
+    (args,) = seen_t["compose"]
+    (images, ks, rs, warper, corners, sizes, seam_masks, seam_corners,
+     seam_ratio, compensator, blend_type, blend_strength) = args
+    assert compensator.comp_type.value == "gain_blocks"
+    g = compose_fused.compose_rects(corners, sizes, blend_type,
+                                    blend_strength)
+    expect = list(compose_fused.compose_samples(
+        images, ks, rs, warper, corners, sizes, seam_masks, seam_corners,
+        seam_ratio, compensator, g))
+    assert len(expect) == len(seen_t["k5"]) == N_IMAGES
+    for (w0, wt0, off0), (w1, wt1, off1) in zip(expect, seen_t["k5"]):
+        assert off0 == off1
+        np.testing.assert_array_equal(n(w0), n(w1))
+        np.testing.assert_array_equal(n(wt0), n(wt1))

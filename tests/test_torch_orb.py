@@ -141,3 +141,63 @@ def test_k1_kernel_matches_plain_on_cuda():
     np.testing.assert_array_less(np.abs(n(m) - n(m0)),
                                  1e-5 * _moment_scale(img, xy) + 1e-6)
     assert int((_bits(n(d)) != _bits(n(d0))).sum()) <= 1e-4 * 300 * 256
+
+
+def _plain_coords(xy, angle, pat_xy, h, w):
+    """orb_sample_plain's rounded, clipped endpoint coordinates."""
+    ca, sa = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
+    px, py = pat_xy[0][None], pat_xy[1][None]
+    gx = torch.clamp(torch.round(xy[:, 0:1] + (ca * px - sa * py)), 0, w - 1)
+    gy = torch.clamp(torch.round(xy[:, 1:2] + (sa * px + ca * py)), 0, h - 1)
+    return n(gx), n(gy)
+
+
+def _quotient_coords(xy, mom, pat_xy, h, w):
+    """The Pallas kernels' endpoint coordinates: rotation by m / |m|."""
+    m10, m01 = mom[:, 0:1], mom[:, 1:2]
+    nrm = np.sqrt(m10 * m10 + m01 * m01)
+    safe = np.maximum(nrm, np.float32(1e-30))
+    ca = np.where(nrm > 0, m10 / safe, 1.0).astype(np.float32)
+    sa = np.where(nrm > 0, m01 / safe, 0.0).astype(np.float32)
+    gx = np.round(xy[:, 0:1] + ca * pat_xy[0] - sa * pat_xy[1])
+    gy = np.round(xy[:, 1:2] + sa * pat_xy[0] + ca * pat_xy[1])
+    return np.clip(gx, 0, w - 1), np.clip(gy, 0, h - 1)
+
+
+@pytest.mark.parametrize("seed", [3, 5])
+def test_k3_plain_vs_stream_pallas_interpret(seed):
+    """K3: `orb_sample_stream_pallas`, which the TPU takes for level planes
+    past its 11 MB VMEM budget, run by the Pallas interpreter at
+    tests/test_orb_stream_pallas.py's shape, against K1's plain version,
+    which the port runs at every level whatever the plane's size.  Samples
+    are equal wherever both rotations round to the same coordinates; the
+    descriptor bits are counted as in the K1 test (the Pallas kernels
+    rotate by m / |m|, the port by cos/sin(atan2)), <= 1e-3 of the bits."""
+    from image_stitching_tpu.kernels.orb_stream_pallas import \
+        orb_sample_stream_pallas
+    img, blur, xy, pattern, pat_xy = _setup(seed)
+    h, w = img.shape
+    samples, ang, mom = orb_sample_stream_pallas(
+        jnp.asarray(img), jnp.asarray(blur), jnp.asarray(xy),
+        jnp.asarray(pat_xy), radius=20,
+        span=max(jorb._pattern_span(pattern), 20), interpret=True)
+    s, a, m, d = orb_sample_plain(t(img), t(blur), t(xy), t(pat_xy), 20)
+    scale = _moment_scale(img, xy)
+    np.testing.assert_array_less(np.abs(n(m) - np.asarray(mom)),
+                                 1e-5 * scale + 1e-6)
+    # Angle: the moments' error over their length (a cancelled sum turns
+    # the same absolute error into a larger angle).
+    np.testing.assert_array_less(
+        np.abs(n(a) - np.asarray(ang)),
+        1e-5 * np.linalg.norm(scale, axis=1) /
+        np.linalg.norm(np.asarray(mom), axis=1) + 1e-6)
+    gx, gy = _plain_coords(t(xy), a, t(pat_xy), h, w)
+    qx, qy = _quotient_coords(xy, np.asarray(mom), pat_xy, h, w)
+    agree = (gx == qx) & (gy == qy)
+    assert agree.mean() >= 0.99
+    np.testing.assert_array_equal(n(s)[agree], np.asarray(samples)[agree])
+    s_ref = np.asarray(samples)
+    want = _bits(jorb._pack_bits(jnp.asarray(s_ref[:, :256] <
+                                             s_ref[:, 256:])))
+    flips = int((_bits(n(d)) != want).sum())
+    assert flips <= 1e-3 * want.size, flips

@@ -21,6 +21,8 @@ from image_stitching_tpu_torch.core import exif, image_io, persistence
 from image_stitching_tpu_torch.data import synth
 from image_stitching_tpu_torch.interop import (cameras_from_numpy,
                                                features_from_numpy)
+from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn
+from image_stitching_tpu_torch.kernels.multiband import pyramid_accumulate
 from image_stitching_tpu_torch.kernels.orb_sample import orb_sample
 from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
 from image_stitching_tpu_torch.pipeline.stitcher import check_slice, stitch
@@ -47,15 +49,15 @@ def test_import_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 25 and bad.strip() == "[]"
+    assert int(count) >= 40 and bad.strip() == "[]"
 
 
 SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
 
 
 @pytest.mark.parametrize("option,value", [
-    ("fast_ingest", True), ("expos_comp_type", "gain_blocks"),
-    ("seam_find_type", "dp_color"), ("timelapse", True),
+    ("fast_ingest", True), ("expos_comp_type", "channels_blocks"),
+    ("seam_find_type", "gc_color"), ("timelapse", True),
     ("crop_result", True), ("use_sharded_compose", True),
     ("features_type", "sift"), ("warp_type", "cylindrical"),
     ("ba_cost_func", "ray"), ("matcher_type", "affine"),
@@ -89,6 +91,22 @@ def test_kernel_wrappers_never_fall_back():
     with pytest.raises(ValueError):
         orb_sample(torch.zeros(40, 50), torch.zeros(40, 50, device="meta"),
                    torch.zeros(3, 2), torch.zeros(2, 512), 20)
+    desc = torch.empty((2, 5, 8), dtype=torch.int32, device="meta")
+    valid = torch.empty((2, 5), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        hamming_two_nn(desc, desc, valid)
+    with pytest.raises(ValueError):
+        hamming_two_nn(torch.zeros((2, 5, 8), dtype=torch.int32), desc,
+                       valid)
+    accs = [torch.empty((4, 16 >> b, 16 >> b), device="meta")
+            for b in range(2)]
+    with pytest.raises(ValueError, match="no kernel"):
+        pyramid_accumulate(torch.empty((3, 8, 8), device="meta"),
+                           torch.empty((8, 8), device="meta"), (0, 0), accs,
+                           1)
+    with pytest.raises(ValueError):
+        pyramid_accumulate(torch.zeros((3, 8, 8)), torch.zeros((8, 8)),
+                           (0, 0), accs, 1)
 
 
 def test_synth_renders_the_reference_scene():

@@ -3,11 +3,14 @@
 Run from the repository root:
     python3 -m tools.profile_torch_stitch [OUT_TXT]
 
-Renders the 8 x 2448x3264 e2e ring (`data/synth.py` E2E_RING), runs stitch() once to warm up
-and three times timed, then once under torch.profiler (CPU + CUDA
-activities).  Prints the stage times, the device-busy share of the wall
-time, the two CUDA kernels' device time and the ops by total device time;
-with OUT_TXT, the 40-row table is also written there.
+Renders the 8 x 2448x3264 ring DEFAULT_RING (`data/synth.py`, sigma-8
+noise), runs stitch() with the port's default configuration (the reference
+defaults with fast ingest off) once to warm up and three times timed, then
+once under torch.profiler (CPU + CUDA activities).  Prints the stage
+times, the device-busy share of the wall time, per stage its kernel
+launches and device-busy time, each hand kernel's launches and device
+time, and the ops by total device time; with OUT_TXT, the 40-row table
+is also written there.
 """
 
 from __future__ import annotations
@@ -28,12 +31,22 @@ def _smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def _busy_ms(events) -> float:
-    """Union of the CUDA kernel intervals (ms): device-busy time."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+def _device_spans(events):
+    """(start, end) us of the device's work: kernels, copies and sets, not
+    the user-annotation ranges the profiler mirrors onto the device."""
+    return sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+
+
+def _busy_ms(spans, lo=float("-inf"), hi=float("inf")) -> float:
+    """Union of the device spans clipped to [lo, hi] (ms): device-busy
+    time."""
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
+        s, e = max(s, lo), min(e, hi)
+        if e <= s:
+            continue
         if cur_e is None or s > cur_e:
             if cur_e is not None:
                 busy += cur_e - cur_s
@@ -45,21 +58,40 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
+def _stage_lines(events, spans, stage_names):
+    """Per stage (the `stage_timer` ranges): wall, kernel launches made by
+    the host inside it, and device-busy time inside it."""
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.name in stage_names}
+    launches = [e.time_range.start for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and "LaunchKernel" in e.name]
+    out = []
+    for name, (lo, hi) in ranges.items():
+        n = sum(1 for t in launches if lo <= t <= hi)
+        busy = _busy_ms(spans, lo, hi)
+        wall = (hi - lo) / 1e3
+        out.append(f"stage {name}: wall {wall:.3f} ms, {n} kernel launches, "
+                   f"device busy {busy:.3f} ms "
+                   f"({100 * busy / max(wall, 1e-9):.2f}%)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_stitch: no CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
     from image_stitching_tpu_torch.config import StitchConfig
-    from image_stitching_tpu_torch.data.synth import E2E_RING, write_ring_dir
+    from image_stitching_tpu_torch.data.synth import (DEFAULT_RING,
+                                                      write_ring_dir)
     from image_stitching_tpu_torch.pipeline.stitcher import stitch
     smi = _smi()
     with tempfile.TemporaryDirectory(prefix="profile_") as work:
         caps = os.path.join(work, "caps")
-        write_ring_dir(caps, **E2E_RING)
-        cfg = StitchConfig(num_features=1500, work_megapix=1.9,
-                           expos_comp_type="no", seam_find_type="no",
-                           fast_ingest=False, checkpoint_dir=work)
+        write_ring_dir(caps, **DEFAULT_RING)
+        cfg = StitchConfig(fast_ingest=False, checkpoint_dir=work)
         stitch(caps, cfg, output="", device="cuda")
         walls = []
         for _ in range(3):
@@ -77,15 +109,20 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     events = prof.events()
-    busy = _busy_ms(events)
-    n_kernels = sum(1 for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = _device_spans(events)
+    busy = _busy_ms(spans)
+    n_kernels = len(spans)
     print(f"profiled wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / (wall * 1e3):.2f}%), idle "
           f"{100 * (1 - busy / (wall * 1e3)):.2f}%, {n_kernels} device "
           f"events; card '{smi}'")
+    for line in _stage_lines(events, spans, set(res.stage_times)):
+        print(line)
+    hand = ("orb_sample_kernel", "warp_bilinear_kernel",
+            "hamming_two_nn_kernel", "pyr_down_kernel",
+            "band_accumulate_kernel")
     for avg in prof.key_averages():
-        if "orb_sample_kernel" in avg.key or "warp_bilinear_kernel" in avg.key:
+        if any(k in avg.key for k in hand):
             total_us = getattr(avg, "device_time_total", None)
             if total_us is None:
                 total_us = avg.cuda_time_total
