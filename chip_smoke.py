@@ -59,10 +59,9 @@ from image_stitching_tpu_torch.data.synth import (DEFAULT_RING, E2E_RING,
 N_IMAGES = E2E_RING["n_images"]
 H, W = E2E_RING["hw"]
 
-# The H100 SXM's published peaks (NVIDIA data sheet; the on-chip
-# measurement guide's table): HBM bytes/s and the float32 rate outside the
-# tensor cores, the only CUDA-core rate in that table, used for the
-# kernels' 32-bit integer and float operations alike.
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and the
+# float32 rate outside the tensor cores, the only CUDA-core rate listed
+# there, used for the kernels' 32-bit integer and float operations alike.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 TPU_VMEM_BUDGET = 11 * 2 ** 20     # orb_sample_pallas.py:60
