@@ -11,7 +11,7 @@ Phases, one line each; any failure raises and exits non-zero:
      sigma 4 makes some adjacent pairs near-duplicates by the reference's
      confidence rule (see data/synth.py);
   1. build: the four CUDA kernels compiled with nvcc for sm_90a, one nvcc
-     per source, all at once; what ptxas reports per kernel;
+     per source, all at once;
   2. K1 (orb_sample) against its plain PyTorch version on the level-0
      plane of the work-scale path (1224x1632) and its keypoint count;
   3. K2 (warp_bilinear) against its plain version on every compose rect
@@ -29,7 +29,8 @@ Phases, one line each; any failure raises and exits non-zero:
      exposure, DP colour seams; fast ingest off), all 28 pairs in the
      chunks and both directions that matching runs;
   7. K5 (pyramid_accumulate) on every compose rect of that warm-up stitch,
-     accumulators within 2e-3, finalized u8 panorama within 1;
+     accumulators within 2e-3, finalized u8 panorama within 1; K2 against
+     its plain version on the same rects' samples;
   8. end to end, the default path: timed after the warm-up, held to 8/8
      kept, <= 1 px reprojection, mask coverage > 0.9, finite positive
      gains, seam-mask union equal to the warped-mask union, and launches of
@@ -44,7 +45,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -53,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from image_stitching_tpu_torch.core.logging import Recorder
 from image_stitching_tpu_torch.data.synth import (DEFAULT_RING, E2E_RING,
                                                   write_ring_dir)
 
@@ -73,32 +74,6 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-class Recorder:
-    """Pass-through wrappers on module attributes that keep each call's
-    (args, kwargs, result), by reference, while the context is open."""
-
-    def __init__(self, module, *names):
-        self.module = module
-        self.orig = {name: getattr(module, name) for name in names}
-        self.calls = {name: [] for name in names}
-
-    def __enter__(self):
-        for name, fn in self.orig.items():
-            setattr(self.module, name, self._wrap(name, fn))
-        return self
-
-    def _wrap(self, name, fn):
-        def rec(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            self.calls[name].append((args, kwargs, out))
-            return out
-        return rec
-
-    def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.module, name, fn)
 
 
 def _smi() -> str:
@@ -172,12 +147,14 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
     # sum itself is not).
     ys, xs = np.mgrid[-20:21, -20:21]
     disk = (xs * xs + ys * ys) <= 400
-    cx = torch.round(xy[:, 0]).long().clamp(0, gray.shape[1] - 1)
-    cy = torch.round(xy[:, 1]).long().clamp(0, gray.shape[0] - 1)
+    h, w = gray.shape
+    cx = torch.round(xy[:, 0]).long().clamp(0, w - 1)
+    cy = torch.round(xy[:, 1]).long().clamp(0, h - 1)
     dys = torch.as_tensor(ys[disk], device=dev)
     dxs = torch.as_tensor(xs[disk], device=dev)
-    vals = gray[(cy[:, None] + dys).clamp(0, gray.shape[0] - 1),
-                (cx[:, None] + dxs).clamp(0, gray.shape[1] - 1)]
+    rows = (cy[:, None] + dys).clamp(0, h - 1)
+    cols = (cx[:, None] + dxs).clamp(0, w - 1)
+    vals = gray[rows, cols]
     mag = torch.stack([(vals * dxs.abs()).sum(1), (vals * dys.abs()).sum(1)],
                       -1)
     mom_rel = float(((m_k - m_p).abs() / mag.clamp(min=1.0)).max())
@@ -187,7 +164,7 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
         ca, sa = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
         gx = torch.round(xy[:, 0:1] + (ca * pat[0] - sa * pat[1]))
         gy = torch.round(xy[:, 1:2] + (sa * pat[0] + ca * pat[1]))
-        return gx.clamp(0, gray.shape[1] - 1), gy.clamp(0, gray.shape[0] - 1)
+        return gx.clamp(0, w - 1).long(), gy.clamp(0, h - 1).long()
     gxk, gyk = coords(a_k)
     gxp, gyp = coords(a_p)
     agree = (gxk == gxp) & (gyk == gyp)
@@ -201,12 +178,16 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
     ms = time_ms(lambda: orb_sample(gray, blur, xy, pat, 20))
     plain_ms = time_ms(lambda: orb_sample_plain(gray, blur, xy, pat, 20))
     max_err = float((s_k - s_p).abs().max())
-    # Bytes: both planes, keypoints and pattern in, samples, moments and
-    # descriptors out.  Operations: per keypoint the disk's two moment
-    # sums, the 512 rotations and rounds, 256 compares.
+    # Bytes: the pixels this run's keypoints need, each read once (the
+    # union of their disks in the raw plane and of their rounded sample
+    # coordinates in the blurred plane), keypoints and pattern in; samples,
+    # moments and descriptors out.  Operations: per keypoint the disk's two
+    # moment sums, the 512 rotations and rounds, 256 compares.
     plane = gray.numel() * 4
-    n_bytes = 2 * plane + xy.numel() * 4 + pat.numel() * 4 + \
-        k_l * (N_SAMPLES * 4 + 8 + 32)
+    disk_px = int(torch.unique(rows * w + cols).numel())
+    sample_px = int(torch.unique(gyk * w + gxk).numel())
+    n_bytes = 4 * (disk_px + sample_px) + xy.numel() * 4 + \
+        pat.numel() * 4 + k_l * (N_SAMPLES * 4 + 8 + 32)
     n_ops = k_l * (int(disk.sum()) * 4 + N_SAMPLES * 8 + 256)
     bound_ms, bound_by = bound(n_bytes, n_ops)
     print(f"phase {phase} K1 orb_sample: plane {tuple(gray.shape)} "
@@ -216,13 +197,29 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
           f"(tol 1e-5), samples {N_SAMPLES} per keypoint unequal at agreeing "
           f"coords {bad}, coords disagreeing {int((~agree).sum())}, bit "
           f"flips {flips}/{n_bits} (tol 1e-4), kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{disk_px} disk and {sample_px} sample pixels read, "
+          f"{n_bytes} bytes in all)",
           flush=True)
     return dict(name=name, route="cuda",
                 source="image_stitching_tpu_torch/csrc/orb_sample.cu",
                 replaces=replaces, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
+
+
+def k2_max_diff(calls) -> float:
+    """Largest |K2 - plain| over (src, sx, sy) calls."""
+    from image_stitching_tpu_torch.kernels.warp_gather import (
+        warp_bilinear, warp_bilinear_plain)
+    err = 0.0
+    for src, sx, sy in calls:
+        out_k = warp_bilinear(src, sx, sy)
+        out_p = warp_bilinear_plain(src, sx, sy)
+        torch.cuda.synchronize()
+        err = max(err, float((out_k - out_p).abs().max()))
+    assert err <= 1e-4, f"K2 differs from its plain version by {err}"
+    return err
 
 
 def check_k2(dev, paths, cfg, res):
@@ -254,13 +251,7 @@ def check_k2(dev, paths, cfg, res):
                 torch.as_tensor(comp.rs[i], device=dev), comp.warper.scale)
             calls.append((im.to(torch.float32).contiguous(), sx.contiguous(),
                           sy.contiguous()))
-    err = 0.0
-    for src, sx, sy in calls:
-        out_k = warp_bilinear(src, sx, sy)
-        out_p = warp_bilinear_plain(src, sx, sy)
-        torch.cuda.synchronize()
-        err = max(err, float((out_k - out_p).abs().max()))
-    assert err <= 1e-4, f"K2 differs from its plain version by {err}"
+    err = k2_max_diff(calls)
 
     def run(fn):
         for src, sx, sy in calls:
@@ -357,13 +348,17 @@ def check_k4(dev, feats):
 def check_k5(dev, compose_call):
     """K5 on the (warped, weight, offset) of every compose rect of a
     default-path stitch: compose_samples (the compose's own per-rect
-    sample) on the arguments that stitch handed fused_compose."""
+    sample) on the arguments that stitch handed fused_compose.  K2 is held
+    against its plain version on the (src, sx, sy) of the same samples."""
     from image_stitching_tpu_torch.kernels.multiband import (
         pyramid_accumulate, pyramid_accumulate_plain)
     from image_stitching_tpu_torch.pipeline import compose_fused as cf
     args = compose_call[0]
     g = cf.compose_rects(args[4], args[5], args[10], args[11])
-    rects = list(cf.compose_samples(*args[:10], g))
+    with Recorder(cf, "warp_bilinear") as k2_rec:
+        rects = list(cf.compose_samples(*args[:10], g))
+    k2_calls = [call[0] for call in k2_rec.calls["warp_bilinear"]]
+    k2_err = k2_max_diff(k2_calls)
     nb = g.n_bands
 
     def fresh():
@@ -407,8 +402,10 @@ def check_k5(dev, compose_call):
           f", gains {type(args[9]).__name__ if args[9] else None}, "
           f"accumulators max |diff| {err:.3g} (tol 2e-3), finalized u8 max "
           f"|diff| {u8} (tol 1), per rect: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); K2 on "
+          f"the same {len(k2_calls)} rects' samples, source "
+          f"{tuple(k2_calls[0][0].shape)}: max |diff| {k2_err:.3g} "
+          f"(atol 1e-4)", flush=True)
     return dict(name="pyramid_accumulate", route="cuda",
                 source="image_stitching_tpu_torch/csrc/multiband.cu",
                 replaces="image_stitching_tpu/kernels/multiband_pallas.py:177",
@@ -439,24 +436,6 @@ def seam_union_gate(seams_call):
     cut = sum(int(((np.asarray(a) > 0) & (np.asarray(b) == 0)).sum())
               for a, b in zip(masks_warped, seam_masks))
     return want.size, cut
-
-
-def ptxas_summary(log: str) -> str:
-    """One "kernel: registers, smem, spills" entry per compiled kernel."""
-    out, name = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            short = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))
-            name = short.group(1) if short else m.group(1)[:48]
-        m = re.search(r"Used (\d+) registers(.*)", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} regs{m.group(2)[:60]}")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name and m.group(1) + m.group(2) != "00":
-            out.append(f"{name}: spills {m.group(1)}/{m.group(2)} B")
-    return "; ".join(out)
 
 
 def stitch_run(stitch, caps, cfg, counters, recorder=None):
@@ -528,8 +507,7 @@ def main() -> int:
 
         _build.load_library()
         print(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} -> "
-              f"{_build.build_seconds():.3f} s; ptxas: "
-              f"{ptxas_summary(_build.build_log())}", flush=True)
+              f"{_build.build_seconds():.3f} s", flush=True)
 
         paths = image_io.list_images(caps)
         img0 = torch.from_numpy(image_io.orient_capture(

@@ -2,7 +2,9 @@
 
 `stage_timer` mirrors the reference's LOGLN("<stage>, time: ...") lines.
 The fence that makes a stage time honest under asynchronous CUDA launches
-is `torch.cuda.synchronize` on the stage's device.
+is `torch.cuda.synchronize` on the stage's device.  `Recorder` keeps the
+calls of chosen module functions, for diagnostics that need what one stage
+handed the next.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 logger = logging.getLogger("image_stitching_tpu_torch")
 
-__all__ = ["logger", "stage_timer"]
+__all__ = ["logger", "stage_timer", "Recorder"]
 
 
 @contextlib.contextmanager
@@ -38,3 +40,30 @@ def stage_timer(name: str, times: Optional[Dict[str, float]] = None,
         if times is not None:
             times[name] = times.get(name, 0.0) + elapsed
         logger.info("%s, time: %.6g sec", name, elapsed)
+
+
+class Recorder:
+    """Pass-through wrappers on module attributes that keep each call's
+    (args, kwargs, result), by reference, in `calls[name]` while the
+    context is open."""
+
+    def __init__(self, module, *names):
+        self.module = module
+        self.orig = {name: getattr(module, name) for name in names}
+        self.calls = {name: [] for name in names}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.module, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def rec(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.calls[name].append((args, kwargs, out))
+            return out
+        return rec
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.module, name, fn)

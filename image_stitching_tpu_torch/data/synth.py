@@ -129,7 +129,7 @@ E2E_RING = dict(n_images=8, hw=(2448, 3264), fov_deg=55.0, overlap_ratio=0.5,
 # pairs with inlier ratios above 0.9, so n_inliers / (8 + 0.3 n_matches)
 # exceeds 3 and the reference's near-duplicate rule (cv
 # BestOf2NearestMatcher; `ops/matching.py::match_pairs`) zeroes those
-# pairs; `tools/ring_confidence.py` prints the confidences per noise level.
+# pairs; `tools/ring_features.py` prints the confidences per noise level.
 DEFAULT_RING = dict(E2E_RING, noise_sigma=8.0)
 
 

@@ -4,7 +4,7 @@ The sources are compiled at first use, one `nvcc -c` per source, all
 started together, then linked into one shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu
+         -Xcompiler -fPIC -c csrc/<name>.cu
          -o build/<name>_<hash>.o
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o build/libstitch_kernels_<hash>.so build/*_<hash>.o
@@ -25,18 +25,16 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["load_library", "check_launch", "build_seconds", "build_log",
-           "NVCC_FLAGS"]
+__all__ = ["load_library", "check_launch", "build_seconds", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "build")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                          "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_state = {"lib": None, "seconds": None, "log": ""}
+_state = {"lib": None, "seconds": None}
 
 
 def _nvcc() -> str:
@@ -67,8 +65,7 @@ def _declare(lib) -> None:
 
 
 def _compile(sources, path: str, tag: str) -> None:
-    """One `nvcc -c` per source, all running at once, then one link.
-    Keeps what ptxas reports (registers, shared memory, spills)."""
+    """One `nvcc -c` per source, all running at once, then one link."""
     nvcc = _nvcc()
     objs = [os.path.join(_BUILD, f"{os.path.basename(src)[:-3]}_{tag}.o")
             for src in sources]
@@ -77,11 +74,10 @@ def _compile(sources, path: str, tag: str) -> None:
                               text=True)
              for src, obj in zip(sources, objs)]
     logs = [proc.communicate() for proc in procs]
-    for src, proc, (out, err) in zip(sources, procs, logs):
+    for src, proc, (_, err) in zip(sources, procs, logs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
                                f"({proc.returncode}):\n{err[-4000:]}")
-        _state["log"] += out + err
     tmp = f"{path}.{os.getpid()}.tmp"
     proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
                           capture_output=True, text=True)
@@ -113,12 +109,6 @@ def load_library():
     _state["seconds"] = time.perf_counter() - t0
     _state["lib"] = lib
     return lib
-
-
-def build_log() -> str:
-    """What ptxas printed while building (empty when the library was
-    already built)."""
-    return _state["log"]
 
 
 def build_seconds():

@@ -7,6 +7,7 @@ legacy uniform decode path (`both`); and small_cfg(fast_ingest=False),
 the reference defaults with GAIN_BLOCKS exposure and DP colour seams
 (`both_default`)."""
 
+import contextlib
 import os
 
 import numpy as np
@@ -23,6 +24,7 @@ from image_stitching_tpu.ops import seams as jseams
 from image_stitching_tpu.pipeline.stitcher import stitch as jstitch
 from image_stitching_tpu_torch.config import StitchConfig
 from image_stitching_tpu_torch.core import image_io
+from image_stitching_tpu_torch.core.logging import Recorder
 from image_stitching_tpu_torch.ops.warps import backward_xy_1d
 from image_stitching_tpu_torch.pipeline import compose_fused, stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import (compose_inputs,
@@ -138,60 +140,38 @@ def test_compose_geometry_reproduces_k2_inputs(both):
             np.testing.assert_array_equal(n(a), n(b))
 
 
-def _recording(owner, name, seen):
-    """Replace owner.name by a wrapper that appends each result to seen;
-    returns the original."""
-    orig = getattr(owner, name)
-
-    def rec(*args, **kwargs):
-        out = orig(*args, **kwargs)
-        seen.append(out)
-        return out
-    setattr(owner, name, rec)
-    return orig
-
-
 @pytest.fixture(scope="module")
 def both_default(captures, tmp_path_factory):
     """Both stitch()es with the reference defaults but fast ingest
     (GAIN_BLOCKS, dp_color), recording each side's compensator and seam
-    masks."""
+    masks, what the port's stitch hands the compose, and what the compose
+    hands K5."""
     d, rs = captures
     run_j = tmp_path_factory.mktemp("run_jax_default")
     run_t = tmp_path_factory.mktemp("run_torch_default")
-    seen_j, seen_t = {"comp": [], "seams": []}, {"comp": [], "seams": []}
-    patches = [(jexposure, "feed_device", seen_j["comp"]),
-               (jseams, "find_seams", seen_j["seams"]),
-               (stitcher, "feed_device", seen_t["comp"]),
-               (stitcher, "find_seams", seen_t["seams"])]
-    origs = [_recording(o, nm, seen) for o, nm, seen in patches]
-    # What the stitch hands the compose, and what the compose hands K5.
-    seen_t["compose"], seen_t["k5"] = [], []
-    fused = stitcher.fused_compose
-    k5 = compose_fused.pyramid_accumulate
-
-    def fused_rec(*args):
-        seen_t["compose"].append(args)
-        return fused(*args)
-
-    def k5_rec(warped, weight, off, accs, n_bands):
-        seen_t["k5"].append((warped.clone(), weight.clone(), off))
-        return k5(warped, weight, off, accs, n_bands)
-    patches += [(stitcher, "fused_compose", None),
-                (compose_fused, "pyramid_accumulate", None)]
-    origs += [fused, k5]
-    stitcher.fused_compose = fused_rec
-    compose_fused.pyramid_accumulate = k5_rec
-    try:
+    recs = [Recorder(jexposure, "feed_device"), Recorder(jseams, "find_seams"),
+            Recorder(stitcher, "feed_device", "find_seams", "fused_compose"),
+            Recorder(compose_fused, "pyramid_accumulate")]
+    with contextlib.ExitStack() as stack:
+        for rec in recs:
+            stack.enter_context(rec)
         ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **SMALL),
                       output="")
         got = stitch(str(d), StitchConfig(checkpoint_dir=str(run_t),
                                           **SMALL), output="", device="cpu")
-    finally:
-        for (o, nm, _), orig in zip(patches, origs):
-            setattr(o, nm, orig)
     assert StitchConfig(**SMALL).expos_comp_type.value == "gain_blocks"
     assert StitchConfig(**SMALL).seam_find_type == "dp_color"
+
+    def results(rec, name):
+        return [out for _, _, out in rec.calls[name]]
+    seen_j = {"comp": results(recs[0], "feed_device"),
+              "seams": results(recs[1], "find_seams")}
+    seen_t = {"comp": results(recs[2], "feed_device"),
+              "seams": results(recs[2], "find_seams"),
+              "compose": [args for args, _, _ in
+                          recs[2].calls["fused_compose"]],
+              "k5": [args[:3] for args, _, _ in
+                     recs[3].calls["pyramid_accumulate"]]}
     return ref, got, rs, seen_j, seen_t
 
 

@@ -5,6 +5,8 @@ torch cannot reproduce; these tests recompute the reference's draws with
 its own `_sample_valid_distinct` / `_sample_valid` from the same key and
 inject them into the port."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from _torch_port import n, t
+from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.ops import imgproc as jimg
 from image_stitching_tpu.ops import matching as jm
@@ -131,3 +134,66 @@ def test_match_all_pairs_tables(ring_features):
     np.testing.assert_allclose(got.confidence, ref.confidence, rtol=0,
                                atol=0.15)
     assert (got.confidence > 0.95).sum() == (ref.confidence > 0.95).sum()
+
+
+# The 4000 full-resolution ORB features of each image of the sigma-4
+# 8 x 2448x3264 e2e ring, as the port's default-configuration stitch on an
+# H100 handed them to matching, with that stitch's adjacent-pair n_matches
+# and n_inliers: `python3 -m tools.ring_features <this file> 4` on a GPU.
+RING_FEATURES = os.path.join(os.path.dirname(__file__), "data",
+                             "ring_sigma4_features.npz")
+
+
+@pytest.fixture(scope="module")
+def ring_full():
+    z = dict(np.load(RING_FEATURES))
+    zeros = np.zeros(z["valid"].shape, np.float32)
+    feats = JFeatures(xy=z["xy"], response=zeros, angle=zeros,
+                      octave=zeros.astype(np.int32), size=zeros,
+                      desc=z["desc"].view(np.uint32), valid=z["valid"])
+    return feats, z
+
+
+@pytest.mark.parametrize("a", range(7))
+def test_full_resolution_ring_pair(ring_full, a):
+    """Adjacent pair (a, a + 1) at the default K = 4000, where the
+    near-duplicate rule (conf > 3 -> 0) decides which images stay: the
+    reference's match_pair, with the key its stitch gives the pair, against
+    the port's match_pairs with the reference's draws injected.  The
+    ratio-test matches are equal, and n_matches also equals the port's CUDA
+    stitch's (K4 there, the plain 2-NN here); H within rtol 1e-4 as above;
+    the inlier masks differ only where a correspondence's squared error
+    under the reference's H lies within 1e-3 of (3 px)^2 relative, which
+    the float32 rounding of the IRLS refit decides; both zero the pair or
+    neither does."""
+    feats, z = ring_full
+    iu, ju = np.triu_indices(feats.xy.shape[0], 1)
+    p = int(np.flatnonzero((iu == a) & (ju == a + 1))[0])
+    key = jax.random.split(jax.random.PRNGKey(JConfig().seed), len(iu))[p]
+    fa, fb = (jax.tree.map(lambda x, i=i: x[i], feats) for i in (a, a + 1))
+    ref = jax.tree.map(np.asarray, jm.match_pair(
+        jax.tree.map(jnp.asarray, fa), jax.tree.map(jnp.asarray, fb), key))
+    hyp, sub = _draws(key, ref.valid)
+    got = matching.match_pairs(Features.stack([features_from_numpy(fa)]),
+                               Features.stack([features_from_numpy(fb)]),
+                               hyp_idx=hyp, score_idx=sub)
+    want = pair_matches_from_numpy(ref)
+    for name, g in zip(("a_idx", "b_idx", "valid"), got):
+        assert torch.equal(g[0], want[name].to(g.dtype)), name
+    n_matches = int(ref.valid.sum())
+    assert n_matches == int(z["n_matches"][a])
+    _assert_h_close(n(got[4][0]), ref.h)
+    src, dst = fa.xy[ref.a_idx], fb.xy[ref.b_idx]
+    q = np.c_[src, np.ones(len(src))] @ ref.h.astype(np.float64).T
+    err2 = np.sum((q[:, :2] / q[:, 2:] - dst) ** 2, axis=-1)
+    flipped = n(got[3][0]) != ref.inlier
+    assert np.all(np.abs(err2[flipped] / 9.0 - 1.0) <= 1e-3)
+    assert abs(int(got[5][0]) - int(ref.num_inliers)) <= int(flipped.sum())
+    assert (float(got[6][0]) == 0.0) == (float(ref.confidence) == 0.0)
+    print(f"pair {a}-{a + 1}: n_matches {n_matches}; n_inliers / (8 + 0.3 "
+          f"n_matches): reference {int(ref.num_inliers)}, "
+          f"{int(ref.num_inliers) / (8.0 + 0.3 * n_matches):.4f}; port, "
+          f"reference's draws {int(got[5][0])} ({int(flipped.sum())} "
+          f"flipped at the threshold); port's CUDA stitch, its own draws "
+          f"{int(z['n_inliers'][a])}, "
+          f"{int(z['n_inliers'][a]) / (8.0 + 0.3 * n_matches):.4f}")
