@@ -10,10 +10,11 @@ Phases, one line each; any failure raises and exits non-zero:
      work-scale path, sigma 8 (DEFAULT_RING) for the default path, where
      sigma 4 makes some adjacent pairs near-duplicates by the reference's
      confidence rule (see data/synth.py);
-  1. build: the four CUDA kernels compiled with nvcc for sm_90a, one nvcc
-     per source, all at once;
-  2. K1 (orb_sample) against its plain PyTorch version on the level-0
-     plane of the work-scale path (1224x1632) and its keypoint count;
+  1. build: the four CUDA kernel sources compiled with nvcc for sm_90a,
+     one nvcc per source, all at once;
+  2. K1 (orb_sample_levels) against its plain PyTorch version on every
+     level of one work-scale image (1224x1632 level 0, 1500 features), in
+     the one launch per image the detector makes, gated on every level;
   3. K2 (warp_bilinear) against its plain version on every compose rect
      of a warm-up stitch() of the work-scale path, and grid_sample timed
      beside it;
@@ -21,22 +22,29 @@ Phases, one line each; any failure raises and exits non-zero:
      no exposure compensation, the "no" seam finder; timed after the
      warm-up, held to 8/8 kept, <= 1 px mean pairwise reprojection error
      against the ground truth, mask coverage > 0.9, launches > 0;
-  5. K3: K1 on the full-resolution level-0 plane of the default path's
-     first capture (2448x3264, 32 MB, past the TPU kernel's 11 MB VMEM
-     budget) with phase 2's checks;
-  6. K4 (hamming_two_nn) on the descriptors of a warm-up stitch() with the
-     reference defaults (4000 ORB features at full resolution, GAIN_BLOCKS
-     exposure, DP colour seams; fast ingest off), all 28 pairs in the
-     chunks and both directions that matching runs;
+  5. K1 on every level of the default path's first capture (4000
+     features); K3 is its full-resolution level 0 (2448x3264, 32 MB, past
+     the TPU kernel's 11 MB VMEM budget), also launched alone;
+  6. K4 (hamming_two_nn_pairs) on the descriptors of a warm-up stitch()
+     with the reference defaults (4000 ORB features at full resolution,
+     GAIN_BLOCKS exposure, DP colour seams; fast ingest off): all 28 pairs
+     in both directions in the one call matching makes, its +-1 unpack
+     against pm1_rows, and a tie-heavy stack at K = 4000 (duplicated
+     descriptors, images with 1 and 0 valid descriptors);
   7. K5 (pyramid_accumulate) on every compose rect of that warm-up stitch,
      accumulators within 2e-3, finalized u8 panorama within 1; K2 against
      its plain version on the same rects' samples;
   8. end to end, the default path: timed after the warm-up, held to 8/8
      kept, <= 1 px reprojection, mask coverage > 0.9, finite positive
-     gains, seam-mask union equal to the warped-mask union, and launches of
-     all four kernels > 0.
-Then a JSON line of kernel results (time, plain time, bound, library call
-time, launches on the path the kernel was checked on), the nvidia-smi
+     gains, seam-mask union equal to the warped-mask union, launches of
+     all four kernels > 0, K1 <= 8 and K4 <= 2 launches.
+Each kernel row gives `device_ms`, the named kernels' device time per
+call under torch.profiler (L2 warm, the host wrapper left out; also `ms`),
+`call_ms`, CUDA events around back-to-back wrapper calls (what the caller
+pays), the plain version's time by the same events, the bound, and the
+library call's device time where one computes the same function.
+Then a JSON line of those kernel results with the launches on the path
+the kernel was checked on, the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
 device it exits non-zero and prints no result.  Imports nothing of JAX.
 """
@@ -60,11 +68,13 @@ from image_stitching_tpu_torch.data.synth import (DEFAULT_RING, E2E_RING,
 N_IMAGES = E2E_RING["n_images"]
 H, W = E2E_RING["hw"]
 
-# The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and the
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, the
 # float32 rate outside the tensor cores, the only CUDA-core rate listed
-# there, used for the kernels' 32-bit integer and float operations alike.
+# there, used for the kernels' 32-bit integer and float operations alike,
+# and the dense int8 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12
 TPU_VMEM_BUDGET = 11 * 2 ** 20     # orb_sample_pallas.py:60
 
 
@@ -113,7 +123,9 @@ def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float):
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() over `reps` launches (CUDA events)."""
+    """Mean time of one fn() call over `reps` calls back to back, CUDA
+    events around them: the host wrapper's enqueue is in it, so for a
+    short kernel this is what a caller pays (`call_ms`), not the kernel."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -126,40 +138,58 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_k1(dev, gray, n_features: int, phase: str, name: str,
-             replaces: str):
-    """K1 on a main-path level-0 plane (gray, its sigma-2 blur) and the
-    keypoints the detector gives it there."""
-    from image_stitching_tpu_torch.kernels.orb_sample import (
-        orb_sample, orb_sample_plain, N_SAMPLES)
-    from image_stitching_tpu_torch.ops.features.orb import (
-        detect_level, pattern_xy, per_level_counts, resolve_pattern)
-    from image_stitching_tpu_torch.ops.imgproc import gaussian_blur
-    k_l = per_level_counts(n_features, 8, 1.2)[0]
-    xy, _, valid = detect_level(gray, gray, k_l)
-    blur = gaussian_blur(gray, 2.0, 3)
-    pat = pattern_xy(resolve_pattern(None), dev)
-    s_k, a_k, m_k, d_k = orb_sample(gray, blur, xy, pat, 20)
-    s_p, a_p, m_p, d_p = orb_sample_plain(gray, blur, xy, pat, 20)
+def device_ms(fn, kernels, reps: int = 20):
+    """Device time of the named kernels per fn() call: the sum of their
+    spans under torch.profiler over `reps` calls, divided by `reps`.  The
+    host wrapper is not in it.  The inputs stay in L2 between calls, as
+    the stitch finds them.  Returns (ms, {kernel: ms}, launches per
+    call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {k: 0.0 for k in kernels}
+    count = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in kernels:
+            if k in e.name:
+                per[k] += (e.time_range.end - e.time_range.start) / 1e3
+                count += 1
+                break
+    assert count > 0, f"no device kernel named {kernels} in the profile"
+    per = {k: v / reps for k, v in per.items()}
+    return sum(per.values()), per, count / reps
+
+
+def _level_gates(dev, lv, xy, s_k, a_k, m_k, d_k, s_p, a_p, m_p, d_p, pat):
+    """K1's gates on one level's keypoints (level plane lv): moments
+    within 1e-5 of their magnitude, samples equal where the rounded
+    coordinates agree, <= 1e-4 of the descriptor bits flipped.  Returns
+    (moment error, samples unequal at agreeing coords, coords disagreeing,
+    flips, bits, disk pixel ids, sample pixel ids)."""
+    h, w = lv.shape
     # Moments: |dm| <= 1e-5 of the sum of |v * d| over the disk (the scale
     # of float32 summation error, where a relative error of the cancelled
     # sum itself is not).
     ys, xs = np.mgrid[-20:21, -20:21]
     disk = (xs * xs + ys * ys) <= 400
-    h, w = gray.shape
     cx = torch.round(xy[:, 0]).long().clamp(0, w - 1)
     cy = torch.round(xy[:, 1]).long().clamp(0, h - 1)
     dys = torch.as_tensor(ys[disk], device=dev)
     dxs = torch.as_tensor(xs[disk], device=dev)
     rows = (cy[:, None] + dys).clamp(0, h - 1)
     cols = (cx[:, None] + dxs).clamp(0, w - 1)
-    vals = gray[rows, cols]
+    vals = lv[rows, cols]
     mag = torch.stack([(vals * dxs.abs()).sum(1), (vals * dys.abs()).sum(1)],
                       -1)
     mom_rel = float(((m_k - m_p).abs() / mag.clamp(min=1.0)).max())
-    assert mom_rel <= 1e-5, f"K1 moments differ: {mom_rel:.3g} of magnitude"
-    # Samples must be equal wherever the rounded coordinates agree.
+
     def coords(ang):
         ca, sa = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
         gx = torch.round(xy[:, 0:1] + (ca * pat[0] - sa * pat[1]))
@@ -169,43 +199,101 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
     gxp, gyp = coords(a_p)
     agree = (gxk == gxp) & (gyk == gyp)
     bad = int(((s_k != s_p) & agree).sum())
-    assert bad == 0, f"K1 samples differ at {bad} agreeing coordinates"
     bits_k = ((d_k[..., None] >> torch.arange(32, device=dev)) & 1)
     bits_p = ((d_p[..., None] >> torch.arange(32, device=dev)) & 1)
     flips = int((bits_k != bits_p).sum())
-    n_bits = bits_k.numel()
-    assert flips <= 1e-4 * n_bits, f"K1 descriptor bits flipped: {flips}"
-    ms = time_ms(lambda: orb_sample(gray, blur, xy, pat, 20))
-    plain_ms = time_ms(lambda: orb_sample_plain(gray, blur, xy, pat, 20))
-    max_err = float((s_k - s_p).abs().max())
-    # Bytes: the pixels this run's keypoints need, each read once (the
-    # union of their disks in the raw plane and of their rounded sample
-    # coordinates in the blurred plane), keypoints and pattern in; samples,
-    # moments and descriptors out.  Operations: per keypoint the disk's two
-    # moment sums, the 512 rotations and rounds, 256 compares.
-    plane = gray.numel() * 4
-    disk_px = int(torch.unique(rows * w + cols).numel())
-    sample_px = int(torch.unique(gyk * w + gxk).numel())
-    n_bytes = 4 * (disk_px + sample_px) + xy.numel() * 4 + \
-        pat.numel() * 4 + k_l * (N_SAMPLES * 4 + 8 + 32)
-    n_ops = k_l * (int(disk.sum()) * 4 + N_SAMPLES * 8 + 256)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    print(f"phase {phase} K1 orb_sample: plane {tuple(gray.shape)} "
-          f"({plane} bytes, {plane / TPU_VMEM_BUDGET:.2f}x the TPU kernel's "
-          f"{TPU_VMEM_BUDGET}-byte VMEM budget) K={k_l} (valid "
-          f"{int(valid.sum())}), moments max |dm|/magnitude {mom_rel:.3g} "
-          f"(tol 1e-5), samples {N_SAMPLES} per keypoint unequal at agreeing "
-          f"coords {bad}, coords disagreeing {int((~agree).sum())}, bit "
-          f"flips {flips}/{n_bits} (tol 1e-4), kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{disk_px} disk and {sample_px} sample pixels read, "
-          f"{n_bytes} bytes in all)",
-          flush=True)
-    return dict(name=name, route="cuda",
-                source="image_stitching_tpu_torch/csrc/orb_sample.cu",
-                replaces=replaces, max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+    return (mom_rel, bad, int((~agree).sum()), flips, bits_k.numel(),
+            torch.unique(rows * w + cols), torch.unique(gyk * w + gxk))
+
+
+def check_k1(dev, gray, n_features: int, phase: str, name: str,
+             replaces: str):
+    """K1 on every level of one main-path image: the level planes and
+    keypoints `detect_levels` gives the describe step, in the one
+    `orb_sample_levels` launch the detector makes.  Returns the row of
+    that launch and, for K3, the row of a launch of level 0 alone."""
+    from image_stitching_tpu_torch.kernels.orb_sample import (
+        orb_sample_levels, orb_sample_levels_plain, N_SAMPLES)
+    from image_stitching_tpu_torch.ops.features.orb import (
+        detect_levels, pattern_xy, resolve_pattern)
+    levels = detect_levels(gray, n_features)
+    pat = pattern_xy(resolve_pattern(None), dev)
+    raws = [lv[1] for lv in levels]
+    blurs = [lv[2] for lv in levels]
+    ks = [lv[3].shape[0] for lv in levels]
+    xy = torch.cat([lv[3] for lv in levels])
+    lvl = torch.cat([torch.full((k,), i, dtype=torch.int32, device=dev)
+                     for i, k in enumerate(ks)])
+    out_k = orb_sample_levels(raws, blurs, xy, lvl, pat, 20,
+                              with_samples=True)
+    out_p = orb_sample_levels_plain(raws, blurs, xy, lvl, pat, 20,
+                                    with_samples=True)
+    torch.cuda.synchronize()
+    per_level, px = [], []
+    for i, (raw, k_l) in enumerate(zip(raws, ks)):
+        sel = lvl == i
+        g = _level_gates(dev, raw, xy[sel], *(x[sel] for x in out_k),
+                         *(x[sel] for x in out_p), pat)
+        mom_rel, bad, disagree, flips, n_bits = g[:5]
+        assert mom_rel <= 1e-5, \
+            f"K1 level {i} moments differ: {mom_rel:.3g} of magnitude"
+        assert bad == 0, f"K1 level {i}: samples differ at {bad} coords"
+        assert flips <= 1e-4 * n_bits, f"K1 level {i}: {flips} bits flipped"
+        per_level.append(g[:5])
+        px.append((int(g[5].numel()), int(g[6].numel())))
+    max_err = float((out_k[0] - out_p[0]).abs().max())
+
+    def row(sel_levels, label):
+        """Times and bound of one launch over `sel_levels`."""
+        sel = torch.isin(lvl, torch.as_tensor(sel_levels, dtype=torch.int32,
+                                              device=dev))
+        args = ([raws[i] for i in sel_levels], [blurs[i] for i in sel_levels],
+                xy[sel].contiguous(),
+                (lvl[sel] - sel_levels[0]).contiguous(), pat, 20)
+        dev_ms, _, n_launch = device_ms(lambda: orb_sample_levels(*args),
+                                        ("orb_sample_levels_kernel",))
+        call_ms = time_ms(lambda: orb_sample_levels(*args))
+        plain_ms = time_ms(lambda: orb_sample_levels_plain(*args))
+        # Bytes: the pixels this launch's keypoints need, each read once
+        # (per level the union of their disks in the raw plane and of
+        # their rounded sample coordinates in the blurred plane), keypoints,
+        # levels and pattern in; angle, moments and descriptors out (the
+        # main path asks for no samples).  Operations: per keypoint the
+        # disk's two moment sums, the 512 rotations and rounds, 256
+        # compares.
+        k_n = int(sel.sum())
+        n_px = sum(sum(px[i]) for i in sel_levels)
+        n_bytes = 4 * n_px + k_n * (8 + 4) + pat.numel() * 4 + \
+            k_n * (4 + 8 + 32)
+        ys, xs = np.mgrid[-20:21, -20:21]
+        disk_px = int(((xs * xs + ys * ys) <= 400).sum())
+        n_ops = k_n * (disk_px * 4 + N_SAMPLES * 8 + 256)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f"phase {phase} {label}: levels {sel_levels}, K={k_n}, "
+              f"{n_launch:.0f} launch per call; device {dev_ms:.4f} ms, call "
+              f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_px} pixels read, {n_bytes} "
+              f"bytes in all)", flush=True)
+        return dict(route="cuda",
+                    source="image_stitching_tpu_torch/csrc/orb_sample.cu",
+                    replaces=replaces, max_abs_err=max_err, ms=dev_ms,
+                    device_ms=dev_ms, call_ms=call_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    plane = raws[0].numel() * 4
+    print(f"phase {phase} K1 orb_sample_levels: image {tuple(gray.shape)} "
+          f"(level 0 {plane} bytes, {plane / TPU_VMEM_BUDGET:.2f}x the TPU "
+          f"kernel's {TPU_VMEM_BUDGET}-byte VMEM budget), {len(levels)} "
+          f"levels, K per level {ks} (valid "
+          f"{[int(lv[5].sum()) for lv in levels]}); per level moments max "
+          f"|dm|/magnitude {[f'{g[0]:.3g}' for g in per_level]} (tol 1e-5), "
+          f"samples unequal at agreeing coords {[g[1] for g in per_level]}, "
+          f"coords disagreeing {[g[2] for g in per_level]}, bit flips "
+          f"{[f'{g[3]}/{g[4]}' for g in per_level]} (tol 1e-4)", flush=True)
+    full = row(list(range(len(levels))), "K1 one launch, every level")
+    full["name"] = name
+    level0 = row([0], "K1 level 0 alone")
+    return full, level0
 
 
 def k2_max_diff(calls) -> float:
@@ -256,7 +344,9 @@ def check_k2(dev, paths, cfg, res):
     def run(fn):
         for src, sx, sy in calls:
             fn(src, sx, sy)
-    ms = time_ms(lambda: run(warp_bilinear)) / len(calls)
+    dev_ms = device_ms(lambda: run(warp_bilinear),
+                       ("warp_bilinear_kernel",))[0] / len(calls)
+    call_ms = time_ms(lambda: run(warp_bilinear)) / len(calls)
     plain_ms = time_ms(lambda: run(warp_bilinear_plain)) / len(calls)
     # Yardstick, never called by the port: one grid_sample per rect on the
     # same samples (planar source, normalised grid, made beforehand).  Its
@@ -267,9 +357,13 @@ def check_k2(dev, paths, cfg, res):
         grid = torch.stack([sx / (wc - 1) * 2 - 1, sy / (hc - 1) * 2 - 1],
                            -1)[None]
         lib_in.append((src.permute(2, 0, 1)[None].contiguous(), grid))
-    library_ms = time_ms(lambda: [torch.nn.functional.grid_sample(
-        x, grd, mode="bilinear", padding_mode="reflection",
-        align_corners=True) for x, grd in lib_in]) / len(calls)
+    def lib_run():
+        for x, grd in lib_in:
+            torch.nn.functional.grid_sample(x, grd, mode="bilinear",
+                                            padding_mode="reflection",
+                                            align_corners=True)
+    library_ms = device_ms(lib_run, ("grid_sampler",))[0] / len(calls)
+    lib_call_ms = time_ms(lib_run) / len(calls)
     n_bytes = sum(src.numel() * 4 + sx.numel() * 4 * (2 + 3)
                   for src, sx, _ in calls) / len(calls)
     n_ops = sum(sx.numel() * (3 * 8 + 20) for _, sx, _ in calls) / len(calls)
@@ -278,71 +372,115 @@ def check_k2(dev, paths, cfg, res):
           f"main path, canvas {g.canvas} ({g.canvas_h}x{g.canvas_w} padded, "
           f"{g.n_bands} bands), source {tuple(calls[0][0].shape)} -> rects "
           f"{sorted((3,) + k for k in g.buckets)}, max |diff| {err:.3g} "
-          f"(atol 1e-4), per call: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"(atol 1e-4), per rect: kernel device {dev_ms:.4f} ms, call "
+          f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample device "
+          f"{library_ms:.4f} ms (call {lib_call_ms:.4f} ms), bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / dev_ms:.1%} of it "
+          f"reached)", flush=True)
     return dict(name="warp_bilinear", route="cuda",
                 source="image_stitching_tpu_torch/csrc/warp_gather.cu",
                 replaces=("image_stitching_tpu/kernels/"
                           "warp_gather_pallas.py:89"),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=err, ms=dev_ms, device_ms=dev_ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def _k4_equal(got, want, what: str) -> None:
+    """i1, d1, d2 equal; i2 equal wherever d2 < 2^30 (both directions)."""
+    big = float(2 ** 30)
+    for side, g, w in zip(("forward", "reverse"), got, want):
+        for m in (0, 1, 3):
+            assert torch.equal(g[m], w[m]), \
+                f"K4 {what} {side} output {m} differs from its plain version"
+        real = w[3] < big
+        assert torch.equal(g[2][real], w[2][real]), f"K4 {what} {side} i2"
+
+
+def _tie_stack(dev, k: int = 4000, seed: int = 0):
+    """Four images of K descriptors: image 1 repeats rows of image 0 (each
+    twice, so both nearest columns tie at distance 0) and image 0 holds
+    duplicates (ties in reverse); image 2 has one valid descriptor, image
+    3 none."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2 ** 32, (4, k, 8), dtype=np.uint64).astype(np.uint32)
+    d[0, k // 2:] = d[0, :k - k // 2]
+    src = rng.integers(0, k // 2, k)
+    d[1] = d[0, src]
+    valid = rng.random((4, k)) > 0.1
+    valid[2] = False
+    valid[2, k // 3] = True
+    valid[3] = False
+    iu, ju = np.triu_indices(4, 1)
+    return (torch.as_tensor(d.view(np.int32), device=dev),
+            torch.as_tensor(valid, device=dev),
+            torch.as_tensor(iu, dtype=torch.int32, device=dev),
+            torch.as_tensor(ju, dtype=torch.int32, device=dev))
 
 
 def check_k4(dev, feats):
     """K4 on the descriptors the default path's orb_detect_stack gave
-    matching: every pair i < j in match_all_pairs' chunks, (a, b) then
-    (b, a), as match_pairs calls it."""
+    matching: all 28 pairs i < j, both directions, in the one call
+    match_all_pairs makes; then a tie-heavy stack at the same K."""
     from image_stitching_tpu_torch.kernels.hamming import (
-        hamming_two_nn, hamming_two_nn_plain)
-    from image_stitching_tpu_torch.ops.matching import _pair_chunk
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain, pm1_rows,
+        unpack_pm1)
     n, k = feats.xy.shape[0], feats.xy.shape[1]
     iu, ju = np.triu_indices(n, 1)
-    chunk = _pair_chunk(k)
-    calls = []
-    for s in range(0, len(iu), chunk):
-        fa = feats[torch.as_tensor(iu[s:s + chunk], device=dev)]
-        fb = feats[torch.as_tensor(ju[s:s + chunk], device=dev)]
-        calls += [(fa.desc, fb.desc, fb.valid, fa.valid),
-                  (fb.desc, fa.desc, fa.valid, fb.valid)]
-    big = float(2 ** 30)
-    n_rows = 0
-    for desc_a, desc_b, valid_b, _ in calls:
-        got = hamming_two_nn(desc_a, desc_b, valid_b)
-        want = hamming_two_nn_plain(desc_a, desc_b, valid_b)
-        torch.cuda.synchronize()
-        for m in (0, 1, 3):
-            assert torch.equal(got[m], want[m]), \
-                f"K4 output {m} differs from its plain version"
-        real = want[3] < big
-        assert torch.equal(got[2][real], want[2][real]), "K4 i2 differs"
-        n_rows += desc_a.shape[0] * desc_a.shape[1]
+    args = (feats.desc.contiguous(), feats.valid.contiguous(),
+            torch.as_tensor(iu, dtype=torch.int32, device=dev),
+            torch.as_tensor(ju, dtype=torch.int32, device=dev))
+    pm1_eq = torch.equal(unpack_pm1(args[0]), pm1_rows(args[0]))
+    assert pm1_eq, "K4's +-1 unpack differs from pm1_rows"
+    _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
+              "main path")
+    ties = _tie_stack(dev, k)
+    got_t = hamming_two_nn_pairs(*ties)
+    want_t = hamming_two_nn_pairs_plain(*ties)
+    _k4_equal(got_t, want_t, "tie case")
+    n_tied = int((want_t[0][1] == want_t[0][3]).sum())
+    torch.cuda.synchronize()
 
-    def run(fn):
-        for desc_a, desc_b, valid_b, _ in calls:
-            fn(desc_a, desc_b, valid_b)
-    ms = time_ms(lambda: run(hamming_two_nn)) / len(calls)
-    plain_ms = time_ms(lambda: run(hamming_two_nn_plain), reps=5) / len(calls)
-    # Operations: per valid (row, column) pair 8 XOR, 8 POPC, 7 adds and
-    # one compare; bytes: both descriptor sets and the validity in, four
-    # (P, Ka) outputs of 8 + 4 + 8 + 4 bytes a row out.
-    n_ops = sum(24.0 * float((va.sum(-1) * vb.sum(-1)).sum())
-                for _, _, vb, va in calls) / len(calls)
-    n_bytes = sum(a.numel() * 4 + b.numel() * 4 + vb.numel() +
-                  a.shape[0] * a.shape[1] * 24
-                  for a, b, vb, _ in calls) / len(calls)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    print(f"phase 6 K4 hamming_two_nn: {len(iu)} pairs of K={k} in "
-          f"{len(calls)} launches of P={chunk} (both directions), rows "
-          f"{n_rows}, valid per image {feats.valid.sum(-1).tolist()}, i1/d1/"
-          f"d2 equal and i2 equal where d2 < 2^30: yes, per launch: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
-    return dict(name="hamming_two_nn", route="cuda",
+    names = ("hamming_unpack_kernel", "hamming_pairs_kernel")
+    dev_ms, per, n_launch = device_ms(lambda: hamming_two_nn_pairs(*args),
+                                      names)
+    call_ms = time_ms(lambda: hamming_two_nn_pairs(*args))
+    plain_ms = time_ms(lambda: hamming_two_nn_pairs_plain(*args), reps=3)
+    # Distances this run's data needs: valid rows against valid columns,
+    # per pair and direction.  CUDA cores: 8 XOR, 8 POPC, 7 adds and one
+    # compare each at the float32 peak; tensor cores: a 256-deep int8 dot
+    # product, 512 operations, at the int8 dense peak.  Bytes: the packed
+    # descriptors and validity in, four (2, P, K) outputs of 8 + 4 + 8 + 4
+    # bytes a row out.
+    nv = feats.valid.sum(-1).double()
+    n_dist = float(2 * (nv[args[2].long()] * nv[args[3].long()]).sum())
+    n_bytes = args[0].numel() * 4 + args[1].numel() + 2 * len(iu) * k * 24
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    cuda_core_ms = max(t_bytes, 24 * n_dist / CUDA_CORE_OPS_PER_S * 1e3)
+    tensor_ms = max(t_bytes, 512 * n_dist / INT8_TENSOR_OPS_PER_S * 1e3)
+    bound_ms = min(cuda_core_ms, tensor_ms)
+    route = "tensor cores, int8" if tensor_ms <= cuda_core_ms else \
+        "CUDA cores"
+    print(f"phase 6 K4 hamming_two_nn_pairs: {len(iu)} pairs of K={k}, both "
+          f"directions, in {n_launch:.0f} launches per call (unpack + "
+          f"pairs), valid per image {feats.valid.sum(-1).tolist()}, +-1 "
+          f"unpack equal to pm1_rows: yes, i1/d1/d2 equal and i2 equal where "
+          f"d2 < 2^30: yes; tie case (4 images, duplicated descriptors, 1 "
+          f"and 0 valid columns, {n_tied} forward rows with d1 == d2): "
+          f"equal; per call: device {dev_ms:.4f} ms (unpack "
+          f"{per[names[0]]:.4f}, pairs {per[names[1]]:.4f}), call "
+          f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms; bound over "
+          f"{n_dist:.0f} valid distances: CUDA cores {cuda_core_ms:.4f} ms, "
+          f"tensor cores {tensor_ms:.4f} ms -> {bound_ms:.4f} ms ({route})",
+          flush=True)
+    return dict(name="hamming_two_nn_pairs", route="cuda",
                 source="image_stitching_tpu_torch/csrc/hamming.cu",
                 replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                max_abs_err=0.0, ms=dev_ms, device_ms=dev_ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if bound_ms > t_bytes else "bytes",
+                bound_route=route, bound_cuda_core_ms=cuda_core_ms,
+                bound_tensor_core_ms=tensor_ms, library_ms=None)
 
 
 def check_k5(dev, compose_call):
@@ -381,7 +519,10 @@ def check_k5(dev, compose_call):
     def run(fn):
         for warped, weight, off in rects:
             fn(warped, weight, off, scratch, nb)
-    ms = time_ms(lambda: run(pyramid_accumulate)) / len(rects)
+    dev_ms = device_ms(lambda: run(pyramid_accumulate),
+                       ("pyr_down_kernel", "band_accumulate_kernel"))[0] / \
+        len(rects)
+    call_ms = time_ms(lambda: run(pyramid_accumulate)) / len(rects)
     plain_ms = time_ms(lambda: run(pyramid_accumulate_plain)) / len(rects)
     # Bytes: the rect (3 planes + weight) in, every band's 4-channel
     # accumulator window read and written.  Operations: 5x5 taps of the
@@ -401,15 +542,17 @@ def check_k5(dev, compose_call):
           f"padded, {nb} bands), rects {sorted((3,) + k for k in g.buckets)}"
           f", gains {type(args[9]).__name__ if args[9] else None}, "
           f"accumulators max |diff| {err:.3g} (tol 2e-3), finalized u8 max "
-          f"|diff| {u8} (tol 1), per rect: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); K2 on "
+          f"|diff| {u8} (tol 1), per rect: kernel device {dev_ms:.4f} ms, "
+          f"call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); K2 on "
           f"the same {len(k2_calls)} rects' samples, source "
           f"{tuple(k2_calls[0][0].shape)}: max |diff| {k2_err:.3g} "
           f"(atol 1e-4)", flush=True)
     return dict(name="pyramid_accumulate", route="cuda",
                 source="image_stitching_tpu_torch/csrc/multiband.cu",
                 replaces="image_stitching_tpu/kernels/multiband_pallas.py:177",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=err, ms=dev_ms, device_ms=dev_ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
@@ -478,9 +621,9 @@ def main() -> int:
     from image_stitching_tpu_torch.config import StitchConfig
     from image_stitching_tpu_torch.core import image_io
     from image_stitching_tpu_torch.kernels import _build
-    from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn
+    from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn_pairs
     from image_stitching_tpu_torch.kernels.multiband import pyramid_accumulate
-    from image_stitching_tpu_torch.kernels.orb_sample import orb_sample
+    from image_stitching_tpu_torch.kernels.orb_sample import orb_sample_levels
     from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
     from image_stitching_tpu_torch.ops.imgproc import resize, rgb_to_gray
     from image_stitching_tpu_torch.pipeline import stitcher
@@ -492,7 +635,8 @@ def main() -> int:
           f", device {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}, nvidia-smi '{smi}', host codec "
           f"{image_io.codec_name()}", flush=True)
-    counters = (orb_sample, warp_bilinear, hamming_two_nn, pyramid_accumulate)
+    counters = (orb_sample_levels, warp_bilinear, hamming_two_nn_pairs,
+                pyramid_accumulate)
     names = [fn.__name__ for fn in counters]
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -512,9 +656,10 @@ def main() -> int:
         paths = image_io.list_images(caps)
         img0 = torch.from_numpy(image_io.orient_capture(
             image_io.imread(paths[0]), False)).to(dev)
-        k1 = check_k1(dev, rgb_to_gray(resize(img0, (H // 2, W // 2))), 1500,
-                      "2", "orb_sample",
-                      "image_stitching_tpu/kernels/orb_sample_pallas.py:145")
+        k1, _ = check_k1(
+            dev, rgb_to_gray(resize(img0, (H // 2, W // 2))), 1500, "2",
+            "orb_sample_levels",
+            "image_stitching_tpu/kernels/orb_sample_pallas.py:145")
 
         # The work-scale path: half-resolution ORB, no exposure, no seams.
         cfg = StitchConfig(num_features=1500, work_megapix=1.9,
@@ -532,16 +677,20 @@ def main() -> int:
               f"{launches}, wall {wall:.4f} s "
               f"({N_IMAGES * H * W / 1e6 / wall:.3f} MP/s), stages: "
               f"{stages}; card '{smi}'", flush=True)
-        k1["launches"] = launches["orb_sample"]
+        k1["launches"] = launches["orb_sample_levels"]
         k2["launches"] = launches["warp_bilinear"]
         del warm, res
 
-        # K3: K1 on the default path's full-resolution level-0 plane.
+        # K3: K1 on every level of the default path's first capture; its
+        # row is the full-resolution level 0 launched alone.
         img0 = torch.from_numpy(image_io.orient_capture(image_io.imread(
             image_io.list_images(caps_default)[0]), False)).to(dev)
-        k3 = check_k1(dev, rgb_to_gray(img0.to(torch.float32)), 4000, "5",
-                      f"orb_sample [K3: level 0 at {H}x{W}]",
-                      "image_stitching_tpu/kernels/orb_stream_pallas.py:143")
+        k1_default, k3 = check_k1(
+            dev, rgb_to_gray(img0.to(torch.float32)), 4000, "5",
+            "orb_sample_levels",
+            "image_stitching_tpu/kernels/orb_stream_pallas.py:143")
+        k3["name"] = f"orb_sample_levels [K3: level 0 at {H}x{W}]"
+        k3["default_launch_device_ms"] = k1_default["device_ms"]
 
         # The default path: the reference defaults but fast ingest.
         cfg = StitchConfig(fast_ingest=False, checkpoint_dir=work)
@@ -579,9 +728,17 @@ def main() -> int:
               f"{launches}, wall {wall:.4f} s "
               f"({N_IMAGES * H * W / 1e6 / wall:.3f} MP/s), stages: "
               f"{stages}; card '{smi}'", flush=True)
-        k3["launches"] = launches["orb_sample"]
-        k4["launches"] = launches["hamming_two_nn"]
+        assert launches["orb_sample_levels"] <= N_IMAGES, launches
+        assert launches["hamming_two_nn_pairs"] <= 2, launches
+        k3["launches"] = launches["orb_sample_levels"]
+        k4["launches"] = launches["hamming_two_nn_pairs"]
         k5["launches"] = launches["pyramid_accumulate"]
+        print(f"phase 8 per default stitch, by the counters and phases 5 and "
+              f"6: K1 {k3['launches']} launches x "
+              f"{k1_default['device_ms']:.4f} ms = "
+              f"{k3['launches'] * k1_default['device_ms']:.4f} ms device, K4 "
+              f"{k4['launches']} x {k4['device_ms']:.4f} ms = "
+              f"{k4['launches'] * k4['device_ms']:.4f} ms device", flush=True)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(smi)

@@ -1,107 +1,299 @@
-// Hamming 2-NN over 256-bit binary descriptors, batched over image pairs.
+// Hamming 2-NN over 256-bit binary descriptors: every pair of an image
+// stack, both directions, in one launch, with the distances on the tensor
+// cores.
 //
 // Replaces the TPU kernel image_stitching_tpu/kernels/hamming_pallas.py
-// (hamming_two_nn_pallas and hamming_two_nn_pallas_batched).  For every
-// row of A it returns the nearest and second-nearest valid column of B:
-// (i1, d1, i2, d2), with d = popcount(a ^ b) over the 8 words, invalid
-// columns at exactly 2^30, ties to the lower column.  The (Ka, Kb)
-// distance matrix is never written to device memory.
+// (hamming_two_nn_pallas and hamming_two_nn_pallas_batched).  For pair p
+// the forward direction takes the rows of image ii[p] against the columns
+// of image jj[p], the reverse one the rows of jj[p] against the columns of
+// ii[p].  For every row it returns the nearest and second-nearest valid
+// column: (i1, d1, i2, d2), d the Hamming distance, invalid columns at
+// exactly 2^30, ties to the lower column.  No distance matrix is written to
+// device memory.
 //
-// What bounds it on the H100: operations.  The bytes are small (K = 4000
-// descriptors of 32 B per side, 128 KB); the work is Ka * Kb distances of
-// 8 XOR + 8 POPC + 8 adds each, plus the running compare.  The TPU kernel
-// turned the distance into a bit-plane matrix product for the MXU; here
-// the integer units do it directly:
-//   * one block per (pair, 64 rows of A); each thread keeps its A row's
-//     8 words in registers and a running (d1, i1, d2, i2);
-//   * B's descriptors and validity go through shared memory in tiles of
-//     512 (16 KB), loaded by the whole block; every thread of a warp then
-//     reads the same B descriptor (a broadcast, no bank conflicts);
-//   * columns are walked in ascending order and a column replaces a
-//     running value only when strictly smaller, which is argmin's
-//     lower-index rule.
-// The running values start at (2^30, column 0), so an invalid column never
-// replaces them and a row with fewer than two valid columns reports what
-// the plain version (two argmins over the masked matrix) reports.
+// What bounds it on the H100: operations.  The descriptors are small (4000
+// of 32 B per image); the work is K * K distances per (pair, direction).
+// On the CUDA cores a distance costs 8 XOR + 8 POPC + adds, and POPC runs
+// at 16 a clock per SM.  On the tensor cores it is one int8 dot product:
+// with each bit unpacked to +1 (bit 0) or -1 (bit 1),
+//     hamming = (256 - dot) / 2,
+// exact, since dot = (#equal bits) - (#differing bits).  At the main
+// path's shape (8 images of K = 4000, 28 pairs x 2 directions, 896M
+// distances) that is 512 operations a distance at the int8 dense peak,
+// 0.23 ms, against 0.32 ms for 24 operations at the CUDA-core peak
+// (chip_smoke.py phase 6 prints both).  So:
+//   * hamming_unpack_kernel writes each descriptor once as 256 int8 of +-1
+//     (bit b of word w at byte 32 w + b);
+//   * hamming_pairs_kernel: one block per (256 rows of A, pair, direction),
+//     8 warps of 32 rows, two blocks an SM.  A warp holds its rows'
+//     fragments in registers for the whole run; the block streams B
+//     through shared memory in tiles of 64 columns with cp.async,
+//     double-buffered, and every warp takes the dots of its rows with the
+//     tile's eight 8-column subtiles by mma.sync m16n8k32 (s8 x s8 -> s32),
+//     8 k-steps each.  Each B fragment read from shared memory feeds both
+//     16-row m-tiles of the warp, which halves the shared-memory reads
+//     of one m-tile a warp (PERF.md has both times); what remains over the
+//     bound is mma.sync's rate, which wgmma would raise;
+//   * the dot product is a sum over k, so A and B may be read in any k
+//     order as long as both use the same one.  Lane t of a quad reads the
+//     16-byte chunks t, t + 4, t + 8, t + 12 of a row (four 128-bit shared
+//     loads) and takes word 2 s + h of those 16 as its fragment register
+//     for k-step s, half h.  Rows are padded to 320 bytes, so the eight
+//     lanes of each quarter-warp load hit distinct banks;
+//   * epilogue: each distance becomes one 32-bit key (d << 16 | column),
+//     or 0xFFFFFFFF for an invalid column, so the (d, column) order is the
+//     order of the keys and a running top-2 per row is three min/max
+//     operations.  The four lanes that share a row merge their top-2 by
+//     two shuffles at the end.  A block walks all of B's columns, so
+//     nothing merges across blocks.
+// The running top-2 starts at the key 0xFFFFFFFF, read back as (column 0,
+// 2^30): an invalid column never replaces it, and a row with fewer than
+// two valid columns reports what the plain version (two argmins over the
+// masked matrix) reports.  Keys need K <= 65536.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;     // A rows per block, one per thread
-constexpr int kTileB = 512;   // B descriptors per shared-memory tile
+constexpr int kWarps = 8;
+constexpr int kMTiles = 2;                     // 16-row m-tiles a warp
+constexpr int kRowsPerWarp = 16 * kMTiles;
+constexpr int kRows = kWarps * kRowsPerWarp;   // A rows per block
+constexpr int kMinBlocks = 2;                  // blocks an SM keeps
+constexpr int kTileB = 64;                     // B columns per stage
+constexpr int kRowBytes = 256;                 // one unpacked descriptor
+constexpr int kPitch = kRowBytes + 64;         // padded shared row
+constexpr int kChunks = kRowBytes / 16;        // 16-byte chunks per row
+constexpr unsigned kNone = 0xFFFFFFFFu;
 constexpr int kInvalid = 1 << 30;
 
-__global__ void hamming_two_nn_kernel(const uint4* __restrict__ a,
-                                      const uint4* __restrict__ b,
-                                      const unsigned char* __restrict__ valid,
-                                      int ka, int kb,
-                                      long long* __restrict__ i1,
-                                      float* __restrict__ d1,
-                                      long long* __restrict__ i2,
-                                      float* __restrict__ d2) {
-  __shared__ uint4 sb[2 * kTileB];
-  __shared__ unsigned char sv[kTileB];
-  const int p = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool live = row < ka;
-  uint4 a0 = make_uint4(0, 0, 0, 0), a1 = make_uint4(0, 0, 0, 0);
-  if (live) {
-    const uint4* ap = a + 2 * ((size_t)p * ka + row);
-    a0 = ap[0];
-    a1 = ap[1];
+__global__ void hamming_unpack_kernel(const uint32_t* __restrict__ words,
+                                      uint32_t* __restrict__ out,
+                                      long long n_out) {
+  // One output word (4 bytes of +-1) per thread: bits 4 j .. 4 j + 3 of
+  // the descriptor, LSB first.
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const long long row = i >> 6;
+  const int j = (int)(i & 63);
+  const uint32_t nib = (words[row * 8 + (j >> 3)] >> ((j & 7) * 4)) & 0xFu;
+  uint32_t v = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    v |= ((nib >> b) & 1u ? 0xFFu : 0x01u) << (8 * b);
   }
-  const uint4* bp = b + 2 * (size_t)p * kb;
-  const unsigned char* vp = valid + (size_t)p * kb;
-  int best1 = kInvalid, best2 = kInvalid, idx1 = 0, idx2 = 0;
-  for (int base = 0; base < kb; base += kTileB) {
-    const int n = min(kTileB, kb - base);
-    __syncthreads();
-    for (int t = threadIdx.x; t < 2 * n; t += kRows) {
-      sb[t] = bp[2 * (size_t)base + t];
+  out[i] = v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Insert a key into a running top-2 (b1 < b2 unless both are kNone).
+__device__ __forceinline__ void top2(unsigned& b1, unsigned& b2, unsigned k) {
+  b2 = min(b2, max(b1, k));
+  b1 = min(b1, k);
+}
+
+struct Shared {
+  unsigned char b[2][kTileB * kPitch];
+  unsigned key[2][kTileB];
+};
+
+__device__ __forceinline__ void load_tile(Shared& sh, int buf,
+                                          const unsigned char* bimg,
+                                          const bool* vimg, int base, int k) {
+  for (int c = threadIdx.x; c < kTileB * kChunks; c += kWarps * 32) {
+    const int r = c / kChunks;   // constant divisor: a shift
+    const int q = c % kChunks;
+    unsigned char* dst = &sh.b[buf][r * kPitch + q * 16];
+    if (base + r < k) {
+      cp_async16(dst, bimg + (size_t)(base + r) * kRowBytes + q * 16);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
     }
-    for (int t = threadIdx.x; t < n; t += kRows) sv[t] = vp[base + t];
+  }
+  if (threadIdx.x < kTileB) {
+    const int col = base + threadIdx.x;
+    sh.key[buf][threadIdx.x] =
+        (col < k && vimg[col]) ? (unsigned)col : kNone;
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+hamming_pairs_kernel(const unsigned char* __restrict__ pm1,
+                     const bool* __restrict__ valid,
+                     const int* __restrict__ ii, const int* __restrict__ jj,
+                     int n_pairs, int k, long long* __restrict__ i1,
+                     float* __restrict__ d1, long long* __restrict__ i2,
+                     float* __restrict__ d2) {
+  __shared__ __align__(16) Shared sh;
+  const int p = blockIdx.y;
+  const int dir = blockIdx.z;
+  const int img_a = dir ? jj[p] : ii[p];
+  const int img_b = dir ? ii[p] : jj[p];
+  const unsigned char* aimg = pm1 + (size_t)img_a * k * kRowBytes;
+  const unsigned char* bimg = pm1 + (size_t)img_b * k * kRowBytes;
+  const bool* vimg = valid + (size_t)img_b * k;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;   // fragment row (A) / column (B) in the tile
+  const int t = lane & 3;    // quad lane: which 16-byte chunks it reads
+  const int row0 = blockIdx.x * kRows + warp * kRowsPerWarp + g;
+
+  const int n_tiles = (k + kTileB - 1) / kTileB;
+  load_tile(sh, 0, bimg, vimg, 0, k);
+  cp_async_commit();
+
+  // A fragments for all 8 k-steps of the warp's m-tiles: fragment row
+  // f = 2 m + half is row row0 + 8 f; chunks t + 4 q of it, word 2 s + h
+  // of those 16 for k-step s, half h.
+  uint32_t wa[2 * kMTiles][16];
+#pragma unroll
+  for (int f = 0; f < 2 * kMTiles; ++f) {
+    const int r = row0 + 8 * f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (r < k) {
+        v = *reinterpret_cast<const uint4*>(aimg + (size_t)r * kRowBytes +
+                                            (q * 4 + t) * 16);
+      }
+      wa[f][4 * q] = v.x;
+      wa[f][4 * q + 1] = v.y;
+      wa[f][4 * q + 2] = v.z;
+      wa[f][4 * q + 3] = v.w;
+    }
+  }
+
+  unsigned b1[2 * kMTiles], b2[2 * kMTiles];
+#pragma unroll
+  for (int f = 0; f < 2 * kMTiles; ++f) b1[f] = b2[f] = kNone;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {
+      load_tile(sh, buf ^ 1, bimg, vimg, (tile + 1) * kTileB, k);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      if (!sv[j]) continue;
-      const uint4 b0 = sb[2 * j], b1 = sb[2 * j + 1];
-      const int d = __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) +
-                    __popc(a0.z ^ b0.z) + __popc(a0.w ^ b0.w) +
-                    __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) +
-                    __popc(a1.z ^ b1.z) + __popc(a1.w ^ b1.w);
-      if (d < best1) {
-        best2 = best1;
-        idx2 = idx1;
-        best1 = d;
-        idx1 = base + j;
-      } else if (d < best2) {
-        best2 = d;
-        idx2 = base + j;
+    const unsigned char* sb = sh.b[buf];
+#pragma unroll 1
+    for (int sub = 0; sub < kTileB / 8; ++sub) {
+      const unsigned char* brow = sb + (sub * 8 + g) * kPitch;
+      uint32_t wb[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(brow + (q * 4 + t) * 16);
+        wb[4 * q] = v.x;
+        wb[4 * q + 1] = v.y;
+        wb[4 * q + 2] = v.z;
+        wb[4 * q + 3] = v.w;
+      }
+      // One B fragment serves every m-tile: independent accumulators.
+      int c[kMTiles][4];
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m) {
+        c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0;
+      }
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m) {
+          const uint32_t a[4] = {wa[2 * m][2 * s], wa[2 * m + 1][2 * s],
+                                 wa[2 * m][2 * s + 1],
+                                 wa[2 * m + 1][2 * s + 1]};
+          mma_s8(c[m], a, wb[2 * s], wb[2 * s + 1]);
+        }
+      }
+      // c[m][0], c[m][1]: row 16 m + g, columns 2t, 2t + 1; c[m][2],
+      // c[m][3]: row 16 m + g + 8.
+      const uint2 ck = *reinterpret_cast<const uint2*>(
+          &sh.key[buf][sub * 8 + 2 * t]);
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m) {
+        // d << 16 = (256 - dot) << 15: 256 - dot is even.
+        top2(b1[2 * m], b2[2 * m], ((unsigned)(256 - c[m][0]) << 15) | ck.x);
+        top2(b1[2 * m], b2[2 * m], ((unsigned)(256 - c[m][1]) << 15) | ck.y);
+        top2(b1[2 * m + 1], b2[2 * m + 1],
+             ((unsigned)(256 - c[m][2]) << 15) | ck.x);
+        top2(b1[2 * m + 1], b2[2 * m + 1],
+             ((unsigned)(256 - c[m][3]) << 15) | ck.y);
       }
     }
+    __syncthreads();
   }
-  if (live) {
-    const size_t o = (size_t)p * ka + row;
-    i1[o] = idx1;
-    d1[o] = (float)best1;
-    i2[o] = idx2;
-    d2[o] = (float)best2;
+
+  // Merge the quad's four disjoint column sets.
+#pragma unroll
+  for (int f = 0; f < 2 * kMTiles; ++f) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const unsigned o1 = __shfl_xor_sync(0xffffffffu, b1[f], off);
+      const unsigned o2 = __shfl_xor_sync(0xffffffffu, b2[f], off);
+      b2[f] = min(max(b1[f], o1), min(b2[f], o2));
+      b1[f] = min(b1[f], o1);
+    }
+    const int r = row0 + 8 * f;
+    if (t == 0 && r < k) {
+      const size_t o = ((size_t)dir * n_pairs + p) * k + r;
+      i1[o] = b1[f] == kNone ? 0 : (long long)(b1[f] & 0xFFFFu);
+      d1[o] = b1[f] == kNone ? (float)kInvalid : (float)(b1[f] >> 16);
+      i2[o] = b2[f] == kNone ? 0 : (long long)(b2[f] & 0xFFFFu);
+      d2[o] = b2[f] == kNone ? (float)kInvalid : (float)(b2[f] >> 16);
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int hamming_two_nn_launch(const void* desc_a, const void* desc_b,
-                                     const void* valid_b, int p, int ka,
-                                     int kb, void* i1, void* d1, void* i2,
-                                     void* d2, void* stream) {
-  if (p > 0 && ka > 0) {
-    const dim3 grid((ka + kRows - 1) / kRows, p);
-    hamming_two_nn_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(
-        (const uint4*)desc_a, (const uint4*)desc_b,
-        (const unsigned char*)valid_b, ka, kb, (long long*)i1, (float*)d1,
+extern "C" int hamming_unpack_launch(const void* desc, long long n_desc,
+                                     void* pm1, void* stream) {
+  const long long n_out = n_desc * 64;
+  if (n_out > 0) {
+    const int threads = 256;
+    const long long blocks = (n_out + threads - 1) / threads;
+    hamming_unpack_kernel<<<(unsigned)blocks, threads, 0,
+                            (cudaStream_t)stream>>>(
+        (const uint32_t*)desc, (uint32_t*)pm1, n_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hamming_pairs_launch(const void* pm1, const void* valid,
+                                    const void* ii, const void* jj,
+                                    int n_pairs, int k, void* i1, void* d1,
+                                    void* i2, void* d2, void* stream) {
+  if (n_pairs > 0 && k > 0) {
+    const dim3 grid((k + kRows - 1) / kRows, n_pairs, 2);
+    hamming_pairs_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const unsigned char*)pm1, (const bool*)valid, (const int*)ii,
+        (const int*)jj, n_pairs, k, (long long*)i1, (float*)d1,
         (long long*)i2, (float*)d2);
   }
   return (int)cudaGetLastError();

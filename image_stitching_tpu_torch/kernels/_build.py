@@ -51,14 +51,17 @@ def _nvcc() -> str:
 
 def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.orb_sample_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci,
-                                      vp, vp, vp, vp]
-    lib.orb_sample_launch.restype = ci
+    pvp, pci = ctypes.POINTER(vp), ctypes.POINTER(ci)
+    lib.orb_sample_levels_launch.argtypes = [ci, pvp, pvp, pci, pci, vp, vp,
+                                             vp, ci, ci, vp, vp, vp, vp, vp]
+    lib.orb_sample_levels_launch.restype = ci
     lib.warp_bilinear_launch.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, vp]
     lib.warp_bilinear_launch.restype = ci
-    lib.hamming_two_nn_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp,
-                                          vp, vp]
-    lib.hamming_two_nn_launch.restype = ci
+    lib.hamming_unpack_launch.argtypes = [vp, ctypes.c_longlong, vp, vp]
+    lib.hamming_unpack_launch.restype = ci
+    lib.hamming_pairs_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp,
+                                         vp, vp]
+    lib.hamming_pairs_launch.restype = ci
     lib.pyramid_accumulate_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp,
                                               vp, vp]
     lib.pyramid_accumulate_launch.restype = ci

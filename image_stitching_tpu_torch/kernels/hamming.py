@@ -1,12 +1,17 @@
-"""K4: Hamming 2-NN over 256-bit descriptors, batched over pairs.
+"""K4: Hamming 2-NN over 256-bit descriptors, all pairs, both directions.
 
 Hopper replacement for `image_stitching_tpu/kernels/hamming_pallas.py`
 (`hamming_two_nn_pallas`, `:178`, and `hamming_two_nn_pallas_batched`,
-`:104`).  The CUDA kernel is `csrc/hamming.cu`; the plain version is the
-reference pipeline's live path, `_two_nn(hamming_matrix(...))`
-(`ops/matching.py:79-146`): a float32 bit-plane product for the distance
-matrix, then two masked argmins.  Unlike the TPU kernel, an invalid column
-is set to exactly 2^30 rather than poisoned through its popcount.
+`:104`).  The CUDA kernels are `csrc/hamming.cu`: one unpacks every
+descriptor of the stack once into 256 int8 of +-1 (`pm1_rows` is its plain
+twin), the other takes every pair and both directions in one launch, with
+the dot products on the tensor cores (hamming = (256 - dot) / 2).  The
+plain version is the reference pipeline's live path, `match_pair`'s
+`_two_nn(hamming_matrix(...))` and `_two_nn` of the transposed matrix
+(`ops/matching.py:79-167`): a float32 bit-plane product for the distance
+matrix, then two masked argmins per direction.  Unlike the TPU kernel, an
+invalid column is set to exactly 2^30 rather than poisoned through its
+popcount.
 """
 
 from __future__ import annotations
@@ -15,21 +20,33 @@ import torch
 
 from ._build import check_launch, load_library
 
-__all__ = ["hamming_two_nn", "hamming_two_nn_plain", "hamming_matrix",
-           "two_nn"]
+__all__ = ["hamming_two_nn_pairs", "hamming_two_nn_pairs_plain",
+           "hamming_two_nn_plain", "hamming_matrix", "two_nn", "pm1_rows",
+           "pair_chunk", "unpack_pm1"]
+
+# The kernel packs (distance, column) into one 32-bit key.
+MAX_K = 1 << 16
 
 
 def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
-    """(..., K, 8) int32 words -> (..., K, 256) float32 bit planes."""
+    """(..., K, 8) int32 words -> (..., K, 256) int32 bits, bit b of word
+    w at 32 w + b."""
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     bits = (words[..., None] >> shifts) & 1
-    return bits.reshape(*words.shape[:-1], -1).to(torch.float32)
+    return bits.reshape(*words.shape[:-1], -1)
+
+
+def pm1_rows(desc: torch.Tensor) -> torch.Tensor:
+    """(..., K, 8) int32 words -> (..., K, 256) int8 rows of +1 (bit 0) and
+    -1 (bit 1): the layout the CUDA kernel's unpack writes, so that
+    hamming(a, b) = (256 - <pm1(a), pm1(b)>) / 2."""
+    return (1 - 2 * _unpack_bits(desc)).to(torch.int8)
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor):
     """(..., Ka, 8) x (..., Kb, 8) int32 -> (..., Ka, Kb) int32 distances."""
-    ba = _unpack_bits(desc_a)
-    bb = _unpack_bits(desc_b)
+    ba = _unpack_bits(desc_a).to(torch.float32)
+    bb = _unpack_bits(desc_b).to(torch.float32)
     pa = ba.sum(-1)
     pb = bb.sum(-1)
     common = ba @ bb.transpose(-1, -2)
@@ -51,63 +68,112 @@ def two_nn(dist: torch.Tensor, valid_b: torch.Tensor):
 
 def hamming_two_nn_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
                          valid_b: torch.Tensor):
-    """The 2-NN from the whole (P, Ka, Kb) distance matrix."""
+    """One direction's 2-NN from the whole (..., Ka, Kb) distance matrix."""
     return two_nn(hamming_matrix(desc_a, desc_b).to(torch.float32), valid_b)
 
 
-def _check(desc_a, desc_b, valid_b):
-    dev = desc_a.device
-    for name, x, dtype in (("desc_a", desc_a, torch.int32),
-                           ("desc_b", desc_b, torch.int32),
-                           ("valid_b", valid_b, torch.bool)):
+def pair_chunk(k: int) -> int:
+    """Pairs per batch of the plain version: bound its (K, K) float32
+    matrices (~12 B per entry with temporaries) to ~600 MB."""
+    c = max(1, min(64, int(6e8) // max(k * k * 12, 1)))
+    return 1 << (c.bit_length() - 1)
+
+
+def hamming_two_nn_pairs_plain(desc: torch.Tensor, valid: torch.Tensor,
+                               ii: torch.Tensor, jj: torch.Tensor,
+                               chunk: int = 0):
+    """`hamming_two_nn_pairs` in PyTorch ops, `chunk` pairs at a time
+    (default `pair_chunk(K)`): one distance matrix per pair, read as it is
+    for the forward 2-NN and transposed for the reverse one."""
+    chunk = chunk or pair_chunk(desc.shape[1])
+    fwd, rev = [], []
+    for s in range(0, ii.shape[0], chunk):
+        a, b = ii[s:s + chunk], jj[s:s + chunk]
+        dist = hamming_matrix(desc[a], desc[b]).to(torch.float32)
+        fwd.append(two_nn(dist, valid[b]))
+        rev.append(two_nn(dist.transpose(-1, -2), valid[a]))
+    if not fwd:
+        z_i = torch.zeros((0, desc.shape[1]), dtype=torch.int64,
+                          device=desc.device)
+        z_d = torch.zeros((0, desc.shape[1]), device=desc.device)
+        return (z_i, z_d, z_i, z_d), (z_i, z_d, z_i, z_d)
+    return (tuple(torch.cat(x) for x in zip(*fwd)),
+            tuple(torch.cat(x) for x in zip(*rev)))
+
+
+def _check(desc, valid, ii, jj):
+    dev = desc.device
+    for name, x, dtype in (("desc", desc, torch.int32),
+                           ("valid", valid, torch.bool),
+                           ("ii", ii, torch.int32), ("jj", jj, torch.int32)):
         if x.dtype != dtype:
-            raise TypeError(f"hamming_two_nn: {name} must be {dtype}, "
+            raise TypeError(f"hamming_two_nn_pairs: {name} must be {dtype}, "
                             f"got {x.dtype}")
         if x.device != dev:
-            raise ValueError(f"hamming_two_nn: {name} on {x.device}, "
-                             f"desc_a on {dev}")
+            raise ValueError(f"hamming_two_nn_pairs: {name} on {x.device}, "
+                             f"desc on {dev}")
         if not x.is_contiguous():
-            raise ValueError(f"hamming_two_nn: {name} must be contiguous")
-    if desc_a.ndim != 3 or desc_a.shape[2] != 8:
-        raise ValueError(f"hamming_two_nn: desc_a must be (P, Ka, 8), got "
-                         f"{tuple(desc_a.shape)}")
-    if desc_b.ndim != 3 or desc_b.shape[2] != 8 or \
-            desc_b.shape[0] != desc_a.shape[0]:
-        raise ValueError(f"hamming_two_nn: desc_b must be (P, Kb, 8), got "
-                         f"{tuple(desc_b.shape)}")
-    if tuple(valid_b.shape) != tuple(desc_b.shape[:2]):
-        raise ValueError(f"hamming_two_nn: valid_b must be (P, Kb), got "
-                         f"{tuple(valid_b.shape)}")
+            raise ValueError(f"hamming_two_nn_pairs: {name} must be "
+                             f"contiguous")
+    if desc.ndim != 3 or desc.shape[2] != 8:
+        raise ValueError(f"hamming_two_nn_pairs: desc must be (N, K, 8), "
+                         f"got {tuple(desc.shape)}")
+    if tuple(valid.shape) != tuple(desc.shape[:2]):
+        raise ValueError(f"hamming_two_nn_pairs: valid must be (N, K), got "
+                         f"{tuple(valid.shape)}")
+    if ii.ndim != 1 or ii.shape != jj.shape:
+        raise ValueError(f"hamming_two_nn_pairs: ii, jj must be (P,), got "
+                         f"{tuple(ii.shape)} and {tuple(jj.shape)}")
+    if desc.shape[1] > MAX_K:
+        raise ValueError(f"hamming_two_nn_pairs: K = {desc.shape[1]} > "
+                         f"{MAX_K}")
 
 
-def hamming_two_nn(desc_a: torch.Tensor, desc_b: torch.Tensor,
-                   valid_b: torch.Tensor):
-    """(i1 int64, d1 float32, i2 int64, d2 float32), each (P, Ka): per row
-    of A the nearest and second-nearest valid column of B.  desc_* (P, K,
-    8) int32 words, valid_b (P, Kb) bool.  The d values are exact integers;
-    an invalid column counts as 2^30."""
-    _check(desc_a, desc_b, valid_b)
-    dev = desc_a.device
+def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
+    """`pm1_rows` of a contiguous CUDA (..., K, 8) int32 tensor by the
+    kernel's unpack step (the first of the two launches of
+    `hamming_two_nn_pairs`)."""
+    if desc.device.type != "cuda":
+        raise ValueError(f"unpack_pm1: no kernel for device {desc.device}")
+    out = torch.empty(desc.shape[:-1] + (256,), dtype=torch.int8,
+                      device=desc.device)
+    check_launch(load_library().hamming_unpack_launch(
+        desc.data_ptr(), desc.numel() // 8, out.data_ptr(),
+        torch.cuda.current_stream(desc.device).cuda_stream),
+        "hamming_two_nn_pairs (unpack)")
+    return out
+
+
+def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
+                         ii: torch.Tensor, jj: torch.Tensor):
+    """The 2-NN of every pair (ii[p], jj[p]) of an image stack, both ways.
+
+    desc (N, K, 8) int32 words, valid (N, K) bool, ii/jj (P,) int32 image
+    indices.  Returns (fwd, rev), each (i1 int64, d1 float32, i2 int64,
+    d2 float32) of shape (P, K): fwd per row of image ii[p] its nearest and
+    second-nearest valid column of image jj[p], rev the same with the
+    images swapped.  The d values are exact integers; an invalid column
+    counts as 2^30."""
+    _check(desc, valid, ii, jj)
+    dev = desc.device
     if dev.type == "cpu":
-        return hamming_two_nn_plain(desc_a, desc_b, valid_b)
+        return hamming_two_nn_pairs_plain(desc, valid, ii, jj)
     if dev.type != "cuda":
-        raise ValueError(f"hamming_two_nn: no kernel for device {dev}")
-    if desc_a.data_ptr() % 16 or desc_b.data_ptr() % 16:
-        raise ValueError("hamming_two_nn: descriptors must be 16-byte "
-                         "aligned (the kernel reads them as uint4)")
+        raise ValueError(f"hamming_two_nn_pairs: no kernel for device {dev}")
     lib = load_library()
-    p, ka, kb = desc_a.shape[0], desc_a.shape[1], desc_b.shape[1]
-    i1 = torch.empty((p, ka), dtype=torch.int64, device=dev)
-    i2 = torch.empty((p, ka), dtype=torch.int64, device=dev)
-    d1 = torch.empty((p, ka), dtype=torch.float32, device=dev)
-    d2 = torch.empty((p, ka), dtype=torch.float32, device=dev)
-    code = lib.hamming_two_nn_launch(
-        desc_a.data_ptr(), desc_b.data_ptr(), valid_b.data_ptr(), p, ka, kb,
+    k, p = desc.shape[1], ii.shape[0]
+    pm1 = unpack_pm1(desc)
+    i1 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
+    i2 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
+    d1 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
+    d2 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
+    code = lib.hamming_pairs_launch(
+        pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(), p, k,
         i1.data_ptr(), d1.data_ptr(), i2.data_ptr(), d2.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(code, "hamming_two_nn")
-    hamming_two_nn.launches += 1
-    return i1, d1, i2, d2
+    check_launch(code, "hamming_two_nn_pairs")
+    hamming_two_nn_pairs.launches += 1
+    return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
 
 
-hamming_two_nn.launches = 0
+hamming_two_nn_pairs.launches = 0

@@ -4,9 +4,9 @@ Same detector as the reference: 8-level pyramid (scale 1.2), FAST-9/16
 corners (threshold 20) found with 16-bit ring masks, Harris ranking
 (k = 0.04, block 7) with 3x3 NMS over candidates, exact top-k per level,
 a quadratic subpixel fit, and the intensity-centroid angle plus 256-bit
-rBRIEF descriptor from kernel K1 (`kernels/orb_sample.py`) at every level.
-The reference runs K1 only on levels that fit the TPU's VMEM budget; the
-CUDA kernel has no such budget.
+rBRIEF descriptor from kernel K1 (`kernels/orb_sample.py`), one launch
+over all levels of an image.  The reference runs K1 only on levels that
+fit the TPU's VMEM budget; the CUDA kernel has no such budget.
 """
 
 from __future__ import annotations
@@ -17,14 +17,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...kernels.orb_sample import orb_sample
+from ...kernels.orb_sample import orb_sample_levels
 from ..imgproc import gaussian_blur, resize, scale_size
 from .types import Features
 
 __all__ = ["orb_detect_and_describe", "orb_detect_stack",
            "make_brief_pattern", "resolve_pattern", "fast_corner_mask",
            "harris_response_map", "pattern_xy", "detect_level",
-           "per_level_counts"]
+           "detect_levels", "per_level_counts"]
 
 _FAST_RING = np.array([
     (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
@@ -185,42 +185,65 @@ def detect_level(img_l: torch.Tensor, corner_src: torch.Tensor, k_l: int,
     return xy_l, top_vals, top_vals > -torch.inf
 
 
+def detect_levels(gray: torch.Tensor, n_features: int = 4000,
+                  scale_factor: float = 1.2, n_levels: int = 8,
+                  patch_size: int = 40, fast_threshold: float = 20.0):
+    """Detect every pyramid level of one (H, W) image.  Returns the list of
+    (level index, level plane, its sigma-2 blur, xy (k_l, 2) in level
+    pixels, response (k_l,), valid (k_l,)) of the levels that take
+    keypoints, in level order: what one `orb_sample_levels` call
+    describes."""
+    h, w = gray.shape
+    counts = per_level_counts(n_features, n_levels, scale_factor)
+    levels = []
+    for level in range(n_levels):
+        lh, lw = scale_size(h, w, 1.0 / scale_factor ** level)
+        if min(lh, lw) < patch_size + 8 or counts[level] == 0:
+            continue
+        img_l = (resize(gray, (lh, lw)) if level
+                 else gray.to(torch.float32)).contiguous()
+        xy_l, top_vals, valid = detect_level(
+            img_l, gray if level == 0 else img_l, counts[level], patch_size,
+            fast_threshold)
+        levels.append((level, img_l,
+                       gaussian_blur(img_l, 2.0, 3).contiguous(), xy_l,
+                       top_vals, valid))
+    return levels
+
+
 def orb_detect_and_describe(gray: torch.Tensor, n_features: int = 4000,
                             scale_factor: float = 1.2, n_levels: int = 8,
                             patch_size: int = 40,
                             fast_threshold: float = 20.0,
                             pattern=None) -> Features:
     """Detect + describe one (H, W) float32/uint8 image into exactly
-    `n_features` masked slots."""
+    `n_features` masked slots: every level detected first, then all of
+    them described by one `orb_sample_levels` call."""
     dev = gray.device
     pat = pattern_xy(resolve_pattern(pattern, patch_size), dev)
-    h, w = gray.shape
-    counts = per_level_counts(n_features, n_levels, scale_factor)
-    levels = []
-    for level in range(n_levels):
+    levels = detect_levels(gray, n_features, scale_factor, n_levels,
+                           patch_size, fast_threshold)
+    ks = [lv[3].shape[0] for lv in levels]
+    lvl_idx = torch.cat([torch.full((k,), i, dtype=torch.int32, device=dev)
+                         for i, k in enumerate(ks)])
+    _, angle, _, desc = orb_sample_levels(
+        [lv[1] for lv in levels], [lv[2] for lv in levels],
+        torch.cat([lv[3] for lv in levels]), lvl_idx, pat,
+        radius=patch_size // 2)
+    feats = []
+    for (level, _, _, xy_l, top_vals, valid), a_l, d_l in zip(
+            levels, angle.split(ks), desc.split(ks)):
         scale = scale_factor ** level
-        lh, lw = scale_size(h, w, 1.0 / scale)
-        if min(lh, lw) < patch_size + 8 or counts[level] == 0:
-            continue
-        img_l = (resize(gray, (lh, lw)) if level
-                 else gray.to(torch.float32))
-        k_l = counts[level]
-        xy_l, top_vals, valid = detect_level(
-            img_l, gray if level == 0 else img_l, k_l, patch_size,
-            fast_threshold)
-        img_blur = gaussian_blur(img_l, 2.0, 3)
-        _, angle, _, desc = orb_sample(img_l.contiguous(),
-                                       img_blur.contiguous(), xy_l, pat,
-                                       radius=patch_size // 2)
-        levels.append(Features(
+        k_l = xy_l.shape[0]
+        feats.append(Features(
             xy=xy_l * scale,
             response=torch.where(valid, top_vals, 0.0),
-            angle=angle,
+            angle=a_l,
             octave=torch.full((k_l,), level, dtype=torch.int32, device=dev),
             size=torch.full((k_l,), patch_size * scale, dtype=torch.float32,
                             device=dev),
-            desc=desc, valid=valid))
-    out = Features.cat(levels)
+            desc=d_l, valid=valid))
+    out = Features.cat(feats)
     pad_n = n_features - out.xy.shape[0]
     if pad_n > 0:
         out = Features(*(F.pad(t, [0, 0] * (t.ndim - 1) + [0, pad_n])

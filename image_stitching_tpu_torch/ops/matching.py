@@ -1,14 +1,14 @@
 """All-pairs BestOf2Nearest matching (port of `ops/matching.py`).
 
-The 2-NN of both directions of a pair come from kernel K4
-(`kernels/hamming.py`, `csrc/hamming.cu`), called with (a, b) and then
-(b, a); on CPU tensors its plain version computes the Hamming matrix as a
-float32 bit-plane product, d = pop(a) + pop(b) - 2 <bits_a, bits_b>
-(exact: the counts are integers below 2^24), and takes two masked argmins.
-Then the ratio test in both directions with duplicate suppression; RANSAC
-homography per pair; confidence n_inliers / (8 + 0.3 n_matches) with the
-conf > 3 -> 0 near-duplicate rule.  Pairs are batched on a leading axis in
-chunks that bound the plain version's (K, K) distance matrices.
+The 2-NN of both directions of every pair come from one call of kernel
+K4 (`kernels/hamming.py`, `csrc/hamming.cu`) before the pairs are
+chunked; on CPU tensors its plain version computes each pair's Hamming
+matrix as a float32 bit-plane product, d = pop(a) + pop(b) - 2 <bits_a,
+bits_b> (exact: the counts are integers below 2^24), and takes two masked
+argmins per direction.  Then the ratio test in both directions with
+duplicate suppression; RANSAC homography per pair; confidence n_inliers /
+(8 + 0.3 n_matches) with the conf > 3 -> 0 near-duplicate rule.  RANSAC
+takes the pairs on a leading axis in chunks of `pair_chunk(K)`.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels.hamming import hamming_matrix, hamming_two_nn, two_nn
+from ..kernels.hamming import (hamming_matrix, hamming_two_nn_pairs,
+                               pair_chunk, two_nn)
 from .features.types import Features
 from .ransac import ransac_homography
 
@@ -72,16 +73,22 @@ class MatchGraph:
 
 def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
                 generator=None, n_hyp: int = 512, hyp_idx=None,
-                score_idx=None):
+                score_idx=None, nn=None):
     """BestOf2NearestMatcher::match for a batch of pairs (leading axis P).
 
-    Returns (a_idx, b_idx, valid, inlier (P, 2K), h (P, 3, 3),
-    num_inliers (P,), confidence (P,)): K forward then K reverse slots."""
+    nn: the pairs' (fwd, rev) 2-NN as `hamming_two_nn_pairs` returns them;
+    computed here when not given.  Returns (a_idx, b_idx, valid, inlier
+    (P, 2K), h (P, 3, 3), num_inliers (P,), confidence (P,)): K forward
+    then K reverse slots."""
     p, ka = fa.valid.shape
     kb = fb.valid.shape[1]
     dev = fa.xy.device
-    b1, d1, _, d2 = hamming_two_nn(fa.desc, fb.desc, fb.valid)
-    a1, rd1, _, rd2 = hamming_two_nn(fb.desc, fa.desc, fa.valid)
+    if nn is None:
+        idx = torch.arange(p, dtype=torch.int32, device=dev)
+        nn = hamming_two_nn_pairs(torch.cat([fa.desc, fb.desc]),
+                                  torch.cat([fa.valid, fb.valid]), idx,
+                                  idx + p)
+    (b1, d1, _, d2), (a1, rd1, _, rd2) = nn
     fwd_ok = (d1 < (1.0 - match_conf) * d2) & fa.valid
     rev_ok = (rd1 < (1.0 - match_conf) * rd2) & fb.valid
     ar_b = torch.arange(kb, device=dev).expand(p, -1)
@@ -107,13 +114,6 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
             torch.where(enough, n_inl, 0).to(torch.int32), conf)
 
 
-def _pair_chunk(k: int) -> int:
-    """Pairs per batch: bound the (K, K) float32 matrices (~12 B per
-    entry with temporaries) to ~600 MB."""
-    c = max(1, min(64, int(6e8) // max(k * k * 12, 1)))
-    return 1 << (c.bit_length() - 1)
-
-
 def match_all_pairs(feats: Features, generator=None,
                     match_conf: float = 0.32, n_hyp: int = 512,
                     range_width: int = -1, pair_cap: int = -1) -> MatchGraph:
@@ -129,13 +129,16 @@ def match_all_pairs(feats: Features, generator=None,
         keep = (ju - iu) < range_width
         iu, ju = iu[keep], ju[keep]
     m_slots = 2 * k if pair_cap <= 0 else min(pair_cap, 2 * k)
+    ii = torch.as_tensor(iu, dtype=torch.int32, device=dev)
+    jj = torch.as_tensor(ju, dtype=torch.int32, device=dev)
+    fwd, rev = hamming_two_nn_pairs(feats.desc, feats.valid, ii, jj)
     outs = []
-    chunk = _pair_chunk(k)
+    chunk = pair_chunk(k)
     for s in range(0, len(iu), chunk):
-        ii = torch.as_tensor(iu[s:s + chunk], device=dev)
-        jj = torch.as_tensor(ju[s:s + chunk], device=dev)
-        outs.append(match_pairs(feats[ii], feats[jj], match_conf, generator,
-                                n_hyp))
+        cut = slice(s, s + chunk)
+        nn = (tuple(x[cut] for x in fwd), tuple(x[cut] for x in rev))
+        outs.append(match_pairs(feats[ii[cut]], feats[jj[cut]], match_conf,
+                                generator, n_hyp, nn=nn))
     if outs:
         a_idx, b_idx, valid, inlier, h_p, ninl_p, conf_p = (
             torch.cat(x) for x in zip(*outs))
@@ -151,12 +154,10 @@ def match_all_pairs(feats: Features, generator=None,
                               stable=True)[:, :m_slots]
         a_idx, b_idx, valid, inlier = (torch.gather(x, 1, order)
                                        for x in (a_idx, b_idx, valid, inlier))
-    ii = torch.as_tensor(iu, dtype=torch.int64, device=dev)
-    jj = torch.as_tensor(ju, dtype=torch.int64, device=dev)
 
     def scat(x):
         out = torch.zeros((n, n) + x.shape[1:], dtype=x.dtype, device=dev)
-        out[ii, jj] = x
+        out[ii.long(), jj.long()] = x
         return out
     h_u, conf_u, ninl_u, nm_u = (scat(x) for x in (h_p, conf_p, ninl_p,
                                                    num_matches))
@@ -170,7 +171,7 @@ def match_all_pairs(feats: Features, generator=None,
     tri = (torch.arange(n, device=dev)[:, None] <
            torch.arange(n, device=dev)[None, :])
     return MatchGraph(
-        ii=ii.to(torch.int32), jj=jj.to(torch.int32), a_idx=a_idx,
+        ii=ii, jj=jj, a_idx=a_idx,
         b_idx=b_idx, valid=valid, inlier=inlier,
         h=torch.where(tri[..., None, None], h_u, h_lo),
         num_inliers=torch.where(tri, ninl_u, ninl_u.t()),

@@ -1,10 +1,11 @@
-"""Port parity: kernel K4 (`hamming_two_nn`), the Hamming 2-NN of both
-match directions.
+"""Port parity: kernel K4 (`hamming_two_nn_pairs`), the Hamming 2-NN of
+every pair of an image stack in both match directions.
 
-On the CPU the wrapper runs its plain version, which is what `match_pairs`
-runs there.  The reference is the JAX package's live XLA route
-(`_two_nn_hamming`, and `match_pair`'s reverse 2-NN over the transposed
-matrix): `hamming_two_nn_pallas` takes no interpret flag."""
+On the CPU the wrapper runs its plain version, which is what
+`match_all_pairs` runs there.  The reference is the JAX package's live XLA
+route, `match_pair`'s `_two_nn(hamming_matrix(a, b))` forward and `_two_nn`
+of the transposed matrix in reverse: `hamming_two_nn_pallas` takes no
+interpret flag."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,46 +14,46 @@ import torch
 
 from _torch_port import cuda_device, n, t
 from image_stitching_tpu.ops import matching as jm
-from image_stitching_tpu_torch.kernels.hamming import (hamming_two_nn,
-                                                       hamming_two_nn_plain)
+from image_stitching_tpu_torch.kernels.hamming import (
+    hamming_matrix, hamming_two_nn_pairs, hamming_two_nn_pairs_plain,
+    hamming_two_nn_plain, pm1_rows)
 
 BIG = 2.0 ** 30
 
 
-def _pairs(seed, p=4, ka=70, kb=90):
-    """P pairs of random 256-bit descriptors with exact duplicates (ties
-    in both directions), invalid columns on either side, and one pair
-    whose B side is all invalid."""
+def _stack(seed, n_img=5, k=90):
+    """An image stack of random 256-bit descriptors with exact duplicates
+    (ties in both directions), invalid columns, one image with a single
+    valid descriptor and one with none; and every pair i < j."""
     rng = np.random.default_rng(seed)
-    a = rng.integers(0, 2 ** 32, (p, ka, 8), dtype=np.uint64).astype(
+    d = rng.integers(0, 2 ** 32, (n_img, k, 8), dtype=np.uint64).astype(
         np.uint32)
-    b = rng.integers(0, 2 ** 32, (p, kb, 8), dtype=np.uint64).astype(
-        np.uint32)
-    # Near copies so the 2-NN distances are small and varied.
-    b[:, :40] = a[:, :40] ^ (rng.random((p, 40, 8)) < 0.02).astype(
-        np.uint32) << rng.integers(0, 32, (p, 40, 8)).astype(np.uint32)
-    b[:, 50] = b[:, 10]            # a B duplicate: tie for A row 10
-    b[:, 61] = b[:, 10]
-    a[:, 55] = a[:, 12]            # an A duplicate: tie in reverse
-    va = rng.random((p, ka)) > 0.15
-    vb = rng.random((p, kb)) > 0.15
-    vb[:, 50] = True
-    vb[:, 10] = False              # the tie now sits at 50 and 61
-    vb[p - 1] = False              # all-invalid B side
-    va[p - 1, :3] = False
-    return a, b, va, vb
+    # Near copies of image 0 so the 2-NN distances are small and varied.
+    flips = (rng.random((n_img - 1, 40, 8)) < 0.02).astype(np.uint32) << \
+        rng.integers(0, 32, (n_img - 1, 40, 8)).astype(np.uint32)
+    d[1:, :40] = d[0, :40] ^ flips
+    d[1, 50] = d[1, 10]            # duplicate columns: a tie for row 10
+    d[1, 61] = d[1, 10]
+    d[0, 55] = d[0, 12]            # a duplicate row: a tie in reverse
+    d[2, 70:80] = d[2, 70]         # a run of ten equal descriptors
+    valid = rng.random((n_img, k)) > 0.15
+    valid[1, 50] = valid[1, 61] = True
+    valid[1, 10] = False           # the tie now sits at 50 and 61
+    valid[n_img - 2] = False
+    valid[n_img - 2, 33] = True    # one valid column
+    valid[n_img - 1] = False       # none
+    iu, ju = np.triu_indices(n_img, 1)
+    return d, valid, iu.astype(np.int32), ju.astype(np.int32)
 
 
-def _reference(a, b, va, vb):
-    """Per pair: JAX forward (_two_nn_hamming) and reverse (match_pair's
-    _two_nn over the transposed matrix)."""
+def _reference(d, valid, iu, ju):
+    """Per pair: JAX forward and reverse 2-NN, as match_pair takes them."""
     fwd, rev = [], []
-    for k in range(a.shape[0]):
-        fwd.append(jm._two_nn_hamming(jnp.asarray(a[k]), jnp.asarray(b[k]),
-                                      jnp.asarray(vb[k])))
-        dist = jm.hamming_matrix(jnp.asarray(a[k]), jnp.asarray(b[k]))
-        rev.append(jm._two_nn(dist.astype(jnp.float32).T,
-                              jnp.asarray(va[k])))
+    for a, b in zip(iu, ju):
+        dist = jm.hamming_matrix(jnp.asarray(d[a]), jnp.asarray(d[b])).astype(
+            jnp.float32)
+        fwd.append(jm._two_nn(dist, jnp.asarray(valid[b])))
+        rev.append(jm._two_nn(dist.T, jnp.asarray(valid[a])))
     return ([np.stack([np.asarray(x[m]) for x in fwd]) for m in range(4)],
             [np.stack([np.asarray(x[m]) for x in rev]) for m in range(4)])
 
@@ -68,42 +69,91 @@ def _assert_two_nn_equal(got, want):
     assert d1.dtype == np.float32 and i1.dtype == np.int64
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", [0, 1, 2])
 def test_k4_plain_matches_reference_both_directions(seed):
-    a, b, va, vb = _pairs(seed)
-    want_f, want_r = _reference(a, b, va, vb)
-    got_f = hamming_two_nn(t(a), t(b), t(vb))
-    got_r = hamming_two_nn(t(b), t(a), t(va))
+    d, valid, iu, ju = _stack(seed)
+    want_f, want_r = _reference(d, valid, iu, ju)
+    got_f, got_r = hamming_two_nn_pairs(t(d.view(np.int32)), t(valid),
+                                        t(iu), t(ju))
     _assert_two_nn_equal(got_f, want_f)
     _assert_two_nn_equal(got_r, want_r)
+    # The single-direction plain 2-NN on the swapped pair gives the same
+    # reverse 2-NN as the transposed matrix.
+    desc, v = t(d.view(np.int32)), t(valid)
+    a, b = t(iu).long(), t(ju).long()
+    _assert_two_nn_equal(hamming_two_nn_plain(desc[a], desc[b], v[b]),
+                         want_f)
+    _assert_two_nn_equal(hamming_two_nn_plain(desc[b], desc[a], v[a]),
+                         want_r)
     # The cases the data was built for did occur.
-    assert np.all(want_f[1][-1] == BIG)                 # all-invalid side
-    assert (want_f[1][:-1] == want_f[3][:-1]).any()     # ties
-    assert (want_f[1][:-1] < 20).sum() > 50             # near copies
-    # The all-invalid row: i1 = 0 like argmin; i2 as the plain version.
-    assert np.all(n(got_f[0])[-1] == 0)
+    none = ju == len(valid) - 1
+    one = ju == len(valid) - 2
+    assert np.all(want_f[1][none] == BIG)               # no valid column
+    assert np.all(want_f[1][one] < BIG) and np.all(want_f[3][one] == BIG)
+    assert (want_f[1][~none] == want_f[3][~none]).any()  # ties
+    assert (want_r[1][iu == 0] == want_r[3][iu == 0]).any()
+    assert (want_f[1] < 20).sum() > 80                  # near copies
+    # Rows with no valid column: i1 = 0 like argmin.
+    assert np.all(n(got_f[0])[none] == 0)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 64])
+def test_k4_plain_chunks_agree(chunk):
+    """The plain version's pair chunks bound its memory, not its result."""
+    d, valid, iu, ju = _stack(4)
+    args = (t(d.view(np.int32)), t(valid), t(iu), t(ju))
+    one = hamming_two_nn_pairs_plain(*args, chunk=len(iu))
+    got = hamming_two_nn_pairs_plain(*args, chunk=chunk)
+    for side_g, side_w in zip(got, one):
+        for g, w in zip(side_g, side_w):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_pm1_unpack_dot_is_hamming(seed):
+    """(256 - <pm1(a), pm1(b)>) / 2 equals the Hamming matrix bit for bit
+    (an int32 product on the CPU), the port's and the JAX package's."""
+    d, _, _, _ = _stack(seed, n_img=3, k=90)
+    a, b = t(d[0].view(np.int32)), t(d[1].view(np.int32))
+    pa, pb = pm1_rows(a), pm1_rows(b)
+    assert pa.dtype == torch.int8 and tuple(pa.shape) == (90, 256)
+    assert set(torch.unique(pa).tolist()) == {-1, 1}
+    dot = pa.to(torch.int32) @ pb.to(torch.int32).T
+    assert bool(((256 - dot) % 2 == 0).all())
+    got = (256 - dot) // 2
+    np.testing.assert_array_equal(n(got), n(hamming_matrix(a, b)))
+    np.testing.assert_array_equal(
+        n(got), np.asarray(jm.hamming_matrix(jnp.asarray(d[0]),
+                                             jnp.asarray(d[1]))))
+    # Bit b of word w is byte 32 w + b: -1 where the bit is set.
+    np.testing.assert_array_equal(
+        n(pa[:, 37]), np.where((d[0][:, 1] >> 5) & 1, -1, 1))
 
 
 def test_k4_wrapper_checks_inputs():
-    a, b, va, vb = _pairs(2, p=2)
+    d, valid, iu, ju = _stack(2, n_img=3)
+    desc, v, ii, jj = t(d.view(np.int32)), t(valid), t(iu), t(ju)
     with pytest.raises(TypeError):
-        hamming_two_nn(t(a).long(), t(b), t(vb))
+        hamming_two_nn_pairs(desc.long(), v, ii, jj)
+    with pytest.raises(TypeError):
+        hamming_two_nn_pairs(desc, v, ii.long(), jj)
     with pytest.raises(ValueError):
-        hamming_two_nn(t(a), t(b)[:1], t(vb)[:1])
+        hamming_two_nn_pairs(desc, v[:, :5], ii, jj)
     with pytest.raises(ValueError):
-        hamming_two_nn(t(a), t(b), t(vb)[:, :5])
+        hamming_two_nn_pairs(desc[..., :4], v, ii, jj)
     with pytest.raises(ValueError):
-        hamming_two_nn(t(a)[..., :4], t(b), t(vb))
+        hamming_two_nn_pairs(desc, v, ii, jj[:1])
 
 
 @pytest.mark.cuda
 def test_k4_kernel_matches_plain_on_cuda():
     dev = cuda_device()
-    a, b, va, vb = _pairs(3, p=3, ka=1000, kb=1100)
-    args = [t(x).to(dev) for x in (a, b, vb)]
-    before = hamming_two_nn.launches
-    got = hamming_two_nn(*args)
+    d, valid, iu, ju = _stack(3, n_img=4, k=1100)
+    args = [t(x).to(dev) for x in (d.view(np.int32), valid, iu, ju)]
+    before = hamming_two_nn_pairs.launches
+    got = hamming_two_nn_pairs(*args)
     torch.cuda.synchronize()
-    assert hamming_two_nn.launches == before + 1
-    want = [n(x) for x in hamming_two_nn_plain(*args)]
-    _assert_two_nn_equal(got, want)
+    assert hamming_two_nn_pairs.launches == before + 1
+    want = hamming_two_nn_pairs_plain(*args)
+    for g, w in zip(got, want):
+        _assert_two_nn_equal(g, [n(x) for x in w])

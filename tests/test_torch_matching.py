@@ -136,6 +136,32 @@ def test_match_all_pairs_tables(ring_features):
     assert (got.confidence > 0.95).sum() == (ref.confidence > 0.95).sum()
 
 
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_match_all_pairs_slices_the_one_two_nn_call(ring_features,
+                                                    monkeypatch, chunk):
+    """match_all_pairs takes the 2-NN of all pairs from one
+    `hamming_two_nn_pairs` call and hands each RANSAC chunk its slice: with
+    chunks of 1 and 2 of the 3 pairs, the ratio-test tables still equal
+    the reference's."""
+    stack = JFeatures(*(jnp.stack([jnp.asarray(getattr(f, name))
+                                   for f in ring_features])
+                        for name in ("xy", "response", "angle", "octave",
+                                     "size", "desc", "valid")))
+    ref = jax.tree.map(np.asarray, jm.match_all_pairs(
+        stack, jax.random.PRNGKey(0)))
+    calls = []
+    real = matching.hamming_two_nn_pairs
+    monkeypatch.setattr(matching, "pair_chunk", lambda k: chunk)
+    monkeypatch.setattr(matching, "hamming_two_nn_pairs",
+                        lambda *a: calls.append(a) or real(*a))
+    got = matching.match_all_pairs(
+        Features.stack([features_from_numpy(f) for f in ring_features]),
+        torch.Generator().manual_seed(0)).numpy()
+    assert len(calls) == 1 and calls[0][2].tolist() == [0, 0, 1]
+    for name in ("ii", "jj", "a_idx", "b_idx", "valid", "num_matches"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+
+
 # The 4000 full-resolution ORB features of each image of the sigma-4
 # 8 x 2448x3264 e2e ring, as the port's default-configuration stitch on an
 # H100 handed them to matching, with that stitch's adjacent-pair n_matches

@@ -10,8 +10,8 @@ from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.kernels.orb_sample_pallas import orb_sample_pallas
 from image_stitching_tpu.ops import imgproc as jimg
 from image_stitching_tpu.ops.features import orb as jorb
-from image_stitching_tpu_torch.kernels.orb_sample import (orb_sample,
-                                                          orb_sample_plain)
+from image_stitching_tpu_torch.kernels.orb_sample import (
+    orb_sample_levels, orb_sample_levels_plain, orb_sample_plain)
 from image_stitching_tpu_torch.ops.features import orb as torb
 
 
@@ -83,14 +83,51 @@ def test_k1_plain_vs_xla_path_bit_equal(seed):
                                np.asarray(angle), rtol=0, atol=1e-4)
 
 
+def _levels(seed, sizes=((120, 260), (100, 216), (83, 180)), k=(23, 15, 9)):
+    """Level planes of three sizes and each level's in-border keypoints,
+    concatenated in level order with their level index."""
+    raws, blurs, xys, lvl = [], [], [], []
+    for i, ((h, w), k_l) in enumerate(zip(sizes, k)):
+        img, blur, xy, _, pat_xy = _setup(seed + i, h, w, k_l)
+        raws.append(t(img))
+        blurs.append(t(blur))
+        xys.append(t(xy))
+        lvl.append(torch.full((k_l,), i, dtype=torch.int32))
+    return raws, blurs, torch.cat(xys), torch.cat(lvl), t(pat_xy)
+
+
 def test_k1_wrapper_checks_inputs():
-    img, blur, xy, _, pat_xy = _setup()
+    raws, blurs, xy, lvl, pat = _levels(0)
     with pytest.raises(ValueError):
-        orb_sample(t(img), t(blur[:-1]), t(xy), t(pat_xy), 20)
+        orb_sample_levels(raws, [blurs[0][:-1]] + blurs[1:], xy, lvl, pat, 20)
     with pytest.raises(TypeError):
-        orb_sample(t(img).double(), t(blur), t(xy), t(pat_xy), 20)
+        orb_sample_levels([raws[0].double()] + raws[1:], blurs, xy, lvl, pat,
+                          20)
     with pytest.raises(ValueError):
-        orb_sample(t(img), t(blur), t(xy), t(pat_xy)[:, :256], 20)
+        orb_sample_levels(raws, blurs, xy, lvl, pat[:, :256], 20)
+    with pytest.raises(TypeError):
+        orb_sample_levels(raws, blurs, xy, lvl.long(), pat, 20)
+    with pytest.raises(ValueError):
+        orb_sample_levels(raws, blurs, xy, lvl[:-1], pat, 20)
+    with pytest.raises(ValueError):
+        orb_sample_levels(raws * 3, blurs * 3, xy, lvl, pat, 20)
+    with pytest.raises(ValueError):
+        orb_sample_levels(raws, blurs, xy, lvl, pat, 32)
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_k1_levels_plain_equals_per_level(seed):
+    """One call over all levels gives each level's keypoints what
+    `orb_sample_plain` gives them on that level alone, bit for bit."""
+    raws, blurs, xy, lvl, pat = _levels(seed)
+    s, a, m, d = orb_sample_levels(raws, blurs, xy, lvl, pat, 20,
+                                   with_samples=True)
+    assert orb_sample_levels(raws, blurs, xy, lvl, pat, 20)[0] is None
+    for i, (raw, blur) in enumerate(zip(raws, blurs)):
+        sel = lvl == i
+        want = orb_sample_plain(raw, blur, xy[sel], pat, 20)
+        for got, w in zip((s[sel], a[sel], m[sel], d[sel]), want):
+            assert torch.equal(got, w)
 
 
 def test_pack_bits_matches_reference():
@@ -130,17 +167,22 @@ def test_orb_end_to_end_on_ring(ring_gray, idx):
 @pytest.mark.cuda
 def test_k1_kernel_matches_plain_on_cuda():
     dev = cuda_device()
-    img, blur, xy, _, pat_xy = _setup(2, h=300, w=400, k=300)
-    args = [t(a).to(dev) for a in (img, blur, xy, pat_xy)]
-    before = orb_sample.launches
-    _, a, m, d = orb_sample(*args, 20)
+    raws, blurs, xy, lvl, pat = _levels(2, sizes=((300, 400), (250, 333)),
+                                        k=(300, 200))
+    raws, blurs = [x.to(dev) for x in raws], [x.to(dev) for x in blurs]
+    xy, lvl, pat = xy.to(dev), lvl.to(dev), pat.to(dev)
+    before = orb_sample_levels.launches
+    _, a, m, d = orb_sample_levels(raws, blurs, xy, lvl, pat, 20)
     torch.cuda.synchronize()
-    assert orb_sample.launches == before + 1
-    assert tuple(a.shape) == (300,) and bool(torch.isfinite(a).all())
-    _, _, m0, d0 = orb_sample_plain(*args, 20)
-    np.testing.assert_array_less(np.abs(n(m) - n(m0)),
-                                 1e-5 * _moment_scale(img, xy) + 1e-6)
-    assert int((_bits(n(d)) != _bits(n(d0))).sum()) <= 1e-4 * 300 * 256
+    assert orb_sample_levels.launches == before + 1
+    assert tuple(a.shape) == (500,) and bool(torch.isfinite(a).all())
+    _, _, m0, d0 = orb_sample_levels_plain(raws, blurs, xy, lvl, pat, 20)
+    for i, raw in enumerate(raws):
+        sel = n(lvl) == i
+        np.testing.assert_array_less(
+            np.abs(n(m)[sel] - n(m0)[sel]),
+            1e-5 * _moment_scale(n(raw), n(xy)[sel]) + 1e-6)
+    assert int((_bits(n(d)) != _bits(n(d0))).sum()) <= 1e-4 * 500 * 256
 
 
 def _plain_coords(xy, angle, pat_xy, h, w):

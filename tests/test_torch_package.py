@@ -21,9 +21,9 @@ from image_stitching_tpu_torch.core import exif, image_io, persistence
 from image_stitching_tpu_torch.data import synth
 from image_stitching_tpu_torch.interop import (cameras_from_numpy,
                                                features_from_numpy)
-from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn
+from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn_pairs
 from image_stitching_tpu_torch.kernels.multiband import pyramid_accumulate
-from image_stitching_tpu_torch.kernels.orb_sample import orb_sample
+from image_stitching_tpu_torch.kernels.orb_sample import orb_sample_levels
 from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
 from image_stitching_tpu_torch.pipeline.stitcher import check_slice, stitch
 
@@ -83,21 +83,25 @@ def test_kernel_wrappers_never_fall_back():
     """A tensor on a device with no kernel raises; only CPU tensors take
     the plain version."""
     meta = torch.empty((40, 50), device="meta")
+    lvl = torch.empty((3,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        orb_sample(meta, meta, torch.empty((3, 2), device="meta"),
-                   torch.empty((2, 512), device="meta"), 20)
+        orb_sample_levels([meta], [meta], torch.empty((3, 2), device="meta"),
+                          lvl, torch.empty((2, 512), device="meta"), 20)
     with pytest.raises(ValueError, match="no kernel"):
         warp_bilinear(torch.empty((4, 5, 3), device="meta"), meta, meta)
     with pytest.raises(ValueError):
-        orb_sample(torch.zeros(40, 50), torch.zeros(40, 50, device="meta"),
-                   torch.zeros(3, 2), torch.zeros(2, 512), 20)
+        orb_sample_levels([torch.zeros(40, 50)],
+                          [torch.zeros(40, 50, device="meta")],
+                          torch.zeros(3, 2), torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(2, 512), 20)
     desc = torch.empty((2, 5, 8), dtype=torch.int32, device="meta")
     valid = torch.empty((2, 5), dtype=torch.bool, device="meta")
+    pair = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        hamming_two_nn(desc, desc, valid)
+        hamming_two_nn_pairs(desc, valid, pair, pair)
     with pytest.raises(ValueError):
-        hamming_two_nn(torch.zeros((2, 5, 8), dtype=torch.int32), desc,
-                       valid)
+        hamming_two_nn_pairs(torch.zeros((2, 5, 8), dtype=torch.int32),
+                             valid, pair, pair)
     accs = [torch.empty((4, 16 >> b, 16 >> b), device="meta")
             for b in range(2)]
     with pytest.raises(ValueError, match="no kernel"):

@@ -118,9 +118,9 @@ def main() -> int:
           f"events; card '{smi}'")
     for line in _stage_lines(events, spans, set(res.stage_times)):
         print(line)
-    hand = ("orb_sample_kernel", "warp_bilinear_kernel",
-            "hamming_two_nn_kernel", "pyr_down_kernel",
-            "band_accumulate_kernel")
+    hand = ("orb_sample_levels_kernel", "warp_bilinear_kernel",
+            "hamming_unpack_kernel", "hamming_pairs_kernel",
+            "pyr_down_kernel", "band_accumulate_kernel")
     for avg in prof.key_averages():
         if any(k in avg.key for k in hand):
             total_us = getattr(avg, "device_time_total", None)
