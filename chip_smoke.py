@@ -38,11 +38,12 @@ Phases, one line each; any failure raises and exits non-zero:
      kept, <= 1 px reprojection, mask coverage > 0.9, finite positive
      gains, seam-mask union equal to the warped-mask union, launches of
      all four kernels > 0, K1 <= 8 and K4 <= 2 launches.
-Each kernel row gives `device_ms`, the named kernels' device time per
-call under torch.profiler (L2 warm, the host wrapper left out; also `ms`),
-`call_ms`, CUDA events around back-to-back wrapper calls (what the caller
-pays), the plain version's time by the same events, the bound, and the
-library call's device time where one computes the same function.
+Each kernel row gives `device_ms`, the device time per call from CUDA
+events around a replayed CUDA graph of the calls (L2 warm, the host
+wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
+wrapper calls (what the caller pays), the plain version's time by the
+same events, the bound, and the library call's device time, by the same
+graph, where one computes the same function.
 Then a JSON line of those kernel results with the launches on the path
 the kernel was checked on, the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
@@ -138,33 +139,32 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernels, reps: int = 20):
-    """Device time of the named kernels per fn() call: the sum of their
-    spans under torch.profiler over `reps` calls, divided by `reps`.  The
-    host wrapper is not in it.  The inputs stay in L2 between calls, as
-    the stitch finds them.  Returns (ms, {kernel: ms}, launches per
-    call)."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call: CUDA events around the replays of a
+    CUDA graph that holds `reps` fn() calls.  The graph replays the
+    kernels alone, so the host wrapper (checks, allocation, enqueue) is
+    not in it; the graph's kernel-to-kernel launch gaps are.  fn must
+    launch nothing but the kernels it times (the port's wrappers
+    allocate with torch.empty and launch).  The inputs stay in L2 between
+    calls, as the stitch finds them."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    per = {k: 0.0 for k in kernels}
-    count = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for k in kernels:
-            if k in e.name:
-                per[k] += (e.time_range.end - e.time_range.start) / 1e3
-                count += 1
-                break
-    assert count > 0, f"no device kernel named {kernels} in the profile"
-    per = {k: v / reps for k, v in per.items()}
-    return sum(per.values()), per, count / reps
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
 
 
 def _level_gates(dev, lv, xy, s_k, a_k, m_k, d_k, s_p, a_p, m_p, d_p, pat):
@@ -250,8 +250,10 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
         args = ([raws[i] for i in sel_levels], [blurs[i] for i in sel_levels],
                 xy[sel].contiguous(),
                 (lvl[sel] - sel_levels[0]).contiguous(), pat, 20)
-        dev_ms, _, n_launch = device_ms(lambda: orb_sample_levels(*args),
-                                        ("orb_sample_levels_kernel",))
+        n0 = orb_sample_levels.launches
+        orb_sample_levels(*args)
+        n_launch = orb_sample_levels.launches - n0
+        dev_ms = device_ms(lambda: orb_sample_levels(*args))
         call_ms = time_ms(lambda: orb_sample_levels(*args))
         plain_ms = time_ms(lambda: orb_sample_levels_plain(*args))
         # Bytes: the pixels this launch's keypoints need, each read once
@@ -270,7 +272,7 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
         n_ops = k_n * (disk_px * 4 + N_SAMPLES * 8 + 256)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         print(f"phase {phase} {label}: levels {sel_levels}, K={k_n}, "
-              f"{n_launch:.0f} launch per call; device {dev_ms:.4f} ms, call "
+              f"{n_launch} launch per call; device {dev_ms:.4f} ms, call "
               f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {n_px} pixels read, {n_bytes} "
               f"bytes in all)", flush=True)
@@ -344,8 +346,7 @@ def check_k2(dev, paths, cfg, res):
     def run(fn):
         for src, sx, sy in calls:
             fn(src, sx, sy)
-    dev_ms = device_ms(lambda: run(warp_bilinear),
-                       ("warp_bilinear_kernel",))[0] / len(calls)
+    dev_ms = device_ms(lambda: run(warp_bilinear)) / len(calls)
     call_ms = time_ms(lambda: run(warp_bilinear)) / len(calls)
     plain_ms = time_ms(lambda: run(warp_bilinear_plain)) / len(calls)
     # Yardstick, never called by the port: one grid_sample per rect on the
@@ -362,7 +363,7 @@ def check_k2(dev, paths, cfg, res):
             torch.nn.functional.grid_sample(x, grd, mode="bilinear",
                                             padding_mode="reflection",
                                             align_corners=True)
-    library_ms = device_ms(lib_run, ("grid_sampler",))[0] / len(calls)
+    library_ms = device_ms(lib_run) / len(calls)
     lib_call_ms = time_ms(lib_run) / len(calls)
     n_bytes = sum(src.numel() * 4 + sx.numel() * 4 * (2 + 3)
                   for src, sx, _ in calls) / len(calls)
@@ -441,9 +442,8 @@ def check_k4(dev, feats):
     n_tied = int((want_t[0][1] == want_t[0][3]).sum())
     torch.cuda.synchronize()
 
-    names = ("hamming_unpack_kernel", "hamming_pairs_kernel")
-    dev_ms, per, n_launch = device_ms(lambda: hamming_two_nn_pairs(*args),
-                                      names)
+    dev_ms = device_ms(lambda: hamming_two_nn_pairs(*args))
+    unpack_ms = device_ms(lambda: unpack_pm1(args[0]))
     call_ms = time_ms(lambda: hamming_two_nn_pairs(*args))
     plain_ms = time_ms(lambda: hamming_two_nn_pairs_plain(*args), reps=3)
     # Distances this run's data needs: valid rows against valid columns,
@@ -462,13 +462,12 @@ def check_k4(dev, feats):
     route = "tensor cores, int8" if tensor_ms <= cuda_core_ms else \
         "CUDA cores"
     print(f"phase 6 K4 hamming_two_nn_pairs: {len(iu)} pairs of K={k}, both "
-          f"directions, in {n_launch:.0f} launches per call (unpack + "
-          f"pairs), valid per image {feats.valid.sum(-1).tolist()}, +-1 "
+          f"directions, in one call (an unpack and a pairs launch), valid per image {feats.valid.sum(-1).tolist()}, +-1 "
           f"unpack equal to pm1_rows: yes, i1/d1/d2 equal and i2 equal where "
           f"d2 < 2^30: yes; tie case (4 images, duplicated descriptors, 1 "
           f"and 0 valid columns, {n_tied} forward rows with d1 == d2): "
-          f"equal; per call: device {dev_ms:.4f} ms (unpack "
-          f"{per[names[0]]:.4f}, pairs {per[names[1]]:.4f}), call "
+          f"equal; per call: device {dev_ms:.4f} ms (unpack alone "
+          f"{unpack_ms:.4f}), call "
           f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms; bound over "
           f"{n_dist:.0f} valid distances: CUDA cores {cuda_core_ms:.4f} ms, "
           f"tensor cores {tensor_ms:.4f} ms -> {bound_ms:.4f} ms ({route})",
@@ -519,9 +518,7 @@ def check_k5(dev, compose_call):
     def run(fn):
         for warped, weight, off in rects:
             fn(warped, weight, off, scratch, nb)
-    dev_ms = device_ms(lambda: run(pyramid_accumulate),
-                       ("pyr_down_kernel", "band_accumulate_kernel"))[0] / \
-        len(rects)
+    dev_ms = device_ms(lambda: run(pyramid_accumulate)) / len(rects)
     call_ms = time_ms(lambda: run(pyramid_accumulate)) / len(rects)
     plain_ms = time_ms(lambda: run(pyramid_accumulate_plain)) / len(rects)
     # Bytes: the rect (3 planes + weight) in, every band's 4-channel
