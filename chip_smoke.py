@@ -3,15 +3,20 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits non-zero:
-  0. environment: torch, CUDA, the card's name and power limit, host codec;
-     then the captures: an 8-image 2448x3264 spherical ring (55 deg FOV,
-     0.5 overlap) rendered with the port's synth and written as JPEGs with
-     EXIF pose priors, twice: sigma-4 sensor noise (E2E_RING) for the
+  0. environment: torch, CUDA, the card's name and power limit, the host's
+     CPU count, the libjpeg/libpng16 files the native runtime links when it
+     is built here; then the captures: an 8-image 2448x3264 spherical
+     ring (55 deg FOV, 0.5 overlap) rendered with the port's synth and
+     written as JPEGs with EXIF pose priors, twice: sigma-4 sensor noise
+     (E2E_RING) for the
      work-scale path, sigma 8 (DEFAULT_RING) for the default path, where
      sigma 4 makes some adjacent pairs near-duplicates by the reference's
      confidence rule (see data/synth.py);
   1. build: the four CUDA kernel sources compiled with nvcc for sm_90a,
-     one nvcc per source, all at once;
+     one nvcc per source, all at once, and beside them the native host
+     runtime (`native/stitch_runtime.cpp`, g++ against the vendored codec
+     headers) unless the tracked library loads; which runtime loaded and
+     the codec files it links;
   2. K1 (orb_sample_levels) against its plain PyTorch version on every
      level of one work-scale image (1224x1632 level 0, 1500 features), in
      the one launch per image the detector makes, gated on every level;
@@ -19,7 +24,8 @@ Phases, one line each; any failure raises and exits non-zero:
      of a warm-up stitch() of the work-scale path, and grid_sample timed
      beside it;
   4. end to end, the work-scale path: num_features=1500, work_megapix=1.9,
-     no exposure compensation, the "no" seam finder; timed after the
+     no exposure compensation, the "no" seam finder, the legacy decode
+     (fast_ingest=False); timed after the
      warm-up, held to 8/8 kept, <= 1 px mean pairwise reprojection error
      against the ground truth, mask coverage > 0.9, launches > 0;
   5. K1 on every level of the default path's first capture (4000
@@ -39,11 +45,26 @@ Phases, one line each; any failure raises and exits non-zero:
      within 2e-3, finalized u8 panorama within 1, masks equal; its bound
      counts the union of a call's windows per band; K2 against its plain
      version on the same rects' samples;
-  8. end to end, the default path: timed after the warm-up, held to 8/8
-     kept, <= 1 px reprojection, mask coverage > 0.9, finite positive
-     gains, seam-mask union equal to the warped-mask union, launches of
-     all four kernels > 0, K1 <= 8 and K4 <= 2 launches, K5 no more calls
-     than phase 7's buckets (1 on the ring).
+  8. end to end, the default path with the legacy decode: timed after the
+     warm-up, held to 8/8 kept, <= 1 px reprojection, mask coverage > 0.9,
+     finite positive gains, seam-mask union equal to the warped-mask
+     union, launches of all four kernels > 0, K1 <= 8 and K4 <= 2
+     launches, K5 no more calls than phase 7's buckets (1 on the ring);
+  9. fast ingest, the reference default: (a) on the DEFAULT_RING files the
+     raw 4:2:0 route is taken for all 8 (pinned buffers); the device RGB
+     of the num8-8 planes equals PIL's RGB decode of each file and the Y
+     plane PIL's luma decode; at num8 4 the Y plane equals PIL's luma
+     decode at half size; the card's fast_prep equals the port's CPU
+     fast_prep on the same planes (seam stack within 1), and its time;
+     (b) stitch() with exactly StitchConfig() on DEFAULT_RING under phase
+     8's gates, its stage table beside phase 8's; (c) the JAX package's
+     bench configuration StitchConfig(num_features=1500,
+     work_megapix=1.9) (the num8-4 raw route) on E2E_RING under phase 4's
+     gates; (d) `python -m image_stitching_tpu_torch` on DEFAULT_RING in a
+     process of its own, exit 0 and a JPEG the size of (b)'s panorama.
+     Each stitch of (b) and (c) runs with the kernels' counts set to 0
+     just before it and read just after; `launches` in the kernel line is
+     (b)'s count, the main path, and `launches_by_path` every path's.
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
@@ -58,6 +79,7 @@ device it exits non-zero and prints no result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import json
 import os
@@ -687,6 +709,89 @@ def seam_union_gate(seams_call):
     return want.size, cut
 
 
+def _pil_luma(path, num8: int) -> np.ndarray:
+    """PIL's luma-only decode of a JPEG at DCT scale num8/8 (draft)."""
+    from PIL import Image
+    with Image.open(path) as im:
+        w, h = im.size
+        im.draft("L", (w * num8 // 8, h * num8 // 8))
+        return np.asarray(im.convert("L"))
+
+
+def check_ingest(dev, paths, seam_hw):
+    """Phase 9a: the raw 4:2:0 route on the captures, its planes against
+    PIL's decodes, and the card's fast_prep against the CPU's."""
+    from PIL import Image
+    from image_stitching_tpu_torch.pipeline import ingest
+    fi = ingest.start_fast_ingest(paths, False, True, 1.0, 1.0, device=dev)
+    assert fi is not None and fi.raw_yuv and fi.raw_num8 == 8, \
+        "fast ingest did not take the raw 4:2:0 route at num8 8"
+    pinned = sum(isinstance(b, torch.Tensor) and b.is_pinned()
+                 for b in fi.session._buffers)
+    assert pinned == len(paths) or dev.type != "cuda", \
+        f"{pinned} pinned host buffers"
+    t0 = time.perf_counter()
+    _, raw = fi.upload()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    y, cb, cr = ingest._unpack_planes(raw, fi.raw_layout)
+    rgb = ingest.yuv420_to_rgb_exact(y, cb, cr).cpu().numpy()
+    y_host = y.cpu().numpy()
+    for i, p in enumerate(paths):
+        with Image.open(p) as im:
+            want = np.asarray(im.convert("RGB"))
+        assert np.array_equal(rgb[i], want), \
+            f"{os.path.basename(p)}: device RGB differs from PIL's decode"
+        assert np.array_equal(y_host[i], _pil_luma(p, 8)), \
+            f"{os.path.basename(p)}: Y plane differs from PIL's luma decode"
+    del rgb, y_host
+    half = ingest.start_fast_ingest(paths, False, True, 0.5, 0.3, device=dev)
+    assert half is not None and half.raw_yuv and half.raw_num8 == 4
+    y4 = ingest._unpack_planes(half.upload()[1], half.raw_layout)[0]
+    y4 = y4.cpu().numpy()
+    for i, p in enumerate(paths):
+        assert np.array_equal(y4[i], _pil_luma(p, 4)), \
+            f"{os.path.basename(p)}: num8-4 Y plane differs from PIL's"
+    hw = tuple(y4.shape[1:])
+    del y4
+
+    def prep(stack):
+        return ingest.fast_prep(fi, None, stack, False, (H, W), seam_hw)
+    out_d = prep(raw)
+    out_c = prep(raw.cpu())
+    for what, a, b in zip(("gray_work", "rgb"), out_d[:2], out_c[:2]):
+        assert torch.equal(a.cpu(), b), f"fast_prep {what}: card != CPU"
+    seam_err = int((out_d[2].cpu().int() - out_c[2].int()).abs().max())
+    assert seam_err <= 1, f"fast_prep seam stack: card - CPU = {seam_err}"
+    del out_d, out_c
+    prep_ms = time_ms(lambda: prep(raw), reps=5)
+    # Bytes fast_prep must move: the packed planes in; the work gray, the
+    # oriented RGB and the seam stack out.
+    n_bytes = raw.numel() + len(paths) * (H * W * 4 + seam_hw[0] *
+                                          seam_hw[1] * 3)
+    print(f"phase 9a fast ingest: raw 4:2:0 route on all {len(paths)} "
+          f"files, num8 8, {pinned} pinned host buffers, planes "
+          f"{tuple(raw.shape)} u8 decoded and uploaded in {upload_s:.4f} s "
+          f"(2 decode threads, host of {os.cpu_count()} CPUs); device RGB "
+          f"equal to PIL's RGB decode and Y equal to PIL's luma decode on "
+          f"every file; num8 4: Y {hw} equal to PIL's half-size luma decode "
+          f"on every file; fast_prep card == CPU (gray, oriented RGB; seam "
+          f"within {seam_err}), {prep_ms:.4f} ms a call (CUDA events, "
+          f"device-bound), bytes bound {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"ms ({n_bytes} bytes)", flush=True)
+    return prep_ms
+
+
+def stage_table(columns) -> str:
+    """Stage times (s) of several runs side by side, one line a stage."""
+    names = list(dict.fromkeys(k for _, times in columns for k in times))
+    head = " | ".join(label for label, _ in columns)
+    rows = [f"  {name}: " + " | ".join(
+        f"{times[name]:.4f}" if name in times else "-"
+        for _, times in columns) for name in names]
+    return f"stage (s): {head}\n" + "\n".join(rows)
+
+
 def stitch_run(stitch, caps, cfg, counters, recorder=None):
     """One timed stitch() with every kernel's count set to 0 just before
     it and read just after."""
@@ -725,13 +830,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from image_stitching_tpu_torch.config import StitchConfig
-    from image_stitching_tpu_torch.core import image_io
+    from image_stitching_tpu_torch.core import image_io, native
     from image_stitching_tpu_torch.kernels import _build
     from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn_pairs
     from image_stitching_tpu_torch.kernels.multiband import pyramid_accumulate
     from image_stitching_tpu_torch.kernels.orb_sample import orb_sample_levels
     from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
-    from image_stitching_tpu_torch.ops.imgproc import resize, rgb_to_gray
+    from image_stitching_tpu_torch.ops.imgproc import (resize, rgb_to_gray,
+                                                      scale_size)
     from image_stitching_tpu_torch.pipeline import stitcher
     from image_stitching_tpu_torch.pipeline.stitcher import stitch
 
@@ -739,8 +845,10 @@ def main() -> int:
     smi = _smi()
     print(f"phase 0 env: torch {torch.__version__}, CUDA {torch.version.cuda}"
           f", device {torch.cuda.get_device_name(0)} x "
-          f"{torch.cuda.device_count()}, nvidia-smi '{smi}', host codec "
-          f"{image_io.codec_name()}", flush=True)
+          f"{torch.cuda.device_count()}, nvidia-smi '{smi}', host CPUs "
+          f"{os.cpu_count()}, native runtime: tracked library "
+          f"{'present' if os.path.exists(native._TRACKED) else 'absent'}, "
+          f"a build here links {list(native.codec_libs())}", flush=True)
     counters = (orb_sample_levels, warp_bilinear, hamming_two_nn_pairs,
                 pyramid_accumulate)
     names = [fn.__name__ for fn in counters]
@@ -755,9 +863,18 @@ def main() -> int:
               f"sigma 4 and {DEFAULT_RING['noise_sigma']}) rendered and "
               f"written in {time.perf_counter() - t0:.3f} s", flush=True)
 
-        _build.load_library()
+        # The kernels (nvcc) and the host runtime (g++) build side by side.
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            runtime = pool.submit(native.load)
+            _build.load_library()
+            runtime.result()
+        rt = native.runtime_info()
+        assert rt["origin"] in ("tracked", "built") and rt["links"], rt
         print(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} -> "
-              f"{_build.build_seconds():.3f} s", flush=True)
+              f"{_build.build_seconds():.3f} s; native runtime "
+              f"{rt['origin']} ({rt['path']}, {rt['seconds']:.3f} s, links "
+              f"{rt['links']}); host codec {image_io.codec_name()}",
+              flush=True)
 
         paths = image_io.list_images(caps)
         img0 = torch.from_numpy(image_io.orient_capture(
@@ -783,8 +900,7 @@ def main() -> int:
               f"{launches}, wall {wall:.4f} s "
               f"({N_IMAGES * H * W / 1e6 / wall:.3f} MP/s), stages: "
               f"{stages}; card '{smi}'", flush=True)
-        k1["launches"] = launches["orb_sample_levels"]
-        k2["launches"] = launches["warp_bilinear"]
+        by_path = {"phase 4": launches}
         del warm, res
 
         # K3: K1 on every level of the default path's first capture; its
@@ -837,15 +953,109 @@ def main() -> int:
         assert launches["orb_sample_levels"] <= N_IMAGES, launches
         assert launches["hamming_two_nn_pairs"] <= 2, launches
         assert launches["pyramid_accumulate"] <= k5["buckets"], launches
-        k3["launches"] = launches["orb_sample_levels"]
-        k4["launches"] = launches["hamming_two_nn_pairs"]
-        k5["launches"] = launches["pyramid_accumulate"]
+        by_path["phase 8"] = launches
+        legacy_stages = res.stage_times
         print(f"phase 8 per default stitch, by the counters and phases 5 and "
-              f"6: K1 {k3['launches']} launches x "
+              f"6: K1 {launches['orb_sample_levels']} launches x "
               f"{k1_default['device_ms']:.4f} ms = "
-              f"{k3['launches'] * k1_default['device_ms']:.4f} ms device, K4 "
-              f"{k4['launches']} x {k4['device_ms']:.4f} ms = "
-              f"{k4['launches'] * k4['device_ms']:.4f} ms device", flush=True)
+              f"{launches['orb_sample_levels'] * k1_default['device_ms']:.4f}"
+              f" ms device, K4 {launches['hamming_two_nn_pairs']} x "
+              f"{k4['device_ms']:.4f} ms = "
+              f"{launches['hamming_two_nn_pairs'] * k4['device_ms']:.4f} ms "
+              f"device", flush=True)
+        del res, rec
+
+        # Fast ingest with the reference default configuration.
+        seam_hw = scale_size(H, W, min(1.0, (0.1e6 / (H * W)) ** 0.5))
+        check_ingest(dev, image_io.list_images(caps_default), seam_hw)
+        torch.cuda.empty_cache()
+        cwd = os.getcwd()
+        os.chdir(work)      # StitchConfig()'s checkpoints go to "."
+        try:
+            cfg = StitchConfig()
+            assert cfg.fast_ingest and cfg.work_megapix < 0
+            stitch(caps_default, cfg, output="", device="cuda")
+            rec = Recorder(stitcher, "find_seams", "fused_compose",
+                           "fast_prep")
+            res, wall, launches = stitch_run(stitch, caps_default, cfg,
+                                             counters, rec)
+            err, coverage, stages = e2e_gates(res, k_true, rs_true, launches,
+                                              names)
+            fi = rec.calls["fast_prep"][0][0][0]
+            assert fi.raw_yuv and fi.raw_num8 == 8, "not the raw route"
+            comp = rec.calls["fused_compose"][0][0][9]
+            for i, (gh, gw) in enumerate(comp.grid_sizes):
+                gains = comp.gains[i, :gh, :gw]
+                assert np.all(np.isfinite(gains)) and np.all(gains > 0), \
+                    f"image {i}: gains not finite and positive"
+            covered, cut = seam_union_gate(rec.calls["find_seams"][0])
+            assert launches["orb_sample_levels"] <= N_IMAGES, launches
+            assert launches["hamming_two_nn_pairs"] <= 2, launches
+            assert launches["pyramid_accumulate"] <= k5["buckets"], launches
+            by_path["phase 9b"] = launches
+            pano_hw = tuple(res.panorama.shape[:2])
+            print(f"phase 9b e2e StitchConfig() (fast ingest, raw num8 "
+                  f"{fi.raw_num8}): kept {len(res.kept_indices)}/{N_IMAGES}, "
+                  f"reprojection {err:.4f} px, panorama "
+                  f"{tuple(res.panorama.shape)}, mask {coverage:.4f}, seam "
+                  f"union = warped union ({covered} px, {cut} px cut), "
+                  f"launches {launches}, wall {wall:.4f} s "
+                  f"({N_IMAGES * H * W / 1e6 / wall:.3f} MP/s), stages: "
+                  f"{stages}; card '{smi}'\n" + stage_table(
+                      [("phase 8 legacy decode", legacy_stages),
+                       ("phase 9b fast ingest", res.stage_times)]),
+                  flush=True)
+            del res, rec, comp
+
+            cfg = StitchConfig(num_features=1500, work_megapix=1.9)
+            stitch(caps, cfg, output="", device="cuda")
+            rec = Recorder(stitcher, "fast_prep")
+            res, wall, launches = stitch_run(stitch, caps, cfg, counters, rec)
+            err, coverage, stages = e2e_gates(res, k_true, rs_true, launches,
+                                              names)
+            fi = rec.calls["fast_prep"][0][0][0]
+            assert fi.raw_yuv and fi.raw_num8 == 4, (fi.raw_yuv, fi.raw_num8)
+            by_path["phase 9c"] = launches
+            print(f"phase 9c e2e bench configuration (num_features=1500, "
+                  f"work_megapix=1.9; raw route num8 {fi.raw_num8}, work "
+                  f"scale {res.work_scale}): kept {len(res.kept_indices)}/"
+                  f"{N_IMAGES}, reprojection {err:.4f} px, panorama "
+                  f"{tuple(res.panorama.shape)}, mask {coverage:.4f}, "
+                  f"launches {launches}, wall {wall:.4f} s "
+                  f"({N_IMAGES * H * W / 1e6 / wall:.3f} MP/s), stages: "
+                  f"{stages}; card '{smi}'", flush=True)
+            del res, rec
+
+            out_jpg = os.path.join(work, "cli_result.jpg")
+            env = dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__)))
+            t0 = time.perf_counter()
+            cli = subprocess.run(
+                [sys.executable, "-m", "image_stitching_tpu_torch",
+                 caps_default, "--result", out_jpg, "--checkpoint-dir",
+                 work], env=env, capture_output=True, text=True, timeout=600)
+            cli_s = time.perf_counter() - t0
+            assert cli.returncode == 0, \
+                f"CLI exit {cli.returncode}: {cli.stderr[-2000:]}"
+            from PIL import Image
+            with Image.open(out_jpg) as im:
+                assert im.size == (pano_hw[1], pano_hw[0]), \
+                    (im.size, pano_hw)
+            print(f"phase 9d python -m image_stitching_tpu_torch: exit 0 in "
+                  f"{cli_s:.3f} s (a new process: start, kernel load, one "
+                  f"cold stitch), wrote a {pano_hw[1]}x{pano_hw[0]} JPEG, "
+                  f"the size of phase 9b's panorama; its lines: "
+                  + "; ".join(cli.stdout.strip().splitlines()), flush=True)
+        finally:
+            os.chdir(cwd)
+
+    main_path = by_path["phase 9b"]
+    for row, fn in ((k1, orb_sample_levels), (k2, warp_bilinear),
+                    (k3, orb_sample_levels), (k4, hamming_two_nn_pairs),
+                    (k5, pyramid_accumulate)):
+        row["launches"] = main_path[fn.__name__]
+        row["launches_by_path"] = {path: counts[fn.__name__]
+                                   for path, counts in by_path.items()}
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(smi)

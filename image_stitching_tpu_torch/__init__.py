@@ -3,9 +3,13 @@
 `image_stitching_tpu_torch` mirrors the module tree of `image_stitching_tpu`
 so that every port module's reference is found by path.  It imports
 `torch` and never `jax`; the JAX package stays the reference the tests hold
-this one against.  The two TPU kernels on the main path (ORB sampling and
-the compose warp gather) are hand-written CUDA kernels under `csrc/`,
-built with `nvcc` for `sm_90a` at first use (`kernels/_build.py`).
+this one against.  The five TPU kernels (ORB sampling, the compose warp
+gather, Hamming 2-NN, the multiband pyramid accumulate) are hand-written
+CUDA kernels under `csrc/`, built with `nvcc` for `sm_90a` at first use
+(`kernels/_build.py`); the host codec runtime `native/stitch_runtime.cpp`
+is built with `g++` against vendored headers when needed
+(`core/native.py`).  `python -m image_stitching_tpu_torch <dir>` is the
+command line (`cli.py`).
 """
 
 import torch

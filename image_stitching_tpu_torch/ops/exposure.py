@@ -1,13 +1,17 @@
-"""GAIN_BLOCKS exposure compensation (port of `ops/exposure.py:64-319,
-351-651`, the `feed_device` route).
+"""Exposure compensation NO / GAIN / GAIN_BLOCKS / CHANNELS /
+CHANNELS_BLOCKS (port of `ops/exposure.py:64-319, 351-651`, the
+`feed_device` route).
 
-cv::detail::BlocksCompensator semantics: each seam-scale warped image is
-tiled into its own block grid (ceil(size / block) blocks of ceil(size /
-blocks) pixels, last block clipped), every block enters one global
-GainCompensator system (alpha 0.01, beta 100, self-counts in the prior
-terms only, intensity the L2 norm of the RGB triple) solved in float64 on
-the host, and each image's gain map is smoothed `nr_filtering` times with
-[1 2 1] / 4 under BORDER_REFLECT_101.
+cv::detail::GainCompensator semantics: one gain system over all images
+(alpha 0.01, beta 100, self-counts in the prior terms only), solved in
+float64 on the host; GAIN's intensity is the L2 norm of the RGB triple,
+CHANNELS solves the same system per channel.  The *_BLOCKS types
+(cv::detail::BlocksCompensator) tile each seam-scale warped image into its
+own block grid (ceil(size / block) blocks of ceil(size / blocks) pixels,
+last block clipped), feed every block into the one system as an image of
+its own, and smooth each image's gain map `nr_filtering` times with
+[1 2 1] / 4 under BORDER_REFLECT_101.  GAIN and CHANNELS are the
+one-block case of the same machinery.
 
 The overlap statistics come from the padded warped stacks on the device,
 as separable one-hot binning products: a pixel's block row depends on y
@@ -38,9 +42,11 @@ _BETA = 100.0
 
 @dataclasses.dataclass
 class ExposureCompensator:
-    """Fitted gains.  NO: `gains` (N,) ones.  GAIN_BLOCKS: `gains` (N,
-    Gy_max, Gx_max) float32, zero-padded to the largest grid, and
-    `grid_sizes[i] = (gy_i, gx_i)` image i's own grid."""
+    """Fitted gains.  NO: `gains` (N,) ones.  GAIN: (N,) and CHANNELS:
+    (N, 3) float64.  GAIN_BLOCKS: (N, Gy_max, Gx_max) and
+    CHANNELS_BLOCKS: (N, Gy_max, Gx_max, 3) float32, zero-padded to the
+    largest grid, `grid_sizes[i] = (gy_i, gx_i)` image i's own grid (ones
+    for the global types)."""
     comp_type: ECType
     gains: np.ndarray
     grid_sizes: np.ndarray  # (N, 2) int
@@ -137,32 +143,44 @@ def _filter_gain_map(gmap: np.ndarray, iters: int) -> np.ndarray:
 
 
 def _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat, nr_feeds,
-               nr_filtering) -> ExposureCompensator:
-    """Solve (nr_feeds rounds), filter and pad the per-image gain maps."""
-    gains = np.ones((b_tot, 1))
+               nr_filtering, per_channel: bool,
+               blocks: bool) -> ExposureCompensator:
+    """Solve (nr_feeds rounds, each channel), then for the block types
+    filter and pad the per-image gain maps."""
+    nch = i_mat.shape[-1]
+    gains = np.ones((b_tot, nch))
     for _ in range(max(1, nr_feeds)):
         i_eff = i_mat * gains[:, None, :]
-        gains[:, 0] *= _solve_gain_system(n_mat, i_eff[..., 0])
+        for c in range(nch):
+            gains[:, c] *= _solve_gain_system(n_mat, i_eff[..., c])
+    if not blocks:
+        return ExposureCompensator(
+            comp_type, np.asarray(gains if per_channel else gains[:, 0],
+                                  np.float64), np.ones((n, 2), np.int32))
     gy_max = max(g[1] for g in grids)
     gx_max = max(g[0] for g in grids)
-    out = np.zeros((n, gy_max, gx_max), np.float32)
+    out = np.zeros((n, gy_max, gx_max, nch), np.float32)
     grid_sizes = np.zeros((n, 2), np.int32)
     for i in range(n):
         gw, gh, _, _ = grids[i]
-        gm = gains[offs[i]:offs[i] + gw * gh].reshape(gh, gw, 1)
-        out[i, :gh, :gw] = _filter_gain_map(gm, nr_filtering)[..., 0]
+        gm = gains[offs[i]:offs[i] + gw * gh].reshape(gh, gw, nch)
+        out[i, :gh, :gw] = _filter_gain_map(gm, nr_filtering)
         grid_sizes[i] = (gh, gw)
-    return ExposureCompensator(comp_type, out, grid_sizes)
+    return ExposureCompensator(comp_type, out if per_channel else out[..., 0],
+                               grid_sizes)
 
 
 def _snap8(x: int) -> int:
     return -(-x // 8) * 8
 
 
-def _rank_cap(bucket_dim_: int, block_size: int) -> int:
+def _rank_cap(bucket_dim_: int, block_size: int, blocks: bool) -> int:
     """Bound (incl. one spare slot) on the distinct (block_i, block_j)
     rank pairs along one axis of an overlap of at most `bucket_dim_`
-    pixels: every block dim exceeds block_size / 2."""
+    pixels: every block dim exceeds block_size / 2; one block per image
+    gives one rank."""
+    if not blocks:
+        return 8
     bmin = block_size // 2 + 1
     return _snap8(2 * (bucket_dim_ // bmin + 2))
 
@@ -179,15 +197,20 @@ def _staircase(o_i: int, o_j: int, b_i: int, b_j: int, length: int):
             (uniq & ((1 << 20) - 1)).astype(np.int64))
 
 
-def _intensity(img: torch.Tensor) -> torch.Tensor:
-    """L2 norm of the RGB triple (GainCompensator's norm(Vec3b))."""
-    return torch.linalg.vector_norm(img.to(torch.float32), dim=-1)
+def _intensity(img: torch.Tensor, per_channel: bool) -> torch.Tensor:
+    """(..., nch) intensities of (..., 3) pixels: the channels, or the L2
+    norm of the RGB triple (GainCompensator's norm(Vec3b))."""
+    img = img.to(torch.float32)
+    if per_channel:
+        return img
+    return torch.linalg.vector_norm(img, dim=-1)[..., None]
 
 
-def _self_stats_dev(stack, masks, params, gh_cap: int, gw_cap: int):
+def _self_stats_dev(stack, masks, params, gh_cap: int, gw_cap: int,
+                    per_channel: bool):
     """Own-block stats of every image (`_self_stats_dev`): (N, gh_cap,
-    gw_cap, 2) with [..., 0] the masked pixel counts and [..., 1] the
-    intensity sums on each image's block grid.  params (N, 5) int64
+    gw_cap, 1 + nch) with [..., 0] the masked pixel counts and [..., 1:]
+    the intensity sums on each image's block grid.  params (N, 5) int64
     device (gw, bw, bh, w, h)."""
     n, hp, wp = masks.shape
     dev = masks.device
@@ -198,19 +221,20 @@ def _self_stats_dev(stack, masks, params, gh_cap: int, gw_cap: int):
             (yy < h)[..., None]).to(torch.float32)        # (N, hp, gh_cap)
     xmat = (((xx // bw)[..., None] == torch.arange(gw_cap, device=dev)) &
             (xx < w)[..., None]).to(torch.float32)        # (N, wp, gw_cap)
-    m = (masks > 0).to(torch.float32)
-    fields = torch.stack([m, m * _intensity(stack)], 1)  # (N, 2, hp, wp)
-    a = ymat.transpose(1, 2)[:, None] @ fields            # (N, 2, gh, wp)
-    return (a @ xmat[:, None]).permute(0, 2, 3, 1)        # (N, gh, gw, 2)
+    m = (masks > 0).to(torch.float32)[..., None]
+    fields = torch.cat([m, m * _intensity(stack, per_channel)],
+                       -1).permute(0, 3, 1, 2)            # (N, c, hp, wp)
+    a = ymat.transpose(1, 2)[:, None] @ fields            # (N, c, gh, wp)
+    return (a @ xmat[:, None]).permute(0, 2, 3, 1)        # (N, gh, gw, c)
 
 
 def _pair_stats_dev(stack, masks, idx_i, idx_j, off_i, off_j, rect_hw,
                     py_keys, px_keys, bh_b: int, bw_b: int, py_cap: int,
-                    px_cap: int):
+                    px_cap: int, per_channel: bool):
     """Overlap stats of a bucket of T pairs (`_pair_stats_dev`): crops
     of both images at their overlap offsets, then one-hot binning products
-    over the host-built staircase ranks.  Returns (T, py_cap, px_cap, 3):
-    overlap counts, side-i and side-j intensity sums."""
+    over the host-built staircase ranks.  Returns (T, py_cap, px_cap,
+    1 + 2 nch): overlap counts, side-i and side-j intensity sums."""
     n, hp, wp = masks.shape
     dev = masks.device
     stack_p = F.pad(stack, (0, 0, 0, bw_b, 0, bh_b))
@@ -228,14 +252,15 @@ def _pair_stats_dev(stack, masks, idx_i, idx_j, off_i, off_j, rect_hw,
     img_j, msk_j = gather(idx_j, off_j)
     inside = ((ar_h[None, :, None] < rect_hw[:, 0, None, None]) &
               (ar_w[None, None, :] < rect_hw[:, 1, None, None]))
-    both = ((msk_i > 0) & (msk_j > 0) & inside).to(torch.float32)
-    fields = torch.stack([both, both * _intensity(img_i),
-                          both * _intensity(img_j)], 1)  # (T, 3, bh, bw)
+    both = ((msk_i > 0) & (msk_j > 0) & inside).to(torch.float32)[..., None]
+    fields = torch.cat([both, both * _intensity(img_i, per_channel),
+                        both * _intensity(img_j, per_channel)],
+                       -1).permute(0, 3, 1, 2)           # (T, c, bh, bw)
     ymat = (py_keys[..., None] == torch.arange(py_cap, device=dev)).to(
         torch.float32)                                   # (T, bh_b, py_cap)
     xmat = (px_keys[..., None] == torch.arange(px_cap, device=dev)).to(
         torch.float32)                                   # (T, bw_b, px_cap)
-    a = ymat.transpose(1, 2)[:, None] @ fields           # (T, 3, py, bw)
+    a = ymat.transpose(1, 2)[:, None] @ fields           # (T, c, py, bw)
     return (a @ xmat[:, None]).permute(0, 2, 3, 1)       # (T, py, px, 3)
 
 
@@ -254,17 +279,16 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
     if comp_type == ECType.NO:
         return ExposureCompensator(comp_type, np.ones(n),
                                    np.ones((n, 2), np.int32))
-    if comp_type != ECType.GAIN_BLOCKS:
-        raise NotImplementedError(
-            f"expos_comp_type={comp_type.value!r}: the PyTorch port "
-            "implements NO and GAIN_BLOCKS")
+    blocks = comp_type in (ECType.GAIN_BLOCKS, ECType.CHANNELS_BLOCKS)
+    per_channel = comp_type in (ECType.CHANNELS, ECType.CHANNELS_BLOCKS)
+    nch = 3 if per_channel else 1
     dev = masks_dev.device
 
     grids: List[Tuple[int, int, int, int]] = []
     offs: List[int] = []
     b_tot = 0
     for w, h in sizes:
-        g = _block_grid(w, h, block_size)
+        g = _block_grid(w, h, block_size) if blocks else (1, 1, w, h)
         grids.append(g)
         offs.append(b_tot)
         b_tot += g[0] * g[1]
@@ -272,9 +296,12 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
         np.asarray([(g[0], g[2], g[3], s[0], s[1])
                     for g, s in zip(grids, sizes)], np.int64), device=dev)
     hp, wp = int(masks_dev.shape[1]), int(masks_dev.shape[2])
-    bmin = block_size // 2 + 1
-    self_pend = _self_stats_dev(images_dev, masks_dev, params,
-                                _snap8(hp // bmin + 2), _snap8(wp // bmin + 2))
+    gh_cap = gw_cap = 8
+    if blocks:
+        bmin = block_size // 2 + 1
+        gh_cap, gw_cap = _snap8(hp // bmin + 2), _snap8(wp // bmin + 2)
+    self_pend = _self_stats_dev(images_dev, masks_dev, params, gh_cap,
+                                gw_cap, per_channel)
 
     buckets = {}
     for i in range(n):
@@ -290,8 +317,8 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
     pair_pend, pair_meta = [], []
     for (bh_b, bw_b), items in buckets.items():
         t = len(items)
-        py_cap = _rank_cap(bh_b, block_size)
-        px_cap = _rank_cap(bw_b, block_size)
+        py_cap = _rank_cap(bh_b, block_size, blocks)
+        px_cap = _rank_cap(bw_b, block_size, blocks)
         tab = np.zeros((t, 6), np.int64)
         pyk = np.zeros((t, bh_b), np.int64)
         pxk = np.zeros((t, bw_b), np.int64)
@@ -312,14 +339,15 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
         pair_pend.append(_pair_stats_dev(
             images_dev, masks_dev, tab_d[:, 0], tab_d[:, 1], tab_d[:, 2:4],
             tab_d[:, 4:6], hw_d, torch.as_tensor(pyk, device=dev),
-            torch.as_tensor(pxk, device=dev), bh_b, bw_b, py_cap, px_cap))
+            torch.as_tensor(pxk, device=dev), bh_b, bw_b, py_cap, px_cap,
+            per_channel))
         pair_meta.append((items, ranks))
 
     self_tbl = self_pend.cpu().numpy().astype(np.float64)
     pair_stats = [p.cpu().numpy().astype(np.float64) for p in pair_pend]
 
     n_mat = np.zeros((b_tot, b_tot))
-    i_mat = np.zeros((b_tot, b_tot, 1))
+    i_mat = np.zeros((b_tot, b_tot, nch))
     for i in range(n):
         gw, gh, _, _ = grids[i]
         bi = gw * gh
@@ -327,7 +355,7 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
         tbl = self_tbl[i][:gh, :gw]
         cnt = tbl[..., 0].ravel()
         n_mat[ai, ai] = np.maximum(cnt, 1.0)
-        i_mat[ai, ai, :] = (tbl[..., 1:].reshape(bi, 1) /
+        i_mat[ai, ai, :] = (tbl[..., 1:].reshape(bi, nch) /
                             np.maximum(cnt, 1.0)[:, None])
     for (items, ranks), tbl_t in zip(pair_meta, pair_stats):
         for slot, (i, j, *rest) in enumerate(items):
@@ -340,12 +368,12 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
             bi_g = ryi_u[:, None] * grids[i][0] + rxi_u[None, :]
             bj_g = ryj_u[:, None] * grids[j][0] + rxj_u[None, :]
             cnt = np.zeros((bi, bj))
-            si = np.zeros((bi, bj, 1))
-            sj = np.zeros((bi, bj, 1))
+            si = np.zeros((bi, bj, nch))
+            sj = np.zeros((bi, bj, nch))
             cnt[bi_g, bj_g] = tbl[..., 0]
-            si[bi_g, bj_g, :] = tbl[..., 1:2]
-            sj[bi_g, bj_g, :] = tbl[..., 2:]
+            si[bi_g, bj_g, :] = tbl[..., 1:1 + nch]
+            sj[bi_g, bj_g, :] = tbl[..., 1 + nch:]
             _assemble_pair(n_mat, i_mat, grids, sizes, corners[i], cj,
                            offs, i, j, cnt, si, sj)
     return _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat,
-                      nr_feeds, nr_filtering)
+                      nr_feeds, nr_filtering, per_channel, blocks)

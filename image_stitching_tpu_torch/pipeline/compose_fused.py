@@ -3,8 +3,9 @@
 
 Per image, on the device: backward warp of the compose source over a
 padded, band-aligned canvas rect (kernel K2, `kernels/warp_gather.py`,
-with BORDER_REFLECT), the warp-validity mask, the GAIN_BLOCKS exposure
-gain map stretched over the image's ROI, the seam mask sampled at
+with BORDER_REFLECT), the warp-validity mask, the exposure gain (a
+scalar, one per channel, or the block map stretched over the image's ROI),
+the seam mask sampled at
 ratio-scaled warped coordinates, then the Laplacian pyramid of the planar
 (4, h, w) image + weight accumulated into the canvas band accumulators
 (kernel K5, `kernels/multiband.py`, one call per bucket of same-size
@@ -102,11 +103,11 @@ def _interp_matrix(coords: torch.Tensor, n_src: int) -> torch.Tensor:
 
 
 def _gain_sample(us, vs, gain, gain_grid, gain_roi):
-    """The per-image block gain map (Gy_max, Gx_max) stretched over the
-    image's compose-scale ROI with cv2::resize INTER_LINEAR semantics
+    """The per-image block gain map (Gy_max, Gx_max[, 3]) stretched over
+    the image's compose-scale ROI with cv2::resize INTER_LINEAR semantics
     (`_warp_gain_seam`'s "blocks" branch): grid coordinates
     (p + 0.5) * grid / roi_size - 0.5, edge-clamped, as two banded
-    interpolation-matrix products.  Returns (1, len(vs), len(us))."""
+    interpolation-matrix products.  Returns (1 or 3, len(vs), len(us))."""
     gh_i, gw_i = gain_grid[0], gain_grid[1]
     gx = torch.clamp((us - gain_roi[0] + 0.5) * gw_i / gain_roi[2] - 0.5,
                      min=0.0)
@@ -116,19 +117,27 @@ def _gain_sample(us, vs, gain, gain_grid, gain_roi):
     gy = torch.minimum(gy, gh_i - 1.0)
     mv = _interp_matrix(gy, gain.shape[0])
     mu = _interp_matrix(gx, gain.shape[1])
-    return (mv.t() @ gain @ mu)[None]
+    if gain.ndim == 2:
+        return (mv.t() @ gain @ mu)[None]
+    return torch.einsum("yv,yxc,xu->cvu", mv, gain, mu)
 
 
 def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float,
                gain=None, gain_grid=None, gain_roi=None):
     """Per-image compose sample on the grid us x vs: the K2 image sample
-    (planar (3, h, w)) times the block gain when `gain` is given, and the
-    blend weight (h, w) from warp validity and the seam mask."""
+    (planar (3, h, w)) times the exposure gain when `gain` is given, and
+    the blend weight (h, w) from warp validity and the seam mask.  The
+    gain's rank picks `_warp_gain_seam`'s mode: a 0-d GAIN scalar, a (3,)
+    CHANNELS triple, or a (Gy, Gx[, 3]) block map sampled over the ROI."""
     hc, wc = img.shape[0], img.shape[1]
     sx, sy, valid = backward_xy_1d(us, vs, k, r, scale)
     warped = warp_bilinear(img, sx.contiguous(), sy.contiguous())
     wmask = _valid_mask(sx, sy, valid, hc, wc)
-    if gain is not None:
+    if gain is not None and gain.ndim == 0:
+        warped = warped * gain
+    elif gain is not None and gain.ndim == 1:
+        warped = warped * gain[:, None, None]
+    elif gain is not None:
         warped = warped * _gain_sample(us, vs, gain, gain_grid, gain_roi)
     ratio = torch.tensor(seam_ratio, dtype=torch.float32, device=us.device)
     mx = us * ratio - stl[0]
@@ -224,16 +233,13 @@ def compose_rects(comp_corners, comp_sizes, blend_type: BlenderType,
 
 
 def prep_gains(compensator, comp_corners, comp_sizes, device):
-    """Exposure-compensator state -> None (NO) or the GAIN_BLOCKS compose
-    inputs (maps (N, Gy, Gx), grids (N, 2), rois (N, 4)) as float32 device
-    tensors (`_prep_gains`, `compose_fused.py:515-533`): each image's block
-    map stretches over its compose-scale warped ROI."""
+    """Exposure-compensator state -> None (NO) or the compose inputs
+    (gains, grids (N, 2), rois (N, 4)) as float32 device tensors
+    (`_prep_gains`, `compose_fused.py:515-533`).  gains is (N,) for GAIN,
+    (N, 3) for CHANNELS, the block maps (N, Gy, Gx[, 3]) for the *_BLOCKS
+    types, each stretched over its image's compose-scale warped ROI."""
     if compensator is None or compensator.comp_type == ECType.NO:
         return None
-    if compensator.comp_type != ECType.GAIN_BLOCKS:
-        raise NotImplementedError(
-            f"expos_comp_type={compensator.comp_type.value!r}: the PyTorch "
-            "port composes with NO and GAIN_BLOCKS gains only")
     rois = [[c[0], c[1], s[0], s[1]] for c, s in zip(comp_corners,
                                                       comp_sizes)]
     return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)

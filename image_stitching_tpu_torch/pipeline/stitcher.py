@@ -1,34 +1,32 @@
 """End-to-end stitch: the main path of
 `image_stitching_tpu/pipeline/stitcher.py`.
 
-Stages: read images and EXIF priors -> ORB features (kernel K1) -> all-pairs
-matching with RANSAC (kernel K4) -> biggest connected component -> bundle
-adjustment seeded from the priors -> checkpoint -> wave correction ->
-median focal -> seam-scale spherical warp -> GAIN_BLOCKS exposure
-compensation -> DP colour seams -> compose-scale fused multiband blend
-(kernels K2 and K5) -> result.
+Stages: read images and EXIF priors (fast ingest: the background native
+decode of the codec's 4:2:0 planes, `pipeline/ingest.py`) -> ORB features
+(kernel K1) -> all-pairs matching with RANSAC (kernel K4) -> biggest
+connected component -> bundle adjustment seeded from the priors ->
+checkpoint -> wave correction -> median focal -> seam-scale spherical warp
+-> exposure compensation -> DP colour seams -> compose-scale fused
+multiband blend (kernels K2 and K5) -> result.
 
 This port runs one slice of the reference's configuration surface: the
-reference defaults with the legacy uniform decode path in place of fast
-ingest; exposure NO or GAIN_BLOCKS; seams "no", "dp_color" or
-"dp_colorgrad".  `check_slice` raises NotImplementedError for every option
-outside it, so the port never takes another path quietly.  The device is
-explicit: `stitch(..., device="cuda")` raises when no GPU is present, and
-nothing falls back to the CPU.
+reference defaults, fast ingest on or off, every exposure compensator,
+seams "no", "dp_color" or "dp_colorgrad".  `check_slice` raises
+NotImplementedError for every option outside it, so the port never takes
+another path quietly.  The device is explicit: `stitch(..., device="cuda")`
+raises when no GPU is present, and nothing falls back to the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..config import (BlenderType, ExposureCompensatorType, StitchConfig,
-                      WaveCorrectKind)
+from ..config import BlenderType, StitchConfig, WaveCorrectKind
 from ..core import exif as exif_mod
 from ..core import image_io, persistence
 from ..core.logging import logger, stage_timer
@@ -43,6 +41,7 @@ from ..ops.matching import match_all_pairs
 from ..ops.seams import find_seams
 from ..ops.warps import Warper, make_warper, result_roi, u_period
 from .compose_fused import fused_compose, warp_stack
+from .ingest import fast_prep, pick_num8, start_fast_ingest
 
 __all__ = ["stitch", "StitchResult", "check_slice", "compose_inputs",
            "ComposeInputs"]
@@ -62,10 +61,6 @@ def check_slice(cfg: StitchConfig) -> None:
     """Raise NotImplementedError naming the first option outside the
     port's slice."""
     refused = [
-        ("fast_ingest", cfg.fast_ingest, "True"),
-        ("expos_comp_type", cfg.expos_comp_type not in (
-            ExposureCompensatorType.NO, ExposureCompensatorType.GAIN_BLOCKS),
-         cfg.expos_comp_type.value),
         ("seam_find_type", cfg.seam_find_type not in (
             "no", "dp_color", "dp_colorgrad"), cfg.seam_find_type),
         ("timelapse", cfg.timelapse, "True"),
@@ -131,11 +126,6 @@ def _median_focal(focals: np.ndarray) -> float:
     return float(f[n // 2 - 1] + f[n // 2]) * 0.5
 
 
-def _pick_num8(scale_needed: float) -> int:
-    """Smallest DCT numerator num8 in 1..8 with num8/8 >= scale_needed."""
-    return max(1, min(8, math.ceil(8.0 * scale_needed - 1e-9)))
-
-
 @dataclasses.dataclass
 class ComposeInputs:
     """Compose-scale cameras and ROIs of the kept images."""
@@ -185,7 +175,7 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False),
+def stitch(source, cfg: StitchConfig = StitchConfig(),
            output: Optional[str] = None, device="cuda") -> StitchResult:
     """Stitch a directory or a list of image paths on `device`.  Writes
     `cfg.result_name` (or `output`) unless output=""."""
@@ -197,25 +187,45 @@ def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False),
         raise ValueError("Need at least two images to stitch")
     times: Dict[str, float] = {}
 
+    fast = None
     with stage_timer("Reading images and priors", times, dev):
         priors, is_portrait = _load_priors(paths)
+        # Header-only sizes: the three scales are known before any pixel
+        # is decoded, so the decoder can run DCT-scaled.
         full_sizes = [image_io.probe_oriented_size(p, is_portrait)
                       for p in paths]
         area0 = full_sizes[0][0] * full_sizes[0][1]
         work_scale = 1.0 if cfg.work_megapix < 0 else min(
             1.0, float(np.sqrt(cfg.work_megapix * 1e6 / area0)))
         if cfg.work_scale_snap and work_scale < 1.0:
-            num8 = _pick_num8(work_scale)
+            num8 = pick_num8(work_scale)
             if num8 % 2 == 1 and num8 < 8:
                 num8 += 1
             work_scale = num8 / 8.0
         seam_scale = min(1.0, float(np.sqrt(cfg.seam_megapix * 1e6 / area0)))
         seam_work_aspect = seam_scale / work_scale
-        device_imgs = []
-        for p in paths:
-            im = image_io.orient_capture(image_io.imread(p), is_portrait)
-            device_imgs.append(torch.from_numpy(im).to(dev))
-        full_sizes = [(im.shape[1], im.shape[0]) for im in device_imgs]
+        compose_scale = 1.0
+        if cfg.compose_megapix > 0:
+            compose_scale = min(1.0, float(
+                np.sqrt(cfg.compose_megapix * 1e6 / area0)))
+        # The compose skips its resize within 10% of scale 1, and then
+        # reads full-resolution pixels.
+        compose_src_scale = (compose_scale
+                             if abs(compose_scale - 1) > 1e-1 else 1.0)
+        if cfg.fast_ingest:
+            # Features are always wanted: find_features=False and
+            # serialize_data=False are outside the slice.
+            fast = start_fast_ingest(
+                paths, is_portrait, want_gray=True, gray_scale=work_scale,
+                rgb_scale=max(seam_scale, compose_src_scale), device=dev)
+        if fast is not None:
+            gray_raw, rgb_raw = fast.upload()
+        else:
+            device_imgs = []
+            for p in paths:
+                im = image_io.orient_capture(image_io.imread(p), is_portrait)
+                device_imgs.append(torch.from_numpy(im).to(dev))
+            full_sizes = [(im.shape[1], im.shape[0]) for im in device_imgs]
     if priors is None:
         raise NotImplementedError(
             "captures without EXIF priors (homography-based camera "
@@ -231,18 +241,24 @@ def stitch(source, cfg: StitchConfig = StitchConfig(fast_ingest=False),
         work_hw = (scale_size(h0, w0, work_scale) if work_scale != 1.0
                    else (h0, w0))
         seam_hw = scale_size(h0, w0, seam_scale)
-        grays, seam_list = [], []
-        for im in device_imgs:
-            work = (resize(im, work_hw) if work_scale != 1.0
-                    else im.to(torch.float32))
-            grays.append(rgb_to_gray(work))
-            seam_list.append(torch.clamp(torch.round(resize(im, seam_hw)),
-                                         0, 255).to(torch.uint8))
-        fstack = orb_detect_stack(torch.stack(grays),
-                                  n_features=cfg.num_features,
+        if fast is not None:
+            # stack_u8 is at decode scale; the compose resizes it to dims
+            # computed from the full-resolution size.
+            grays, stack_u8, seam_stack = fast_prep(
+                fast, gray_raw, rgb_raw, is_portrait, work_hw, seam_hw)
+        else:
+            grays, seam_list = [], []
+            for im in device_imgs:
+                work = (resize(im, work_hw) if work_scale != 1.0
+                        else im.to(torch.float32))
+                grays.append(rgb_to_gray(work))
+                seam_list.append(torch.clamp(torch.round(
+                    resize(im, seam_hw)), 0, 255).to(torch.uint8))
+            grays = torch.stack(grays)
+            seam_stack = torch.stack(seam_list)
+            stack_u8 = torch.stack(device_imgs)
+        fstack = orb_detect_stack(grays, n_features=cfg.num_features,
                                   pattern=cfg.orb_pattern)
-        seam_stack = torch.stack(seam_list)
-        stack_u8 = torch.stack(device_imgs)
 
     cameras_all = Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
 

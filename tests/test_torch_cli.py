@@ -1,0 +1,137 @@
+"""Port parity: the command line (`image_stitching_tpu_torch/cli.py`)
+against `image_stitching_tpu/cli.py`, and what its main() writes."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+from PIL import Image
+
+from image_stitching_tpu import cli as jcli
+from image_stitching_tpu.data.synth import (make_ring_captures,
+                                            write_capture_dir)
+from image_stitching_tpu_torch import cli
+from image_stitching_tpu_torch.pipeline.stitcher import stitch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+ARGVS = [
+    [],
+    ["--work-megapix", "1.9", "--num-features", "1500"],
+    ["--expos-comp", "channels_blocks", "--seam", "dp_colorgrad",
+     "--blend", "feather", "--blend-strength", "3"],
+    ["--features", "sift", "--wave-correct", "no", "--ba", "ray",
+     "--ba-refine-mask", "x____", "--matcher", "affine"],
+    ["--timelapse", "--timelapse-type", "as_is", "--range-width", "3",
+     "--no-find-features", "--crop", "--no-sensor-priors",
+     "--infill-dropped", "--checkpoint-npz", "--save-graph", "g.dot",
+     "--seed", "7", "--result", "out.jpg", "--checkpoint-dir", "ck",
+     "--conf-thresh", "0.5", "--match-conf", "0.4", "--orb-pattern", "cv",
+     "--expos-comp-nr-feeds", "2", "--expos-comp-nr-filtering", "1",
+     "--expos-comp-block-size", "32", "--compose-megapix", "-1",
+     "--seam-megapix", "0.2", "--warp", "cylindrical",
+     "--estimator", "affine", "--profile-dir", "prof"],
+]
+
+
+def _fields(cfg):
+    return {f.name: (getattr(cfg, f.name).value
+                     if hasattr(getattr(cfg, f.name), "value")
+                     else getattr(cfg, f.name))
+            for f in dataclasses.fields(cfg)}
+
+
+@pytest.mark.parametrize("argv", range(len(ARGVS)))
+def test_config_from_args_matches_reference(argv):
+    """The same StitchConfig, field by field, for the same flags; the zero
+    flag run is StitchConfig() in both; --device is the port's only extra
+    flag."""
+    args = ["caps"] + ARGVS[argv]
+    got = cli.config_from_args(cli.build_parser().parse_args(
+        args + ["--device", "cpu"]))
+    want = jcli.config_from_args(jcli.build_parser().parse_args(args))
+    assert _fields(got) == _fields(want)
+    if argv == 0:
+        assert got == type(got)()
+    assert cli.build_parser().parse_args(args).device == "cuda"
+    jflags = {a.dest for a in jcli.build_parser()._actions}
+    assert {a.dest for a in cli.build_parser()._actions} - jflags == \
+        {"device"}
+
+
+@pytest.fixture(scope="module")
+def captures(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli_captures")
+    images, k, rs = make_ring_captures(n_images=3, hw=(160, 224), fov_deg=55,
+                                       overlap_ratio=0.55)
+    write_capture_dir(str(d), images, k, rs)
+    return str(d)
+
+
+SMALL = ["--num-features", "400", "--compose-megapix", "-1",
+         "--seam-megapix", "0.02"]
+
+
+def test_main_writes_the_stitch_panorama(captures, tmp_path, capsys):
+    """main() with the port's flags on the CPU exits 0, prints the stage
+    lines, and writes the JPEG stitch() writes for the same config, byte
+    for byte."""
+    out = str(tmp_path / "cli.jpg")
+    argv = [captures, "--device", "cpu", "--result", out,
+            "--checkpoint-dir", str(tmp_path)] + SMALL
+    assert cli.main(argv) == 0
+    printed = capsys.readouterr().out
+    assert "Reading images and priors, time:" in printed
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    assert cfg.fast_ingest and cfg.expos_comp_type.value == "gain_blocks"
+    ref = str(tmp_path / "stitch.jpg")
+    res = stitch(captures, cfg, output=ref, device="cpu")
+    h, w = res.panorama.shape[:2]
+    assert f"wrote {out} ({w}x{h})" in printed
+    with open(out, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    with Image.open(out) as im:
+        assert im.size == (w, h)
+    assert os.path.exists(tmp_path / "cams.data")
+
+
+@pytest.mark.parametrize("flags,option", [
+    (["--seam", "voronoi"], "seam_find_type"),
+    (["--timelapse"], "timelapse"),
+    (["--features", "sift"], "features_type")])
+def test_refused_option_exits_nonzero(captures, tmp_path, capsys, flags,
+                                      option):
+    """An option outside the slice exits 1, naming it, and writes
+    nothing."""
+    out = str(tmp_path / "r.jpg")
+    assert cli.main([captures, "--device", "cpu", "--result", out] +
+                    flags) == 1
+    assert option in capsys.readouterr().err
+    assert not os.path.exists(out)
+
+
+def test_bad_flag_exits_two():
+    with pytest.raises(SystemExit) as e:
+        cli.main(["caps", "--blend", "nope"])
+    assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
+        jcli.main(["caps", "--blend", "nope"])
+    assert e.value.code == 2
+
+
+def test_python_dash_m_entry_point(captures):
+    """`python -m image_stitching_tpu_torch` runs the CLI's main: --help
+    exits 0 with the port's usage, a refused option exits 1 naming it."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmd = [sys.executable, "-m", "image_stitching_tpu_torch"]
+    out = subprocess.run(cmd + ["--help"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("usage: image_stitching_tpu_torch")
+    assert "--device" in out.stdout
+    out = subprocess.run(cmd + [captures, "--device", "cpu", "--seam",
+                                "gc_color"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 1 and "seam_find_type" in out.stderr

@@ -1,32 +1,37 @@
 """Port parity of the whole slice: both stitch()es on the same captures.
 
 The captures are tests/test_pipeline_e2e.py's (3 images of 160x224, ring
-55 deg FOV, 0.55 overlap, sigma-4 noise).  Two configurations: its
+55 deg FOV, 0.55 overlap, sigma-4 noise).  Three configurations: its
 small_cfg with no exposure compensation, the "no" seam finder and the
-legacy uniform decode path (`both`); and small_cfg(fast_ingest=False),
-the reference defaults with GAIN_BLOCKS exposure and DP colour seams
-(`both_default`)."""
+legacy uniform decode path (`both`); small_cfg(fast_ingest=False), the
+reference defaults with GAIN_BLOCKS exposure and DP colour seams
+(`both_default`); and small_cfg itself, fast ingest on, at full scale and
+with the work scale snapped to 6/8 (`both_fast`)."""
 
 import contextlib
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import torch
 
-from _torch_port import n, rel_rotation_deg
+from _torch_port import n, rel_rotation_deg, t
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
 from image_stitching_tpu.ops import exposure as jexposure
+from image_stitching_tpu.ops import ransac as jransac
 from image_stitching_tpu.ops import seams as jseams
 from image_stitching_tpu.pipeline.stitcher import stitch as jstitch
 from image_stitching_tpu_torch.config import StitchConfig
 from image_stitching_tpu_torch.core import image_io
 from image_stitching_tpu_torch.core.logging import Recorder
+from image_stitching_tpu_torch.ops import matching as tmatching
 from image_stitching_tpu_torch.ops.warps import backward_xy_1d
-from image_stitching_tpu_torch.pipeline import compose_fused, stitcher
+from image_stitching_tpu_torch.pipeline import compose_fused, ingest, stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import (compose_inputs,
                                                          stitch)
 
@@ -252,3 +257,105 @@ def test_compose_samples_reproduce_k5_inputs(both_default):
         assert list(off0) == list(off1)
         np.testing.assert_array_equal(n(w0), n(w1))
         np.testing.assert_array_equal(n(wt0), n(wt1))
+
+
+@contextlib.contextmanager
+def reference_draws(seed: int, n_pairs: int):
+    """Inject the reference's RANSAC draws into the port's stitch: pair p
+    of `match_all_pairs` takes the hypothesis and scoring indices that the
+    reference's stitch draws from split(PRNGKey(seed), n_pairs)[p]
+    (`tests/test_torch_matching.py` holds RANSAC equal given them).  The
+    fast-path comparisons then see the ingest alone: on these 160x224
+    captures an adjacent pair has only ~14 inliers, and other draws pick
+    another equally good inlier set, which moves BA by ~0.1 degree."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_pairs)
+    real = tmatching.ransac_homography
+    done = [0]
+
+    def injected(src, dst, valid, generator=None, n_hyp=512, hyp_idx=None,
+                 score_idx=None):
+        hyps, subs = [], []
+        for row in n(valid):
+            key = keys[done[0]]
+            done[0] += 1
+            v = jnp.asarray(row)
+            hyps.append(np.asarray(jransac._sample_valid_distinct(
+                key, v, n_hyp, 4)))
+            subs.append(np.asarray(jransac._sample_valid(
+                jax.random.fold_in(key, 1), v, (min(v.shape[0], 1024),))))
+        return real(src, dst, valid, generator, n_hyp=n_hyp,
+                    hyp_idx=t(np.stack(hyps)).long(),
+                    score_idx=t(np.stack(subs)).long())
+    tmatching.ransac_homography = injected
+    try:
+        yield done
+    finally:
+        tmatching.ransac_homography = real
+
+
+# Fast ingest on: full scale (raw 4:2:0 planes at num8 8, the Y plane as
+# the work gray), and tests/test_pipeline_e2e.py's work_scale_snap case
+# (work_megapix 0.3 x the capture, snapped up to work scale 6/8).
+FAST = {"full scale": {},
+        "work_scale_snap": dict(work_megapix=HW[0] * HW[1] / 1e6 * 0.3)}
+
+
+@pytest.fixture(scope="module", params=sorted(FAST))
+def both_fast(request, captures, tmp_path_factory):
+    """Both stitch()es with fast ingest on, the reference's RANSAC draws
+    injected into the port's, recording the port's fast_prep."""
+    d, rs = captures
+    extra = FAST[request.param]
+    run_j = tmp_path_factory.mktemp("run_jax_fast")
+    run_t = tmp_path_factory.mktemp("run_torch_fast")
+    cfg = dict(SMALL, fast_ingest=True, **extra)
+    ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **cfg),
+                  output="")
+    rec = Recorder(stitcher, "fast_prep")
+    with rec, reference_draws(JConfig().seed, 3) as drawn:
+        got = stitch(str(d), StitchConfig(checkpoint_dir=str(run_t), **cfg),
+                     output="", device="cpu")
+    assert drawn[0] == 3
+    return request.param, ref, got, rs, rec.calls["fast_prep"]
+
+
+def test_fast_kept_indices_and_work_scale(both_fast):
+    """The fast path ran (raw 4:2:0 route) and both keep every image at the
+    same work scale: 1.0, or 0.75 where the snap applies."""
+    name, ref, got, _, prep = both_fast
+    (args, _, out), = prep
+    assert isinstance(args[0], ingest.FastIngest) and args[0].raw_yuv
+    assert got.kept_indices == ref.kept_indices == list(range(N_IMAGES))
+    want_scale = 0.75 if name == "work_scale_snap" else 1.0
+    assert got.work_scale == ref.work_scale == want_scale
+    assert tuple(out[0].shape[1:]) == (round(HW[0] * want_scale),
+                                       round(HW[1] * want_scale))
+
+
+def test_fast_cameras_match_reference(both_fast):
+    """Relative rotations within 0.05 degrees, focal rtol 1e-3, as for the
+    default path; each within 0.8 degrees of the ground truth."""
+    _, ref, got, rs, _ = both_fast
+    cams = got.cameras.numpy()
+    np.testing.assert_allclose(cams["focal"], np.asarray(ref.cameras.focal),
+                               rtol=1e-3)
+    rr = np.asarray(ref.cameras.R)
+    for a in range(N_IMAGES - 1):
+        ang = rel_rotation_deg(cams["R"][a + 1] @ cams["R"][a].T,
+                               rr[a + 1] @ rr[a].T)
+        assert ang <= 0.05, (a, ang)
+        assert rel_rotation_deg(cams["R"][a + 1] @ cams["R"][a].T,
+                                rs[a + 1] @ rs[a].T) < 0.8
+
+
+def test_fast_panorama_matches_reference(both_fast):
+    """Shape within 2 px per axis; mean |difference| <= 2 on the common
+    mask."""
+    _, ref, got, _, _ = both_fast
+    pj, pt = np.asarray(ref.panorama), n(got.panorama)
+    assert abs(pj.shape[0] - pt.shape[0]) <= 2
+    assert abs(pj.shape[1] - pt.shape[1]) <= 2
+    h, w = min(pj.shape[0], pt.shape[0]), min(pj.shape[1], pt.shape[1])
+    common = np.asarray(ref.mask)[:h, :w] & n(got.mask)[:h, :w]
+    assert common.mean() > 0.9
+    assert np.abs(pj[:h, :w] - pt[:h, :w])[common].mean() <= 2.0

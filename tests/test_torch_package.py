@@ -56,7 +56,7 @@ SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
 
 
 @pytest.mark.parametrize("option,value", [
-    ("fast_ingest", True), ("expos_comp_type", "channels_blocks"),
+    ("seam_find_type", "voronoi"), ("infill_dropped", True),
     ("seam_find_type", "gc_color"), ("timelapse", True),
     ("crop_result", True), ("use_sharded_compose", True),
     ("features_type", "sift"), ("warp_type", "cylindrical"),

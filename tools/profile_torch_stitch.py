@@ -1,11 +1,12 @@
 """Where the time goes in the PyTorch port's stitch, on one CUDA GPU.
 
 Run from the repository root:
-    python3 -m tools.profile_torch_stitch [OUT_TXT]
+    python3 -m tools.profile_torch_stitch [--legacy] [OUT_TXT]
 
 Renders the 8 x 2448x3264 ring DEFAULT_RING (`data/synth.py`, sigma-8
-noise), runs stitch() with the port's default configuration (the reference
-defaults with fast ingest off) once to warm up and three times timed, then
+noise), runs stitch() with the reference defaults, `StitchConfig()` (fast
+ingest; with --legacy the legacy decode, fast_ingest=False), once to warm
+up and three times timed, then
 once under torch.profiler (CPU + CUDA activities).  Prints the stage
 times, the device-busy share of the wall time, per stage its kernel
 launches and device-busy time, each hand kernel's launches and device
@@ -88,11 +89,17 @@ def main() -> int:
     from image_stitching_tpu_torch.data.synth import (DEFAULT_RING,
                                                       write_ring_dir)
     from image_stitching_tpu_torch.pipeline.stitcher import stitch
+    args = sys.argv[1:]
+    legacy = "--legacy" in args
+    args = [a for a in args if a != "--legacy"]
     smi = _smi()
     with tempfile.TemporaryDirectory(prefix="profile_") as work:
         caps = os.path.join(work, "caps")
         write_ring_dir(caps, **DEFAULT_RING)
-        cfg = StitchConfig(fast_ingest=False, checkpoint_dir=work)
+        cfg = StitchConfig(fast_ingest=not legacy, checkpoint_dir=work)
+        print(f"configuration: StitchConfig("
+              f"{'fast_ingest=False' if legacy else ''}) (checkpoints in a "
+              f"temporary directory)")
         stitch(caps, cfg, output="", device="cuda")
         walls = []
         for _ in range(3):
@@ -140,10 +147,10 @@ def main() -> int:
                   f"(ms): {each}")
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
-    if len(sys.argv) > 1:
-        os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])),
+    if args:
+        os.makedirs(os.path.dirname(os.path.abspath(args[0])),
                     exist_ok=True)
-        with open(sys.argv[1], "w") as f:
+        with open(args[0], "w") as f:
             f.write(f"card: {smi}\n{table}\n")
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=25))
