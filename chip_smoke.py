@@ -11,7 +11,8 @@ Phases, one line each; any failure raises and exits non-zero:
      (E2E_RING) for the
      work-scale path, sigma 8 (DEFAULT_RING) for the default path, where
      sigma 4 makes some adjacent pairs near-duplicates by the reference's
-     confidence rule (see data/synth.py);
+     confidence rule (see data/synth.py); and phase 10's cyl4 and
+     vga_pair capture sets;
   1. build: the four CUDA kernel sources compiled with nvcc for sm_90a,
      one nvcc per source, all at once, and beside them the native host
      runtime (`native/stitch_runtime.cpp`, g++ against the vendored codec
@@ -22,7 +23,9 @@ Phases, one line each; any failure raises and exits non-zero:
      the one launch per image the detector makes, gated on every level;
   3. K2 (warp_bilinear) against its plain version on every compose rect
      of a warm-up stitch() of the work-scale path, and grid_sample timed
-     beside it;
+     beside it; then on the compose rects of the cyl4 warm-up stitch
+     (cylindrical maps, device time per rect) and on a plane-projection
+     rect set whose valid coordinates reach past +-2^31;
   4. end to end, the work-scale path: num_features=1500, work_megapix=1.9,
      no exposure compensation, the "no" seam finder, the legacy decode
      (fast_ingest=False); timed after the
@@ -40,8 +43,9 @@ Phases, one line each; any failure raises and exits non-zero:
   7. K5 (pyramid_accumulate) on the compose rects of that warm-up stitch,
      one call per bucket as the compose makes them, its kernel launches
      per call counted in a CUDA graph of the calls (<= 2 n_bands + 1), and
-     on two K5_CASES buckets (windows at both canvas edges, clamped and odd
-     offsets; 130 images, past one band launch's 128): accumulators
+     on three K5_CASES buckets (windows at both canvas edges, clamped and
+     odd offsets; 130 images, past one band launch's 128; 0 bands, as
+     FEATHER and NO compose, at most 1 launch): accumulators
      within 2e-3, finalized u8 panorama within 1, masks equal; its bound
      counts the union of a call's windows per band; K2 against its plain
      version on the same rects' samples;
@@ -64,13 +68,36 @@ Phases, one line each; any failure raises and exits non-zero:
      process of its own, exit 0 and a JPEG the size of (b)'s panorama.
      Each stitch of (b) and (c) runs with the kernels' counts set to 0
      just before it and read just after; `launches` in the kernel line is
-     (b)'s count, the main path, and `launches_by_path` every path's.
+     (b)'s count, the main path, and `launches_by_path` every path's;
+ 10. the configurations of the JAX package's bench.py that the port adds,
+     and the slice's other options, each stitch under the counts as in
+     phase 9 (captures rendered in phase 0 as bench.py makes them):
+     (a) cyl4, StitchConfig(num_features=1500, warp_type="cylindrical")
+     on 4 x 1080x1920 (seeds 11, 13, 14 timed after phase 3's warm-up on
+     12): walls, MP/s, stage table, reprojection; (b) vga_pair,
+     StitchConfig(num_features=1500, blend_type="feather") on 2 x 480x640
+     (warm-up on seed 100, p50 wall over 101-105), the K5 calls at 0
+     bands, and K5 against its plain version on its rects with its
+     0-band device time; (a) and (b) under phase 4's and 8's gates (kept
+     n/n, <= 1 px reprojection, mask > 0.9, seam union = warped union,
+     every kernel launched); (c) StitchConfig(seam_find_type=s) on
+     DEFAULT_RING for voronoi, gc_color and gc_colorgrad under the same
+     gates, "Finding seams" beside phase 9b's dp_color; (d)
+     StitchConfig(serialize_data=False) from phase 9b's checkpoint: kept
+     indices equal, the checkpoint's cameras within the 6-digit text
+     format of 9b's bundle adjustment, panorama within mean |diff| 0.5 of
+     9b's and masks equal off a 1-pixel edge band, its wall beside 9b's;
+     (e) one vga_pair stitch with profile_dir and save_graph_to: a
+     non-empty trace and a DOT file with an edge per kept adjacent pair.
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
 wrapper calls (what the caller pays), the plain version's time by the
 same events, the bound, and the library call's device time, by the same
-graph, where one computes the same function.
+graph, where one computes the same function; K2's row also its device
+time on the cylindrical rects (`cylindrical_device_ms`), K5's its device
+time and launches per call at 0 bands on the vga_pair rects
+(`zero_band_device_ms`, `zero_band_launches_per_call`).
 Then a JSON line of those kernel results with the launches on the path
 the kernel was checked on, the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
@@ -83,6 +110,7 @@ import concurrent.futures
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -123,10 +151,11 @@ def _smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float):
-    """Mean pairwise reprojection error (px) of consecutive kept images:
-    estimated K_b R_b R_a^T K_a^-1 against the ground truth on an 8x8
-    pixel grid (gauge-invariant; bench.py `_reproj_err_px`)."""
+def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float,
+                  hw=(H, W)):
+    """Mean pairwise reprojection error (px) of consecutive kept images of
+    size hw: estimated K_b R_b R_a^T K_a^-1 against the ground truth on an
+    8x8 pixel grid (gauge-invariant; bench.py `_reproj_err_px`)."""
     c = cameras.numpy()
     kc = np.zeros((len(kept), 3, 3))
     kc[:, 0, 0] = c["focal"]
@@ -136,7 +165,8 @@ def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float):
     kc[:, 2, 2] = 1.0
     kc[:, :2, :] /= work_scale
     rc = np.asarray(c["R"], np.float64)
-    gy, gx = np.meshgrid(np.linspace(0, H - 1, 8), np.linspace(0, W - 1, 8))
+    gy, gx = np.meshgrid(np.linspace(0, hw[0] - 1, 8),
+                         np.linspace(0, hw[1] - 1, 8))
     pts = np.stack([gx.ravel(), gy.ravel(), np.ones(gx.size)], axis=0)
 
     def proj(m):
@@ -390,7 +420,8 @@ def check_k2(dev, paths, cfg, res):
                 im = resize(im, comp.resize_hw)
             us, vs = rect_grid(g.tls[i], bh, bw, dev)
             sx, sy, _ = backward_xy_1d(
-                us, vs, torch.as_tensor(comp.ks[i], device=dev),
+                comp.warper.proj_name, us, vs,
+                torch.as_tensor(comp.ks[i], device=dev),
                 torch.as_tensor(comp.rs[i], device=dev), comp.warper.scale)
             calls.append((im.to(torch.float32).contiguous(), sx.contiguous(),
                           sy.contiguous()))
@@ -552,19 +583,24 @@ def _k5_gates(acc_k, acc_p, nb, what: str):
 
 # The `cuda` tests' buckets, (n_bands, ph, pw, canvas (h, w), offsets):
 # 4 overlapping 96x128 rects with windows at both canvas edges, a clamped
-# offset (200, 160) and an odd one (13, 5); and 130 rects of 16x32, each
+# offset (200, 160) and an odd one (13, 5); 130 rects of 16x32, each
 # overlapping the next, past the 128 images of one band launch (the last
-# three clamped onto one window at the right edge, across that boundary).
+# three clamped onto one window at the right edge, across that boundary);
+# and 4 overlapping 40x56 rects at odd offsets with 0 bands, as FEATHER
+# and NO compose (one band launch, no pyrDown, no next level).
 K5_CASES = {
     "edge case": (3, 96, 128, (160, 200),
                   [(0, 0), (40, 24), (200, 160), (13, 5)]),
     "130 images": (1, 16, 32, (40, 2064),
                    [(16 * i + i % 3, 5 * (i % 5)) for i in range(130)]),
+    "0 bands": (0, 40, 56, (70, 96), [(0, 0), (13, 5), (37, 22), (3, 29)]),
 }
 
 
 def k5_case(dev, what):
-    """One call on a K5_CASES bucket against the plain version."""
+    """One call on a K5_CASES bucket against the plain version, and its
+    kernel launches (CUDA graph nodes, at most 2 n_bands + 1).  Returns
+    (accumulator error, u8 error, launches)."""
     from image_stitching_tpu_torch.kernels.multiband import (
         pyramid_accumulate, pyramid_accumulate_plain)
     nb, ph, pw, (ch, cw), offs = K5_CASES[what]
@@ -574,10 +610,15 @@ def k5_case(dev, what):
     weight = torch.as_tensor((rng.random((len(offs), ph, pw)) > 0.3)
                              .astype(np.float32), device=dev)
     accs = [[torch.zeros((4, ch >> b, cw >> b), device=dev)
-             for b in range(nb + 1)] for _ in range(2)]
+             for b in range(nb + 1)] for _ in range(3)]
     pyramid_accumulate(warped, weight, offs, accs[0], nb)
     pyramid_accumulate_plain(warped, weight, offs, accs[1], nb)
-    return _k5_gates(accs[0], accs[1], nb, what)
+    err, u8 = _k5_gates(accs[0], accs[1], nb, what)
+    n_launch = kernel_launches(
+        lambda: pyramid_accumulate(warped, weight, offs, accs[2], nb))
+    assert n_launch <= 2 * nb + 1, \
+        f"K5 {what}: {n_launch} kernel launches (most {2 * nb + 1})"
+    return err, u8, n_launch
 
 
 def check_k5(dev, compose_call):
@@ -659,7 +700,8 @@ def check_k5(dev, compose_call):
                       f"{K5_CASES[what][1]}x{K5_CASES[what][2]}, "
                       f"{K5_CASES[what][0]} bands, canvas "
                       f"{K5_CASES[what][3]}): accumulators {e:.3g}, u8 {u}, "
-                      f"masks equal" for what, (e, u) in cases.items())
+                      f"masks equal, {k} kernel launches"
+                      for what, (e, u, k) in cases.items())
           + f"; per call: {kernels_per_call:g} kernel launches (CUDA graph "
           f"nodes), kernel device {dev_ms:.4f} "
           f"ms ({dev_ms * n_calls / n_rects:.4f} ms a rect), call "
@@ -675,7 +717,7 @@ def check_k5(dev, compose_call):
     return dict(name="pyramid_accumulate", route="cuda",
                 source="image_stitching_tpu_torch/csrc/multiband.cu",
                 replaces="image_stitching_tpu/kernels/multiband_pallas.py:177",
-                max_abs_err=max([err] + [e for e, _ in cases.values()]),
+                max_abs_err=max([err] + [e for e, _, _ in cases.values()]),
                 ms=dev_ms, device_ms=dev_ms,
                 call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, rects_per_call=n_rects /
@@ -809,13 +851,14 @@ def stitch_run(stitch, caps, cfg, counters, recorder=None):
     return res, wall, {fn.__name__: fn.launches for fn in counters}
 
 
-def e2e_gates(res, k_true, rs_true, launches, names):
+def e2e_gates(res, k_true, rs_true, launches, names, n_images=N_IMAGES,
+              hw=(H, W)):
     pano = res.panorama
     assert pano.ndim == 3 and pano.shape[2] == 3, tuple(pano.shape)
     assert bool(torch.isfinite(pano).all()), "non-finite panorama"
-    assert res.kept_indices == list(range(N_IMAGES)), res.kept_indices
+    assert res.kept_indices == list(range(n_images)), res.kept_indices
     err = reproj_err_px(res.cameras, res.kept_indices, k_true, rs_true,
-                        res.work_scale)
+                        res.work_scale, hw)
     assert err <= 1.0, f"reprojection error {err:.4f} px > 1 px"
     coverage = float(res.mask.float().mean())
     assert coverage > 0.9, f"mask coverage {coverage:.4f}"
@@ -823,6 +866,382 @@ def e2e_gates(res, k_true, rs_true, launches, names):
         assert launches[name] > 0, f"{name} was not launched by the path"
     stages = ", ".join(f"{k}={v:.4f}s" for k, v in res.stage_times.items())
     return err, coverage, stages
+
+
+# Phase 10's configurations, as the JAX package's bench.py makes them.
+CYL4 = dict(n_images=4, hw=(1080, 1920), fov_deg=55.0, overlap_ratio=0.45)
+CYL4_SEEDS = (12, 11, 13, 14)       # bench.py:250-264; 12 is the warm-up
+VGA = dict(n_images=2, hw=(480, 640), fov_deg=55.0, overlap_ratio=0.5)
+VGA_SEEDS = tuple(range(100, 106))  # bench.py:198-212; 100 the warm-up
+SEAM_FINDERS = ("voronoi", "gc_color", "gc_colorgrad")
+
+
+def render_bench_dirs(root: str, workers: int):
+    """Phase 10's capture sets by the port's make_ring_captures and
+    write_capture_dir, as bench.py makes them, every view rendered in one
+    process pool: {(name, seed): (directory, K, [R])}."""
+    import multiprocessing as mp
+    from image_stitching_tpu_torch.data.synth import (make_ring_captures,
+                                                      write_capture_dir)
+    jobs = ([("cyl4", s, CYL4) for s in CYL4_SEEDS] +
+            [("vga", s, VGA) for s in VGA_SEEDS])
+
+    def one(job):
+        name, seed, geo = job
+        images, k, rs = make_ring_captures(seed=seed, pool=pool, **geo)
+        d = os.path.join(root, f"{name}_s{seed}")
+        write_capture_dir(d, images, k, rs)
+        return (name, seed), (d, np.asarray(k, np.float64),
+                              np.asarray(rs, np.float64))
+    with mp.get_context("spawn").Pool(workers) as pool, \
+            concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        return dict(ex.map(one, jobs))
+
+
+def compose_k2_calls(compose_call):
+    """The (src, sx, sy) K2 calls of a recorded fused_compose call, made
+    again by the compose's own samples (compose_buckets)."""
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    args = compose_call[0]
+    g = cf.compose_rects(args[4], args[5], args[10], args[11])
+    with Recorder(cf, "warp_bilinear") as rec:
+        for _ in cf.compose_buckets(*args[:10], g):
+            pass
+    return [call[0] for call in rec.calls["warp_bilinear"]], g
+
+
+def huge_plane_calls(dev, src):
+    """Two 576x1024 rects of plane-projection maps whose valid coordinates
+    reach past +-2^31, NaN-free: a camera yawed 80 degrees, warper scale
+    1e7, the rects straddling the column where the ray depth crosses 0
+    (depths of ~1e-7 there).  Returns the K2 calls and the count of such
+    coordinates."""
+    import math
+    from image_stitching_tpu_torch.ops.warps import backward_xy_1d
+    f, th, scale = 1000.0, math.radians(80.0), 1e7
+    k = np.array([[f, 0, 960], [0, f, 540], [0, 0, 1]], np.float32)
+    r = np.array([[math.cos(th), 0, math.sin(th)], [0, 1, 0],
+                  [-math.sin(th), 0, math.cos(th)]], np.float32)
+    krinv = k.astype(np.float64) @ r.T.astype(np.float64)
+    u_cross = float(round(-krinv[2, 2] / krinv[2, 0] * scale))
+    calls, n_big = [], 0
+    for v0 in (-288.0, 100.0):
+        us = torch.arange(-512, 512, dtype=torch.float32, device=dev) + \
+            u_cross
+        vs = torch.arange(576, dtype=torch.float32, device=dev) + v0
+        sx, sy, valid = backward_xy_1d(
+            "plane", us, vs, torch.as_tensor(k, device=dev),
+            torch.as_tensor(r, device=dev), scale)
+        assert bool(torch.isfinite(sx).all() and torch.isfinite(sy).all())
+        n_big += int((((sx.abs() > 2.0 ** 31) | (sy.abs() > 2.0 ** 31))
+                      & valid).sum())
+        calls.append((src, sx.contiguous(), sy.contiguous()))
+    assert n_big > 0, "no plane-map coordinate past 2^31"
+    return calls, n_big
+
+
+def check_k2_more(dev, stitch, caps, work):
+    """Phase 3 on more maps: the cyl4 warm-up stitch (seed 12), K2 against
+    its plain version on that stitch's compose rects (cylindrical maps)
+    and on a plane-projection rect set with coordinates past +-2^31.
+    Returns the cylindrical rects' device ms per rect."""
+    from image_stitching_tpu_torch.config import StitchConfig
+    from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
+    from image_stitching_tpu_torch.pipeline import stitcher
+    cfg = StitchConfig(num_features=1500, warp_type="cylindrical",
+                       checkpoint_dir=work)
+    rec = Recorder(stitcher, "fused_compose")
+    with rec:
+        stitch(caps[("cyl4", CYL4_SEEDS[0])][0], cfg, output="",
+               device="cuda")
+    calls, g = compose_k2_calls(rec.calls["fused_compose"][0])
+    err = k2_max_diff(calls)
+    dev_ms = device_ms(lambda: [warp_bilinear(*c) for c in calls]) / \
+        len(calls)
+    n_bytes = sum(src.numel() * 4 + sx.numel() * 4 * (2 + 3)
+                  for src, sx, _ in calls) / len(calls)
+    n_ops = sum(sx.numel() * (3 * 8 + 20) for _, sx, _ in calls) / len(calls)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    plane, n_big = huge_plane_calls(dev, calls[0][0])
+    err_p = k2_max_diff(plane)
+    print(f"phase 3 K2 on cylindrical maps: cyl4 warm-up stitch (seed "
+          f"{CYL4_SEEDS[0]}), {len(calls)} compose rects "
+          f"{sorted((3,) + k for k in g.buckets)}, source "
+          f"{tuple(calls[0][0].shape)}, max |diff| {err:.3g} (atol 1e-4), "
+          f"kernel device {dev_ms:.4f} ms a rect, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {bound_ms / dev_ms:.1%} of it reached); plane "
+          f"maps past 2^31: {len(plane)} rects 576x1024, {n_big} valid "
+          f"coordinates past +-2^31, max |diff| {err_p:.3g}", flush=True)
+    return dev_ms
+
+
+def k5_compose_check(dev, compose_call, what: str):
+    """K5 on the buckets of a recorded fused_compose call, one call per
+    bucket, against its plain version under phase 7's gates; kernel
+    launches per call (CUDA graph nodes, at most 2 n_bands + 1) and device
+    ms per call."""
+    from image_stitching_tpu_torch.kernels.multiband import (
+        pyramid_accumulate, pyramid_accumulate_plain)
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    args = compose_call[0]
+    g = cf.compose_rects(args[4], args[5], args[10], args[11])
+    buckets = list(cf.compose_buckets(*args[:10], g))
+    nb = g.n_bands
+
+    def fresh():
+        return [torch.zeros((4, g.canvas_h >> b, g.canvas_w >> b),
+                            device=dev) for b in range(nb + 1)]
+    acc_k, acc_p, scratch = fresh(), fresh(), fresh()
+    for warped, weight, offs in buckets:
+        pyramid_accumulate(warped, weight, offs, acc_k, nb)
+        pyramid_accumulate_plain(warped, weight, offs, acc_p, nb)
+    err, u8 = _k5_gates(acc_k, acc_p, nb, what)
+
+    def run():
+        for warped, weight, offs in buckets:
+            pyramid_accumulate(warped, weight, offs, scratch, nb)
+    per_call = kernel_launches(run) / len(buckets)
+    assert per_call <= 2 * nb + 1, f"K5 {what}: {per_call} launches a call"
+    # Bound as phase 7 counts it: the rects in, the union of their windows
+    # in every band read and written once.
+    from image_stitching_tpu_torch.kernels.multiband import band_offsets
+    n_bytes = 0
+    for warped, weight, offs in buckets:
+        n, ph, pw = weight.shape
+        n_bytes += 16 * n * ph * pw
+        for b in range(nb + 1):
+            cover = np.zeros(tuple(scratch[b].shape[1:]), bool)
+            for off in offs:
+                oy, ox = band_offsets(off, scratch, ph, pw)[b]
+                cover[oy:oy + (ph >> b), ox:ox + (pw >> b)] = True
+            n_bytes += 2 * 16 * int(cover.sum())
+    return dict(n_bands=nb, buckets=[tuple(w.shape) for w, _, _ in buckets],
+                err=err, u8=u8, launches_per_call=per_call,
+                device_ms=device_ms(run) / len(buckets),
+                bound_ms=n_bytes / len(buckets) / HBM_BYTES_PER_S * 1e3,
+                feather_sharpness=g.feather_sharpness)
+
+
+def resume_gates(res, base, ba_cams, ck_dir, corners, base_corners,
+                 mean_tol):
+    """Phase 10d: a stitch resumed from phase 9b's checkpoint against 9b:
+    kept indices equal; the checkpoint's cameras equal to 9b's bundle
+    adjustment output within the 6 significant digits of the text format;
+    focals equal after it; on the canvas both cover (the panoramas placed
+    by their compose ROIs' corners, which the rounding may move by a
+    pixel) the masks equal outside a 1-pixel band of 9b's mask edge, and,
+    unless mean_tol is None, the panorama within mean |diff| mean_tol of
+    9b's on their common mask.  Returns (camera rel error, mean |diff|,
+    mask pixels differing, canvas origin shift (x, y))."""
+    from image_stitching_tpu_torch.core import persistence
+    assert res.kept_indices == base.kept_indices, \
+        (res.kept_indices, base.kept_indices)
+    assert persistence.deserialize_indices(ck_dir) == base.kept_indices
+    saved = persistence.deserialize_camera_params(ck_dir).numpy()
+    want = ba_cams.numpy()
+    cam_err = 0.0
+    for name in ("focal", "aspect", "ppx", "ppy", "R", "t"):
+        a, b = saved[name].astype(np.float64), want[name].astype(np.float64)
+        cam_err = max(cam_err, float((np.abs(a - b) /
+                                      (np.abs(b) + 1e-6)).max()))
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7,
+                                   err_msg=f"checkpoint {name}")
+    np.testing.assert_allclose(res.cameras.numpy()["focal"],
+                               base.cameras.numpy()["focal"], rtol=1e-5)
+    oa = (min(c[0] for c in corners), min(c[1] for c in corners))
+    ob = (min(c[0] for c in base_corners), min(c[1] for c in base_corners))
+    (ha, wa), (hb, wb) = res.panorama.shape[:2], base.panorama.shape[:2]
+    assert max(abs(oa[0] - ob[0]), abs(oa[1] - ob[1]), abs(ha - hb),
+               abs(wa - wb)) <= 2, (oa, ob, (ha, wa), (hb, wb))
+    x0, y0 = max(oa[0], ob[0]), max(oa[1], ob[1])
+    x1, y1 = min(oa[0] + wa, ob[0] + wb), min(oa[1] + ha, ob[1] + hb)
+
+    def crop(t, o):
+        return t[y0 - o[1]:y1 - o[1], x0 - o[0]:x1 - o[0]]
+    pa, pb = crop(res.panorama, oa), crop(base.panorama, ob)
+    ma, mb = crop(res.mask, oa), crop(base.mask, ob)
+    both = ma & mb
+    mean_diff = float((pa - pb).abs()[both].mean())
+    assert mean_tol is None or mean_diff <= mean_tol, \
+        f"resumed panorama mean |diff| {mean_diff} (tol {mean_tol})"
+    mf = mb[None, None].float()
+    grown = torch.nn.functional.max_pool2d(mf, 3, 1, 1)[0, 0] > 0
+    shrunk = -torch.nn.functional.max_pool2d(-mf, 3, 1, 1)[0, 0] > 0
+    band = grown & ~shrunk
+    differ = ma ^ mb
+    assert not bool((differ & ~band).any()), "masks differ off the edge band"
+    return cam_err, mean_diff, int(differ.sum()), (oa[0] - ob[0],
+                                                   oa[1] - ob[1])
+
+
+def run_phase10(stitch, stitcher, counters, names, caps, caps_default,
+                k_true, rs_true, base_9b, wall_9b, ba_9b, corners_9b, ck9b,
+                work, smi, dev):
+    """Phase 10, the configurations this slice adds, in the working
+    directory `work` (their checkpoints go to "."): (a) cyl4, (b)
+    vga_pair, (c) the voronoi and graph-cut seam finders on DEFAULT_RING,
+    (d) a stitch resumed from phase 9b's checkpoint, (e) one vga_pair
+    stitch with profile_dir and save_graph_to.  Each stitch runs with the kernels'
+    counts set to 0 just before it and read just after.  Returns the
+    counts by path and K5's 0-band check on the vga_pair rects."""
+    from image_stitching_tpu_torch.config import StitchConfig
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    by_path = {}
+
+    def gated(d, k, rs, cfg, n_img, hw, rec_names=("find_seams",)):
+        rec = Recorder(stitcher, *rec_names)
+        res, wall, launches = stitch_run(stitch, d, cfg, counters, rec)
+        err, coverage, stages = e2e_gates(res, k, rs, launches, names,
+                                          n_img, hw)
+        covered, cut = seam_union_gate(rec.calls["find_seams"][0])
+        return res, wall, launches, err, coverage, (covered, cut), rec
+
+    # (a) cyl4: warm-up (seed 12) in phase 3; timed on 11, 13, 14.
+    cfg = StitchConfig(num_features=1500, warp_type="cylindrical")
+    mp_in = CYL4["n_images"] * CYL4["hw"][0] * CYL4["hw"][1] / 1e6
+    walls, cols = {}, []
+    for seed in CYL4_SEEDS[1:]:
+        d, k, rs = caps[("cyl4", seed)]
+        res, wall, launches, err, cov, (covered, cut), _ = gated(
+            d, k, rs, cfg, CYL4["n_images"], CYL4["hw"])
+        walls[seed] = wall
+        cols.append((f"seed {seed}", res.stage_times))
+        if seed == CYL4_SEEDS[1]:
+            by_path["phase 10a"] = launches
+        print(f"phase 10a cyl4 (StitchConfig(num_features=1500, "
+              f"warp_type='cylindrical'), seed {seed}): kept "
+              f"{len(res.kept_indices)}/{CYL4['n_images']}, work scale "
+              f"{res.work_scale:.4f}, reprojection {err:.4f} px, panorama "
+              f"{tuple(res.panorama.shape)}, mask {cov:.4f}, seam union = "
+              f"warped union ({covered} px, {cut} px cut), launches "
+              f"{launches}, wall {wall:.4f} s ({mp_in / wall:.3f} MP/s); "
+              f"card '{smi}'", flush=True)
+        del res
+    best = min(walls, key=walls.get)
+    print(f"phase 10a cyl4: walls {walls} s, best {walls[best]:.4f} s "
+          f"({mp_in / walls[best]:.3f} MP/s), median "
+          f"{float(np.median(list(walls.values()))):.4f} s\n"
+          + stage_table(cols), flush=True)
+
+    # (b) vga_pair: warm-up on seed 100, p50 wall over 101-105.
+    cfg = StitchConfig(num_features=1500, blend_type="feather")
+    d, _, _ = caps[("vga", VGA_SEEDS[0])]
+    stitch(d, cfg, output="", device="cuda")
+    lat, errs, zero_band, stage_acc = [], [], [], {}
+    for seed in VGA_SEEDS[1:]:
+        d, k, rs = caps[("vga", seed)]
+        with Recorder(cf, "pyramid_accumulate") as k5_rec:
+            res, wall, launches, err, cov, (covered, cut), rec = gated(
+                d, k, rs, cfg, VGA["n_images"], VGA["hw"],
+                ("find_seams", "fused_compose"))
+        nb = [call[0][4] for call in k5_rec.calls["pyramid_accumulate"]]
+        assert nb and all(b == 0 for b in nb), f"K5 band counts {nb}"
+        zero_band.append(len(nb))
+        lat.append(wall)
+        errs.append(err)
+        for name, secs in res.stage_times.items():
+            stage_acc.setdefault(name, []).append(secs)
+        if seed == VGA_SEEDS[1]:
+            by_path["phase 10b"] = launches
+            k5_zero = k5_compose_check(dev, rec.calls["fused_compose"][0],
+                                       "vga_pair 0 bands")
+        del res
+    print(f"phase 10b vga_pair (StitchConfig(num_features=1500, "
+          f"blend_type='feather')): kept 2/2 on seeds {VGA_SEEDS[1:]}, "
+          f"reprojection {[round(e, 4) for e in errs]} px, walls "
+          f"{[round(x, 4) for x in lat]} s, p50 "
+          f"{float(np.percentile(lat, 50)) * 1e3:.2f} ms; K5 calls a stitch "
+          f"at 0 bands {zero_band}; stage p50 (ms): "
+          + ", ".join(f"{name}={np.percentile(v, 50) * 1e3:.2f}"
+                      for name, v in stage_acc.items())
+          + f"; K5 on the rects of seed {VGA_SEEDS[1]} (feather sharpness "
+          f"{k5_zero['feather_sharpness']:.4f}, buckets "
+          f"{k5_zero['buckets']}): accumulators {k5_zero['err']:.3g}, u8 "
+          f"{k5_zero['u8']}, {k5_zero['launches_per_call']:g} kernel "
+          f"launches a call, device {k5_zero['device_ms']:.4f} ms a call, "
+          f"bytes bound {k5_zero['bound_ms']:.4f} ms "
+          f"({k5_zero['bound_ms'] / k5_zero['device_ms']:.1%} of it "
+          f"reached); card '{smi}'", flush=True)
+
+    # (c) the seam finders on DEFAULT_RING, beside phase 9b's dp_color;
+    # scipy's graph module is imported first, outside the timed stitches.
+    import scipy.sparse.csgraph  # noqa: F401
+    seam_s = {"dp_color (phase 9b)": base_9b.stage_times["Finding seams"]}
+    for finder in SEAM_FINDERS:
+        cfg = StitchConfig(seam_find_type=finder)
+        res, wall, launches, err, cov, (covered, cut), _ = gated(
+            caps_default, k_true, rs_true, cfg, N_IMAGES, (H, W))
+        by_path[f"phase 10c {finder}"] = launches
+        seam_s[finder] = res.stage_times["Finding seams"]
+        print(f"phase 10c StitchConfig(seam_find_type={finder!r}) on "
+              f"DEFAULT_RING: kept {len(res.kept_indices)}/{N_IMAGES}, "
+              f"reprojection {err:.4f} px, mask {cov:.4f}, seam union = "
+              f"warped union ({covered} px, {cut} px cut), launches "
+              f"{launches}, wall {wall:.4f} s, Finding seams "
+              f"{seam_s[finder]:.4f} s; card '{smi}'", flush=True)
+        del res
+    print("phase 10c Finding seams (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in seam_s.items()), flush=True)
+
+    # (d) resume from phase 9b's checkpoint.  With no features wanted,
+    # fast ingest decodes at the DCT scale the compose needs (num8 2, the
+    # reference's rule), where 9b decoded at num8 8 and resized: other
+    # compose pixels, so the panorama is held to 9b's on the legacy
+    # decode, which reads the same full-resolution pixels as 9b, and
+    # only reported for StitchConfig(serialize_data=False) itself.
+    cols = [("phase 9b", base_9b.stage_times)]
+    for label, extra, tol in (("", {}, None),
+                              (", fast_ingest=False", dict(
+                                  fast_ingest=False), 0.5)):
+        cfg = StitchConfig(serialize_data=False, checkpoint_dir=ck9b,
+                           **extra)
+        rec = Recorder(stitcher, "fused_compose", "start_fast_ingest")
+        res, wall, launches = stitch_run(stitch, caps_default, cfg,
+                                         counters, rec)
+        cam_err, mean_diff, n_band, shift = resume_gates(
+            res, base_9b, ba_9b, ck9b, rec.calls["fused_compose"][0][0][4],
+            corners_9b, tol)
+        for name in ("warp_bilinear", "pyramid_accumulate"):
+            assert launches[name] > 0, f"{name} was not launched by the path"
+        ingest = [kw["want_gray"] for _, kw, _ in
+                  rec.calls["start_fast_ingest"]]
+        assert ingest == ([False] if cfg.fast_ingest else []), ingest
+        if not extra:
+            by_path["phase 10d"] = launches
+        cols.append((f"10d{label}", res.stage_times))
+        print(f"phase 10d resume (StitchConfig(serialize_data=False"
+              f"{label})) from phase 9b's checkpoint: kept "
+              f"{res.kept_indices} = 9b's, checkpoint cameras within "
+              f"{cam_err:.3g} (relative) of 9b's bundle adjustment, "
+              f"fast ingest asked for gray {ingest}, panorama "
+              f"{tuple(res.panorama.shape)} mean |diff| {mean_diff:.4f} from "
+              f"9b's (tol {tol}; canvas origin shifted by {shift}), "
+              f"{n_band} mask pixels differ, all on 9b's mask edge; "
+              f"launches {launches}; wall {wall:.4f} s against 9b's "
+              f"{wall_9b:.4f} s", flush=True)
+        del res
+    print(stage_table(cols), flush=True)
+
+    # (e) profile_dir and save_graph_to, on the vga_pair set of seed 101.
+    prof, dot = os.path.join(work, "profile"), os.path.join(work, "g.dot")
+    d, _, _ = caps[("vga", VGA_SEEDS[1])]
+    cfg = StitchConfig(num_features=1500, blend_type="feather",
+                       profile_dir=prof, save_graph=True, save_graph_to=dot)
+    res, wall, launches = stitch_run(stitch, d, cfg, counters)
+    trace = os.path.join(prof, "stitch_trace.json")
+    assert os.path.getsize(trace) > 0 and os.path.getsize(dot) > 0
+    text = open(dot).read()
+    edges = [f'"{a}.jpg" -- "{a + 1}.jpg"' for a in res.kept_indices[:-1]]
+    missing = [e for e in edges if e not in text]
+    assert not missing, f"DOT file lacks {missing}"
+    by_path["phase 10e"] = launches
+    print(f"phase 10e profile_dir + save_graph_to (vga_pair seed "
+          f"{VGA_SEEDS[1]}): trace {os.path.getsize(trace)} bytes, DOT "
+          f"{os.path.getsize(dot)} bytes with {text.count(' -- ')} edges, "
+          f"every kept adjacent pair among them; wall {wall:.4f} s "
+          f"(profiled); launches {launches}", flush=True)
+    os.remove(trace)
+    return dict(by_path=by_path, k5_zero_band=k5_zero)
 
 
 def main() -> int:
@@ -862,6 +1281,14 @@ def main() -> int:
         print(f"phase 0 captures: 2 rings of {N_IMAGES} x {H}x{W} (noise "
               f"sigma 4 and {DEFAULT_RING['noise_sigma']}) rendered and "
               f"written in {time.perf_counter() - t0:.3f} s", flush=True)
+        t0 = time.perf_counter()
+        bench_caps = render_bench_dirs(work, max(1, min(8, os.cpu_count()
+                                                        or 1)))
+        print(f"phase 0 captures: bench.py's cyl4 sets (4 x 1080x1920, 55 "
+              f"deg, 0.45 overlap, seeds {CYL4_SEEDS}) and vga_pair sets "
+              f"(2 x 480x640, 55 deg, 0.5 overlap, seeds {VGA_SEEDS}) "
+              f"rendered and written in {time.perf_counter() - t0:.3f} s",
+              flush=True)
 
         # The kernels (nvcc) and the host runtime (g++) build side by side.
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -891,6 +1318,8 @@ def main() -> int:
         # The warm-up stitch also gives phase 3 its cameras.
         warm = stitch(caps, cfg, output="", device="cuda")
         k2 = check_k2(dev, paths, cfg, warm)
+        k2["cylindrical_device_ms"] = check_k2_more(dev, stitch, bench_caps,
+                                                    work)
         res, wall, launches = stitch_run(stitch, caps, cfg, counters)
         err, coverage, stages = e2e_gates(res, k_true, rs_true, launches,
                                           names)
@@ -976,9 +1405,17 @@ def main() -> int:
             assert cfg.fast_ingest and cfg.work_megapix < 0
             stitch(caps_default, cfg, output="", device="cuda")
             rec = Recorder(stitcher, "find_seams", "fused_compose",
-                           "fast_prep")
+                           "fast_prep", "bundle_adjust")
             res, wall, launches = stitch_run(stitch, caps_default, cfg,
                                              counters, rec)
+            # Phase 10d resumes from this stitch's checkpoint.
+            ck9b = os.path.join(work, "checkpoint_9b")
+            os.makedirs(ck9b)
+            for name in ("cams.data", "indices.data"):
+                shutil.copy(name, ck9b)
+            base_9b, wall_9b = res, wall
+            ba_9b = rec.calls["bundle_adjust"][0][2]
+            corners_9b = rec.calls["fused_compose"][0][0][4]
             err, coverage, stages = e2e_gates(res, k_true, rs_true, launches,
                                               names)
             fi = rec.calls["fast_prep"][0][0][0]
@@ -1005,7 +1442,7 @@ def main() -> int:
                       [("phase 8 legacy decode", legacy_stages),
                        ("phase 9b fast ingest", res.stage_times)]),
                   flush=True)
-            del res, rec, comp
+            del rec, comp
 
             cfg = StitchConfig(num_features=1500, work_megapix=1.9)
             stitch(caps, cfg, output="", device="cuda")
@@ -1046,6 +1483,14 @@ def main() -> int:
                   f"cold stitch), wrote a {pano_hw[1]}x{pano_hw[0]} JPEG, "
                   f"the size of phase 9b's panorama; its lines: "
                   + "; ".join(cli.stdout.strip().splitlines()), flush=True)
+            phase10 = run_phase10(stitch, stitcher, counters, names,
+                                  bench_caps, caps_default, k_true, rs_true,
+                                  base_9b, wall_9b, ba_9b, corners_9b, ck9b,
+                                  work, smi, dev)
+            by_path.update(phase10["by_path"])
+            k5["zero_band_device_ms"] = phase10["k5_zero_band"]["device_ms"]
+            k5["zero_band_launches_per_call"] = \
+                phase10["k5_zero_band"]["launches_per_call"]
         finally:
             os.chdir(cwd)
 

@@ -3,7 +3,8 @@
 Port of `image_stitching_tpu/core/native.py`, reduced to what the port
 calls: header probes, JPEG/PNG decode (whole RGB; luma-only or DCT-scaled;
 raw 4:2:0 planes), the background `DecodeSession`, the EXIF
-ImageDescription walk and union-find components.
+ImageDescription walk, union-find components and the squared Euclidean
+distance transform.
 
 The library is found on first use, never at import, in this order:
 
@@ -48,7 +49,8 @@ __all__ = ["load", "available", "runtime_info", "codec_libs",
            "build_runtime", "probe_image",
            "probe_jpeg_sampling", "yuv420_layout", "read_jpeg_yuv420",
            "read_image", "scaled_dims", "read_image_opts", "item_shape",
-           "DecodeSession", "exif_description", "biggest_component"]
+           "DecodeSession", "exif_description", "biggest_component",
+           "edt_sq"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE = os.path.join(os.path.dirname(_PKG), "native")
@@ -97,6 +99,10 @@ def _declare(lib) -> None:
     lib.sr_biggest_component.argtypes = [f64_p, c_int, ctypes.c_double,
                                          i32_p]
     lib.sr_biggest_component.restype = c_int
+    lib.sr_edt_sq.argtypes = [u8_p, c_int, c_int,
+                              np.ctypeslib.ndpointer(np.float32,
+                                                     flags="C_CONTIGUOUS")]
+    lib.sr_edt_sq.restype = None
 
 
 def _ldconfig_libs() -> List[str]:
@@ -442,3 +448,15 @@ def biggest_component(conf: np.ndarray,
     kept = np.zeros(conf.shape[0], np.int32)
     k = load().sr_biggest_component(conf, conf.shape[0], thresh, kept)
     return [int(i) for i in kept[:k]]
+
+
+def edt_sq(mask: np.ndarray) -> np.ndarray:
+    """Exact squared Euclidean distance of every pixel to the nearest zero
+    pixel of `mask` (Felzenszwalb's O(HW) transform, `sr_edt_sq`), float32;
+    a mask with no zero pixel gives about 1e12 everywhere.  Raises when the runtime neither loads
+    nor builds."""
+    lib = load()
+    mask = np.ascontiguousarray((np.asarray(mask) > 0).astype(np.uint8))
+    out = np.empty(mask.shape, np.float32)
+    lib.sr_edt_sq(mask, mask.shape[0], mask.shape[1], out)
+    return out

@@ -20,11 +20,25 @@
 //
 // Numerics equal the plain PyTorch version bit for bit: the same
 // expression order, with __fmul_rn/__fadd_rn so that no fused
-// multiply-add changes a rounding.
+// multiply-add changes a rounding.  Tap indices take the reference's
+// int32 arithmetic for every float: the floored coordinate saturates at
+// the int32 range and NaN becomes 0 (XLA's conversion on the CPU), and
+// the next tap wraps at 2^31 (computed unsigned, so no signed overflow).
 
 #include <cuda_runtime.h>
 
 namespace {
+
+__device__ __forceinline__ int to_int32(float f) {
+  if (f != f) return 0;
+  if (f >= 2147483648.f) return 2147483647;
+  if (f < -2147483648.f) return -2147483647 - 1;
+  return (int)f;
+}
+
+__device__ __forceinline__ int next_tap(int c) {
+  return (int)((unsigned)c + 1u);
+}
 
 __device__ __forceinline__ int reflect(int c, int n) {
   // cv BORDER_REFLECT: -1 -> 0, -2 -> 1, n -> n-1 (edge duplicated).
@@ -49,10 +63,10 @@ __global__ void warp_bilinear_kernel(const float* __restrict__ img, int hc,
   const float fy = __fsub_rn(y, y0);
   const float gx = __fsub_rn(1.f, fx);
   const float gy = __fsub_rn(1.f, fy);
-  const int x0i = (int)x0;
-  const int y0i = (int)y0;
-  const int xa = reflect(x0i, wc), xb = reflect(x0i + 1, wc);
-  const int ya = reflect(y0i, hc), yb = reflect(y0i + 1, hc);
+  const int x0i = to_int32(x0);
+  const int y0i = to_int32(y0);
+  const int xa = reflect(x0i, wc), xb = reflect(next_tap(x0i), wc);
+  const int ya = reflect(y0i, hc), yb = reflect(next_tap(y0i), hc);
   const float* r0 = img + (size_t)ya * wc * 3;
   const float* r1 = img + (size_t)yb * wc * 3;
 #pragma unroll

@@ -105,16 +105,23 @@ def ring_geometry(n_images: int, hw: Tuple[int, int], fov_deg: float,
     return k, rs
 
 
+def _render_args(args) -> np.ndarray:
+    return render_view(*args)
+
+
 def make_ring_captures(n_images: int = 4, hw: Tuple[int, int] = (240, 320),
                        fov_deg: float = 55.0, pitch_deg: float = 0.0,
-                       overlap_ratio: float = 0.45, seed: int = 7):
+                       overlap_ratio: float = 0.45, seed: int = 7,
+                       pool=None):
     """A single-ring horizontal panorama: (images, K, Rs), with sigma-4
-    per-view sensor noise."""
+    per-view sensor noise.  `pool` (a multiprocessing pool) renders the
+    views in parallel; the noise is drawn in view order either way."""
     k, rs = ring_geometry(n_images, hw, fov_deg, overlap_ratio, pitch_deg)
     rng = np.random.default_rng(seed)
+    views = (pool.map if pool is not None else map)(
+        _render_args, [(k, r, hw, seed) for r in rs])
     images = []
-    for r in rs:
-        view = render_view(k, r, hw, seed)
+    for view in views:
         view = view + rng.normal(0.0, 4.0, view.shape).astype(np.float32)
         images.append(np.clip(view, 0.0, 255.0))
     return images, k.astype(np.float32), np.stack(

@@ -5,6 +5,12 @@ Hopper replacement for `image_stitching_tpu/kernels/warp_gather_pallas.py`
 `warp_bilinear_plain` is the reference's CPU path (`gather_sample` in
 `pipeline/compose_fused.py:242-268`) in PyTorch ops.  Unlike the TPU kernel
 it takes any coordinates, in range or not, so no anchoring is needed.
+
+Tap indices follow that path's integer arithmetic: the floored coordinate
+becomes an int32 as XLA converts on the CPU (saturating at the int32
+range, NaN to 0), and the right or lower tap is that int32 plus one,
+wrapping at 2^31.  A backward map can hold such coordinates: a ray nearly
+parallel to a plane or fisheye image plane has a tiny positive depth.
 """
 
 from __future__ import annotations
@@ -13,7 +19,10 @@ import torch
 
 from ._build import check_launch, load_library
 
-__all__ = ["warp_bilinear", "warp_bilinear_plain", "reflect_index"]
+__all__ = ["warp_bilinear", "warp_bilinear_plain", "reflect_index",
+           "int32_taps"]
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
 def reflect_index(c: torch.Tensor, n: int) -> torch.Tensor:
@@ -21,6 +30,15 @@ def reflect_index(c: torch.Tensor, n: int) -> torch.Tensor:
     period = 2 * n
     c = torch.remainder(c, period)
     return torch.where(c >= n, period - 1 - c, c)
+
+
+def int32_taps(c0: torch.Tensor):
+    """(c0, c0 + 1) of a floored float32 coordinate as int64 tensors with
+    int32 semantics: c0 converted with saturation and NaN to 0, c0 + 1
+    wrapped at 2^31."""
+    c = torch.nan_to_num(c0.to(torch.float64), nan=0.0)
+    c = torch.clamp(c, _I32_MIN, _I32_MAX).to(torch.int64)
+    return c, torch.where(c == _I32_MAX, _I32_MIN, c + 1)
 
 
 def warp_bilinear_plain(img: torch.Tensor, sx: torch.Tensor,
@@ -32,10 +50,10 @@ def warp_bilinear_plain(img: torch.Tensor, sx: torch.Tensor,
     y0 = torch.floor(sy)
     fx = (sx - x0)[..., None]
     fy = (sy - y0)[..., None]
-    x0i = x0.to(torch.int64)
-    y0i = y0.to(torch.int64)
-    x0r, x1r = reflect_index(x0i, wc), reflect_index(x0i + 1, wc)
-    y0r, y1r = reflect_index(y0i, hc), reflect_index(y0i + 1, hc)
+    x0i, x1i = int32_taps(x0)
+    y0i, y1i = int32_taps(y0)
+    x0r, x1r = reflect_index(x0i, wc), reflect_index(x1i, wc)
+    y0r, y1r = reflect_index(y0i, hc), reflect_index(y1i, hc)
     i00 = img[y0r, x0r]
     i01 = img[y0r, x1r]
     i10 = img[y1r, x0r]

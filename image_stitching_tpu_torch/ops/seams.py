@@ -1,5 +1,5 @@
-"""Seam finding: "no" and the DP colour finders (port of `ops/seams.py:
-46-148, 257-320, 329, 346-567, 571-608`).
+"""Seam finders: "no", "voronoi", the DP colour finders and the graph-cut
+finders (port of `ops/seams.py`).
 
 DpSeamFinder(COLOR / COLOR_GRAD) semantics as the reference implements
 them: every connected component of a pair's overlap gets its own seam;
@@ -9,7 +9,17 @@ regions around it); all components of all pairs run as a few batched
 dynamic programs, one per half-octave (H, W) bucket, on the device; the
 partitions are then applied on the host in pair order against the
 evolving masks, which keeps triple overlaps hole-free.  Pixel cost is
-|I1 - I2| over RGB (+ |grad1 - grad2| for COLOR_GRAD).
+|I1 - I2| over RGB (+ |grad1 - grad2| for COLOR_GRAD).  strict=True runs
+OpenCV's order instead: each pair's components are labelled from the
+evolved masks and its DPs run before the next pair is examined.
+
+VORONOI gives each overlap pixel to the image whose exclusive region is
+nearer (exact squared EDTs by the native runtime's O(HW) transform; the
+vectorised `_distance_sq` is its plain twin for the tests).  GC_COLOR
+(+GRAD) cuts each overlap exactly by scipy's max-flow on the host, over
+the DP cost of the pair's overlap box, computed on the device for every
+overlapping pair and downloaded once; the cuts run in pair order against
+the evolving masks.
 
 The crop content is gathered from the device-resident padded warped stack
 (the reference's `images_dev` route); only the masks live on the host,
@@ -27,7 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["bucket_dim", "overlap_box", "periodic_corner", "find_seams"]
+__all__ = ["bucket_dim", "overlap_box", "periodic_corner", "find_seams",
+           "edt_sq"]
 
 _BIG = 1e9
 
@@ -75,6 +86,21 @@ def _crop(arr: np.ndarray, corner, box):
     x, y, w, h = box
     ox, oy = x - corner[0], y - corner[1]
     return arr[oy:oy + h, ox:ox + w]
+
+
+def _pair_overlap(i, j, corners, masks, sizes, period):
+    """(cj, box, m1, m2) of pair i < j: j's corner for the pairing, the
+    overlap box and both masks cropped to it as bool; None when the masks
+    do not meet inside the box."""
+    cj = periodic_corner(corners[i], sizes[i], corners[j], sizes[j], period)
+    box = overlap_box(corners[i], sizes[i], cj, sizes[j])
+    if box[2] <= 0 or box[3] <= 0:
+        return None
+    m1 = _crop(masks[i], corners[i], box) > 0
+    m2 = _crop(masks[j], cj, box) > 0
+    if not (m1 & m2).any():
+        return None
+    return cj, box, m1, m2
 
 
 def _dp_seam_cost(img1: torch.Tensor, img2: torch.Tensor,
@@ -198,18 +224,14 @@ def _run_dp_tasks(tasks, grad: bool, images_dev: torch.Tensor):
 
 def _dp_pair_tasks(i, j, corners, masks_src, sizes, period):
     """Component-DP tasks of one pair against `masks_src` (the initial
-    masks)."""
+    masks, or the evolved ones in strict mode)."""
     import scipy.ndimage as ndi
 
-    cj = periodic_corner(corners[i], sizes[i], corners[j], sizes[j], period)
-    box = overlap_box(corners[i], sizes[i], cj, sizes[j])
-    if box[2] <= 0 or box[3] <= 0:
+    pair = _pair_overlap(i, j, corners, masks_src, sizes, period)
+    if pair is None:
         return []
-    m1 = _crop(masks_src[i], corners[i], box) > 0
-    m2 = _crop(masks_src[j], cj, box) > 0
+    cj, box, m1, m2 = pair
     ov = m1 & m2
-    if not ov.any():
-        return []
     excl1 = m1 & ~m2
     excl2 = m2 & ~m1
     lab, n_comp = ndi.label(ov)
@@ -276,11 +298,21 @@ def _apply_dp_partitions(tasks, keep1_all, masks, corners):
 
 
 def _find_seams_dp(corners, masks, sizes, grad: bool, images_dev,
-                   period=None):
+                   period=None, strict: bool = False):
     """Label every pair overlap's components on the initial masks, run
     all their DPs batched, apply the partitions in pair order
-    (`_find_seams_dp`, strict=False)."""
+    (`_find_seams_dp`).  strict: pair by pair, each labelled from the
+    masks the earlier pairs left."""
     n = len(masks)
+    if strict:
+        for i in range(n):
+            for j in range(i + 1, n):
+                tasks = _dp_pair_tasks(i, j, corners, masks, sizes, period)
+                if tasks:
+                    _apply_dp_partitions(
+                        tasks, _run_dp_tasks(tasks, grad, images_dev),
+                        masks, corners)
+        return masks
     masks0 = [m.copy() for m in masks]
     tasks = []
     for i in range(n):
@@ -292,16 +324,119 @@ def _find_seams_dp(corners, masks, sizes, grad: bool, images_dev,
     return masks
 
 
+def _distance_sq(mask: torch.Tensor) -> torch.Tensor:
+    """Squared EDT to the nearest zero of `mask` (H, W): the reference's
+    vectorised O(n^2)-per-line transform, columns then rows, 1e12 for
+    the set pixels; the plain twin of `edt_sq`."""
+    f = torch.where(mask > 0, 1e12, 0.0)
+
+    def edt_1d(g):       # along the last axis: min_j (i - j)^2 + g[j]
+        idx = torch.arange(g.shape[-1], dtype=torch.float32,
+                           device=g.device)
+        return torch.min(g[..., None, :] + (idx[:, None] - idx[None, :]) ** 2,
+                         dim=-1).values
+    return edt_1d(edt_1d(f.t()).t())
+
+
+def edt_sq(mask: np.ndarray) -> np.ndarray:
+    """Exact squared EDT to the nearest zero pixel of `mask`, by the native
+    runtime (which raises when it neither loads nor builds)."""
+    from ..core import native
+    return native.edt_sq(np.asarray(mask))
+
+
+def _graph_cut_pair(cost: np.ndarray, must1: np.ndarray, must2: np.ndarray,
+                    valid: np.ndarray) -> np.ndarray:
+    """Exact min-cut partition of the overlap grid by scipy's max-flow
+    (`_graph_cut_pair`): edge weights the integer-scaled mean endpoint
+    cost, must1/must2 tied to source/sink at 2^30 (scipy casts
+    capacities to int32); keep1 is the residual graph's source side.
+    Returns keep1 (H, W) bool."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import breadth_first_order, maximum_flow
+
+    h, w = cost.shape
+    n = h * w
+    src, dst = n, n + 1
+    idx = np.arange(n).reshape(h, w)
+    ecost = np.maximum((cost * 255.0).astype(np.int64), 1)
+    rows, cols, caps = [], [], []
+    for (du, dv) in ((0, 1), (1, 0)):
+        u = idx[: h - du, : w - dv]
+        v = idx[du:, dv:]
+        c = ((ecost[: h - du, : w - dv] + ecost[du:, dv:]) // 2 + 1)
+        ok = valid[: h - du, : w - dv] & valid[du:, dv:]
+        uu, vv, cc = u[ok], v[ok], c[ok]
+        rows.append(np.concatenate([uu, vv]))
+        cols.append(np.concatenate([vv, uu]))
+        caps.append(np.concatenate([cc, cc]))
+    inf = int(1 << 30)
+    p1 = idx[must1 & valid]
+    p2 = idx[must2 & valid]
+    rows.append(np.full(len(p1), src, np.int64))
+    cols.append(p1.astype(np.int64))
+    caps.append(np.full(len(p1), inf, np.int64))
+    rows.append(p2.astype(np.int64))
+    cols.append(np.full(len(p2), dst, np.int64))
+    caps.append(np.full(len(p2), inf, np.int64))
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    caps = np.concatenate(caps)
+    if len(caps) == 0:
+        return np.ones((h, w), bool)
+    m = csr_matrix((caps, (rows, cols)), shape=(n + 2, n + 2))
+    res = maximum_flow(m, src, dst)
+    # Saturated edges are explicit zeros in the residual, and csgraph walks
+    # explicit zeros: drop them before the BFS.
+    resid = m - res.flow
+    resid.data = np.maximum(resid.data, 0)
+    resid.eliminate_zeros()
+    reach = breadth_first_order(resid, src, directed=True,
+                                return_predecessors=False)
+    keep1 = np.zeros(n + 2, bool)
+    keep1[reach] = True
+    return keep1[:n].reshape(h, w)
+
+
+def _gc_costs(corners, masks, sizes, grad: bool, images_dev, period):
+    """The DP cost (H, W) of every overlapping pair's box, keyed (i, j):
+    computed on the device from the padded stack (both crops gathered at
+    the box), downloaded in one transfer.  Pairs whose initial masks do
+    not meet are skipped: masks only shrink."""
+    pend = []
+    for i in range(len(masks)):
+        for j in range(i + 1, len(masks)):
+            pair = _pair_overlap(i, j, corners, masks, sizes, period)
+            if pair is None:
+                continue
+            cj, (x, y, w, h) = pair[:2]
+            oyi, oxi = y - corners[i][1], x - corners[i][0]
+            oyj, oxj = y - cj[1], x - cj[0]
+            a = images_dev[i, oyi:oyi + h, oxi:oxi + w].to(torch.float32)
+            b = images_dev[j, oyj:oyj + h, oxj:oxj + w].to(torch.float32)
+            pend.append(((i, j), _dp_seam_cost(a, b, grad)))
+    if not pend:
+        return {}
+    flat = torch.cat([c.reshape(-1) for _, c in pend]).cpu().numpy()
+    out, at = {}, 0
+    for key, c in pend:
+        out[key] = flat[at:at + c.numel()].reshape(c.shape)
+        at += c.numel()
+    return out
+
+
 def find_seams(corners: Sequence[Tuple[int, int]],
                masks: Sequence[np.ndarray], seam_type: str = "dp_color",
-               images_dev: torch.Tensor = None,
-               period=None) -> List[np.ndarray]:
-    """seam_finder->find: the updated masks (u8 copies).  seam_type "no"
-    keeps the masks; "dp_color" / "dp_colorgrad" take their content from
+               images_dev: torch.Tensor = None, period=None,
+               strict: bool = False) -> List[np.ndarray]:
+    """seam_finder->find: the updated masks (u8 copies).  seam_type in
+    {no, voronoi, dp_color, dp_colorgrad, gc_color, gc_colorgrad}; unknown
+    types raise.  The DP and graph-cut finders take their content from
     `images_dev`, the padded warped stack (N, Hp, Wp, 3) with each
     image's rect at the origin (the reference's host-image argument has no
     counterpart: the port seams from the device stack only).  period: the
-    warped u-axis period, for cross-dateline pairs."""
+    warped u-axis period, for cross-dateline pairs.  strict (DP finders):
+    OpenCV's sequential order, pair by pair."""
     known = {"no", "voronoi", "dp_color", "dp_colorgrad", "gc_color",
              "gc_colorgrad"}
     if seam_type not in known:
@@ -310,14 +445,35 @@ def find_seams(corners: Sequence[Tuple[int, int]],
     masks = [np.asarray(m).copy().astype(np.uint8) for m in masks]
     if seam_type == "no":
         return masks
-    if not seam_type.startswith("dp"):
-        raise NotImplementedError(
-            f"seam_find_type={seam_type!r}: the PyTorch port implements "
-            "'no', 'dp_color' and 'dp_colorgrad'")
-    if images_dev is None:
+    if images_dev is None and seam_type != "voronoi":
         raise ValueError(f"seam finder '{seam_type}' needs the device "
                          "stack images_dev")
     sizes = [(m.shape[1], m.shape[0]) for m in masks]
-    return _find_seams_dp(corners, masks, sizes,
-                          seam_type.endswith("colorgrad"), images_dev,
-                          period)
+    grad = seam_type.endswith("colorgrad")
+    if seam_type.startswith("dp"):
+        return _find_seams_dp(corners, masks, sizes, grad, images_dev,
+                              period, strict)
+    gc_costs = (_gc_costs(corners, masks, sizes, grad, images_dev, period)
+                if seam_type.startswith("gc") else {})
+    n = len(masks)
+    for i in range(n):
+        for j in range(i + 1, n):
+            pair = _pair_overlap(i, j, corners, masks, sizes, period)
+            if pair is None:
+                continue
+            cj, box, m1, m2 = pair
+            ov = m1 & m2
+            if seam_type == "voronoi":
+                # Nearer exclusive region wins (ties to image i).
+                keep1 = edt_sq(~(m1 & ~m2)) <= edt_sq(~(m2 & ~m1))
+            else:
+                keep1 = _graph_cut_pair(gc_costs[(i, j)], m1 & ~m2,
+                                        m2 & ~m1, ov)
+            x, y, w, h = box
+            oxi, oyi = x - corners[i][0], y - corners[i][1]
+            oxj, oyj = x - cj[0], y - cj[1]
+            sub_i = masks[i][oyi:oyi + h, oxi:oxi + w]
+            sub_j = masks[j][oyj:oyj + h, oxj:oxj + w]
+            sub_i[ov & ~keep1] = 0
+            sub_j[ov & keep1] = 0
+    return masks

@@ -1,15 +1,17 @@
-"""Seam-scale warp and fused multiband compose (port of
-`pipeline/compose_fused.py:45,151,215,370,461,515,536,551`).
+"""Seam-scale warp and fused compose (port of
+`pipeline/compose_fused.py:45,151,215,332,370,461,496,515,536,551`).
 
 Per image, on the device: backward warp of the compose source over a
 padded, band-aligned canvas rect (kernel K2, `kernels/warp_gather.py`,
 with BORDER_REFLECT), the warp-validity mask, the exposure gain (a
 scalar, one per channel, or the block map stretched over the image's ROI),
-the seam mask sampled at
-ratio-scaled warped coordinates, then the Laplacian pyramid of the planar
+the seam mask sampled at ratio-scaled warped coordinates (for FEATHER,
+the blend weight is then the clipped L1 distance to the nearest invalid
+pixel inside the image's ROI), then the Laplacian pyramid of the planar
 (4, h, w) image + weight accumulated into the canvas band accumulators
 (kernel K5, `kernels/multiband.py`, one call per bucket of same-size
-rects).  Then one normalise + collapse.  The
+rects; FEATHER and NO accumulate 0 bands).  Then one normalise +
+collapse.  The
 rect geometry (gap 3 * 2^nb, band-aligned corners, half-octave bucket
 dims, canvas clamp) is host integer arithmetic copied from the reference,
 because it sets what the pyramid sees at rect borders.  The reference's
@@ -33,6 +35,7 @@ from ..ops.blend import WEIGHT_EPS, num_bands_for
 from ..ops.imgproc import dilate3
 from ..ops.pyr_mat import pyr_up_mm
 from ..ops.seams import bucket_dim
+from ..kernels.warp_gather import int32_taps
 from ..ops.warps import Warper, backward_xy_1d, result_roi
 
 __all__ = ["warp_stack", "compose_rects", "rect_grid", "prep_gains",
@@ -48,8 +51,8 @@ def _patch_bilinear(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
     y0 = torch.floor(sy)
     fx = sx - x0
     fy = sy - y0
-    x0i = x0.to(torch.int64)
-    y0i = y0.to(torch.int64)
+    x0i = int32_taps(x0)[0]
+    y0i = int32_taps(y0)[0]
     fx = torch.where(x0i < 0, 0.0, torch.where(x0i > w - 2, 1.0, fx))
     fy = torch.where(y0i < 0, 0.0, torch.where(y0i > h - 2, 1.0, fy))
     bx = torch.clamp(x0i, 0, w - 2)
@@ -76,15 +79,18 @@ def rect_grid(tl, pad_h: int, pad_w: int, device):
 
 
 def warp_stack(images: torch.Tensor, ks: torch.Tensor, rs: torch.Tensor,
-               scale: float, tls: torch.Tensor, pad_h: int, pad_w: int):
+               scale: float, tls: torch.Tensor, proj_name: str, pad_h: int,
+               pad_w: int):
     """Seam-scale warp of an (N, hc, wc, C) stack onto padded per-image
-    rects with top-left corners tls (N, 2).  Returns (warped (N, pad_h,
-    pad_w, C) uint8, valid (N, pad_h, pad_w) uint8 in {0, 255})."""
+    rects with top-left corners tls (N, 2), by the projection `proj_name`.
+    Returns (warped (N, pad_h, pad_w, C) uint8, valid (N, pad_h, pad_w)
+    uint8 in {0, 255})."""
     n, hc, wc = images.shape[0], images.shape[1], images.shape[2]
     warped_all, mask_all = [], []
     for i in range(n):
         us, vs = rect_grid(tls[i], pad_h, pad_w, images.device)
-        sx, sy, valid = backward_xy_1d(us, vs, ks[i], rs[i], scale)
+        sx, sy, valid = backward_xy_1d(proj_name, us, vs, ks[i], rs[i],
+                                       scale)
         warped = _patch_bilinear(images[i].to(torch.float32), sx, sy)
         wmask = _valid_mask(sx, sy, valid, hc, wc)
         warped = torch.where(wmask[..., None], warped, 0.0)
@@ -123,14 +129,15 @@ def _gain_sample(us, vs, gain, gain_grid, gain_roi):
 
 
 def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float,
-               gain=None, gain_grid=None, gain_roi=None):
+               gain=None, gain_grid=None, gain_roi=None,
+               proj_name: str = "spherical"):
     """Per-image compose sample on the grid us x vs: the K2 image sample
     (planar (3, h, w)) times the exposure gain when `gain` is given, and
     the blend weight (h, w) from warp validity and the seam mask.  The
     gain's rank picks `_warp_gain_seam`'s mode: a 0-d GAIN scalar, a (3,)
     CHANNELS triple, or a (Gy, Gx[, 3]) block map sampled over the ROI."""
     hc, wc = img.shape[0], img.shape[1]
-    sx, sy, valid = backward_xy_1d(us, vs, k, r, scale)
+    sx, sy, valid = backward_xy_1d(proj_name, us, vs, k, r, scale)
     warped = warp_bilinear(img, sx.contiguous(), sy.contiguous())
     wmask = _valid_mask(sx, sy, valid, hc, wc)
     if gain is not None and gain.ndim == 0:
@@ -146,6 +153,38 @@ def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float,
             @ _interp_matrix(mx, smask.shape[1]))
     weight = torch.where((sval > 0.5) & wmask, 1.0, 0.0)
     return warped, weight
+
+
+def _l1_dist(invalid_seed: torch.Tensor, rounds: int) -> torch.Tensor:
+    """Exact L1 distance to the nearest True of `invalid_seed` up to
+    2^rounds - 1 (cv2 distanceTransform DIST_L1 inside FeatherBlender's
+    createWeightMap), by min-plus doubling along each axis; shifted-in
+    wrap-around entries are masked with the big constant."""
+    big = 3e8
+    d = torch.where(invalid_seed, 0.0, big)
+    for axis in (0, 1):
+        idx = torch.arange(d.shape[axis], device=d.device)
+        shape = [-1, 1] if axis == 0 else [1, -1]
+        for k in range(rounds):
+            s = 1 << k
+            keep_f = (idx >= s).reshape(shape)
+            keep_b = (idx < d.shape[axis] - s).reshape(shape)
+            fwd = torch.where(keep_f, torch.roll(d, s, dims=axis), big) + s
+            bwd = torch.where(keep_b, torch.roll(d, -s, dims=axis), big) + s
+            d = torch.minimum(d, torch.minimum(fwd, bwd))
+    return d
+
+
+def _feather_weight(weight, us, vs, roi, sharpness: float, rounds: int):
+    """FeatherBlender's weight on the rect: min(d * sharpness, 1) where the
+    blend weight is set, d the L1 distance to the nearest unset pixel
+    inside the image's compose ROI (x, y, w, h); padding outside the ROI
+    seeds no distance."""
+    hard = weight > 0.0
+    in_box = (((us >= roi[0]) & (us <= roi[0] + roi[2] - 1))[None, :] &
+              ((vs >= roi[1]) & (vs <= roi[1] + roi[3] - 1))[:, None])
+    d = _l1_dist(~hard & in_box, rounds)
+    return torch.clamp(d * sharpness, max=1.0) * hard
 
 
 def _finalize(accs: List[torch.Tensor], n_bands: int):
@@ -181,22 +220,37 @@ class ComposeRects:
     canvas_w: int
     tls: List[Tuple[int, int]]
     buckets: Dict[Tuple[int, int], List[int]]
+    feather_sharpness: float = 0.0
+    feather_rounds: int = 0
+
+
+def _blend_params(canvas, blend_type: BlenderType, blend_strength: float):
+    """(n_bands, feather_sharpness, feather_rounds): multiband takes its band count from the canvas and strength; FEATHER
+    and NO accumulate 0 bands, FEATHER with the clipped L1 weight map of
+    sharpness 1 / blend_width, its doubling rounds covering d <
+    blend_width."""
+    n_bands, blend_width = num_bands_for(canvas, blend_strength)
+    feather_sharpness = 0.0
+    feather_rounds = 0
+    if blend_type == BlenderType.NO or blend_width < 1.0:
+        n_bands = 0
+    elif blend_type == BlenderType.FEATHER:
+        n_bands = 0
+        feather_sharpness = 1.0 / blend_width
+        feather_rounds = max(1, int(np.ceil(np.log2(blend_width + 1))))
+    return n_bands, feather_sharpness, feather_rounds
 
 
 def compose_rects(comp_corners, comp_sizes, blend_type: BlenderType,
                   blend_strength: float) -> ComposeRects:
     """The reference's rect geometry (`compose_fused.py:575-615`): gap
     3 * 2^nb around each ROI, band-aligned corners, half-octave bucket dims
-    snapped to max(step, 128), clamped to the canvas."""
+    snapped to max(step, 128), clamped to the canvas; and the blend's
+    parameters."""
     n = len(comp_corners)
     canvas = result_roi(comp_corners, comp_sizes)
-    n_bands, blend_width = num_bands_for(canvas, blend_strength)
-    if blend_type == BlenderType.NO or blend_width < 1.0:
-        n_bands = 0
-    elif blend_type != BlenderType.MULTI_BAND:
-        raise NotImplementedError(
-            f"blend_type={blend_type.value!r}: the PyTorch port composes "
-            "with the multiband blender only")
+    n_bands, sharpness, rounds = _blend_params(canvas, blend_type,
+                                               blend_strength)
     step = 1 << max(n_bands, 1)
     cx, cy, cw, ch = canvas
     quant = max(step, 64)
@@ -229,7 +283,7 @@ def compose_rects(comp_corners, comp_sizes, blend_type: BlenderType,
             tls[i] = (min(tls[i][0], cx + canvas_w - bw_i),
                       min(tls[i][1], cy + canvas_h - bh_i))
     return ComposeRects(canvas, int(n_bands), canvas_h, canvas_w, tls,
-                        buckets)
+                        buckets, float(sharpness), int(rounds))
 
 
 def prep_gains(compensator, comp_corners, comp_sizes, device):
@@ -261,15 +315,22 @@ def compose_samples(images: torch.Tensor, ks, rs, warper: Warper,
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
     ks_d, rs_d, stl_d = f32(ks), f32(rs), f32(seam_corners)
+    rois = f32([[c[0], c[1], s[0], s[1]]
+                for c, s in zip(comp_corners, comp_sizes)])
     cx, cy = g.canvas[0], g.canvas[1]
     for (bh_i, bw_i), idxs in sorted(g.buckets.items()):
         for i in idxs:
             us, vs = rect_grid(g.tls[i], bh_i, bw_i, dev)
-            gain = () if gains is None else (gains[0][i], gains[1][i],
-                                             gains[2][i])
+            gain = (None,) * 3 if gains is None else (
+                gains[0][i], gains[1][i], gains[2][i])
             warped, weight = _warp_seam(
                 images[i].to(torch.float32), ks_d[i], rs_d[i], us, vs,
-                warper.scale, smask[i], stl_d[i], seam_ratio, *gain)
+                warper.scale, smask[i], stl_d[i], seam_ratio, *gain,
+                proj_name=warper.proj_name)
+            if g.feather_sharpness > 0.0:
+                weight = _feather_weight(weight, us, vs, rois[i],
+                                         g.feather_sharpness,
+                                         g.feather_rounds)
             yield (warped.contiguous(), weight,
                    (g.tls[i][0] - cx, g.tls[i][1] - cy))
 
@@ -296,10 +357,11 @@ def fused_compose(images: torch.Tensor, ks, rs, warper: Warper,
                   seam_ratio: float, compensator, blend_type: BlenderType,
                   blend_strength: float):
     """Compose an (N, hc, wc, 3) stack into the panorama, with the
-    exposure gains of `compensator` (None or an ExposureCompensator): the
-    compose sample of each rect, K5 into the band accumulators (one call
-    per bucket, which adds overlapping rects in image order), then
-    normalise and collapse.  Returns (panorama float32 (H, W, 3), mask
+    exposure gains of `compensator` (None or an ExposureCompensator) and
+    the blend `blend_type` (multiband, FEATHER or NO): the compose sample
+    of each rect, K5 into the band accumulators (one call per bucket,
+    which adds overlapping rects in image order; 0 bands for FEATHER and
+    NO), then normalise and collapse.  Returns (panorama float32 (H, W, 3), mask
     bool (H, W)) on the stack's device."""
     dev = images.device
     g = compose_rects(comp_corners, comp_sizes, blend_type, blend_strength)

@@ -1,24 +1,28 @@
-"""End-to-end stitch: the main path of
+"""End-to-end stitch: the fused-compose path of
 `image_stitching_tpu/pipeline/stitcher.py`.
 
 Stages: read images and EXIF priors (fast ingest: the background native
 decode of the codec's 4:2:0 planes, `pipeline/ingest.py`) -> ORB features
 (kernel K1) -> all-pairs matching with RANSAC (kernel K4) -> biggest
 connected component -> bundle adjustment seeded from the priors ->
-checkpoint -> wave correction -> median focal -> seam-scale spherical warp
--> exposure compensation -> DP colour seams -> compose-scale fused
-multiband blend (kernels K2 and K5) -> result.
+checkpoint -> wave correction -> median focal -> seam-scale warp (any
+projection) -> exposure compensation -> seams -> compose-scale fused blend,
+multiband, FEATHER or NO (kernels K2 and K5) -> result.
+`serialize_data=False` resumes from the checkpoint (`cams.data`,
+`indices.data`) with no features, matching or BA; `find_features=False`
+takes the EXIF priors as the cameras.
 
-This port runs one slice of the reference's configuration surface: the
-reference defaults, fast ingest on or off, every exposure compensator,
-seams "no", "dp_color" or "dp_colorgrad".  `check_slice` raises
-NotImplementedError for every option outside it, so the port never takes
-another path quietly.  The device is explicit: `stitch(..., device="cuda")`
-raises when no GPU is present, and nothing falls back to the CPU.
+This port runs one slice of the reference's configuration surface: every
+option the fused path takes, on captures of one size with EXIF priors.
+`check_slice` raises NotImplementedError for every option outside it, so
+the port never takes another path quietly.  The device is explicit:
+`stitch(..., device="cuda")` raises when no GPU is present, and nothing
+falls back to the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -26,12 +30,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import BlenderType, StitchConfig, WaveCorrectKind
+from ..config import StitchConfig, WaveCorrectKind
 from ..core import exif as exif_mod
 from ..core import image_io, persistence
 from ..core.logging import logger, stage_timer
 from ..estimation.bundle_adjust import bundle_adjust, pack_correspondences
 from ..estimation.components import biggest_component
+from ..estimation.graph import matches_graph_dot
 from ..estimation.wave_correct import wave_correct
 from ..geometry.camera import Cameras
 from ..ops.features.orb import orb_detect_stack
@@ -57,29 +62,26 @@ class StitchResult:
     work_scale: float = 1.0
 
 
-def check_slice(cfg: StitchConfig) -> None:
+def check_slice(cfg: StitchConfig, device="cpu") -> None:
     """Raise NotImplementedError naming the first option outside the
-    port's slice."""
+    port's slice.  use_sharded_compose is the plain fused compose unless
+    more than one CUDA device would shard the canvas, as in the reference
+    (which shards only when more than one device is present)."""
+    device = torch.device(device)
+    sharded = (cfg.use_sharded_compose and device.type == "cuda"
+               and torch.cuda.device_count() > 1)
     refused = [
-        ("seam_find_type", cfg.seam_find_type not in (
-            "no", "dp_color", "dp_colorgrad"), cfg.seam_find_type),
         ("timelapse", cfg.timelapse, "True"),
         ("crop_result", cfg.crop_result, "True"),
-        ("use_sharded_compose", cfg.use_sharded_compose, "True"),
+        ("use_sharded_compose", sharded,
+         f"True on {torch.cuda.device_count()} devices"),
         ("features_type", cfg.features_type != "orb", cfg.features_type),
-        ("warp_type", cfg.warp_type != "spherical", cfg.warp_type),
         ("ba_cost_func", cfg.ba_cost_func != "reproj", cfg.ba_cost_func),
         ("matcher_type", cfg.matcher_type != "homography", cfg.matcher_type),
         ("estimator_type", cfg.estimator_type != "homography",
          cfg.estimator_type),
-        ("blend_type", cfg.blend_type != BlenderType.MULTI_BAND,
-         cfg.blend_type.value),
         ("use_sensor_priors", not cfg.use_sensor_priors, "False"),
-        ("find_features", not cfg.find_features, "False"),
-        ("serialize_data", not cfg.serialize_data, "False"),
         ("infill_dropped", cfg.infill_dropped, "True"),
-        ("save_graph", cfg.save_graph, "True"),
-        ("profile_dir", bool(cfg.profile_dir), cfg.profile_dir),
     ]
     for name, outside, value in refused:
         if outside:
@@ -175,17 +177,43 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir: str, device: torch.device):
+    """A torch.profiler trace of the block, written as Chrome trace JSON to
+    `profile_dir`/stitch_trace.json (where the reference writes its
+    jax.profiler trace); nothing when profile_dir is empty."""
+    if not profile_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "stitch_trace.json"))
+
+
 def stitch(source, cfg: StitchConfig = StitchConfig(),
            output: Optional[str] = None, device="cuda") -> StitchResult:
     """Stitch a directory or a list of image paths on `device`.  Writes
     `cfg.result_name` (or `output`) unless output=""."""
-    check_slice(cfg)
     dev = _resolve_device(device)
+    check_slice(cfg, dev)
+    with _profiled(cfg.profile_dir, dev):
+        return _stitch_body(source, cfg, output, dev)
+
+
+def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
+                 dev: torch.device) -> StitchResult:
     paths = (image_io.list_images(source) if isinstance(source, str)
              else list(source))
     if len(paths) < 2:
         raise ValueError("Need at least two images to stitch")
     times: Dict[str, float] = {}
+    # Resuming (serialize_data=False) or taking the priors as the cameras
+    # (find_features=False) detects no features.
+    want_feats = cfg.find_features and cfg.serialize_data
 
     fast = None
     with stage_timer("Reading images and priors", times, dev):
@@ -213,10 +241,9 @@ def stitch(source, cfg: StitchConfig = StitchConfig(),
         compose_src_scale = (compose_scale
                              if abs(compose_scale - 1) > 1e-1 else 1.0)
         if cfg.fast_ingest:
-            # Features are always wanted: find_features=False and
-            # serialize_data=False are outside the slice.
             fast = start_fast_ingest(
-                paths, is_portrait, want_gray=True, gray_scale=work_scale,
+                paths, is_portrait, want_gray=want_feats,
+                gray_scale=work_scale,
                 rgb_scale=max(seam_scale, compose_src_scale), device=dev)
         if fast is not None:
             gray_raw, rgb_raw = fast.upload()
@@ -226,7 +253,7 @@ def stitch(source, cfg: StitchConfig = StitchConfig(),
                 im = image_io.orient_capture(image_io.imread(p), is_portrait)
                 device_imgs.append(torch.from_numpy(im).to(dev))
             full_sizes = [(im.shape[1], im.shape[0]) for im in device_imgs]
-    if priors is None:
+    if priors is None and not (cfg.find_features and not cfg.serialize_data):
         raise NotImplementedError(
             "captures without EXIF priors (homography-based camera "
             "seeding) are outside the PyTorch port's slice")
@@ -249,44 +276,61 @@ def stitch(source, cfg: StitchConfig = StitchConfig(),
         else:
             grays, seam_list = [], []
             for im in device_imgs:
-                work = (resize(im, work_hw) if work_scale != 1.0
-                        else im.to(torch.float32))
-                grays.append(rgb_to_gray(work))
+                if want_feats:
+                    work = (resize(im, work_hw) if work_scale != 1.0
+                            else im.to(torch.float32))
+                    grays.append(rgb_to_gray(work))
                 seam_list.append(torch.clamp(torch.round(
                     resize(im, seam_hw)), 0, 255).to(torch.uint8))
-            grays = torch.stack(grays)
             seam_stack = torch.stack(seam_list)
             stack_u8 = torch.stack(device_imgs)
-        fstack = orb_detect_stack(grays, n_features=cfg.num_features,
-                                  pattern=cfg.orb_pattern)
+        if want_feats:
+            fstack = orb_detect_stack(
+                grays if fast is not None else torch.stack(grays),
+                n_features=cfg.num_features, pattern=cfg.orb_pattern)
 
-    cameras_all = Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
+    cameras_all = (Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
+                   if priors is not None else None)
 
-    with stage_timer("Pairwise matching", times, dev):
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        pm = match_all_pairs(fstack, gen, match_conf=cfg.match_conf,
-                             range_width=cfg.range_width,
-                             pair_cap=cfg.num_features).numpy()
-        xy_host = fstack.xy.cpu().numpy()
-    indices, removed = biggest_component(pm.confidence, cfg.conf_thresh)
-    if removed:
-        logger.info("Removed some images, because can't match them or "
-                    "there are too similar images: (%s).",
-                    ", ".join(str(i + 1) for i in removed))
-    if len(indices) < 2:
-        raise RuntimeError("Need more images: all but one were removed as "
-                           "unmatchable")
+    if want_feats:
+        with stage_timer("Pairwise matching", times, dev):
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            pm = match_all_pairs(fstack, gen, match_conf=cfg.match_conf,
+                                 range_width=cfg.range_width,
+                                 pair_cap=cfg.num_features).numpy()
+            xy_host = fstack.xy.cpu().numpy()
+        if cfg.save_graph and cfg.save_graph_to:
+            with open(cfg.save_graph_to, "w") as gf:
+                gf.write(matches_graph_dot(paths, pm.confidence,
+                                           pm.num_inliers, pm.num_matches,
+                                           cfg.conf_thresh))
+        indices, removed = biggest_component(pm.confidence, cfg.conf_thresh)
+        if removed:
+            logger.info("Removed some images, because can't match them or "
+                        "there are too similar images: (%s).",
+                        ", ".join(str(i + 1) for i in removed))
+        if len(indices) < 2:
+            raise RuntimeError("Need more images: all but one were removed "
+                               "as unmatchable")
 
-    with stage_timer("Bundle adjustment", times, dev):
-        problem = pack_correspondences(xy_host[np.asarray(indices)],
-                                       pm.subset(indices), cfg.conf_thresh)
-        cameras = bundle_adjust(cameras_all[indices], problem,
-                                refine_mask=cfg.ba_refine_mask)
-    persistence.serialize_camera_params(cameras, cfg.checkpoint_dir)
-    persistence.serialize_indices(indices, cfg.checkpoint_dir)
-    if cfg.checkpoint_npz:
-        np.savez(os.path.join(cfg.checkpoint_dir, "cameras.npz"),
-                 indices=np.asarray(indices), **cameras.numpy())
+        with stage_timer("Bundle adjustment", times, dev):
+            problem = pack_correspondences(xy_host[np.asarray(indices)],
+                                           pm.subset(indices),
+                                           cfg.conf_thresh)
+            cameras = bundle_adjust(cameras_all[indices], problem,
+                                    refine_mask=cfg.ba_refine_mask)
+        persistence.serialize_camera_params(cameras, cfg.checkpoint_dir)
+        persistence.serialize_indices(indices, cfg.checkpoint_dir)
+        if cfg.checkpoint_npz:
+            np.savez(os.path.join(cfg.checkpoint_dir, "cameras.npz"),
+                     indices=np.asarray(indices), **cameras.numpy())
+    elif cfg.find_features:
+        indices = persistence.deserialize_indices(cfg.checkpoint_dir)
+        cameras = persistence.deserialize_camera_params(cfg.checkpoint_dir,
+                                                        device=dev)
+    else:
+        indices = list(range(n))
+        cameras = cameras_all
 
     if cfg.do_wave_correct and cfg.wave_correct != WaveCorrectKind.NO:
         cameras = dataclasses.replace(
@@ -312,12 +356,13 @@ def stitch(source, cfg: StitchConfig = StitchConfig(),
         corners = [(r[0], r[1]) for r in rois]
         # Snap to 64, as the reference does: the pad sizes change which
         # pixels the padded stack holds, hence the output.  The stacks
-        # stay on the device for the exposure statistics and the DP seams.
+        # stay on the device for the exposure statistics and the seams.
         images_pad, masks_pad = warp_stack(
             seam_stack, torch.as_tensor(k_seam, device=dev),
             torch.as_tensor(r_all, device=dev), warper.scale,
             torch.as_tensor(np.asarray([[r[0], r[1]] for r in rois],
                                        np.float32), device=dev),
+            warper.proj_name,
             pad_h=-(-max(r[3] for r in rois) // 64) * 64,
             pad_w=-(-max(r[2] for r in rois) // 64) * 64)
         masks_host = masks_pad.cpu().numpy()

@@ -98,7 +98,7 @@ def test_main_writes_the_stitch_panorama(captures, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,option", [
-    (["--seam", "voronoi"], "seam_find_type"),
+    (["--crop"], "crop_result"),
     (["--timelapse"], "timelapse"),
     (["--features", "sift"], "features_type")])
 def test_refused_option_exits_nonzero(captures, tmp_path, capsys, flags,
@@ -131,7 +131,30 @@ def test_python_dash_m_entry_point(captures):
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("usage: image_stitching_tpu_torch")
     assert "--device" in out.stdout
-    out = subprocess.run(cmd + [captures, "--device", "cpu", "--seam",
-                                "gc_color"], env=env, capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 1 and "seam_find_type" in out.stderr
+    out = subprocess.run(cmd + [captures, "--device", "cpu", "--ba", "ray"],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 1 and "ba_cost_func" in out.stderr
+
+
+def test_graph_profile_and_resume_flags(captures, tmp_path, capsys):
+    """--save-graph and --profile-dir exit 0 and write the DOT file (an
+    edge per kept adjacent pair) and a trace; --no-find-features then
+    resumes from the checkpoint that run wrote, exit 0, without the
+    matching and BA stages."""
+    dot, prof = str(tmp_path / "g.dot"), str(tmp_path / "prof")
+    base = [captures, "--device", "cpu", "--checkpoint-dir", str(tmp_path)]
+    assert cli.main(base + SMALL + ["--result", str(tmp_path / "a.jpg"),
+                                    "--save-graph", dot,
+                                    "--profile-dir", prof]) == 0
+    text = open(dot).read()
+    assert text.startswith("graph matches_graph {")
+    assert '"0.jpg" -- "1.jpg"' in text and '"1.jpg" -- "2.jpg"' in text
+    assert os.path.getsize(os.path.join(prof, "stitch_trace.json")) > 0
+    capsys.readouterr()
+    assert cli.main(base + SMALL + ["--result", str(tmp_path / "b.jpg"),
+                                    "--no-find-features"]) == 0
+    printed = capsys.readouterr().out
+    assert "Pairwise matching" not in printed
+    assert "Bundle adjustment" not in printed
+    assert os.path.getsize(tmp_path / "b.jpg") > 0

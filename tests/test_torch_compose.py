@@ -67,7 +67,7 @@ def test_num_bands_and_bucket_dims():
     masks = [np.full((4, 5), 255, np.uint8)]
     assert np.array_equal(seams.find_seams([(0, 0)], masks, "no")[0],
                           masks[0])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="images_dev"):
         seams.find_seams([(0, 0)], masks, "gc_color")
 
 
@@ -93,14 +93,109 @@ def test_fused_compose_matches_reference(compose_inputs):
     assert ref_mask.mean() > 0.5
 
 
-def test_fused_compose_refuses_feather(compose_inputs):
-    c = compose_inputs
-    with pytest.raises(NotImplementedError):
-        tcf.fused_compose(t(c["imgs"]), c["ks"], c["rs"],
-                          warps.make_warper("spherical", c["focal"]),
-                          c["corners"], c["sizes"], c["seam_masks"],
-                          c["seam_corners"], 0.5, None, BlenderType.FEATHER,
-                          5.0)
+def _proj_scene(proj: str):
+    """compose_inputs' ring with its ROIs and seam masks made by the
+    projection `proj`."""
+    images, k, rs = make_ring_captures(n_images=3, hw=(120, 168),
+                                       fov_deg=55, overlap_ratio=0.5)
+    imgs = np.stack(images).astype(np.uint8)
+    ks = np.repeat(k[None], 3, 0).astype(np.float32)
+    rs = np.asarray(rs, np.float32)
+    focal = float(k[0, 0])
+    warper = jwarps.make_warper(proj, focal)
+    rois = [warper.warp_roi((120, 168), ks[i], rs[i]) for i in range(3)]
+    k_seam = ks.copy()
+    k_seam[:, :2] *= 0.5
+    sw = jwarps.make_warper(proj, focal * 0.5)
+    srois = [sw.warp_roi((60, 84), k_seam[i], rs[i]) for i in range(3)]
+    _, masks = jcf._warp_stack(
+        jnp.asarray(imgs[:, ::2, ::2]), jnp.asarray(k_seam), jnp.asarray(rs),
+        jnp.float32(sw.scale),
+        jnp.asarray(np.asarray([r[:2] for r in srois], np.float32)),
+        proj_name=proj,
+        pad_h=-(-max(r[3] for r in srois) // 64) * 64,
+        pad_w=-(-max(r[2] for r in srois) // 64) * 64)
+    masks = np.asarray(masks)
+    return dict(imgs=imgs, ks=ks, rs=rs, focal=focal, proj=proj,
+                corners=[r[:2] for r in rois], sizes=[r[2:] for r in rois],
+                seam_masks=[masks[i, :srois[i][3], :srois[i][2]]
+                            for i in range(3)],
+                seam_corners=[r[:2] for r in srois])
+
+
+# (projection, blend, blend strength): FEATHER and NO at 0 bands,
+# cylindrical (separable maps) and mercator (a meshgrid map) multiband.
+BLEND_CASES = {
+    "feather": ("spherical", "feather", 5.0),
+    "feather sharp": ("spherical", "feather", 1.0),
+    "no": ("spherical", "no", 5.0),
+    "cylindrical": ("cylindrical", "multiband", 5.0),
+    "mercator": ("mercator", "multiband", 5.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLEND_CASES))
+def test_fused_compose_blends_and_projections(case):
+    """fused_compose against the reference's for FEATHER, NO and two more
+    projections: masks equal, the u8 panorama within 1 on >= 99.9% of the
+    mask (float32 ulps of the backward maps and the pyramid sums, the
+    multiband parity test's bound) and within 1 everywhere at 0 bands."""
+    proj, blend, strength = BLEND_CASES[case]
+    c = _proj_scene(proj)
+    ref_pano, ref_mask = jcf.fused_compose(
+        jnp.asarray(c["imgs"]), c["ks"], c["rs"],
+        jwarps.make_warper(proj, c["focal"]), c["corners"], c["sizes"],
+        c["seam_masks"], c["seam_corners"], 0.5, None, JBlend(blend),
+        strength)
+    pano, mask = tcf.fused_compose(
+        t(c["imgs"]), c["ks"], c["rs"], warps.make_warper(proj, c["focal"]),
+        c["corners"], c["sizes"], c["seam_masks"], c["seam_corners"], 0.5,
+        None, BlenderType(blend), strength)
+    ref_pano, ref_mask = np.asarray(ref_pano), np.asarray(ref_mask)
+    np.testing.assert_array_equal(n(mask), ref_mask)
+    diff = np.abs(n(pano) - ref_pano).max(-1)
+    assert (diff <= 1.0)[ref_mask].mean() >= 0.999
+    g = tcf.compose_rects(c["corners"], c["sizes"], BlenderType(blend),
+                          strength)
+    if blend != "multiband":
+        assert g.n_bands == 0 and diff[ref_mask].max() <= 1.0
+    assert (g.feather_sharpness > 0) == (blend == "feather")
+    assert ref_mask.mean() > 0.5
+
+
+def test_l1_dist_exact():
+    """The min-plus doubling L1 distance equals the reference's exactly,
+    and both equal the brute-force city-block distance where it is below
+    2^rounds - 1."""
+    rng = np.random.default_rng(11)
+    seed = rng.random((37, 53)) > 0.97
+    for rounds in (1, 3, 6):
+        got = n(tcf._l1_dist(t(seed), rounds))
+        np.testing.assert_array_equal(
+            got, np.asarray(jcf._l1_dist(jnp.asarray(seed), rounds)))
+    ys, xs = np.nonzero(seed)
+    yy, xx = np.mgrid[0:37, 0:53]
+    brute = np.min(np.abs(yy[..., None] - ys) + np.abs(xx[..., None] - xs),
+                   -1)
+    np.testing.assert_array_equal(got[brute < 63], brute[brute < 63])
+
+
+def test_k5_plain_zero_bands_matches_pallas_interpret():
+    """K5's plain version at n_bands = 0 (FEATHER and NO: one band, no
+    pyrDown) against the Pallas kernel in the interpreter, a bucket of
+    overlapping rects at odd offsets: the same sums in image order."""
+    warped, weight = _k5_bucket(21, 4, 0, 40, 56)
+    offs = [(0, 0), (13, 5), (37, 22), (3, 29)]
+    got = [torch.zeros((4, 70, 96))]
+    pyramid_accumulate(warped, weight, offs, got, 0)
+    accs_p, waccs_p = pallas_pyramid_accumulate(
+        jnp.asarray(n(warped)), jnp.asarray(n(weight)),
+        jnp.asarray(np.asarray(offs, np.int32)), (jnp.zeros((3, 70, 96)),),
+        (jnp.zeros((70, 96)),), n_bands=0, interpret=True)
+    pallas = np.concatenate([np.asarray(accs_p[0]),
+                             np.asarray(waccs_p[0])[None]])
+    np.testing.assert_allclose(n(got[0]), pallas, rtol=0, atol=1e-3)
+    assert float(got[0][3].max()) >= 2   # the rects overlap
 
 
 @pytest.fixture(scope="module")
@@ -299,6 +394,8 @@ def test_k5_batched_plain_equals_single_image_calls(nb, ph, pw, canvas,
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb, ph, pw, canvas, offs", [
     (3, 96, 128, (160, 200), [(0, 0), (40, 24), (200, 160), (13, 5)]),
+    # 0 bands (FEATHER, NO): one band launch, no pyrDown.
+    (0, 40, 56, (70, 96), [(0, 0), (13, 5), (37, 22), (3, 29)]),
     # Past the 128 images of one band launch; the last three clamp onto
     # one window across that boundary.
     (1, 16, 32, (40, 2064),

@@ -135,7 +135,8 @@ def test_compose_geometry_reproduces_k2_inputs(both):
             img = torch.from_numpy(image_io.orient_capture(
                 image_io.imread(paths[got.kept_indices[i]]), False))
             us, vs = compose_fused.rect_grid(g.tls[i], bh, bw, "cpu")
-            sx, sy, _ = backward_xy_1d(us, vs, torch.as_tensor(comp.ks[i]),
+            sx, sy, _ = backward_xy_1d(comp.warper.proj_name, us, vs,
+                                       torch.as_tensor(comp.ks[i]),
                                        torch.as_tensor(comp.rs[i]),
                                        comp.warper.scale)
             expect.append((img.to(torch.float32), sx, sy))
@@ -359,3 +360,96 @@ def test_fast_panorama_matches_reference(both_fast):
     common = np.asarray(ref.mask)[:h, :w] & n(got.mask)[:h, :w]
     assert common.mean() > 0.9
     assert np.abs(pj[:h, :w] - pt[:h, :w])[common].mean() <= 2.0
+
+
+# Cylindrical warp, FEATHER blend, graph-cut colour seams, fast ingest on.
+CYL = dict(SMALL, fast_ingest=True, warp_type="cylindrical",
+           blend_type="feather", seam_find_type="gc_color")
+
+
+@pytest.fixture(scope="module")
+def both_cyl(captures, tmp_path_factory):
+    """Both stitch()es of the CYL configuration, the reference's RANSAC
+    draws injected into the port's, recording each side's seam masks;
+    then both resume from the reference's checkpoint
+    (serialize_data=False)."""
+    d, rs = captures
+    run_j = tmp_path_factory.mktemp("run_jax_cyl")
+    run_t = tmp_path_factory.mktemp("run_torch_cyl")
+    recs = [Recorder(jseams, "find_seams"), Recorder(stitcher, "find_seams")]
+    with recs[0]:
+        ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **CYL),
+                      output="")
+    with recs[1], reference_draws(JConfig().seed, 3):
+        got = stitch(str(d), StitchConfig(checkpoint_dir=str(run_t), **CYL),
+                     output="", device="cpu")
+    resume = dict(CYL, serialize_data=False, checkpoint_dir=str(run_j))
+    rec = Recorder(stitcher, "start_fast_ingest")
+    ref_resumed = jstitch(str(d), JConfig(**resume), output="")
+    with rec:
+        got_resumed = stitch(str(d), StitchConfig(**resume), output="",
+                             device="cpu")
+    return dict(ref=ref, got=got, rs=rs, seams_j=recs[0].calls["find_seams"],
+                seams_t=recs[1].calls["find_seams"], run_j=run_j,
+                ref_resumed=ref_resumed, got_resumed=got_resumed,
+                ingest=rec.calls["start_fast_ingest"])
+
+
+def _panoramas_close(ref, got):
+    pj, pt = np.asarray(ref.panorama), n(got.panorama)
+    assert abs(pj.shape[0] - pt.shape[0]) <= 2
+    assert abs(pj.shape[1] - pt.shape[1]) <= 2
+    h, w = min(pj.shape[0], pt.shape[0]), min(pj.shape[1], pt.shape[1])
+    common = np.asarray(ref.mask)[:h, :w] & n(got.mask)[:h, :w]
+    assert common.mean() > 0.9
+    assert np.abs(pj[:h, :w] - pt[:h, :w])[common].mean() <= 2.0
+
+
+def test_cylindrical_feather_gc_matches_reference(both_cyl):
+    """Equal kept indices; relative rotations within 0.05 degrees and focal
+    rtol 1e-3; the graph-cut seam masks equal pixel for pixel; panorama
+    shape within 2 px per axis and mean |difference| <= 2 on the common
+    mask."""
+    b = both_cyl
+    ref, got = b["ref"], b["got"]
+    assert got.kept_indices == ref.kept_indices == list(range(N_IMAGES))
+    cams = got.cameras.numpy()
+    np.testing.assert_allclose(cams["focal"], np.asarray(ref.cameras.focal),
+                               rtol=1e-3)
+    rr = np.asarray(ref.cameras.R)
+    for a in range(N_IMAGES - 1):
+        assert rel_rotation_deg(cams["R"][a + 1] @ cams["R"][a].T,
+                                rr[a + 1] @ rr[a].T) <= 0.05
+    (_, _, mj), = b["seams_j"]
+    (_, _, mt), = b["seams_t"]
+    for a, m in zip(mj, mt):
+        np.testing.assert_array_equal(np.asarray(m) > 0, np.asarray(a) > 0)
+    assert sum(int((np.asarray(m) == 0).sum()) for m in mt) > 0
+    _panoramas_close(ref, got)
+
+
+def test_resumed_stitch_matches_reference(both_cyl):
+    """serialize_data=False from the reference's checkpoint: no gray
+    stream is asked of fast ingest; the kept indices are the file's;
+    the cameras are the file's, equal to the reference's reading of it
+    before wave correction, and the panorama matches the reference's
+    resumed one and the stitch that wrote the checkpoint."""
+    b = both_cyl
+    ref_r, got_r = b["ref_resumed"], b["got_resumed"]
+    (args, kwargs, _), = b["ingest"]
+    assert kwargs["want_gray"] is False
+    from image_stitching_tpu.core import persistence as jpersist
+    assert got_r.kept_indices == ref_r.kept_indices == \
+        jpersist.deserialize_indices(str(b["run_j"]))
+    assert "Finding features" in got_r.stage_times
+    assert "Pairwise matching" not in got_r.stage_times
+    assert "Bundle adjustment" not in got_r.stage_times
+    np.testing.assert_allclose(n(got_r.cameras.focal),
+                               np.asarray(ref_r.cameras.focal), rtol=1e-6)
+    rr = np.asarray(ref_r.cameras.R)
+    cams = got_r.cameras.numpy()
+    for a in range(N_IMAGES - 1):
+        assert rel_rotation_deg(cams["R"][a + 1] @ cams["R"][a].T,
+                                rr[a + 1] @ rr[a].T) <= 1e-3
+    _panoramas_close(ref_r, got_r)
+    _panoramas_close(b["ref"], got_r)

@@ -121,3 +121,22 @@ def test_bundle_adjust_from_identical_inputs(ba_inputs, refine_mask,
                                    rr[a] @ rr[b].T)
             assert ang <= max_deg, (a, b, ang)
     assert tba.bundle_adjust(cameras_from_numpy(cams), None).focal is not None
+
+
+def test_matches_graph_dot_text_equal():
+    """The DOT text of a match graph, port against reference: edges above
+    the threshold with their labels, isolated images as nodes."""
+    from image_stitching_tpu.estimation.graph import matches_graph_dot as jdot
+    from image_stitching_tpu_torch.estimation.graph import matches_graph_dot
+    rng = np.random.default_rng(2)
+    n_img = 5
+    conf = rng.uniform(0, 2, (n_img, n_img))
+    conf = np.triu(conf, 1) + np.triu(conf, 1).T
+    conf[4] = conf[:, 4] = 0.0
+    inl = rng.integers(0, 300, (n_img, n_img))
+    nm = inl + rng.integers(0, 100, (n_img, n_img))
+    names = [f"/caps/{i}.jpg" for i in range(n_img)]
+    got = matches_graph_dot(names, conf, inl, nm, 1.0)
+    assert got == jdot(names, conf, inl, nm, 1.0)
+    assert got.count(" -- ") == int((np.triu(conf, 1) > 1.0).sum()) > 0
+    assert '"4.jpg";' in got

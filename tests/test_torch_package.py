@@ -56,12 +56,10 @@ SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
 
 
 @pytest.mark.parametrize("option,value", [
-    ("seam_find_type", "voronoi"), ("infill_dropped", True),
-    ("seam_find_type", "gc_color"), ("timelapse", True),
-    ("crop_result", True), ("use_sharded_compose", True),
-    ("features_type", "sift"), ("warp_type", "cylindrical"),
+    ("infill_dropped", True), ("timelapse", True),
+    ("crop_result", True), ("features_type", "sift"),
     ("ba_cost_func", "ray"), ("matcher_type", "affine"),
-    ("blend_type", "feather"), ("use_sensor_priors", False)])
+    ("estimator_type", "affine"), ("use_sensor_priors", False)])
 def test_options_outside_slice_raise(option, value):
     check_slice(StitchConfig(**SLICE))
     cfg = StitchConfig(**dict(SLICE, **{option: value}))
@@ -69,6 +67,32 @@ def test_options_outside_slice_raise(option, value):
         check_slice(cfg)
     with pytest.raises(NotImplementedError, match=option):
         stitch(["a.jpg", "b.jpg"], cfg, output="", device="cpu")
+
+
+@pytest.mark.parametrize("option,value", [
+    ("seam_find_type", "voronoi"), ("seam_find_type", "gc_color"),
+    ("seam_find_type", "gc_colorgrad"), ("use_sharded_compose", True),
+    ("warp_type", "cylindrical"), ("warp_type", "transverseMercator"),
+    ("blend_type", "feather"), ("blend_type", "no"),
+    ("find_features", False), ("serialize_data", False),
+    ("save_graph", True), ("profile_dir", "prof")])
+def test_options_inside_slice_accepted(option, value):
+    """Options of the fused path that the slice runs: check_slice takes
+    them on the CPU and on one CUDA device."""
+    cfg = StitchConfig(**dict(SLICE, **{option: value}))
+    check_slice(cfg)
+    check_slice(cfg, "cuda")
+
+
+def test_sharded_compose_refused_on_several_devices(monkeypatch):
+    """use_sharded_compose shards the canvas only when more than one CUDA
+    device is present; that path is outside the slice and raises."""
+    cfg = StitchConfig(**dict(SLICE, use_sharded_compose=True))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    check_slice(cfg)
+    with pytest.raises(NotImplementedError, match="use_sharded_compose"):
+        check_slice(cfg, "cuda")
+    check_slice(StitchConfig(**SLICE), "cuda")
 
 
 def test_cuda_device_is_explicit():

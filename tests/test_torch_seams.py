@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import t
+from _torch_port import n, t
 from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.ops import seams as jseams
 from image_stitching_tpu.ops import warps as jwarps
@@ -107,9 +107,96 @@ def test_find_seams_refusals():
     masks = [np.full((4, 5), 255, np.uint8)]
     with pytest.raises(ValueError, match="Can't create"):
         seams.find_seams([(0, 0)], masks, "bogus")
-    with pytest.raises(NotImplementedError, match="gc_color"):
+    with pytest.raises(ValueError, match="images_dev"):
         seams.find_seams([(0, 0)], masks, "gc_color")
     with pytest.raises(ValueError, match="images_dev"):
         seams.find_seams([(0, 0)], masks, "dp_color")
     assert seams.periodic_corner((0, 0), (10, 5), (95, 0), (10, 5), 100) == \
         jseams.periodic_corner((0, 0), (10, 5), (95, 0), (10, 5), 100)
+
+
+def _host_images(stack, masks):
+    """The reference's host images: each padded rect cut to its ROI, as
+    float32 (what its pipeline downloads for the graph cut)."""
+    return [np.asarray(stack[i, :m.shape[0], :m.shape[1]], np.float32)
+            for i, m in enumerate(masks)]
+
+
+def _two_component_scene():
+    rng = np.random.default_rng(3)
+    h, w = 60, 80
+    stack = rng.integers(0, 256, (3, h, w, 3)).astype(np.uint8)
+    corners = [(0, 0), (40, 0), (20, 34)]
+    masks = [np.full((h, w), 255, np.uint8) for _ in range(3)]
+    masks[1][:, 10:16] = 0
+    masks[1][:, :10][20:40] = 0
+    return stack, masks, corners, None
+
+
+@pytest.mark.parametrize("seam_type", ["voronoi", "gc_color",
+                                       "gc_colorgrad"])
+@pytest.mark.parametrize("scene", ["ring", "two components"])
+def test_voronoi_and_graph_cut_equal(ring_stack, seam_type, scene):
+    """Bit-equal masks: the native EDT on both sides for voronoi; for the
+    graph cuts the same integer-scaled costs (square roots of integer sums,
+    computed on the device in the port) and the same scipy max-flow."""
+    stack, masks, corners, period = (ring_stack if scene == "ring"
+                                     else _two_component_scene())
+    want = jseams.find_seams(_host_images(stack, masks), corners,
+                             [m.copy() for m in masks], seam_type,
+                             images_dev=jnp.asarray(stack), period=period)
+    got = seams.find_seams(corners, [m.copy() for m in masks], seam_type,
+                           images_dev=t(stack), period=period)
+    changed = 0
+    for a, b, m in zip(want, got, masks):
+        np.testing.assert_array_equal(b > 0, a > 0)
+        changed += int(((m > 0) & (b == 0)).sum())
+    assert changed > 100
+
+
+def _strict_scenes():
+    """tests/test_seam_strict.py's scenes: two images side by side, and
+    three staggered rects with a three-way overlap band (float images)."""
+    rng = np.random.default_rng(0)
+    h, w = 48, 64
+    two = [rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+           for _ in range(2)]
+    three = [rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+             for _ in range(3)]
+    return {"two": (two, [(0, 0), (w // 2, 0)]),
+            "three": (three, [(0, 0), (20, 6), (40, 12)])}
+
+
+@pytest.mark.parametrize("scene", ["two", "three"])
+@pytest.mark.parametrize("strict", [True, False])
+def test_dp_strict_equal(scene, strict):
+    """strict=True (pairs in OpenCV's order, each labelled from the evolved
+    masks) and the batched default, bit-equal to the reference's on the
+    strict-mode test scenes."""
+    imgs, corners = _strict_scenes()[scene]
+    masks = [np.full(im.shape[:2], 255, np.uint8) for im in imgs]
+    stack = np.stack(imgs)
+    want = jseams.find_seams(None, corners, [m.copy() for m in masks],
+                             "dp_color", images_dev=jnp.asarray(stack),
+                             strict=strict)
+    got = seams.find_seams(corners, [m.copy() for m in masks], "dp_color",
+                           images_dev=t(stack), strict=strict)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b > 0, a > 0)
+
+
+def test_native_edt_equals_plain_distance():
+    """The native O(HW) squared EDT against the port's plain `_distance_sq`
+    and the reference's, on random masks with zeros, exactly."""
+    rng = np.random.default_rng(6)
+    far = 0.0
+    for h, w, p in ((31, 47, 0.9), (64, 40, 0.99), (17, 90, 0.5)):
+        mask = rng.random((h, w)) < p
+        mask[rng.integers(0, h), rng.integers(0, w)] = False
+        got = seams.edt_sq(mask)
+        plain = n(seams._distance_sq(t(mask.astype(np.float32))))
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(plain, np.asarray(jseams._distance_sq(
+            jnp.asarray(mask.astype(np.float32)))))
+        far = max(far, float(got.max()))
+    assert far > 25

@@ -77,7 +77,8 @@ def test_k2_plain_reflects_out_of_range_like_gather_sample():
         jnp.ones(2), jnp.ones(4), proj_name="spherical", gain_mode="none")
     got_w, got_wt = tcf._warp_seam(t(img), t(k), t(r), t(us), t(vs), scale,
                                    t(smask), t(stl), 1.0)
-    sx, _, _ = warps.backward_xy_1d(t(us), t(vs), t(k), t(r), scale)
+    sx, _, _ = warps.backward_xy_1d("spherical", t(us), t(vs), t(k), t(r),
+                                    scale)
     assert float((sx < 0).float().mean()) > 0.1   # many reflected taps
     np.testing.assert_allclose(n(got_w), np.asarray(ref_w), rtol=0,
                                atol=1e-2)
@@ -112,14 +113,15 @@ def test_backward_map_and_unsupported_projection():
     vs = np.linspace(300, 700, 31, dtype=np.float32)
     want = jwarps.backward_xy_1d("spherical", jnp.asarray(us),
                                  jnp.asarray(vs), k, r, 300.0)
-    got = warps.backward_xy_1d(t(us), t(vs), t(k), t(r), 300.0)
+    got = warps.backward_xy_1d("spherical", t(us), t(vs), t(k), t(r), 300.0)
     np.testing.assert_array_equal(n(got[2]), np.asarray(want[2]))
     ok = np.asarray(want[2])
     for a, b in zip(got[:2], want[:2]):
         np.testing.assert_allclose(n(a)[ok], np.asarray(b)[ok], rtol=1e-5,
                                    atol=1e-3)
-    with pytest.raises(NotImplementedError):
-        warps.make_warper("cylindrical", 1.0)
+    with pytest.raises(ValueError, match="Can't create"):
+        warps.make_warper("nope", 1.0)
+    assert sorted(warps.PROJECTIONS) == sorted(jwarps.PROJECTIONS)
     for scale in (300.0, 123.4):
         assert warps.u_period("spherical", scale) == \
             jwarps.u_period("spherical", scale)
@@ -142,8 +144,8 @@ def test_seam_scale_warp_stack():
                                    jnp.asarray(rs), jnp.float32(60.0),
                                    jnp.asarray(tls), proj_name="spherical",
                                    pad_h=ph, pad_w=pw)
-    w_got, m_got = tcf.warp_stack(t(imgs), t(ks), t(rs), 60.0, t(tls), ph,
-                                  pw)
+    w_got, m_got = tcf.warp_stack(t(imgs), t(ks), t(rs), 60.0, t(tls),
+                                  "spherical", ph, pw)
     assert (n(m_got) == np.asarray(m_ref)).mean() >= 0.999
     diff = np.abs(n(w_got).astype(int) - np.asarray(w_ref).astype(int))
     assert diff.max() <= 1
@@ -161,3 +163,132 @@ def test_k2_kernel_matches_plain_on_cuda():
     torch.cuda.synchronize()
     assert warp_bilinear.launches == before + 1
     np.testing.assert_array_equal(n(out), n(warp_bilinear_plain(img, sx, sy)))
+
+
+# ---------------------------------------------------------------------------
+# Every projection: ROIs, warp_point, backward maps, the affine split.
+# ---------------------------------------------------------------------------
+
+ALL_PROJ = sorted(jwarps.PROJECTIONS)
+K_SMALL = np.array([[120.0, 0, 64], [0, 120, 48], [0, 0, 1]], np.float32)
+
+
+def _cameras_for_roi():
+    """Rotations by (yaw, pitch, roll): a few ordinary views, views that
+    straddle azimuth +-pi (the date-line rebranch), and views with a pole
+    inside the image (the spherical pole fix), as in tests/test_dateline.py
+    and tests/test_warps.py."""
+    eul = [(0.1, 0.3, 0.05), (0.0, 0.0, 0.0), (-0.4, 0.8, 0.2),
+           (np.pi, 0.0, 0.0), (np.pi - 0.05, 0.2, 0.0), (-np.pi + 0.1, -0.1,
+                                                         0.03),
+           (0.3, np.pi / 2, 0.0), (0.0, -np.pi / 2, 0.0)]
+    return [Rotation.from_euler("yxz", e).as_matrix().astype(np.float32)
+            for e in eul]
+
+
+@pytest.mark.parametrize("name", ALL_PROJ)
+def test_warp_roi_and_point_all_projections(name):
+    """Integer-equal ROIs and equal warp_point (the same float32 numpy
+    table) at two scales, over ordinary, date-line and pole views."""
+    for scale in (100.0, 37.5):
+        jw = jwarps.make_warper(name, scale)
+        tw = warps.make_warper(name, scale)
+        for r in _cameras_for_roi():
+            assert tw.warp_roi((96, 128), K_SMALL, r) == \
+                jw.warp_roi((96, 128), K_SMALL, r), (name, scale)
+            pts = np.float32([[10.0, 20.0], [64.0, 48.0], [127.0, 0.0]])
+            for a, b in zip(tw.warp_point(pts, K_SMALL, r),
+                            jw.warp_point(pts, K_SMALL, r)):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_dateline_rebranch_and_pole_fix_engage():
+    """The cases above reach both special branches: a view at yaw pi gets a
+    rebranched (narrow) cylindrical ROI, a straight-up view the spherical
+    ROI extended to v = 0."""
+    rots = _cameras_for_roi()
+    w = warps.make_warper("cylindrical", 100.0)
+    assert w.warp_roi((96, 128), K_SMALL, rots[3])[2] < np.pi * 100.0
+    roi = warps.make_warper("spherical", 100.0).warp_roi((96, 128), K_SMALL,
+                                                         rots[6])
+    assert roi[1] <= 0 <= roi[1] + roi[3]
+
+
+# Backward-map tolerances: torch and XLA evaluate the transcendentals to
+# within a few float32 ulps of each other, and the maps divide by the
+# ray depth, which magnifies them near the horizon of plane-like
+# projections.  rtol 1e-5 / atol 1e-3 px, the spherical test's bound,
+# holds for all 16 on these grids.
+@pytest.mark.parametrize("name", ALL_PROJ)
+def test_backward_maps_all_projections(name):
+    k, r = K_SMALL, _cameras_for_roi()[0]
+    jw = jwarps.make_warper(name, 100.0)
+    x, y, w, h = jw.warp_roi((96, 128), k, r)
+    us = (x + np.arange(w, dtype=np.float32)).astype(np.float32)
+    vs = (y + np.arange(h, dtype=np.float32)).astype(np.float32)
+    want = jwarps.backward_xy_1d(name, jnp.asarray(us), jnp.asarray(vs),
+                                 jnp.asarray(k), jnp.asarray(r),
+                                 jnp.float32(100.0))
+    got = warps.backward_xy_1d(name, t(us), t(vs), t(k), t(r), 100.0)
+    ok = np.asarray(want[2])
+    np.testing.assert_array_equal(n(got[2]), ok)
+    assert ok.mean() > 0.5
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(n(a)[ok], np.asarray(b)[ok], rtol=1e-5,
+                                   atol=1e-3)
+
+
+def test_affine_prep_split():
+    """`_prep` for "affine": the linear part transposed and the scaled UV
+    offset, equal to the reference's; every other projection passes K
+    and R through."""
+    h = np.array([[1.02, 0.05, 13.5], [-0.03, 0.98, -7.25], [0, 0, 1]],
+                 np.float32)
+    k_t, r_t, off_t = warps.make_warper("affine", 80.0)._prep(K_SMALL, h)
+    k_j, r_j, off_j = jwarps.make_warper("affine", 80.0)._prep(K_SMALL, h)
+    np.testing.assert_array_equal(r_t, r_j)
+    np.testing.assert_array_equal(k_t, k_j)
+    assert off_t == off_j and off_t != (0.0, 0.0)
+    assert warps.make_warper("plane", 80.0)._prep(K_SMALL, h)[2] == \
+        (0.0, 0.0)
+    assert warps.result_roi_intersection([(-5, 2), (10, -3)],
+                                         [(20, 10), (5, 30)]) == \
+        jwarps.result_roi_intersection([(-5, 2), (10, -3)],
+                                       [(20, 10), (5, 30)])
+
+
+def test_k2_plain_out_of_int32_range_like_jax_gather():
+    """Coordinates past +-2^31: a plane warp with K = R = I and scale 1
+    maps the grid to itself, so the reference's compose sample
+    (`_warp_gain_seam`, its CPU gather with int32 taps) and the port's
+    (K2's plain version) gather at exactly the coordinates given; the
+    samples are equal.  Then the tap conversion on NaN and infinities
+    against XLA's float32 -> int32 conversion."""
+    rng = np.random.default_rng(9)
+    img = rng.uniform(0, 255, (13, 17, 3)).astype(np.float32)
+    big = [-3e9, -2.2e9, -2147483904.0, -2147483648.0, -5.5, 0.25, 3.7,
+           16.5, 2.1e9, 2147483520.0, 2147483648.0, 2.2e9, 3e9, 1e20, -1e20]
+    us = np.asarray(big, np.float32)
+    vs = np.asarray(big[::-1] + [7.5], np.float32)
+    eye = np.eye(3, dtype=np.float32)
+    smask = np.zeros((64, 64), np.float32)
+    ref_w, _ = jcf._warp_gain_seam(
+        jnp.asarray(img), jnp.asarray(eye), jnp.asarray(eye),
+        jnp.asarray(us), jnp.asarray(vs), jnp.float32(1.0),
+        jnp.asarray(smask), jnp.zeros(2), jnp.float32(1.0), jnp.float32(1.0),
+        jnp.ones(2), jnp.ones(4), proj_name="plane", gain_mode="none")
+    got_w, _ = tcf._warp_seam(t(img), t(eye), t(eye), t(us), t(vs), 1.0,
+                              t(smask), torch.zeros(2), 1.0,
+                              proj_name="plane")
+    sx, sy, valid = warps.backward_xy_1d("plane", t(us), t(vs), t(eye),
+                                         t(eye), 1.0)
+    assert bool(valid.all())
+    np.testing.assert_array_equal(n(sx)[0], us)
+    np.testing.assert_array_equal(n(got_w), np.asarray(ref_w))
+    from image_stitching_tpu_torch.kernels.warp_gather import int32_taps
+    x = np.asarray(big + [np.nan, np.inf, -np.inf], np.float32)
+    c0, c1 = int32_taps(torch.floor(t(x)))
+    want0 = np.asarray(jnp.floor(jnp.asarray(x)).astype(jnp.int32))
+    np.testing.assert_array_equal(n(c0), want0)
+    np.testing.assert_array_equal(
+        n(c1), np.asarray(jnp.asarray(want0) + 1))
