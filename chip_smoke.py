@@ -88,16 +88,45 @@ Phases, one line each; any failure raises and exits non-zero:
      format of 9b's bundle adjustment, panorama within mean |diff| 0.5 of
      9b's and masks equal off a 1-pixel edge band, its wall beside 9b's;
      (e) one vga_pair stitch with profile_dir and save_graph_to: a
-     non-empty trace and a DOT file with an edge per kept adjacent pair.
+     non-empty trace and a DOT file with an edge per kept adjacent pair;
+ 11. camera seeding and the registration variants, each stitch under the
+     counts as in phase 9 (captures rendered in phase 0): (a)
+     StitchConfig() on DEFAULT_RING written without EXIF (cameras seeded
+     by homography_based_estimate): kept 8/8, mask > 0.9, finite
+     positive gains, seam union = warped union; its reprojection error,
+     focal and per-pair autocalib focals reported, not gated (the
+     reference's autocalib is erratic on a pure-yaw ring and the default
+     refine mask keeps its focal); and
+     StitchConfig(use_sensor_priors=False) on the EXIF files: kept
+     indices equal, cameras within 1e-4 (relative); (b) bench.py's
+     rig37, StitchConfig(num_features=1000) on 37 x 960x1280 (seed 21),
+     timed after a warm-up on its +-2 LSB twin: kept 37/37, <= 1 px
+     reprojection over the pairs within 45 deg, mask > 0.9, seam union =
+     warped union; its wall, MP/s, stage table, launches and peak device
+     memory; K4 on its 666 pairs in one call and K5 on every bucket of its
+     compose against their plain versions; (c) StitchConfig(
+     num_features=1000, infill_dropped=True) on rig37 with frames 5, 15
+     and 30 made noise: the component removed them, 37 cameras come back,
+     each infilled camera within 1 deg of the ground truth relative to the
+     neighbour it was made from; (d) the affine scan mode (matcher,
+     estimator, BA and warp "affine", no wave correction) on a 2x2 mosaic
+     of 1080x1920 tiles without EXIF, each tile a similarity of one
+     planar texture: kept 4/4, each tile's similarity within 0.5 deg and
+     1% scale of the truth relative to tile 0, the mask over 0.9 of the
+     warped tiles' union, K2 on its compose rects; (e)
+     StitchConfig(ba_cost_func="ray") on DEFAULT_RING under phase 9b's
+     gates.
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
 wrapper calls (what the caller pays), the plain version's time by the
 same events, the bound, and the library call's device time, by the same
 graph, where one computes the same function; K2's row also its device
-time on the cylindrical rects (`cylindrical_device_ms`), K5's its device
-time and launches per call at 0 bands on the vga_pair rects
-(`zero_band_device_ms`, `zero_band_launches_per_call`).
+time on the cylindrical rects (`cylindrical_device_ms`) and the affine
+scan's (`affine_device_ms`), K5's its device time and launches per call
+at 0 bands on the vga_pair rects (`zero_band_device_ms`,
+`zero_band_launches_per_call`); K4's and K5's rows their rig37 times and
+bounds (`rig37_*`).
 Then a JSON line of those kernel results with the launches on the path
 the kernel was checked on, the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
@@ -152,10 +181,11 @@ def _smi() -> str:
 
 
 def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float,
-                  hw=(H, W)):
-    """Mean pairwise reprojection error (px) of consecutive kept images of
-    size hw: estimated K_b R_b R_a^T K_a^-1 against the ground truth on an
-    8x8 pixel grid (gauge-invariant; bench.py `_reproj_err_px`)."""
+                  hw=(H, W), pairs=None):
+    """Mean pairwise reprojection error (px) of the kept images of size hw,
+    over `pairs` of positions in `kept` (default consecutive ones):
+    estimated K_b R_b R_a^T K_a^-1 against the ground truth on an 8x8 pixel
+    grid (gauge-invariant; bench.py `_reproj_err_px`)."""
     c = cameras.numpy()
     kc = np.zeros((len(kept), 3, 3))
     kc[:, 0, 0] = c["focal"]
@@ -173,8 +203,9 @@ def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float,
         q = m @ pts
         return q[:2] / np.where(np.abs(q[2:]) < 1e-12, 1e-12, q[2:])
     errs = []
-    for a in range(len(kept) - 1):
-        b = a + 1
+    if pairs is None:
+        pairs = [(a, a + 1) for a in range(len(kept) - 1)]
+    for a, b in pairs:
         h_est = kc[b] @ rc[b].T @ rc[a] @ np.linalg.inv(kc[a])
         h_gt = (k_true @ rs_true[kept[b]].T @ rs_true[kept[a]]
                 @ np.linalg.inv(k_true))
@@ -395,6 +426,16 @@ def k2_max_diff(calls) -> float:
     return err
 
 
+def k2_bound(calls):
+    """K2's bound per call over (src, sx, sy) calls: the source planes and
+    the two maps in, the 3 output planes out, and 3 x 8 tap operations plus
+    20 of index arithmetic per sample."""
+    n_bytes = sum(src.numel() * 4 + sx.numel() * 4 * (2 + 3)
+                  for src, sx, _ in calls) / len(calls)
+    n_ops = sum(sx.numel() * (3 * 8 + 20) for _, sx, _ in calls) / len(calls)
+    return bound(n_bytes, n_ops)
+
+
 def check_k2(dev, paths, cfg, res):
     """K2 on the (img, sx, sy) that each compose rect of a main-path stitch
     gives it: that stitch's cameras through the compose's own geometry
@@ -449,10 +490,7 @@ def check_k2(dev, paths, cfg, res):
                                             align_corners=True)
     library_ms = device_ms(lib_run) / len(calls)
     lib_call_ms = time_ms(lib_run) / len(calls)
-    n_bytes = sum(src.numel() * 4 + sx.numel() * 4 * (2 + 3)
-                  for src, sx, _ in calls) / len(calls)
-    n_ops = sum(sx.numel() * (3 * 8 + 20) for _, sx, _ in calls) / len(calls)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = k2_bound(calls)
     print(f"phase 3 K2 warp_bilinear: {len(calls)} compose rects of the "
           f"main path, canvas {g.canvas} ({g.canvas_h}x{g.canvas_w} padded, "
           f"{g.n_bands} bands), source {tuple(calls[0][0].shape)} -> rects "
@@ -503,6 +541,49 @@ def _tie_stack(dev, k: int = 4000, seed: int = 0):
             torch.as_tensor(ju, dtype=torch.int32, device=dev))
 
 
+def k4_args(dev, feats):
+    """K4's arguments as match_all_pairs makes them for a features stack:
+    every pair i < j, both directions in one call."""
+    n = feats.xy.shape[0]
+    iu, ju = np.triu_indices(n, 1)
+    return (feats.desc.contiguous(), feats.valid.contiguous(),
+            torch.as_tensor(iu, dtype=torch.int32, device=dev),
+            torch.as_tensor(ju, dtype=torch.int32, device=dev))
+
+
+def k4_times(args, valid):
+    """K4 against its plain version on `args`, then its device, call and
+    plain times per call and its bound over the distances this data needs
+    (valid rows against valid columns, per pair and direction).  CUDA
+    cores: 8 XOR, 8 POPC, 7 adds and one compare each at the float32
+    peak; tensor cores: a 256-deep int8 dot product, 512 operations, at
+    the int8 dense peak.  Bytes: the packed descriptors and validity in,
+    four (2, P, K) outputs of 8 + 4 + 8 + 4 bytes a row out."""
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
+    _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
+              f"{len(args[2])} pairs")
+    torch.cuda.synchronize()
+    k = args[0].shape[1]
+    out = dict(dev_ms=device_ms(lambda: hamming_two_nn_pairs(*args)),
+               call_ms=time_ms(lambda: hamming_two_nn_pairs(*args)),
+               plain_ms=time_ms(lambda: hamming_two_nn_pairs_plain(*args),
+                                reps=3))
+    nv = valid.sum(-1).double()
+    n_dist = float(2 * (nv[args[2].long()] * nv[args[3].long()]).sum())
+    n_bytes = args[0].numel() * 4 + args[1].numel() + 2 * len(args[2]) * \
+        k * 24
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    cuda_core_ms = max(t_bytes, 24 * n_dist / CUDA_CORE_OPS_PER_S * 1e3)
+    tensor_ms = max(t_bytes, 512 * n_dist / INT8_TENSOR_OPS_PER_S * 1e3)
+    bound_ms = min(cuda_core_ms, tensor_ms)
+    out.update(n_dist=n_dist, t_bytes=t_bytes, cuda_core_ms=cuda_core_ms,
+               tensor_ms=tensor_ms, bound_ms=bound_ms,
+               route=("tensor cores, int8" if tensor_ms <= cuda_core_ms
+                      else "CUDA cores"))
+    return out
+
+
 def check_k4(dev, feats):
     """K4 on the descriptors the default path's orb_detect_stack gave
     matching: all 28 pairs i < j, both directions, in the one call
@@ -510,60 +591,40 @@ def check_k4(dev, feats):
     from image_stitching_tpu_torch.kernels.hamming import (
         hamming_two_nn_pairs, hamming_two_nn_pairs_plain, pm1_rows,
         unpack_pm1)
-    n, k = feats.xy.shape[0], feats.xy.shape[1]
-    iu, ju = np.triu_indices(n, 1)
-    args = (feats.desc.contiguous(), feats.valid.contiguous(),
-            torch.as_tensor(iu, dtype=torch.int32, device=dev),
-            torch.as_tensor(ju, dtype=torch.int32, device=dev))
+    k = feats.xy.shape[1]
+    args = k4_args(dev, feats)
     pm1_eq = torch.equal(unpack_pm1(args[0]), pm1_rows(args[0]))
     assert pm1_eq, "K4's +-1 unpack differs from pm1_rows"
-    _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
-              "main path")
     ties = _tie_stack(dev, k)
     got_t = hamming_two_nn_pairs(*ties)
     want_t = hamming_two_nn_pairs_plain(*ties)
     _k4_equal(got_t, want_t, "tie case")
     n_tied = int((want_t[0][1] == want_t[0][3]).sum())
-    torch.cuda.synchronize()
-
-    dev_ms = device_ms(lambda: hamming_two_nn_pairs(*args))
+    tm = k4_times(args, feats.valid)
     unpack_ms = device_ms(lambda: unpack_pm1(args[0]))
-    call_ms = time_ms(lambda: hamming_two_nn_pairs(*args))
-    plain_ms = time_ms(lambda: hamming_two_nn_pairs_plain(*args), reps=3)
-    # Distances this run's data needs: valid rows against valid columns,
-    # per pair and direction.  CUDA cores: 8 XOR, 8 POPC, 7 adds and one
-    # compare each at the float32 peak; tensor cores: a 256-deep int8 dot
-    # product, 512 operations, at the int8 dense peak.  Bytes: the packed
-    # descriptors and validity in, four (2, P, K) outputs of 8 + 4 + 8 + 4
-    # bytes a row out.
-    nv = feats.valid.sum(-1).double()
-    n_dist = float(2 * (nv[args[2].long()] * nv[args[3].long()]).sum())
-    n_bytes = args[0].numel() * 4 + args[1].numel() + 2 * len(iu) * k * 24
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    cuda_core_ms = max(t_bytes, 24 * n_dist / CUDA_CORE_OPS_PER_S * 1e3)
-    tensor_ms = max(t_bytes, 512 * n_dist / INT8_TENSOR_OPS_PER_S * 1e3)
-    bound_ms = min(cuda_core_ms, tensor_ms)
-    route = "tensor cores, int8" if tensor_ms <= cuda_core_ms else \
-        "CUDA cores"
-    print(f"phase 6 K4 hamming_two_nn_pairs: {len(iu)} pairs of K={k}, both "
-          f"directions, in one call (an unpack and a pairs launch), valid per image {feats.valid.sum(-1).tolist()}, +-1 "
+    print(f"phase 6 K4 hamming_two_nn_pairs: {len(args[2])} pairs of K={k}, "
+          f"both directions, in one call (an unpack and a pairs launch), "
+          f"valid per image {feats.valid.sum(-1).tolist()}, +-1 "
           f"unpack equal to pm1_rows: yes, i1/d1/d2 equal and i2 equal where "
           f"d2 < 2^30: yes; tie case (4 images, duplicated descriptors, 1 "
           f"and 0 valid columns, {n_tied} forward rows with d1 == d2): "
-          f"equal; per call: device {dev_ms:.4f} ms (unpack alone "
+          f"equal; per call: device {tm['dev_ms']:.4f} ms (unpack alone "
           f"{unpack_ms:.4f}), call "
-          f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms; bound over "
-          f"{n_dist:.0f} valid distances: CUDA cores {cuda_core_ms:.4f} ms, "
-          f"tensor cores {tensor_ms:.4f} ms -> {bound_ms:.4f} ms ({route})",
-          flush=True)
+          f"{tm['call_ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms; bound "
+          f"over {tm['n_dist']:.0f} valid distances: CUDA cores "
+          f"{tm['cuda_core_ms']:.4f} ms, tensor cores {tm['tensor_ms']:.4f} "
+          f"ms -> {tm['bound_ms']:.4f} ms ({tm['route']})", flush=True)
     return dict(name="hamming_two_nn_pairs", route="cuda",
                 source="image_stitching_tpu_torch/csrc/hamming.cu",
                 replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
-                max_abs_err=0.0, ms=dev_ms, device_ms=dev_ms,
-                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="operations" if bound_ms > t_bytes else "bytes",
-                bound_route=route, bound_cuda_core_ms=cuda_core_ms,
-                bound_tensor_core_ms=tensor_ms, library_ms=None)
+                max_abs_err=0.0, ms=tm["dev_ms"], device_ms=tm["dev_ms"],
+                call_ms=tm["call_ms"], plain_ms=tm["plain_ms"],
+                bound_ms=tm["bound_ms"],
+                bound_by=("operations" if tm["bound_ms"] > tm["t_bytes"]
+                          else "bytes"),
+                bound_route=tm["route"],
+                bound_cuda_core_ms=tm["cuda_core_ms"],
+                bound_tensor_core_ms=tm["tensor_ms"], library_ms=None)
 
 
 def _k5_gates(acc_k, acc_p, nb, what: str):
@@ -958,10 +1019,7 @@ def check_k2_more(dev, stitch, caps, work):
     err = k2_max_diff(calls)
     dev_ms = device_ms(lambda: [warp_bilinear(*c) for c in calls]) / \
         len(calls)
-    n_bytes = sum(src.numel() * 4 + sx.numel() * 4 * (2 + 3)
-                  for src, sx, _ in calls) / len(calls)
-    n_ops = sum(sx.numel() * (3 * 8 + 20) for _, sx, _ in calls) / len(calls)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = k2_bound(calls)
     plane, n_big = huge_plane_calls(dev, calls[0][0])
     err_p = k2_max_diff(plane)
     print(f"phase 3 K2 on cylindrical maps: cyl4 warm-up stitch (seed "
@@ -1244,6 +1302,397 @@ def run_phase10(stitch, stitcher, counters, names, caps, caps_default,
     return dict(by_path=by_path, k5_zero_band=k5_zero)
 
 
+# Phase 11's capture sets.  rig37 as bench.py makes it (bench.py:322-375):
+# the C++ reference's 37-image rig at 960x1280, seed 21, its warm-up twin
+# with +-2 LSB noise, and a copy with frames 5, 15 and 30 made noise.
+RIG_HW = (960, 1280)
+RIG_SEED = 21
+INFILL_FRAMES = (5, 15, 30)
+# The affine scan: a 2x2 mosaic of 1080x1920 tiles, 40% overlap, cut from
+# one planar texture, each tile under a similarity (rotation <= 3 deg,
+# scale 0.97-1.03), sigma-8 sensor noise.
+TILE_HW = (1080, 1920)
+TILE_STEP = (648, 1152)
+# The rig covers the whole sphere (the +-72 deg rings reach 98.8 deg with
+# their 26.8 deg vertical half field of view), so its panorama is held to
+# the 0.9 coverage of phase 4, not the 0.5 of the JAX package's two-ring
+# test (tests/test_rig_e2e.py), whose canvas holds uncovered poles; the
+# coverage is taken over one 2 pi period of the canvas (folded), since
+# the views across the date line reach past it.
+RIG_MASK_MIN = 0.9
+TEXTURE_RAD_PER_PX = 1.0 / 1600.0
+AFFINE_CFG = dict(matcher_type="affine", estimator_type="affine",
+                  ba_cost_func="affine", warp_type="affine",
+                  do_wave_correct=False)
+
+
+def noisy_twin(images, seed: int = 777):
+    """bench.py's warm-up twin (`_noisy_twin_dir`): the same scene with
+    +-2 LSB uniform noise, so every shape matches the timed run."""
+    rng = np.random.default_rng(seed)
+    return [np.clip(im.astype(np.int16) + rng.integers(
+        -2, 3, im.shape, dtype=np.int16), 0, 255).astype(np.uint8)
+        for im in images]
+
+
+def affine_tiles(pool):
+    """The affine scan's tiles: tile i's pixel p lies at T_i p =
+    s_i R(theta_i) (p - centre) + its grid centre on a plane whose
+    coordinates, scaled to radians, are the sphere texture's (lon, lat).
+    Returns (images, [3x3 similarity from tile i's pixels to tile 0's])."""
+    from image_stitching_tpu_torch.data.synth import sphere_texture_rgb
+    rng = np.random.default_rng(31)
+    h, w = TILE_HW
+    pc = np.array([(w - 1) / 2.0, (h - 1) / 2.0])
+    mid = pc + np.array([TILE_STEP[1], TILE_STEP[0]]) / 2.0
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    ts, jobs = [], []
+    for row in range(2):
+        for col in range(2):
+            th = np.radians(rng.uniform(-3.0, 3.0))
+            sc = rng.uniform(0.97, 1.03)
+            lin = sc * np.array([[np.cos(th), -np.sin(th)],
+                                 [np.sin(th), np.cos(th)]])
+            t = np.eye(3)
+            t[:2, :2] = lin
+            t[:2, 2] = pc + np.array([col * TILE_STEP[1],
+                                      row * TILE_STEP[0]]) - lin @ pc
+            gx = t[0, 0] * xs + t[0, 1] * ys + t[0, 2]
+            gy = t[1, 0] * xs + t[1, 1] * ys + t[1, 2]
+            jobs.append((((gx - mid[0]) * TEXTURE_RAD_PER_PX).astype(
+                np.float32), ((gy - mid[1]) * TEXTURE_RAD_PER_PX).astype(
+                    np.float32)))
+            ts.append(t)
+    views = pool.starmap(sphere_texture_rgb, jobs)
+    images = [np.clip(v + np.random.default_rng(2000 + i).normal(
+        0.0, 8.0, v.shape).astype(np.float32), 0.0, 255.0)
+        for i, v in enumerate(views)]
+    return images, [np.linalg.inv(ts[0]) @ t for t in ts]
+
+
+def render_phase11_dirs(root: str, workers: int):
+    """Phase 11's capture sets, the views rendered in one process pool:
+    {name: directory} for "rig37", "rig37 warm-up", "rig37 infill" (all
+    with EXIF priors) and "affine" (without), and the ground truth."""
+    import multiprocessing as mp
+    from image_stitching_tpu_torch.data.synth import (make_rig_captures,
+                                                      write_capture_dir)
+    with mp.get_context("spawn").Pool(workers) as pool:
+        images, k, rs = make_rig_captures(hw=RIG_HW, seed=RIG_SEED,
+                                          pool=pool)
+        tiles, truths = affine_tiles(pool)
+    dirs = {name: os.path.join(root, name.replace(" ", "_"))
+            for name in ("rig37", "rig37 warm-up", "rig37 infill", "affine")}
+    write_capture_dir(dirs["rig37"], images, k, rs)
+    write_capture_dir(dirs["rig37 warm-up"], noisy_twin(images), k, rs)
+    rng = np.random.default_rng(5)
+    dropped = [rng.uniform(0, 255, images[0].shape).astype(np.float32)
+               if i in INFILL_FRAMES else im for i, im in enumerate(images)]
+    write_capture_dir(dirs["rig37 infill"], dropped, k, rs)
+    write_capture_dir(dirs["affine"], tiles, np.eye(3, dtype=np.float32),
+                      np.stack([np.eye(3, dtype=np.float32)] * 4),
+                      with_exif=False)
+    return dirs, dict(k=np.asarray(k, np.float64),
+                      rs=np.asarray(rs, np.float64), tiles=truths)
+
+
+def overlapping_pairs(kept, rs_true, max_angle_deg: float):
+    """Positions (a, b) in `kept` whose ground-truth optical axes are
+    within max_angle_deg (bench.py `_overlapping_pairs`)."""
+    z = np.stack([np.asarray(rs_true[i], np.float64)[:, 2] for i in kept])
+    ang = np.degrees(np.arccos(np.clip(z @ z.T, -1.0, 1.0)))
+    return [(a, b) for a in range(len(kept)) for b in range(a + 1, len(kept))
+            if ang[a, b] <= max_angle_deg]
+
+
+def rel_rotation_deg(ra, rb) -> float:
+    """Angle (degrees) of ra rb^T."""
+    m = np.asarray(ra, np.float64) @ np.asarray(rb, np.float64).T
+    return float(np.degrees(np.arccos(np.clip((np.trace(m) - 1) / 2,
+                                              -1.0, 1.0))))
+
+
+def gains_gate(compose_call):
+    """Every image's exposure gains finite and positive."""
+    comp = compose_call[0][9]
+    for i, (gh, gw) in enumerate(comp.grid_sizes):
+        gains = comp.gains[i, :gh, :gw]
+        assert np.all(np.isfinite(gains)) and np.all(gains > 0), \
+            f"image {i}: gains not finite and positive"
+
+
+def folded_coverage(mask, compose_call) -> float:
+    """The share of one u period of the spherical canvas (2 pi times the
+    compose warper's scale) that the panorama's mask covers, its columns
+    folded modulo the period."""
+    from image_stitching_tpu_torch.ops.warps import u_period
+    warper = compose_call[0][3]
+    period = u_period(warper.proj_name, warper.scale)
+    h, w = mask.shape
+    cols = torch.arange(w, device=mask.device) % period
+    folded = torch.zeros((h, period), device=mask.device).index_add_(
+        1, cols, mask.float())
+    return float((folded > 0).float().mean())
+
+
+def affine_union_gate(res, cfg, compose_call):
+    """The panorama's mask against the union of the warped tiles on the
+    compose canvas (each tile's map by the compose's own geometry and
+    `camera_backward_xy`): the share of the union the mask covers."""
+    from image_stitching_tpu_torch.ops.warps import camera_backward_xy
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    args = compose_call[0]
+    images, ks, rs, warper, corners, sizes = args[:6]
+    g = cf.compose_rects(corners, sizes, cfg.blend_type, cfg.blend_strength)
+    cx, cy, cw, ch = g.canvas
+    dev = res.mask.device
+    us = cx + torch.arange(cw, dtype=torch.float32, device=dev)
+    vs = cy + torch.arange(ch, dtype=torch.float32, device=dev)
+    hc, wc = images.shape[1], images.shape[2]
+    union = torch.zeros((ch, cw), dtype=torch.bool, device=dev)
+    for i in range(len(ks)):
+        sx, sy, valid = camera_backward_xy(
+            warper.proj_name, us, vs, torch.as_tensor(ks[i], device=dev),
+            torch.as_tensor(rs[i], device=dev), warper.scale)
+        union |= valid & (sx >= 0) & (sx <= wc - 1) & (sy >= 0) & \
+            (sy <= hc - 1)
+    assert tuple(res.mask.shape) == (ch, cw), (tuple(res.mask.shape), ch, cw)
+    share = float((res.mask & union).sum()) / float(union.sum())
+    return share, float(union.float().mean())
+
+
+def run_phase11(stitch, stitcher, counters, names, caps11, truth,
+                caps_default, caps_plain, k_true, rs_true, smi, dev):
+    """Phase 11, camera seeding and the registration variants, each stitch
+    under the counts as in phase 9: (a) DEFAULT_RING without EXIF under
+    StitchConfig(), and StitchConfig(use_sensor_priors=False) on the EXIF
+    files; (b) rig37, warm-up then timed, with K4 and K5 against their
+    plain versions on its shapes; (c) pose infill on rig37 with three
+    frames of noise; (d) the affine scan mode on a 2x2 mosaic, K2 on its
+    rects; (e) ba_cost_func="ray" on DEFAULT_RING.  Returns the counts by
+    path and the kernel numbers of (b) and (d)."""
+    from image_stitching_tpu_torch.config import StitchConfig
+    from image_stitching_tpu_torch.core.rig import DEFAULT_RIG
+    from image_stitching_tpu_torch.estimation.homography_estimator import (
+        pair_focals)
+    from image_stitching_tpu_torch.estimation.pose_infill import (
+        find_nearest_kept)
+    from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
+    by_path = {}
+
+    # (a) No EXIF priors: the seed from the match graph, then reproj BA.
+    # The seed's autocalib focal (estimate_focal, the median of per-pair
+    # estimates, as in OpenCV) is erratic on a pure-yaw ring, and the
+    # default refine mask leaves the focal alone: the reprojection error
+    # is reported beside the per-pair estimates, not gated.
+    cfg = StitchConfig()
+    rec = Recorder(stitcher, "find_seams", "fused_compose",
+                   "homography_based_estimate")
+    res, wall, launches = stitch_run(stitch, caps_plain, cfg, counters, rec)
+    assert res.kept_indices == list(range(N_IMAGES)), res.kept_indices
+    assert bool(torch.isfinite(res.panorama).all()), "non-finite panorama"
+    err = reproj_err_px(res.cameras, res.kept_indices, k_true, rs_true,
+                        res.work_scale)
+    cov = float(res.mask.float().mean())
+    assert cov > 0.9, f"mask coverage {cov:.4f}"
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    covered, cut = seam_union_gate(rec.calls["find_seams"][0])
+    gains_gate(rec.calls["fused_compose"][0])
+    by_path["phase 11a"] = launches
+    focal = float(res.cameras.numpy()["focal"].mean())
+    pm, sizes, thresh = rec.calls["homography_based_estimate"][0][0]
+    pair_f = pair_focals(pm.h, pm.confidence, sizes, thresh)
+    near = sum(abs(f / k_true[0, 0] - 1) <= 0.01 for f in pair_f)
+    print(f"phase 11a StitchConfig() on DEFAULT_RING written without EXIF "
+          f"(seed: homography_based_estimate): kept "
+          f"{len(res.kept_indices)}/{N_IMAGES}, focal {focal:.2f} against "
+          f"the ground truth's {k_true[0, 0]:.2f} "
+          f"({focal / k_true[0, 0] - 1:+.4%}; per ordered pair "
+          f"sqrt(f0 f1): {[round(f, 1) for f in pair_f]}, {near} of "
+          f"{len(pair_f)} within 1%), reprojection {err:.4f} px (reported, "
+          f"not gated), panorama {tuple(res.panorama.shape)}, mask "
+          f"{cov:.4f}, seam union = warped union ({covered} px, {cut} px "
+          f"cut), launches {launches}, wall {wall:.4f} s, stages: "
+          + ", ".join(f"{k}={v:.4f}s" for k, v in res.stage_times.items())
+          + f"; card '{smi}'", flush=True)
+    cfg = StitchConfig(use_sensor_priors=False)
+    res_p, wall_p, launches_p = stitch_run(stitch, caps_default, cfg,
+                                           counters)
+    assert res_p.kept_indices == res.kept_indices, \
+        (res_p.kept_indices, res.kept_indices)
+    cam_err = 0.0
+    a, b = res_p.cameras.numpy(), res.cameras.numpy()
+    for name in ("focal", "aspect", "ppx", "ppy", "R", "t"):
+        x, y = a[name].astype(np.float64), b[name].astype(np.float64)
+        cam_err = max(cam_err, float(np.abs(x - y).max() /
+                                     max(np.abs(y).max(), 1e-12)))
+    assert cam_err <= 1e-4, f"cameras differ by {cam_err} (relative)"
+    for name in names:
+        assert launches_p[name] > 0, f"{name} was not launched by the path"
+    by_path["phase 11a use_sensor_priors=False"] = launches_p
+    print(f"phase 11a StitchConfig(use_sensor_priors=False) on the EXIF "
+          f"files: kept {res_p.kept_indices} = 11a's, cameras within "
+          f"{cam_err:.3g} (relative, tol 1e-4) of 11a's, launches "
+          f"{launches_p}, wall {wall_p:.4f} s", flush=True)
+    del res, res_p, rec
+
+    # (b) rig37: warm-up on the noisy twin, then the timed stitch.
+    cfg = StitchConfig(num_features=1000)
+    stitch(caps11["rig37 warm-up"], cfg, output="", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorder(stitcher, "match_all_pairs", "find_seams",
+                   "fused_compose")
+    res, wall, launches = stitch_run(stitch, caps11["rig37"], cfg, counters,
+                                     rec)
+    peak = torch.cuda.max_memory_allocated()
+    n_rig = DEFAULT_RIG.total_images
+    assert res.kept_indices == list(range(n_rig)), res.kept_indices
+    pairs = overlapping_pairs(res.kept_indices, truth["rs"], 45.0)
+    err = reproj_err_px(res.cameras, res.kept_indices, truth["k"],
+                        truth["rs"], res.work_scale, RIG_HW, pairs)
+    assert err <= 1.0, f"rig37 reprojection {err:.4f} px > 1 px"
+    cov = float(res.mask.float().mean())
+    sphere = folded_coverage(res.mask, rec.calls["fused_compose"][0])
+    assert sphere > RIG_MASK_MIN, f"rig37 mask covers {sphere:.4f}"
+    covered, cut = seam_union_gate(rec.calls["find_seams"][0])
+    gains_gate(rec.calls["fused_compose"][0])
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    by_path["phase 11b"] = launches
+    mp_in = n_rig * RIG_HW[0] * RIG_HW[1] / 1e6
+    print(f"phase 11b rig37 (StitchConfig(num_features=1000), 37 x "
+          f"{RIG_HW[0]}x{RIG_HW[1]}, seed {RIG_SEED}, after a warm-up on its "
+          f"+-2 LSB twin): kept {len(res.kept_indices)}/{n_rig}, reprojection "
+          f"{err:.4f} px over {len(pairs)} pairs within 45 deg, panorama "
+          f"{tuple(res.panorama.shape)}, mask {sphere:.4f} of one 2 pi "
+          f"period of the canvas (gate {RIG_MASK_MIN}; {cov:.4f} of the "
+          f"whole canvas), seam union = warped union ({covered} px, {cut} "
+          f"px cut), launches {launches}, wall {wall:.4f} s "
+          f"({mp_in / wall:.3f} MP/s, {mp_in:.2f} MP in), peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB ({peak} bytes); card '{smi}'\n"
+          + stage_table([("rig37", res.stage_times)]), flush=True)
+    feats = rec.calls["match_all_pairs"][0][0][0]
+    args = k4_args(dev, feats)
+    k4 = dict(k4_times(args, feats.valid), pairs=len(args[2]))
+    print(f"phase 11b K4 on rig37's descriptors: {len(args[2])} pairs of "
+          f"K={feats.xy.shape[1]}, both directions, one call: equal to the "
+          f"plain version; device {k4['dev_ms']:.4f} ms, call "
+          f"{k4['call_ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms; bound "
+          f"over {k4['n_dist']:.0f} valid distances {k4['bound_ms']:.4f} ms "
+          f"({k4['route']}; CUDA cores {k4['cuda_core_ms']:.4f} ms), "
+          f"{k4['bound_ms'] / k4['dev_ms']:.1%} of it reached", flush=True)
+    k5 = k5_compose_check(dev, rec.calls["fused_compose"][0], "rig37")
+    print(f"phase 11b K5 on rig37's compose: {len(k5['buckets'])} buckets "
+          f"{k5['buckets']}, one call each, {k5['n_bands']} bands: "
+          f"accumulators {k5['err']:.3g}, u8 {k5['u8']}, masks equal, "
+          f"{k5['launches_per_call']:g} kernel launches a call, device "
+          f"{k5['device_ms']:.4f} ms a call, bytes bound "
+          f"{k5['bound_ms']:.4f} ms a call "
+          f"({k5['bound_ms'] / k5['device_ms']:.1%} of it reached)",
+          flush=True)
+    del res, rec, feats, args
+
+    # (c) Pose infill: frames 5, 15, 30 are noise, so the component drops
+    # them, and infill_dropped makes their cameras from their ring's
+    # nearest kept neighbour (n = 37, the rig's ring-aware search).
+    cfg = StitchConfig(num_features=1000, infill_dropped=True)
+    rec = Recorder(stitcher, "biggest_component")
+    res, wall, launches = stitch_run(stitch, caps11["rig37 infill"], cfg,
+                                     counters, rec)
+    kept, removed = rec.calls["biggest_component"][0][2]
+    assert set(INFILL_FRAMES) <= set(removed), removed
+    assert len(res.cameras) == n_rig, len(res.cameras)
+    assert res.kept_indices == list(range(n_rig)), res.kept_indices
+    r_est = res.cameras.numpy()["R"]
+    errs = {}
+    for j in removed:
+        nb = find_nearest_kept(set(kept), j, n_rig, DEFAULT_RIG)
+        errs[j] = (nb, rel_rotation_deg(r_est[nb].T @ r_est[j],
+                                        truth["rs"][nb].T @ truth["rs"][j]))
+        if j in INFILL_FRAMES:
+            assert errs[j][1] <= 1.0, (j, errs[j])
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    by_path["phase 11c"] = launches
+    print(f"phase 11c infill (StitchConfig(num_features=1000, "
+          f"infill_dropped=True)) on rig37 with frames {INFILL_FRAMES} made "
+          f"noise: the component removed {removed}, {len(kept)} kept into "
+          f"BA; returned {len(res.cameras)} cameras, kept_indices "
+          f"range(37); each infilled camera against its neighbour, relative "
+          f"rotation error vs the ground truth (deg, tol 1 for the noise "
+          f"frames): " + ", ".join(f"{j} from {nb}: {e:.4f}"
+                                   for j, (nb, e) in errs.items())
+          + f"; panorama {tuple(res.panorama.shape)}, launches {launches}, "
+          f"wall {wall:.4f} s", flush=True)
+    del res, rec
+
+    # (d) The affine scan mode on the 2x2 mosaic (no EXIF).
+    cfg = StitchConfig(**AFFINE_CFG)
+    rec = Recorder(stitcher, "find_seams", "fused_compose")
+    res, wall, launches = stitch_run(stitch, caps11["affine"], cfg, counters,
+                                     rec)
+    assert res.kept_indices == [0, 1, 2, 3], res.kept_indices
+    r_est = res.cameras.numpy()["R"].astype(np.float64)
+    tile_err = []
+    for got, want in zip(r_est, truth["tiles"]):
+        ang = np.degrees(np.arctan2(got[1, 0], got[0, 0]) -
+                         np.arctan2(want[1, 0], want[0, 0]))
+        scale = np.hypot(got[0, 0], got[1, 0]) / np.hypot(want[0, 0],
+                                                          want[1, 0]) - 1
+        shift = float(np.hypot(*(got[:2, 2] - want[:2, 2])))
+        assert abs(ang) <= 0.5 and abs(scale) <= 0.01, (ang, scale)
+        tile_err.append(tuple(round(float(v), 5)
+                              for v in (ang, scale, shift)))
+    share, union_cov = affine_union_gate(res, cfg,
+                                         rec.calls["fused_compose"][0])
+    assert share > 0.9, f"mask covers {share:.4f} of the warped tiles"
+    covered, cut = seam_union_gate(rec.calls["find_seams"][0])
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    by_path["phase 11d"] = launches
+    calls, g = compose_k2_calls(rec.calls["fused_compose"][0])
+    k2_err = k2_max_diff(calls)
+    k2_ms = device_ms(lambda: [warp_bilinear(*c) for c in calls]) / \
+        len(calls)
+    k2_bound_ms, k2_by = k2_bound(calls)
+    print(f"phase 11d affine scan (matcher, estimator, BA and warp affine, "
+          f"no wave correction) on a 2x2 mosaic of {TILE_HW[0]}x"
+          f"{TILE_HW[1]} tiles without EXIF: kept {res.kept_indices}; each "
+          f"tile's similarity against the truth relative to tile 0 (rotation "
+          f"deg, scale - 1, translation px at work scale "
+          f"{res.work_scale}): {tile_err} "
+          f"(tol 0.5 deg, 1%); panorama {tuple(res.panorama.shape)}, mask "
+          f"{float(res.mask.float().mean()):.4f} of the canvas, "
+          f"{share:.4f} of the warped tiles' union ({union_cov:.4f} of the "
+          f"canvas), seam union = warped union ({covered} px, {cut} px cut), "
+          f"launches {launches}, wall {wall:.4f} s; K2 on its {len(calls)} "
+          f"compose rects {sorted((3,) + k for k in g.buckets)}: max |diff| "
+          f"{k2_err:.3g}, device {k2_ms:.4f} ms a rect, bound "
+          f"{k2_bound_ms:.4f} ms ({k2_by}, {k2_bound_ms / k2_ms:.1%} of it "
+          f"reached); card '{smi}'", flush=True)
+    del res, rec, calls
+
+    # (e) The ray cost on DEFAULT_RING with priors, under phase 9b's gates.
+    cfg = StitchConfig(ba_cost_func="ray")
+    rec = Recorder(stitcher, "find_seams", "fused_compose")
+    res, wall, launches = stitch_run(stitch, caps_default, cfg, counters,
+                                     rec)
+    err, cov, stages = e2e_gates(res, k_true, rs_true, launches, names)
+    covered, cut = seam_union_gate(rec.calls["find_seams"][0])
+    gains_gate(rec.calls["fused_compose"][0])
+    by_path["phase 11e"] = launches
+    print(f"phase 11e StitchConfig(ba_cost_func='ray') on DEFAULT_RING: kept "
+          f"{len(res.kept_indices)}/{N_IMAGES}, reprojection {err:.4f} px, "
+          f"mask {cov:.4f}, seam union = warped union ({covered} px, {cut} "
+          f"px cut), launches {launches}, wall {wall:.4f} s, stages: "
+          f"{stages}; card '{smi}'", flush=True)
+    del res, rec
+    return dict(by_path=by_path, k4=k4, k5=k5, peak_bytes=peak,
+                k2=dict(device_ms=k2_ms, bound_ms=k2_bound_ms, err=k2_err))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1275,20 +1724,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         caps = os.path.join(work, "caps")
         caps_default = os.path.join(work, "caps_default")
+        caps_plain = os.path.join(work, "caps_plain")
         t0 = time.perf_counter()
         k_true, rs_true = write_ring_dir(caps, **E2E_RING)
-        write_ring_dir(caps_default, **DEFAULT_RING)
+        write_ring_dir(caps_default, plain_directory=caps_plain,
+                       **DEFAULT_RING)
         print(f"phase 0 captures: 2 rings of {N_IMAGES} x {H}x{W} (noise "
-              f"sigma 4 and {DEFAULT_RING['noise_sigma']}) rendered and "
-              f"written in {time.perf_counter() - t0:.3f} s", flush=True)
+              f"sigma 4 and {DEFAULT_RING['noise_sigma']}, the second also "
+              f"written without EXIF) rendered and written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
         t0 = time.perf_counter()
-        bench_caps = render_bench_dirs(work, max(1, min(8, os.cpu_count()
-                                                        or 1)))
+        workers = max(1, min(8, os.cpu_count() or 1))
+        bench_caps = render_bench_dirs(work, workers)
         print(f"phase 0 captures: bench.py's cyl4 sets (4 x 1080x1920, 55 "
               f"deg, 0.45 overlap, seeds {CYL4_SEEDS}) and vga_pair sets "
               f"(2 x 480x640, 55 deg, 0.5 overlap, seeds {VGA_SEEDS}) "
               f"rendered and written in {time.perf_counter() - t0:.3f} s",
               flush=True)
+        t0 = time.perf_counter()
+        caps11, truth11 = render_phase11_dirs(work, workers)
+        print(f"phase 0 captures: bench.py's rig37 (37 x {RIG_HW[0]}x"
+              f"{RIG_HW[1]}, seed {RIG_SEED}), its +-2 LSB twin, its copy "
+              f"with frames {INFILL_FRAMES} made noise, and the affine scan "
+              f"(2x2 tiles of {TILE_HW[0]}x{TILE_HW[1]}, no EXIF) rendered "
+              f"and written in {time.perf_counter() - t0:.3f} s", flush=True)
 
         # The kernels (nvcc) and the host runtime (g++) build side by side.
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -1491,6 +1950,20 @@ def main() -> int:
             k5["zero_band_device_ms"] = phase10["k5_zero_band"]["device_ms"]
             k5["zero_band_launches_per_call"] = \
                 phase10["k5_zero_band"]["launches_per_call"]
+            phase11 = run_phase11(stitch, stitcher, counters, names, caps11,
+                                  truth11, caps_default, caps_plain, k_true,
+                                  rs_true, smi, dev)
+            by_path.update(phase11["by_path"])
+            k4.update(rig37_pairs=phase11["k4"]["pairs"],
+                      rig37_device_ms=phase11["k4"]["dev_ms"],
+                      rig37_call_ms=phase11["k4"]["call_ms"],
+                      rig37_plain_ms=phase11["k4"]["plain_ms"],
+                      rig37_bound_ms=phase11["k4"]["bound_ms"])
+            k5.update(rig37_buckets=phase11["k5"]["buckets"],
+                      rig37_device_ms_per_call=phase11["k5"]["device_ms"],
+                      rig37_bound_ms_per_call=phase11["k5"]["bound_ms"])
+            k2.update(affine_device_ms=phase11["k2"]["device_ms"],
+                      affine_bound_ms=phase11["k2"]["bound_ms"])
         finally:
             os.chdir(cwd)
 

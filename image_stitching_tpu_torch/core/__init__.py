@@ -1,1 +1,2 @@
-"""Host layer: logging, native runtime, image IO, EXIF, checkpoints."""
+"""Host layer: logging, native runtime, image IO, EXIF, checkpoints, the
+capture rig."""

@@ -1,28 +1,30 @@
-"""Synthetic ring captures with ground-truth K/R and EXIF pose payloads.
+"""Synthetic captures with ground-truth K/R and EXIF pose payloads.
 
 Port, in numpy, of what `image_stitching_tpu/data/synth.py:117
-make_ring_captures` and `:177 write_capture_dir` reach: a procedural sphere
-texture seen through known cameras (ray = R K^-1 p), written as JPEGs whose
-ImageDescription carries the rig's pose payload, so the whole ingestion
-path runs.  The formulas and the random-number call sequence are the
-reference's, so one seed renders the same scene in both packages.
+make_ring_captures`, `:149 make_rig_captures` and `:177 write_capture_dir`
+reach: a procedural sphere texture seen through known cameras (ray =
+R K^-1 p), written as JPEGs whose ImageDescription carries the rig's pose
+payload, so the whole ingestion path runs, or as plain JPEGs without one.
+The formulas and the random-number call sequence are the reference's, so
+one seed renders the same scene in both packages.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..core import exif as exif_mod
 from ..core import image_io
+from ..core.rig import DEFAULT_RIG, CaptureRig
 from ..geometry.euler import euler_to_rotation_matrix
 
 __all__ = ["sphere_texture_rgb", "render_view", "ring_geometry",
-           "make_ring_captures", "E2E_RING", "DEFAULT_RING",
-           "write_ring_dir", "write_capture_dir"]
+           "make_ring_captures", "make_rig_captures", "E2E_RING",
+           "DEFAULT_RING", "write_ring_dir", "write_capture_dir"]
 
 
 def sphere_texture_rgb(lon: np.ndarray, lat: np.ndarray,
@@ -88,25 +90,42 @@ def render_view(k, r, hw: Tuple[int, int], seed: int = 7) -> np.ndarray:
                               seed)
 
 
+def _intrinsics(hw: Tuple[int, int], fov_deg: float) -> np.ndarray:
+    """K (float64) of a centred camera with horizontal field fov_deg."""
+    h, w = hw
+    focal = (w / 2.0) / math.tan(math.radians(fov_deg) / 2.0)
+    return np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]],
+                    np.float64)
+
+
 def ring_geometry(n_images: int, hw: Tuple[int, int], fov_deg: float,
                   overlap_ratio: float, pitch_deg: float = 0.0):
     """(K float64, [R float64]) of a horizontal ring: consecutive yaw step
     fov * (1 - overlap_ratio)."""
-    h, w = hw
-    focal = (w / 2.0) / math.tan(math.radians(fov_deg) / 2.0)
-    k = np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]],
-                 np.float64)
     step = math.radians(fov_deg) * (1.0 - overlap_ratio)
     rs = []
     for i in range(n_images):
         eul = np.array([math.radians(pitch_deg), i * step, 0.0], np.float32)
         rs.append(np.asarray(euler_to_rotation_matrix(eul, "YXZ"),
                              np.float64))
-    return k, rs
+    return _intrinsics(hw, fov_deg), rs
 
 
 def _render_args(args) -> np.ndarray:
     return render_view(*args)
+
+
+def _noisy_views(k, rs, hw, seed: int, noise_sigma: float, pool):
+    """(images, K float32, Rs float32): the views of cameras (k, rs) with
+    Gaussian sensor noise drawn in view order from `seed`; `pool` (a
+    multiprocessing pool) renders them in parallel."""
+    rng = np.random.default_rng(seed)
+    views = (pool.map if pool is not None else map)(
+        _render_args, [(k, r, hw, seed) for r in rs])
+    images = [np.clip(view + rng.normal(0.0, noise_sigma, view.shape).astype(
+        np.float32), 0.0, 255.0) for view in views]
+    return images, k.astype(np.float32), np.stack(
+        [r.astype(np.float32) for r in rs])
 
 
 def make_ring_captures(n_images: int = 4, hw: Tuple[int, int] = (240, 320),
@@ -114,18 +133,24 @@ def make_ring_captures(n_images: int = 4, hw: Tuple[int, int] = (240, 320),
                        overlap_ratio: float = 0.45, seed: int = 7,
                        pool=None):
     """A single-ring horizontal panorama: (images, K, Rs), with sigma-4
-    per-view sensor noise.  `pool` (a multiprocessing pool) renders the
-    views in parallel; the noise is drawn in view order either way."""
+    per-view sensor noise."""
     k, rs = ring_geometry(n_images, hw, fov_deg, overlap_ratio, pitch_deg)
-    rng = np.random.default_rng(seed)
-    views = (pool.map if pool is not None else map)(
-        _render_args, [(k, r, hw, seed) for r in rs])
-    images = []
-    for view in views:
-        view = view + rng.normal(0.0, 4.0, view.shape).astype(np.float32)
-        images.append(np.clip(view, 0.0, 255.0))
-    return images, k.astype(np.float32), np.stack(
-        [r.astype(np.float32) for r in rs])
+    return _noisy_views(k, rs, hw, seed, 4.0, pool)
+
+
+def make_rig_captures(hw: Tuple[int, int] = (240, 320),
+                      fov_deg: float = 68.0, rig: CaptureRig = DEFAULT_RIG,
+                      seed: int = 7, noise_sigma: float = 4.0,
+                      n_images: Optional[int] = None, pool=None):
+    """The C++ reference's 5-ring capture rig: 37 images at the rig's own
+    `rotation_prior` (pitch, yaw, roll), YXZ order, with Gaussian sensor
+    noise: (images, K, Rs)."""
+    n = rig.total_images if n_images is None else n_images
+    rs = [np.asarray(euler_to_rotation_matrix(
+        np.array(rig.rotation_prior(i), np.float32), "YXZ"), np.float64)
+        for i in range(n)]
+    return _noisy_views(_intrinsics(hw, fov_deg), rs, hw, seed,
+                        noise_sigma, pool)
 
 
 # The JAX package's BENCH_MODE=e2e ring (`bench.py:102-137`): 8 MP views.
@@ -151,9 +176,11 @@ def _render_noisy(args) -> np.ndarray:
 
 def write_ring_dir(directory: str, n_images: int, hw: Tuple[int, int],
                    fov_deg: float, overlap_ratio: float, seed: int = 7,
-                   noise_sigma: float = 4.0):
+                   noise_sigma: float = 4.0,
+                   plain_directory: Optional[str] = None):
     """Render a horizontal ring in a process pool (one view per worker,
-    each with its own noise seed) and write it with EXIF pose payloads.
+    each with its own noise seed) and write it with EXIF pose payloads,
+    and the same pixels without them to `plain_directory` when given.
     Returns the ground truth (K float64, [R float64]) as written."""
     import multiprocessing as mp
     k, rs = ring_geometry(n_images, hw, fov_deg, overlap_ratio)
@@ -164,22 +191,29 @@ def write_ring_dir(directory: str, n_images: int, hw: Tuple[int, int],
                            for i, r in enumerate(rs)])
     rs32 = np.stack([r.astype(np.float32) for r in rs])
     write_capture_dir(directory, images, k.astype(np.float32), rs32)
+    if plain_directory is not None:
+        write_capture_dir(plain_directory, images, k.astype(np.float32),
+                          rs32, with_exif=False)
     return k.astype(np.float64), [r.astype(np.float64) for r in rs32]
 
 
 def write_capture_dir(directory: str, images: Sequence[np.ndarray], k,
-                      rs) -> List[str]:
-    """Numbered JPEGs with EXIF pose payloads; frames are stored rotated
-    180 degrees, which `orient_capture` undoes on load."""
+                      rs, with_exif: bool = True) -> List[str]:
+    """Numbered JPEGs, with EXIF pose payloads unless with_exif=False;
+    frames are stored rotated 180 degrees, which `orient_capture` undoes
+    on load."""
     os.makedirs(directory, exist_ok=True)
     paths = []
     for i, img in enumerate(images):
         path = os.path.join(directory, f"{i}.jpg")
         stored = image_io.rotate_180(np.clip(img, 0, 255).astype(np.uint8))
-        payload = exif_mod.camera_to_image_description(
-            focal=float(k[1, 1]), ppx=float(k[0, 2]), ppy=float(k[1, 2]),
-            R=rs[i], is_portrait=False)
-        image_io.write_jpeg_with_description(path, stored, payload,
-                                             quality=92)
+        if with_exif:
+            payload = exif_mod.camera_to_image_description(
+                focal=float(k[1, 1]), ppx=float(k[0, 2]),
+                ppy=float(k[1, 2]), R=rs[i], is_portrait=False)
+            image_io.write_jpeg_with_description(path, stored, payload,
+                                                 quality=92)
+        else:
+            image_io.imwrite(path, stored, quality=92)
         paths.append(path)
     return paths

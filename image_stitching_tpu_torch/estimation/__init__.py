@@ -1,1 +1,2 @@
-"""Camera estimation: components, bundle adjustment, wave correction."""
+"""Camera estimation: components, seeding from the match graph, bundle
+adjustment, pose infill, wave correction."""

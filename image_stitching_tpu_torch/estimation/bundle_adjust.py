@@ -1,16 +1,23 @@
-"""Reprojection bundle adjustment by Levenberg-Marquardt (port of
-`estimation/bundle_adjust.py`, cv::detail::BundleAdjusterReproj).
+"""Bundle adjustment by Levenberg-Marquardt (port of
+`estimation/bundle_adjust.py`: cv::detail::BundleAdjusterReproj,
+BundleAdjusterRay, BundleAdjusterAffinePartial and NoBundleAdjuster).
 
-Seven parameters per camera (focal, ppx, ppy, aspect, Rodrigues rotation);
-rotations are always refined, the intrinsics as the refine mask says.
-Residual: transfer error of each RANSAC-inlier correspondence through
-K_b R_b^T R_a K_a^-1, with the reference's redescending weight (c = 48 px)
-held constant at each linearisation point.  Per-correspondence (2, 14)
-Jacobians come from forward-mode `torch.func.jvp` under `vmap`; the
-normal equations are one dense product (no atomics, so the sums are
-deterministic).  The damped system is solved by Cholesky up to 64 cameras
-and by Jacobi-preconditioned CG above.  The LM loop runs on the host, one
-accept/reject decision per iteration.
+"reproj" and "ray": seven parameters per camera (focal, ppx, ppy, aspect,
+Rodrigues rotation); rotations are always refined, the intrinsics as the
+refine mask says.  The reproj residual is the transfer error of each
+RANSAC-inlier correspondence through K_b R_b^T R_a K_a^-1, with the
+reference's redescending weight (c = 48 px) held constant at each
+linearisation point; the ray residual is the difference of the two unit
+rays R K^-1 p scaled by sqrt(f_a f_b).  "affine": four parameters per
+camera (a, b, tx, ty) of the similarity R holds, residual the transfer
+error through A_b^-1 A_a, camera 0 frozen (the gauge), solved by CG.
+"no", or an empty problem, returns the seed cameras.
+
+Per-correspondence Jacobians come from forward-mode `torch.func.jvp`
+under `vmap`; the normal equations are one dense product (no atomics, so
+the sums are deterministic).  The damped system is solved by Cholesky up
+to 64 cameras and by Jacobi-preconditioned CG above.  The LM loop runs on
+the host, one accept/reject decision per iteration.
 """
 
 from __future__ import annotations
@@ -26,7 +33,6 @@ from ..geometry.camera import Cameras, make_k
 from ..geometry.rotation import matrix_to_rodrigues, rodrigues_to_matrix
 
 __all__ = ["BAProblem", "pack_correspondences", "bundle_adjust"]
-
 
 @dataclasses.dataclass
 class BAProblem:
@@ -85,10 +91,27 @@ def pack_correspondences(xy: np.ndarray, pair_matches, conf_thresh: float,
 _ROBUST_C = 48.0
 
 
-def _residuals(pvec: torch.Tensor, pi: torch.Tensor,
-               pj: torch.Tensor) -> torch.Tensor:
-    """Unweighted reprojection residuals (Q, 2) given both cameras'
-    parameters per correspondence, pvec (Q, 14)."""
+def _affine_residuals(pvec: torch.Tensor, pi: torch.Tensor,
+                      pj: torch.Tensor) -> torch.Tensor:
+    """Transfer error (Q, 2) of p_i through A_b^-1 A_a, pvec (Q, 8) the two
+    cameras' (a, b, tx, ty), A = [[a, -b, tx], [b, a, ty], [0, 0, 1]]."""
+    a, b, tx, ty = pvec[:, 0], pvec[:, 1], pvec[:, 2], pvec[:, 3]
+    x = a * pi[:, 0] - b * pi[:, 1] + tx
+    y = b * pi[:, 0] + a * pi[:, 1] + ty
+    a, b, tx, ty = pvec[:, 4], pvec[:, 5], pvec[:, 6], pvec[:, 7]
+    det = torch.clamp(a * a + b * b, min=1e-12)
+    dx, dy = x - tx, y - ty
+    return torch.stack([pj[:, 0] - (a * dx + b * dy) / det,
+                        pj[:, 1] - (-b * dx + a * dy) / det], dim=-1)
+
+
+def _residuals(pvec: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
+               cost: str = "reproj") -> torch.Tensor:
+    """Unweighted residuals given both cameras' parameters per
+    correspondence: reproj (Q, 2), ray (Q, 3) from pvec (Q, 14); affine
+    (Q, 2) from pvec (Q, 8)."""
+    if cost == "affine":
+        return _affine_residuals(pvec, pi, pj)
     fa, pxa, pya, aa = pvec[:, 0], pvec[:, 1], pvec[:, 2], pvec[:, 3]
     fb, pxb, pyb, ab = pvec[:, 7], pvec[:, 8], pvec[:, 9], pvec[:, 10]
     ra = rodrigues_to_matrix(pvec[:, 4:7])
@@ -96,24 +119,36 @@ def _residuals(pvec: torch.Tensor, pi: torch.Tensor,
     pa = torch.stack([(pi[:, 0] - pxa) / fa, (pi[:, 1] - pya) / (fa * aa),
                       torch.ones_like(fa)], dim=-1)
     ray = (ra @ pa[..., None])
+    if cost == "ray":
+        pb = torch.stack([(pj[:, 0] - pxb) / fb,
+                          (pj[:, 1] - pyb) / (fb * ab),
+                          torch.ones_like(fb)], dim=-1)
+        ray2 = (rb @ pb[..., None])[..., 0]
+        ray = ray[..., 0]
+        d1 = ray / torch.clamp(torch.linalg.norm(ray, dim=-1,
+                                                 keepdim=True), min=1e-12)
+        d2 = ray2 / torch.clamp(torch.linalg.norm(ray2, dim=-1,
+                                                  keepdim=True), min=1e-12)
+        return torch.sqrt(torch.abs(fa * fb))[:, None] * (d1 - d2)
     q = (make_k(fb, ab, pxb, pyb) @ (rb.transpose(-1, -2) @ ray))[..., 0]
     qz = torch.where(torch.abs(q[:, 2]) < 1e-12, 1e-12, q[:, 2])
     return torch.stack([pj[:, 0] - q[:, 0] / qz, pj[:, 1] - q[:, 1] / qz],
                        dim=-1)
 
 
-def _jacobians(pvec: torch.Tensor, pi: torch.Tensor,
-               pj: torch.Tensor) -> torch.Tensor:
-    """(Q, 2, 14) Jacobians by forward mode: one jvp per parameter column,
+def _jacobians(pvec: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
+               cost: str = "reproj") -> torch.Tensor:
+    """(Q, R, 2C) Jacobians by forward mode: one jvp per parameter column,
     batched with vmap.  Residual q depends only on row q of pvec, so the
     jvp along column k of every row yields column k of each Jacobian.
     (Forward mode runs on the batched function: per-sample jacfwd over
     0-dim tensors promotes tangents to float64 in torch.func.)"""
-    basis = torch.eye(14, dtype=pvec.dtype, device=pvec.device)[:, None, :]
-    basis = basis.expand(14, pvec.shape[0], 14)
+    cols = pvec.shape[1]
+    basis = torch.eye(cols, dtype=pvec.dtype, device=pvec.device)[:, None, :]
+    basis = basis.expand(cols, pvec.shape[0], cols)
 
     def column(t):
-        return jvp(lambda p: _residuals(p, pi, pj), (pvec,), (t,))[1]
+        return jvp(lambda p: _residuals(p, pi, pj, cost), (pvec,), (t,))[1]
     return vmap(column)(basis).permute(1, 2, 0)
 
 
@@ -123,10 +158,11 @@ def _robust_weight(r: torch.Tensor) -> torch.Tensor:
 
 
 class _Problem:
-    """Device copy of a BAProblem with the LM building blocks."""
+    """Device copy of a BAProblem with the LM building blocks; `npar`
+    parameters per camera (7, or 4 for the affine cost)."""
 
     def __init__(self, problem: BAProblem, n_cams: int, free: np.ndarray,
-                 device):
+                 device, cost: str = "reproj"):
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
         self.cam_i = t(problem.cam_i, torch.int64)
@@ -136,28 +172,39 @@ class _Problem:
         self.w = t(problem.w, torch.float32)
         self.free = t(free)
         self.n = n_cams
+        self.cost_func = cost
+        self.npar = 4 if cost == "affine" else 7
 
     def _pvec(self, params):
         return torch.cat([params[self.cam_i], params[self.cam_j]], dim=1)
 
+    def _weights(self, r):
+        """Per-correspondence weights: the robust weight on the reproj
+        cost only, times the padding mask."""
+        if self.cost_func == "reproj":
+            return _robust_weight(r) * self.w
+        return self.w
+
     def cost(self, params) -> torch.Tensor:
-        r = _residuals(self._pvec(params), self.p_i, self.p_j)
-        res = r * (_robust_weight(r) * self.w)[:, None]
+        r = _residuals(self._pvec(params), self.p_i, self.p_j,
+                       self.cost_func)
+        res = r * self._weights(r)[:, None]
         return torch.sum(res * res)
 
     def normal_eqs(self, params):
         pvec = self._pvec(params)
-        r = _residuals(pvec, self.p_i, self.p_j)
-        jac = _jacobians(pvec, self.p_i, self.p_j)             # (Q, 2, 14)
-        wq = _robust_weight(r) * self.w
+        r = _residuals(pvec, self.p_i, self.p_j, self.cost_func)
+        jac = _jacobians(pvec, self.p_i, self.p_j, self.cost_func)
+        wq = self._weights(r)
         res = r * wq[:, None]
         jac = jac * wq[:, None, None]
         q = torch.arange(res.shape[0], device=res.device)
-        jf = torch.zeros((res.shape[0], 2, self.n, 7), dtype=res.dtype,
-                         device=res.device)
-        jf[q, :, self.cam_i] = jac[:, :, :7]
-        jf[q, :, self.cam_j] += jac[:, :, 7:]
-        j2 = jf.reshape(-1, self.n * 7)
+        c = self.npar
+        jf = torch.zeros((res.shape[0], res.shape[1], self.n, c),
+                         dtype=res.dtype, device=res.device)
+        jf[q, :, self.cam_i] = jac[:, :, :c]
+        jf[q, :, self.cam_j] += jac[:, :, c:]
+        j2 = jf.reshape(-1, self.n * c)
         jtj = j2.t() @ j2
         jtr = j2.t() @ res.reshape(-1)
         free = self.free
@@ -210,24 +257,14 @@ def _free_mask(n_cams: int, refine_mask: str) -> np.ndarray:
     return np.tile(per_cam, n_cams)
 
 
-def bundle_adjust(cams: Cameras, problem: Optional[BAProblem],
-                  refine_mask: str = "_____", max_iters: int = 25,
-                  solver: Optional[str] = None) -> Cameras:
-    """LM-refine cameras on the reprojection cost; an empty problem
-    returns the seed cameras.  Raises RuntimeError on non-finite output
-    ("Camera parameters adjusting failed.")."""
-    if problem is None:
-        return cams
-    n = len(cams)
-    dev = cams.device
-    prob = _Problem(problem, n, _free_mask(n, refine_mask), dev)
-    solver = solver or ("chol" if n <= 64 else "cg64")
-    params = torch.cat([cams.focal[:, None], cams.ppx[:, None],
-                        cams.ppy[:, None], cams.aspect[:, None],
-                        matrix_to_rodrigues(cams.R)], dim=1).to(torch.float32)
+def _lm_solve(prob: _Problem, params: torch.Tensor, solver: str,
+              max_iters: int) -> torch.Tensor:
+    """The LM loop: lambda from 1e-3, x0.3 on an accepted step (floor
+    1e-7), x10 on a rejected one, stop at max_iters, lambda >= 1e6 or a
+    relative cost decrease below 1e-9."""
     c, jtj, jtr = prob.normal_eqs(params)
     lam = np.float32(1e-3)
-    eye = torch.eye(7 * n, dtype=torch.float32, device=dev)
+    eye = torch.eye(jtj.shape[0], dtype=torch.float32, device=params.device)
     for _ in range(max_iters):
         if lam >= 1e6:
             break
@@ -247,6 +284,51 @@ def bundle_adjust(cams: Cameras, problem: Optional[BAProblem],
             lam = np.float32(lam * np.float32(10.0))
     if not bool(torch.all(torch.isfinite(params))):
         raise RuntimeError("Camera parameters adjusting failed.")
+    return params
+
+
+def _affine_bundle_adjust(cams: Cameras, problem: BAProblem,
+                          max_iters: int) -> Cameras:
+    """cams.R holds per-camera 3x3 similarities (the affine pipeline):
+    LM over their (a, b, tx, ty) with camera 0 frozen, CG-solved."""
+    n = len(cams)
+    free = np.arange(4 * n) >= 4
+    prob = _Problem(problem, n, free, cams.device, cost="affine")
+    r = cams.R.to(torch.float32)
+    params = torch.stack([r[:, 0, 0], r[:, 1, 0], r[:, 0, 2], r[:, 1, 2]],
+                         dim=1)
+    out = _lm_solve(prob, params, "cg64", max_iters)
+    a, b, tx, ty = out[:, 0], out[:, 1], out[:, 2], out[:, 3]
+    zero, one = torch.zeros_like(a), torch.ones_like(a)
+    rs = torch.stack([torch.stack([a, -b, tx], -1),
+                      torch.stack([b, a, ty], -1),
+                      torch.stack([zero, zero, one], -1)], -2)
+    return dataclasses.replace(cams, R=rs)
+
+
+def bundle_adjust(cams: Cameras, problem: Optional[BAProblem],
+                  cost_func: str = "reproj", refine_mask: str = "_____",
+                  max_iters: int = 25,
+                  solver: Optional[str] = None) -> Cameras:
+    """LM-refine cameras.  cost_func in {"reproj", "ray", "affine", "no"};
+    "no" or an empty problem returns the seed cameras, another cost raises
+    ValueError.  Raises RuntimeError on non-finite output ("Camera parameters
+    adjusting failed.")."""
+    if cost_func == "no" or problem is None:
+        return cams
+    if cost_func == "affine":
+        return _affine_bundle_adjust(cams, problem, max_iters)
+    if cost_func not in ("reproj", "ray"):
+        raise ValueError(
+            f"Unknown bundle adjustment cost function: '{cost_func}'")
+    n = len(cams)
+    prob = _Problem(problem, n, _free_mask(n, refine_mask), cams.device,
+                    cost_func)
+    params = torch.cat([cams.focal[:, None], cams.ppx[:, None],
+                        cams.ppy[:, None], cams.aspect[:, None],
+                        matrix_to_rodrigues(cams.R)], dim=1).to(torch.float32)
+    params = _lm_solve(prob, params, solver or ("chol" if n <= 64
+                                                else "cg64"), max_iters)
     return Cameras(focal=params[:, 0].contiguous(),
                    aspect=params[:, 3].contiguous(),
                    ppx=params[:, 1].contiguous(),

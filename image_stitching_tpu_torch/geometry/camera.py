@@ -35,6 +35,15 @@ class Cameras:
         return cls(f32(focal), f32(aspect), f32(ppx), f32(ppy), f32(R),
                    f32(t))
 
+    @classmethod
+    def identity(cls, n: int, focal: float = 1.0,
+                 device="cpu") -> "Cameras":
+        """n cameras of one focal, unit aspect, principal point 0 and
+        rotation I."""
+        return cls.from_numpy(np.full(n, focal), np.ones(n), np.zeros(n),
+                              np.zeros(n), np.tile(np.eye(3), (n, 1, 1)),
+                              np.zeros((n, 3)), device=device)
+
     @property
     def device(self) -> torch.device:
         return self.focal.device

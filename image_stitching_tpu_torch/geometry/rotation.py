@@ -1,15 +1,16 @@
 """Rodrigues vectors <-> rotation matrices on torch tensors.
 
-Port of `image_stitching_tpu/geometry/rotation.py:32-103`.  Both are
-branchless (torch.where), so forward-mode `torch.func.jvp` differentiates
-`rodrigues_to_matrix` inside the bundle adjuster.
+Port of `image_stitching_tpu/geometry/rotation.py:32-110`.  The Rodrigues
+maps are branchless (torch.where), so forward-mode `torch.func.jvp`
+differentiates `rodrigues_to_matrix` inside the bundle adjuster.
+`orthonormalize` projects a near-rotation onto SO(3).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rodrigues_to_matrix", "matrix_to_rodrigues"]
+__all__ = ["rodrigues_to_matrix", "matrix_to_rodrigues", "orthonormalize"]
 
 
 def rodrigues_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
@@ -65,3 +66,12 @@ def matrix_to_rodrigues(m: torch.Tensor) -> torch.Tensor:
     sign = torch.where(torch.abs(axis_sin) > 1e-5, sign_asin, sign_prod)
     r_pi = axis_abs * sign * theta[..., None]
     return torch.where((cos_t < -0.9)[..., None], r_pi, r_generic)
+
+
+def orthonormalize(m: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) near-rotations onto SO(3) by SVD, det +1
+    enforced on the last singular direction."""
+    u, _, vt = torch.linalg.svd(m)
+    fix = torch.ones(m.shape[:-2] + (3,), dtype=m.dtype, device=m.device)
+    fix[..., 2] = torch.linalg.det(u @ vt)
+    return (u * fix[..., None, :]) @ vt

@@ -6,9 +6,11 @@ chunked; on CPU tensors its plain version computes each pair's Hamming
 matrix as a float32 bit-plane product, d = pop(a) + pop(b) - 2 <bits_a,
 bits_b> (exact: the counts are integers below 2^24), and takes two masked
 argmins per direction.  Then the ratio test in both directions with
-duplicate suppression; RANSAC homography per pair; confidence n_inliers /
-(8 + 0.3 n_matches) with the conf > 3 -> 0 near-duplicate rule.  RANSAC
-takes the pairs on a leading axis in chunks of `pair_chunk(K)`.
+duplicate suppression; RANSAC per pair, a homography or, with
+matcher_type="affine" (AffineBestOf2NearestMatcher), a similarity;
+confidence n_inliers / (8 + 0.3 n_matches) with the conf > 3 -> 0
+near-duplicate rule.  RANSAC takes the pairs on a leading axis in chunks of
+`pair_chunk(K)`.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from ..kernels.hamming import (hamming_matrix, hamming_two_nn_pairs,
                                pair_chunk, two_nn)
 from .features.types import Features
-from .ransac import ransac_homography
+from .ransac import ransac_affine_partial, ransac_homography
 
 __all__ = ["MatchGraph", "hamming_matrix", "two_nn", "match_pairs",
            "match_all_pairs"]
@@ -73,13 +75,14 @@ class MatchGraph:
 
 def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
                 generator=None, n_hyp: int = 512, hyp_idx=None,
-                score_idx=None, nn=None):
+                score_idx=None, nn=None, matcher_type: str = "homography"):
     """BestOf2NearestMatcher::match for a batch of pairs (leading axis P).
 
     nn: the pairs' (fwd, rev) 2-NN as `hamming_two_nn_pairs` returns them;
-    computed here when not given.  Returns (a_idx, b_idx, valid, inlier
-    (P, 2K), h (P, 3, 3), num_inliers (P,), confidence (P,)): K forward
-    then K reverse slots."""
+    computed here when not given.  hyp_idx/score_idx: injected RANSAC
+    draws (the affine matcher takes no scoring indices).  Returns (a_idx,
+    b_idx, valid, inlier (P, 2K), h (P, 3, 3), num_inliers (P,),
+    confidence (P,)): K forward then K reverse slots."""
     p, ka = fa.valid.shape
     kb = fb.valid.shape[1]
     dev = fa.xy.device
@@ -100,9 +103,13 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
     src = torch.gather(fa.xy, 1, a_idx[..., None].expand(-1, -1, 2))
     dst = torch.gather(fb.xy, 1, b_idx[..., None].expand(-1, -1, 2))
     n_matches = torch.sum(valid, dim=-1)
-    h, inlier, n_inl = ransac_homography(src, dst, valid, generator,
-                                         n_hyp=n_hyp, hyp_idx=hyp_idx,
-                                         score_idx=score_idx)
+    if matcher_type == "affine":
+        h, inlier, n_inl = ransac_affine_partial(src, dst, valid, generator,
+                                                 n_hyp=n_hyp, hyp_idx=hyp_idx)
+    else:
+        h, inlier, n_inl = ransac_homography(src, dst, valid, generator,
+                                             n_hyp=n_hyp, hyp_idx=hyp_idx,
+                                             score_idx=score_idx)
     enough = n_matches >= 6
     conf = torch.where(enough, n_inl.to(torch.float32) /
                        (8.0 + 0.3 * n_matches.to(torch.float32)), 0.0)
@@ -116,7 +123,8 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
 
 def match_all_pairs(feats: Features, generator=None,
                     match_conf: float = 0.32, n_hyp: int = 512,
-                    range_width: int = -1, pair_cap: int = -1) -> MatchGraph:
+                    range_width: int = -1, pair_cap: int = -1,
+                    matcher_type: str = "homography") -> MatchGraph:
     """All pairs i < j (within `range_width` when > 0) of stacked
     Features (N, K, ...); lower triangle mirrored with inverted H.
 
@@ -138,7 +146,8 @@ def match_all_pairs(feats: Features, generator=None,
         cut = slice(s, s + chunk)
         nn = (tuple(x[cut] for x in fwd), tuple(x[cut] for x in rev))
         outs.append(match_pairs(feats[ii[cut]], feats[jj[cut]], match_conf,
-                                generator, n_hyp, nn=nn))
+                                generator, n_hyp, nn=nn,
+                                matcher_type=matcher_type))
     if outs:
         a_idx, b_idx, valid, inlier, h_p, ninl_p, conf_p = (
             torch.cat(x) for x in zip(*outs))

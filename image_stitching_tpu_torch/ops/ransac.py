@@ -1,15 +1,19 @@
-"""RANSAC homography, batched over a leading pair axis (port of
-`ops/ransac.py`).
+"""RANSAC homography and similarity, batched over a leading pair axis
+(port of `ops/ransac.py`).
 
-Same estimator as the reference: `n_hyp` closed-form 4-point hypotheses
-(unit-square route, no linear solve), scoring on a subsample of at most
-1024 correspondences, the winner's full inlier mask, then four
+Same estimators as the reference.  Homography: `n_hyp` closed-form 4-point
+hypotheses (unit-square route, no linear solve), scoring on a subsample of
+at most 1024 correspondences, the winner's full inlier mask, then four
 Cauchy-weighted DLT refits (IRLS) kept only if they do not lose inliers.
+Similarity (cv::estimateAffinePartial2D, the affine matcher's core):
+`n_hyp` 2-point hypotheses scored on every correspondence, then one
+least-squares refit of (a, b, tx, ty) on the winner's consensus, kept only
+if it does not lose inliers.
 
 Randomness comes from a `torch.Generator`.  It cannot reproduce the JAX
-threefry stream, so `ransac_homography` also takes the hypothesis and
-scoring indices directly; the parity tests inject the indices the
-reference drew.
+threefry stream, so both estimators also take their hypothesis indices
+(and the homography its scoring indices) directly; the parity tests inject
+the indices the reference drew.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["apply_h", "h4_closed_form", "dlt_homography",
-           "sample_valid", "sample_valid_distinct", "ransac_homography"]
+           "sample_valid", "sample_valid_distinct", "ransac_homography",
+           "ransac_affine_partial"]
 
 
 def apply_h(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -211,4 +216,83 @@ def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
     use_fit = torch.sum(mask, -1) >= torch.sum(mask0, -1)
     h_out = torch.where(use_fit[:, None, None], h_fit, h_best0)
     mask = torch.where(use_fit[:, None], mask, mask0)
+    return h_out, mask, torch.sum(mask, dim=-1)
+
+
+def _gather_points(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """pts (P, M, 2) at idx (P, R, k) -> (P, R, k, 2)."""
+    p, r, k = idx.shape
+    flat = idx.reshape(p, r * k)
+    return torch.gather(pts, 1, flat[..., None].expand(-1, -1, 2)).reshape(
+        p, r, k, 2)
+
+
+def _similarity(a, b, tx, ty) -> torch.Tensor:
+    """The (..., 3, 3) similarities [[a, -b, tx], [b, a, ty], [0, 0, 1]]."""
+    zero, one = torch.zeros_like(a), torch.ones_like(a)
+    return torch.stack([torch.stack([a, -b, tx], -1),
+                        torch.stack([b, a, ty], -1),
+                        torch.stack([zero, zero, one], -1)], -2)
+
+
+def ransac_affine_partial(src: torch.Tensor, dst: torch.Tensor,
+                          valid: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          thresh: float = 3.0, n_hyp: int = 512,
+                          hyp_idx: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """RANSAC similarity (rotation, scale, translation) per pair.  src, dst
+    (P, M, 2); valid (P, M) bool.  Returns (H (P, 3, 3) with affine rows,
+    inlier mask (P, M), n_inliers (P,)).
+
+    hyp_idx (P, n_hyp, 2), two distinct valid slots per hypothesis,
+    replaces the draws from `generator` when given."""
+    p = valid.shape[0]
+    if hyp_idx is None:
+        hyp_idx = sample_valid_distinct(
+            torch.rand((p, n_hyp, 2), generator=generator,
+                       device=src.device), valid)
+    n_hyp = hyp_idx.shape[1]
+    s2 = _gather_points(src, hyp_idx)                         # (P, R, 2, 2)
+    d2 = _gather_points(dst, hyp_idx)
+    # Similarity from 2 points: the complex ratio (d1 - d0) / (s1 - s0).
+    sv = s2[..., 1, :] - s2[..., 0, :]
+    dv = d2[..., 1, :] - d2[..., 0, :]
+    den = sv[..., 0] * sv[..., 0] + sv[..., 1] * sv[..., 1]
+    den = torch.where(den < 1e-12, 1e-12, den)
+    a = (dv[..., 0] * sv[..., 0] + dv[..., 1] * sv[..., 1]) / den
+    b = (dv[..., 1] * sv[..., 0] - dv[..., 0] * sv[..., 1]) / den
+    tx = d2[..., 0, 0] - (a * s2[..., 0, 0] - b * s2[..., 0, 1])
+    ty = d2[..., 0, 1] - (b * s2[..., 0, 0] + a * s2[..., 0, 1])
+    h_all = _similarity(a, b, tx, ty)                         # (P, R, 3, 3)
+    proj = apply_h(h_all, src[:, None].expand(-1, n_hyp, -1, -1))
+    err2 = torch.sum((proj - dst[:, None]) ** 2, dim=-1)
+    inl = (err2 < thresh * thresh) & valid[:, None]
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts, dim=-1)
+    rows = torch.arange(p, device=src.device)
+    mask = inl[rows, best]
+    best_count = counts[rows, best]
+    h_best = h_all[rows, best]
+
+    # Weighted least-squares refit of (a, b, tx, ty) on the consensus.
+    w = mask.to(src.dtype)
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
+    one, zero = torch.ones_like(x), torch.zeros_like(x)
+    a_mat = torch.cat([torch.stack([x, -y, one, zero], -1),
+                       torch.stack([y, x, zero, one], -1)], dim=-2)
+    b_vec = torch.cat([u, v], dim=-1)
+    aw = a_mat * torch.cat([w, w], dim=-1)[..., None]
+    ata = aw.transpose(-1, -2) @ a_mat + 1e-6 * torch.eye(
+        4, dtype=src.dtype, device=src.device)
+    atb = (aw.transpose(-1, -2) @ b_vec[..., None])[..., 0]
+    sol = torch.linalg.solve(ata, atb)
+    h_fit = _similarity(sol[:, 0], sol[:, 1], sol[:, 2], sol[:, 3])
+    err2 = torch.sum((apply_h(h_fit, src) - dst) ** 2, dim=-1)
+    mask_fit = (err2 < thresh * thresh) & valid
+    use_fit = torch.sum(mask_fit, dim=-1) >= best_count
+    h_out = torch.where(use_fit[:, None, None], h_fit, h_best)
+    mask = torch.where(use_fit[:, None], mask_fit, mask)
     return h_out, mask, torch.sum(mask, dim=-1)

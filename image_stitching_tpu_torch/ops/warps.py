@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 __all__ = ["Warper", "make_warper", "PROJECTIONS", "backward_xy_1d",
-           "result_roi", "result_roi_intersection", "u_period"]
+           "camera_backward_xy", "warper_rotations", "result_roi",
+           "result_roi_intersection", "u_period"]
 
 
 class _TorchNS:
@@ -281,6 +282,46 @@ def backward_xy_1d(proj_name: str, us: torch.Tensor, vs: torch.Tensor,
     zs = torch.where(torch.abs(pz) < 1e-12, 1e-12, pz)
     return (torch.where(valid, px.expand(shape) / zs, -1.0),
             torch.where(valid, py.expand(shape) / zs, -1.0), valid)
+
+
+def warper_rotations(proj_name: str, rs) -> np.ndarray:
+    """The (N, 3, 3) float32 R that the warper takes for cameras rs.  For
+    "affine", each camera holds its image's similarity A into the common
+    frame (the convention of the affine estimator and bundle adjuster),
+    while the warper splits its R as OpenCV's affine warper does and maps
+    p to H_lin^T (p - t_H): the H whose map is exactly A is
+    [[A_lin^T, -A_lin^-1 t_A], [0, 0, 1]].  Other projections: rs."""
+    rs = np.asarray(rs, np.float32)
+    if proj_name != "affine":
+        return rs
+    a = rs.astype(np.float64)
+    lin = a[:, :2, :2]
+    h = np.zeros_like(a)
+    h[:, :2, :2] = lin.transpose(0, 2, 1)
+    h[:, :2, 2] = -np.linalg.solve(lin, a[:, :2, 2:3])[..., 0]
+    h[:, 2, 2] = 1.0
+    return h.astype(np.float32)
+
+
+def camera_backward_xy(proj_name: str, us: torch.Tensor, vs: torch.Tensor,
+                       k: torch.Tensor, r: torch.Tensor, scale):
+    """`backward_xy_1d` for a camera as the warper takes it.  For "affine",
+    r is a 3x3 affine H, split as `Warper._prep` splits it for the ROIs
+    (the plane projector with R' = H_lin^T and the UV offset
+    -scale H_lin^T (t0, t1, 0)), and the map inverts R' exactly: the plane
+    map takes R'^T as its inverse, which holds only for a rotation.  Other
+    projections pass k and r through."""
+    if proj_name != "affine":
+        return backward_xy_1d(proj_name, us, vs, k, r, scale)
+    lin = r.to(torch.float32).clone()
+    t0, t1 = lin[0, 2].clone(), lin[1, 2].clone()
+    lin[0, 2] = 0.0
+    lin[1, 2] = 0.0
+    off_u = -scale * (lin[0, 0] * t0 + lin[1, 0] * t1)
+    off_v = -scale * (lin[0, 1] * t0 + lin[1, 1] * t1)
+    # backward_xy_1d maps by K r^T; r = inv(R')^T = inv(H_lin).
+    return backward_xy_1d(proj_name, us - off_u, vs - off_v, k,
+                          torch.linalg.inv(lin), scale)
 
 
 @dataclasses.dataclass(frozen=True)

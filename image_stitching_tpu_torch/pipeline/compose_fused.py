@@ -15,7 +15,10 @@ collapse.  The
 rect geometry (gap 3 * 2^nb, band-aligned corners, half-octave bucket
 dims, canvas clamp) is host integer arithmetic copied from the reference,
 because it sets what the pyramid sees at rect borders.  The reference's
-`lax.scan` over images is a Python loop.
+`lax.scan` over images is a Python loop.  For warp_type="affine" both
+warps sample the map of each camera's affine H split as the warper's ROIs
+split it (`ops/warps.py::camera_backward_xy`); the reference's fused path
+samples the plane map of the raw H, away from those ROIs.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..ops.imgproc import dilate3
 from ..ops.pyr_mat import pyr_up_mm
 from ..ops.seams import bucket_dim
 from ..kernels.warp_gather import int32_taps
-from ..ops.warps import Warper, backward_xy_1d, result_roi
+from ..ops.warps import Warper, camera_backward_xy, result_roi
 
 __all__ = ["warp_stack", "compose_rects", "rect_grid", "prep_gains",
            "compose_samples", "compose_buckets", "fused_compose"]
@@ -89,8 +92,8 @@ def warp_stack(images: torch.Tensor, ks: torch.Tensor, rs: torch.Tensor,
     warped_all, mask_all = [], []
     for i in range(n):
         us, vs = rect_grid(tls[i], pad_h, pad_w, images.device)
-        sx, sy, valid = backward_xy_1d(proj_name, us, vs, ks[i], rs[i],
-                                       scale)
+        sx, sy, valid = camera_backward_xy(proj_name, us, vs, ks[i], rs[i],
+                                           scale)
         warped = _patch_bilinear(images[i].to(torch.float32), sx, sy)
         wmask = _valid_mask(sx, sy, valid, hc, wc)
         warped = torch.where(wmask[..., None], warped, 0.0)
@@ -137,7 +140,7 @@ def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float,
     gain's rank picks `_warp_gain_seam`'s mode: a 0-d GAIN scalar, a (3,)
     CHANNELS triple, or a (Gy, Gx[, 3]) block map sampled over the ROI."""
     hc, wc = img.shape[0], img.shape[1]
-    sx, sy, valid = backward_xy_1d(proj_name, us, vs, k, r, scale)
+    sx, sy, valid = camera_backward_xy(proj_name, us, vs, k, r, scale)
     warped = warp_bilinear(img, sx.contiguous(), sy.contiguous())
     wmask = _valid_mask(sx, sy, valid, hc, wc)
     if gain is not None and gain.ndim == 0:

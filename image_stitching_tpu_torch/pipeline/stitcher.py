@@ -3,19 +3,22 @@
 
 Stages: read images and EXIF priors (fast ingest: the background native
 decode of the codec's 4:2:0 planes, `pipeline/ingest.py`) -> ORB features
-(kernel K1) -> all-pairs matching with RANSAC (kernel K4) -> biggest
-connected component -> bundle adjustment seeded from the priors ->
-checkpoint -> wave correction -> median focal -> seam-scale warp (any
+(kernel K1) -> all-pairs matching with RANSAC, homography or affine
+(kernel K4) -> biggest connected component -> camera seed: the priors, or
+without them (or with use_sensor_priors=False, or the affine estimator)
+the estimate from the match graph -> bundle adjustment (reproj, ray,
+affine or none) -> checkpoint -> pose infill of dropped images
+(infill_dropped) -> wave correction -> median focal -> seam-scale warp (any
 projection) -> exposure compensation -> seams -> compose-scale fused blend,
 multiband, FEATHER or NO (kernels K2 and K5) -> result.
 `serialize_data=False` resumes from the checkpoint (`cams.data`,
 `indices.data`) with no features, matching or BA; `find_features=False`
-takes the EXIF priors as the cameras.
+takes the EXIF priors (or identity cameras) as the cameras.
 
 This port runs one slice of the reference's configuration surface: every
-option the fused path takes, on captures of one size with EXIF priors.
-`check_slice` raises NotImplementedError for every option outside it, so
-the port never takes another path quietly.  The device is explicit:
+option the fused path takes, on captures of one size.  `check_slice`
+raises NotImplementedError for every option outside it, so the port never
+takes another path quietly.  The device is explicit:
 `stitch(..., device="cuda")` raises when no GPU is present, and nothing
 falls back to the CPU.
 """
@@ -34,9 +37,13 @@ from ..config import StitchConfig, WaveCorrectKind
 from ..core import exif as exif_mod
 from ..core import image_io, persistence
 from ..core.logging import logger, stage_timer
+from ..core.rig import DEFAULT_RIG
 from ..estimation.bundle_adjust import bundle_adjust, pack_correspondences
 from ..estimation.components import biggest_component
 from ..estimation.graph import matches_graph_dot
+from ..estimation.homography_estimator import (affine_based_estimate,
+                                               homography_based_estimate)
+from ..estimation.pose_infill import infill_dropped_cameras
 from ..estimation.wave_correct import wave_correct
 from ..geometry.camera import Cameras
 from ..ops.features.orb import orb_detect_stack
@@ -44,7 +51,8 @@ from ..ops.imgproc import resize, rgb_to_gray, scale_size
 from ..ops.exposure import feed_device
 from ..ops.matching import match_all_pairs
 from ..ops.seams import find_seams
-from ..ops.warps import Warper, make_warper, result_roi, u_period
+from ..ops.warps import (Warper, make_warper, result_roi, u_period,
+                         warper_rotations)
 from .compose_fused import fused_compose, warp_stack
 from .ingest import fast_prep, pick_num8, start_fast_ingest
 
@@ -76,12 +84,6 @@ def check_slice(cfg: StitchConfig, device="cpu") -> None:
         ("use_sharded_compose", sharded,
          f"True on {torch.cuda.device_count()} devices"),
         ("features_type", cfg.features_type != "orb", cfg.features_type),
-        ("ba_cost_func", cfg.ba_cost_func != "reproj", cfg.ba_cost_func),
-        ("matcher_type", cfg.matcher_type != "homography", cfg.matcher_type),
-        ("estimator_type", cfg.estimator_type != "homography",
-         cfg.estimator_type),
-        ("use_sensor_priors", not cfg.use_sensor_priors, "False"),
-        ("infill_dropped", cfg.infill_dropped, "True"),
     ]
     for name, outside, value in refused:
         if outside:
@@ -134,7 +136,7 @@ class ComposeInputs:
     scale: float                    # compose scale of the full image
     warper: Warper
     ks: np.ndarray                  # (N, 3, 3) float32
-    rs: np.ndarray                  # (N, 3, 3) float32
+    rs: np.ndarray                  # (N, 3, 3) float32, the warper's R
     corners: List[Tuple[int, int]]
     sizes: List[Tuple[int, int]]
     resize_hw: Optional[Tuple[int, int]]  # compose source size, or None
@@ -155,7 +157,7 @@ def compose_inputs(cameras: Cameras, full_hw: Tuple[int, int],
     cam_np = cameras.numpy()
     warper = make_warper(warp_type, _median_focal(cam_np["focal"]) * aspect)
     ks = np.asarray(cameras.scaled(aspect).K().cpu().numpy(), np.float32)
-    rs = np.asarray(cam_np["R"], np.float32)
+    rs = warper_rotations(warp_type, cam_np["R"])
     sh, sw = h0, w0
     resize_hw = None
     if abs(scale - 1) > 1e-1:
@@ -217,7 +219,8 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
 
     fast = None
     with stage_timer("Reading images and priors", times, dev):
-        priors, is_portrait = _load_priors(paths)
+        priors, is_portrait = (_load_priors(paths) if cfg.use_sensor_priors
+                               else (None, False))
         # Header-only sizes: the three scales are known before any pixel
         # is decoded, so the decoder can run DCT-scaled.
         full_sizes = [image_io.probe_oriented_size(p, is_portrait)
@@ -253,10 +256,6 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                 im = image_io.orient_capture(image_io.imread(p), is_portrait)
                 device_imgs.append(torch.from_numpy(im).to(dev))
             full_sizes = [(im.shape[1], im.shape[0]) for im in device_imgs]
-    if priors is None and not (cfg.find_features and not cfg.serialize_data):
-        raise NotImplementedError(
-            "captures without EXIF priors (homography-based camera "
-            "seeding) are outside the PyTorch port's slice")
     if len(set(full_sizes)) != 1:
         raise NotImplementedError(
             "captures of different sizes are outside the PyTorch port's "
@@ -297,7 +296,8 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             pm = match_all_pairs(fstack, gen, match_conf=cfg.match_conf,
                                  range_width=cfg.range_width,
-                                 pair_cap=cfg.num_features).numpy()
+                                 pair_cap=cfg.num_features,
+                                 matcher_type=cfg.matcher_type).numpy()
             xy_host = fstack.xy.cpu().numpy()
         if cfg.save_graph and cfg.save_graph_to:
             with open(cfg.save_graph_to, "w") as gf:
@@ -313,24 +313,47 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
             raise RuntimeError("Need more images: all but one were removed "
                                "as unmatchable")
 
+        # The seed: the priors, else (and always for the affine
+        # estimator) the estimate from the kept images' match graph.
+        pm_sub = pm.subset(indices)
+        if cameras_all is not None and cfg.estimator_type != "affine":
+            seed_cams = cameras_all[indices]
+        else:
+            estimate = (affine_based_estimate
+                        if cfg.estimator_type == "affine"
+                        else homography_based_estimate)
+            sizes_sub = [scale_size(full_sizes[i][1], full_sizes[i][0],
+                                    work_scale) for i in indices]
+            seed_cams = Cameras.from_numpy(device=dev, **estimate(
+                pm_sub, sizes_sub, cfg.conf_thresh))
         with stage_timer("Bundle adjustment", times, dev):
             problem = pack_correspondences(xy_host[np.asarray(indices)],
-                                           pm.subset(indices),
-                                           cfg.conf_thresh)
-            cameras = bundle_adjust(cameras_all[indices], problem,
+                                           pm_sub, cfg.conf_thresh)
+            cameras = bundle_adjust(seed_cams, problem,
+                                    cost_func=cfg.ba_cost_func,
                                     refine_mask=cfg.ba_refine_mask)
         persistence.serialize_camera_params(cameras, cfg.checkpoint_dir)
         persistence.serialize_indices(indices, cfg.checkpoint_dir)
         if cfg.checkpoint_npz:
             np.savez(os.path.join(cfg.checkpoint_dir, "cameras.npz"),
                      indices=np.asarray(indices), **cameras.numpy())
+        if cfg.infill_dropped and cameras_all is not None and \
+                len(indices) < n:
+            # The ring-aware neighbour search applies to the rig's own
+            # 37-image captures.
+            rig = DEFAULT_RIG if n == DEFAULT_RIG.total_images else None
+            cameras = Cameras.from_numpy(device=dev, **infill_dropped_cameras(
+                cameras_all.numpy(), cameras.numpy(), indices, rig))
+            indices = list(range(n))
     elif cfg.find_features:
         indices = persistence.deserialize_indices(cfg.checkpoint_dir)
         cameras = persistence.deserialize_camera_params(cfg.checkpoint_dir,
                                                         device=dev)
     else:
         indices = list(range(n))
-        cameras = cameras_all
+        cameras = (cameras_all if cameras_all is not None
+                   else Cameras.identity(n, float(np.mean(
+                       [s[0] for s in full_sizes])), device=dev))
 
     if cfg.do_wave_correct and cfg.wave_correct != WaveCorrectKind.NO:
         cameras = dataclasses.replace(
@@ -350,7 +373,7 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
         k_seam = k_all.copy()
         k_seam[:, 0, :] *= swa
         k_seam[:, 1, :] *= swa
-        r_all = np.asarray(cam_np["R"], np.float32)
+        r_all = warper_rotations(cfg.warp_type, cam_np["R"])
         rois = [warper.warp_roi(seam_hw, k_seam[i], r_all[i])
                 for i in range(n)]
         corners = [(r[0], r[1]) for r in rois]

@@ -6,6 +6,8 @@ tensors.  torch gets one thread: the suite runs under several xdist
 workers, and torch's default thread count would oversubscribe the cores.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -40,3 +42,55 @@ def rel_rotation_deg(ra, rb) -> float:
     m = np.asarray(ra, np.float64) @ np.asarray(rb, np.float64).T
     return float(np.degrees(np.arccos(np.clip((np.trace(m) - 1) / 2,
                                               -1.0, 1.0))))
+
+
+@contextlib.contextmanager
+def reference_draws(seed: int, n_pairs: int):
+    """Inject the reference's RANSAC draws into the port's stitch: pair p
+    of `match_all_pairs` takes the hypothesis (and, for the homography,
+    scoring) indices that the reference's stitch draws from
+    split(PRNGKey(seed), n_pairs)[p]: 4 distinct points a hypothesis and
+    a scoring subsample for the homography matcher, 2 distinct points for
+    the affine one (`tests/test_torch_matching.py` and
+    `tests/test_torch_registration.py` hold RANSAC equal given them).
+    The comparisons then see the rest of the path alone: on 160x224
+    captures an adjacent pair has only ~14 inliers, and other draws pick
+    another equally good inlier set, which moves BA by ~0.1 degree.
+    Yields a one-element list counting the pairs drawn."""
+    import jax
+    import jax.numpy as jnp
+    from image_stitching_tpu.ops import ransac as jransac
+    from image_stitching_tpu_torch.ops import matching as tmatching
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_pairs)
+    real_h = tmatching.ransac_homography
+    real_a = tmatching.ransac_affine_partial
+    done = [0]
+
+    def draws(valid, n_hyp, k):
+        hyps, subs = [], []
+        for row in n(valid):
+            key = keys[done[0]]
+            done[0] += 1
+            v = jnp.asarray(row)
+            hyps.append(np.asarray(jransac._sample_valid_distinct(
+                key, v, n_hyp, k)))
+            subs.append(np.asarray(jransac._sample_valid(
+                jax.random.fold_in(key, 1), v, (min(v.shape[0], 1024),))))
+        return t(np.stack(hyps)).long(), t(np.stack(subs)).long()
+
+    def homography(src, dst, valid, generator=None, n_hyp=512, hyp_idx=None,
+                   score_idx=None):
+        hyp, sub = draws(valid, n_hyp, 4)
+        return real_h(src, dst, valid, generator, n_hyp=n_hyp, hyp_idx=hyp,
+                      score_idx=sub)
+
+    def affine(src, dst, valid, generator=None, n_hyp=512, hyp_idx=None):
+        hyp, _ = draws(valid, n_hyp, 2)
+        return real_a(src, dst, valid, generator, n_hyp=n_hyp, hyp_idx=hyp)
+    tmatching.ransac_homography = homography
+    tmatching.ransac_affine_partial = affine
+    try:
+        yield done
+    finally:
+        tmatching.ransac_homography = real_h
+        tmatching.ransac_affine_partial = real_a

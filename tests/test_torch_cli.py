@@ -131,10 +131,10 @@ def test_python_dash_m_entry_point(captures):
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("usage: image_stitching_tpu_torch")
     assert "--device" in out.stdout
-    out = subprocess.run(cmd + [captures, "--device", "cpu", "--ba", "ray"],
+    out = subprocess.run(cmd + [captures, "--device", "cpu", "--crop"],
                          env=env, capture_output=True, text=True,
                          timeout=120)
-    assert out.returncode == 1 and "ba_cost_func" in out.stderr
+    assert out.returncode == 1 and "crop_result" in out.stderr
 
 
 def test_graph_profile_and_resume_flags(captures, tmp_path, capsys):
@@ -158,3 +158,25 @@ def test_graph_profile_and_resume_flags(captures, tmp_path, capsys):
     assert "Pairwise matching" not in printed
     assert "Bundle adjustment" not in printed
     assert os.path.getsize(tmp_path / "b.jpg") > 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--matcher", "affine", "--estimator", "affine", "--ba", "affine",
+     "--warp", "affine", "--wave-correct", "no"],
+    ["--ba", "ray"], ["--ba", "no"], ["--no-sensor-priors"]])
+def test_registration_flags_stitch(captures, tmp_path, capsys, flags):
+    """The registration flags reach a stitch: OpenCV stitching_detailed's
+    flag set for scans (affine matcher, estimator, bundle adjustment and
+    warp, no wave correction), the ray and no bundle adjustment costs, and
+    seeding without the EXIF priors: exit 0, the checkpoint of at least
+    two kept images (on these 160x224 captures the affine matcher keeps
+    two), a panorama wider than one capture."""
+    out = str(tmp_path / "r.jpg")
+    argv = [captures, "--device", "cpu", "--result", out, "--checkpoint-dir",
+            str(tmp_path)] + SMALL + flags
+    assert cli.main(argv) == 0
+    assert "Bundle adjustment, time:" in capsys.readouterr().out
+    with open(tmp_path / "indices.data") as f:
+        assert len(f.read().split()) >= 2
+    with Image.open(out) as im:
+        assert im.size[0] > 224

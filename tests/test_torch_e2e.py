@@ -11,25 +11,21 @@ with the work scale snapped to 6/8 (`both_fast`)."""
 import contextlib
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import torch
 
-from _torch_port import n, rel_rotation_deg, t
+from _torch_port import n, reference_draws, rel_rotation_deg
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
 from image_stitching_tpu.ops import exposure as jexposure
-from image_stitching_tpu.ops import ransac as jransac
 from image_stitching_tpu.ops import seams as jseams
 from image_stitching_tpu.pipeline.stitcher import stitch as jstitch
 from image_stitching_tpu_torch.config import StitchConfig
 from image_stitching_tpu_torch.core import image_io
 from image_stitching_tpu_torch.core.logging import Recorder
-from image_stitching_tpu_torch.ops import matching as tmatching
 from image_stitching_tpu_torch.ops.warps import backward_xy_1d
 from image_stitching_tpu_torch.pipeline import compose_fused, ingest, stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import (compose_inputs,
@@ -258,40 +254,6 @@ def test_compose_samples_reproduce_k5_inputs(both_default):
         assert list(off0) == list(off1)
         np.testing.assert_array_equal(n(w0), n(w1))
         np.testing.assert_array_equal(n(wt0), n(wt1))
-
-
-@contextlib.contextmanager
-def reference_draws(seed: int, n_pairs: int):
-    """Inject the reference's RANSAC draws into the port's stitch: pair p
-    of `match_all_pairs` takes the hypothesis and scoring indices that the
-    reference's stitch draws from split(PRNGKey(seed), n_pairs)[p]
-    (`tests/test_torch_matching.py` holds RANSAC equal given them).  The
-    fast-path comparisons then see the ingest alone: on these 160x224
-    captures an adjacent pair has only ~14 inliers, and other draws pick
-    another equally good inlier set, which moves BA by ~0.1 degree."""
-    keys = jax.random.split(jax.random.PRNGKey(seed), n_pairs)
-    real = tmatching.ransac_homography
-    done = [0]
-
-    def injected(src, dst, valid, generator=None, n_hyp=512, hyp_idx=None,
-                 score_idx=None):
-        hyps, subs = [], []
-        for row in n(valid):
-            key = keys[done[0]]
-            done[0] += 1
-            v = jnp.asarray(row)
-            hyps.append(np.asarray(jransac._sample_valid_distinct(
-                key, v, n_hyp, 4)))
-            subs.append(np.asarray(jransac._sample_valid(
-                jax.random.fold_in(key, 1), v, (min(v.shape[0], 1024),))))
-        return real(src, dst, valid, generator, n_hyp=n_hyp,
-                    hyp_idx=t(np.stack(hyps)).long(),
-                    score_idx=t(np.stack(subs)).long())
-    tmatching.ransac_homography = injected
-    try:
-        yield done
-    finally:
-        tmatching.ransac_homography = real
 
 
 # Fast ingest on: full scale (raw 4:2:0 planes at num8 8, the Y plane as

@@ -1,6 +1,7 @@
 """The port's package boundary: no jax at import, the slice's refusals,
 explicit devices, host IO and the state conversion from the reference."""
 
+import json
 import os
 import subprocess
 import sys
@@ -30,7 +31,7 @@ from image_stitching_tpu_torch.pipeline.stitcher import check_slice, stitch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import image_stitching_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
@@ -38,9 +39,15 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "image_stitching_tpu.")))
-print(len(names), bad)
+print(json.dumps({"names": names, "bad": bad}))
 assert not bad, bad
 """
+
+# The modules of the registration variants, imported with the rest.
+REGISTRATION_MODULES = (
+    "core.rig", "estimation.homography_estimator", "estimation.pose_infill",
+    "estimation.bundle_adjust", "geometry.euler", "geometry.rotation",
+    "ops.ransac", "ops.matching", "data.synth")
 
 
 def test_import_loads_no_jax():
@@ -48,18 +55,19 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 40 and bad.strip() == "[]"
+    seen = json.loads(out.stdout)
+    names = seen["names"]
+    assert len(names) >= 42 and seen["bad"] == []
+    for mod in REGISTRATION_MODULES:
+        assert f"image_stitching_tpu_torch.{mod}" in names, mod
 
 
 SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
 
 
 @pytest.mark.parametrize("option,value", [
-    ("infill_dropped", True), ("timelapse", True),
-    ("crop_result", True), ("features_type", "sift"),
-    ("ba_cost_func", "ray"), ("matcher_type", "affine"),
-    ("estimator_type", "affine"), ("use_sensor_priors", False)])
+    ("timelapse", True), ("crop_result", True), ("features_type", "sift"),
+    ("features_type", "akaze"), ("features_type", "surf")])
 def test_options_outside_slice_raise(option, value):
     check_slice(StitchConfig(**SLICE))
     cfg = StitchConfig(**dict(SLICE, **{option: value}))
@@ -75,7 +83,11 @@ def test_options_outside_slice_raise(option, value):
     ("warp_type", "cylindrical"), ("warp_type", "transverseMercator"),
     ("blend_type", "feather"), ("blend_type", "no"),
     ("find_features", False), ("serialize_data", False),
-    ("save_graph", True), ("profile_dir", "prof")])
+    ("save_graph", True), ("profile_dir", "prof"),
+    ("ba_cost_func", "ray"), ("ba_cost_func", "affine"),
+    ("ba_cost_func", "no"), ("matcher_type", "affine"),
+    ("estimator_type", "affine"), ("use_sensor_priors", False),
+    ("infill_dropped", True), ("warp_type", "affine")])
 def test_options_inside_slice_accepted(option, value):
     """Options of the fused path that the slice runs: check_slice takes
     them on the CPU and on one CUDA device."""
