@@ -73,10 +73,10 @@ Phases, one line each; any failure raises and exits non-zero:
      and the slice's other options, each stitch under the counts as in
      phase 9 (captures rendered in phase 0 as bench.py makes them):
      (a) cyl4, StitchConfig(num_features=1500, warp_type="cylindrical")
-     on 4 x 1080x1920 (seeds 11, 13, 14 timed after phase 3's warm-up on
+     on 4 x 1080x1920 (seed 11 timed after phase 3's warm-up on
      12): walls, MP/s, stage table, reprojection; (b) vga_pair,
      StitchConfig(num_features=1500, blend_type="feather") on 2 x 480x640
-     (warm-up on seed 100, p50 wall over 101-105), the K5 calls at 0
+     (warm-up on seed 100, p50 wall over 101-103), the K5 calls at 0
      bands, and K5 against its plain version on its rects with its
      0-band device time; (a) and (b) under phase 4's and 8's gates (kept
      n/n, <= 1 px reprojection, mask > 0.9, seam union = warped union,
@@ -115,7 +115,27 @@ Phases, one line each; any failure raises and exits non-zero:
      1% scale of the truth relative to tile 0, the mask over 0.9 of the
      warped tiles' union, K2 on its compose rects; (e)
      StitchConfig(ba_cost_func="ray") on DEFAULT_RING under phase 9b's
-     gates.
+     gates;
+ 12. the loop compose, each stitch under the counts as in phase 9
+     (captures rendered in phase 0): (a) mixed8, StitchConfig() on
+     DEFAULT_RING's geometry with views 0, 2, 4, 6 at 2448x3264 and 1, 3,
+     5, 7 at 3000x4000, each at its own K and EXIF payload, after a
+     warm-up on the same files: fast ingest declines it, kept 8/8, <= 1 px
+     reprojection (per-image K), mask > 0.9, finite positive gains (the
+     host feed), seam union = warped union, every kernel launched; its
+     wall, MP/s, peak device memory; K2 on the loop compose's rects and K5
+     on the loop blender's calls (a bucket of one each) against their
+     plain versions under phase 3's and 7's gates, device, call and plain
+     ms per call and their bounds; (b) StitchConfig(timelapse=True,
+     timelapse_type="as_is") on DEFAULT_RING in a working directory of its
+     own: 8 fixed_*.jpg frames of the union canvas's size, no result.jpg,
+     its "Compositing" beside phase 9b's; (c) bench.py's spher16,
+     StitchConfig(crop_result=True) on 16 x 3000x4000 (55 deg, overlap
+     0.45, seed 41, sigma-8 noise), timed after a warm-up on its +-2 LSB
+     twin: kept 16/16, <= 1 px reprojection, the cropped panorama smaller
+     than the canvas with a clean border (check_interior_exterior of its
+     gray > 0 mask finished); its wall, MP/s, peak device memory, the
+     crop's host time, and the stage table of 9b, 12a, 12b and 12c.
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
@@ -126,7 +146,8 @@ time on the cylindrical rects (`cylindrical_device_ms`) and the affine
 scan's (`affine_device_ms`), K5's its device time and launches per call
 at 0 bands on the vga_pair rects (`zero_band_device_ms`,
 `zero_band_launches_per_call`); K4's and K5's rows their rig37 times and
-bounds (`rig37_*`).
+bounds (`rig37_*`); K2's and K5's rows their times, bounds and errors on
+mixed8's loop compose (`loop_*`).
 Then a JSON line of those kernel results with the launches on the path
 the kernel was checked on, the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
@@ -185,7 +206,12 @@ def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float,
     """Mean pairwise reprojection error (px) of the kept images of size hw,
     over `pairs` of positions in `kept` (default consecutive ones):
     estimated K_b R_b R_a^T K_a^-1 against the ground truth on an 8x8 pixel
-    grid (gauge-invariant; bench.py `_reproj_err_px`)."""
+    grid of image a (gauge-invariant; bench.py `_reproj_err_px`).  k_true
+    and hw may also be lists, one K and one (h, w) per capture, for a set
+    of mixed sizes."""
+    n_all = len(rs_true)
+    ks_true = list(k_true) if isinstance(k_true, list) else [k_true] * n_all
+    hws = list(hw) if isinstance(hw, list) else [hw] * n_all
     c = cameras.numpy()
     kc = np.zeros((len(kept), 3, 3))
     kc[:, 0, 0] = c["focal"]
@@ -195,21 +221,22 @@ def reproj_err_px(cameras, kept, k_true, rs_true, work_scale: float,
     kc[:, 2, 2] = 1.0
     kc[:, :2, :] /= work_scale
     rc = np.asarray(c["R"], np.float64)
-    gy, gx = np.meshgrid(np.linspace(0, hw[0] - 1, 8),
-                         np.linspace(0, hw[1] - 1, 8))
-    pts = np.stack([gx.ravel(), gy.ravel(), np.ones(gx.size)], axis=0)
 
-    def proj(m):
-        q = m @ pts
+    def proj(m, hw_a):
+        gy, gx = np.meshgrid(np.linspace(0, hw_a[0] - 1, 8),
+                             np.linspace(0, hw_a[1] - 1, 8))
+        q = m @ np.stack([gx.ravel(), gy.ravel(), np.ones(gx.size)], axis=0)
         return q[:2] / np.where(np.abs(q[2:]) < 1e-12, 1e-12, q[2:])
     errs = []
     if pairs is None:
         pairs = [(a, a + 1) for a in range(len(kept) - 1)]
     for a, b in pairs:
+        ia, ib = kept[a], kept[b]
         h_est = kc[b] @ rc[b].T @ rc[a] @ np.linalg.inv(kc[a])
-        h_gt = (k_true @ rs_true[kept[b]].T @ rs_true[kept[a]]
-                @ np.linalg.inv(k_true))
-        errs.append(np.linalg.norm(proj(h_est) - proj(h_gt), axis=0).mean())
+        h_gt = (ks_true[ib] @ rs_true[ib].T @ rs_true[ia]
+                @ np.linalg.inv(ks_true[ia]))
+        errs.append(np.linalg.norm(proj(h_est, hws[ia]) -
+                                   proj(h_gt, hws[ia]), axis=0).mean())
     return float(np.mean(errs))
 
 
@@ -436,6 +463,26 @@ def k2_bound(calls):
     return bound(n_bytes, n_ops)
 
 
+def k2_library_ms(calls):
+    """(device ms, call ms) per rect of the yardstick, never called by the
+    port: one grid_sample per rect on the same samples (planar source,
+    normalised grid, made beforehand).  Its reflection pads about the edge
+    pixels' centres, K2 about their edges."""
+    lib_in = []
+    for src, sx, sy in calls:
+        hc, wc = src.shape[0], src.shape[1]
+        grid = torch.stack([sx / (wc - 1) * 2 - 1, sy / (hc - 1) * 2 - 1],
+                           -1)[None]
+        lib_in.append((src.permute(2, 0, 1)[None].contiguous(), grid))
+
+    def lib_run():
+        for x, grd in lib_in:
+            torch.nn.functional.grid_sample(x, grd, mode="bilinear",
+                                            padding_mode="reflection",
+                                            align_corners=True)
+    return (device_ms(lib_run) / len(calls), time_ms(lib_run) / len(calls))
+
+
 def check_k2(dev, paths, cfg, res):
     """K2 on the (img, sx, sy) that each compose rect of a main-path stitch
     gives it: that stitch's cameras through the compose's own geometry
@@ -448,8 +495,8 @@ def check_k2(dev, paths, cfg, res):
     from image_stitching_tpu_torch.pipeline.compose_fused import (
         compose_rects, rect_grid)
     from image_stitching_tpu_torch.pipeline.stitcher import compose_inputs
-    comp = compose_inputs(res.cameras, (H, W), res.work_scale,
-                          cfg.compose_megapix, cfg.warp_type)
+    comp = compose_inputs(res.cameras, [(H, W)] * len(res.kept_indices),
+                          res.work_scale, cfg.compose_megapix, cfg.warp_type)
     g = compose_rects(comp.corners, comp.sizes, cfg.blend_type,
                       cfg.blend_strength)
     calls = []
@@ -457,8 +504,8 @@ def check_k2(dev, paths, cfg, res):
         for i in idxs:
             im = torch.from_numpy(image_io.orient_capture(image_io.imread(
                 paths[res.kept_indices[i]]), False)).to(dev)
-            if comp.resize_hw is not None:
-                im = resize(im, comp.resize_hw)
+            if comp.resize_hws is not None:
+                im = resize(im, comp.resize_hws[i])
             us, vs = rect_grid(g.tls[i], bh, bw, dev)
             sx, sy, _ = backward_xy_1d(
                 comp.warper.proj_name, us, vs,
@@ -474,22 +521,7 @@ def check_k2(dev, paths, cfg, res):
     dev_ms = device_ms(lambda: run(warp_bilinear)) / len(calls)
     call_ms = time_ms(lambda: run(warp_bilinear)) / len(calls)
     plain_ms = time_ms(lambda: run(warp_bilinear_plain)) / len(calls)
-    # Yardstick, never called by the port: one grid_sample per rect on the
-    # same samples (planar source, normalised grid, made beforehand).  Its
-    # reflection pads about the edge pixels' centres, K2 about their edges.
-    lib_in = []
-    for src, sx, sy in calls:
-        hc, wc = src.shape[0], src.shape[1]
-        grid = torch.stack([sx / (wc - 1) * 2 - 1, sy / (hc - 1) * 2 - 1],
-                           -1)[None]
-        lib_in.append((src.permute(2, 0, 1)[None].contiguous(), grid))
-    def lib_run():
-        for x, grd in lib_in:
-            torch.nn.functional.grid_sample(x, grd, mode="bilinear",
-                                            padding_mode="reflection",
-                                            align_corners=True)
-    library_ms = device_ms(lib_run) / len(calls)
-    lib_call_ms = time_ms(lib_run) / len(calls)
+    library_ms, lib_call_ms = k2_library_ms(calls)
     bound_ms, bound_by = k2_bound(calls)
     print(f"phase 3 K2 warp_bilinear: {len(calls)} compose rects of the "
           f"main path, canvas {g.canvas} ({g.canvas_h}x{g.canvas_w} padded, "
@@ -895,7 +927,7 @@ def stage_table(columns) -> str:
     return f"stage (s): {head}\n" + "\n".join(rows)
 
 
-def stitch_run(stitch, caps, cfg, counters, recorder=None):
+def stitch_run(stitch, caps, cfg, counters, recorder=None, output=""):
     """One timed stitch() with every kernel's count set to 0 just before
     it and read just after."""
     for fn in counters:
@@ -903,10 +935,10 @@ def stitch_run(stitch, caps, cfg, counters, recorder=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if recorder is None:
-        res = stitch(caps, cfg, output="", device="cuda")
+        res = stitch(caps, cfg, output=output, device="cuda")
     else:
         with recorder:
-            res = stitch(caps, cfg, output="", device="cuda")
+            res = stitch(caps, cfg, output=output, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, wall, {fn.__name__: fn.launches for fn in counters}
@@ -931,9 +963,11 @@ def e2e_gates(res, k_true, rs_true, launches, names, n_images=N_IMAGES,
 
 # Phase 10's configurations, as the JAX package's bench.py makes them.
 CYL4 = dict(n_images=4, hw=(1080, 1920), fov_deg=55.0, overlap_ratio=0.45)
-CYL4_SEEDS = (12, 11, 13, 14)       # bench.py:250-264; 12 is the warm-up
+# bench.py times cyl4 on seeds 11, 13, 14 and vga_pair on 101-105; the
+# smoke keeps seed 11 and 101-103 (phase 12 took the time the others had).
+CYL4_SEEDS = (12, 11)               # bench.py:250-264; 12 is the warm-up
 VGA = dict(n_images=2, hw=(480, 640), fov_deg=55.0, overlap_ratio=0.5)
-VGA_SEEDS = tuple(range(100, 106))  # bench.py:198-212; 100 the warm-up
+VGA_SEEDS = tuple(range(100, 104))  # bench.py:198-212; 100 the warm-up
 SEAM_FINDERS = ("voronoi", "gc_color", "gc_colorgrad")
 
 
@@ -1154,7 +1188,7 @@ def run_phase10(stitch, stitcher, counters, names, caps, caps_default,
         covered, cut = seam_union_gate(rec.calls["find_seams"][0])
         return res, wall, launches, err, coverage, (covered, cut), rec
 
-    # (a) cyl4: warm-up (seed 12) in phase 3; timed on 11, 13, 14.
+    # (a) cyl4: warm-up (seed 12) in phase 3; timed on CYL4_SEEDS[1:].
     cfg = StitchConfig(num_features=1500, warp_type="cylindrical")
     mp_in = CYL4["n_images"] * CYL4["hw"][0] * CYL4["hw"][1] / 1e6
     walls, cols = {}, []
@@ -1181,7 +1215,7 @@ def run_phase10(stitch, stitcher, counters, names, caps, caps_default,
           f"{float(np.median(list(walls.values()))):.4f} s\n"
           + stage_table(cols), flush=True)
 
-    # (b) vga_pair: warm-up on seed 100, p50 wall over 101-105.
+    # (b) vga_pair: warm-up on seed 100, p50 wall over 101-103.
     cfg = StitchConfig(num_features=1500, blend_type="feather")
     d, _, _ = caps[("vga", VGA_SEEDS[0])]
     stitch(d, cfg, output="", device="cuda")
@@ -1693,6 +1727,351 @@ def run_phase11(stitch, stitcher, counters, names, caps11, truth,
                 k2=dict(device_ms=k2_ms, bound_ms=k2_bound_ms, err=k2_err))
 
 
+# Phase 12's capture sets.  mixed8: DEFAULT_RING's geometry with the odd
+# views at 12 MP, each view at its own K (the same 55 deg field of view)
+# and its own EXIF payload; spher16 as bench.py makes it
+# (bench.py:445-519) with DEFAULT_RING's sigma-8 noise, and its +-2 LSB
+# warm-up twin.
+MIXED_HWS = [(2448, 3264), (3000, 4000)] * 4
+SPHER16 = dict(n_images=16, hw=(3000, 4000), fov_deg=55.0,
+               overlap_ratio=0.45, seed=41)
+
+
+def write_mixed_dir(directory, hws, pool, fov_deg=55.0, overlap_ratio=0.5,
+                    seed=7, noise_sigma=8.0):
+    """A horizontal ring whose view i is rendered at its own size hws[i]
+    with its own K (one horizontal field of view) and the sensor noise of
+    `write_ring_dir` (seed 1000 + i), written as JPEGs stored rotated 180
+    degrees with each view's own EXIF pose payload.  Returns the ground
+    truth ([K float64], [R float64])."""
+    from image_stitching_tpu_torch.core import exif, image_io
+    from image_stitching_tpu_torch.data.synth import (_render_noisy,
+                                                      ring_geometry)
+    geo = [ring_geometry(len(hws), hw, fov_deg, overlap_ratio)
+           for hw in hws]
+    images = pool.map(_render_noisy, [
+        (i, geo[i][0], geo[i][1][i], hw, seed, noise_sigma)
+        for i, hw in enumerate(hws)])
+    os.makedirs(directory, exist_ok=True)
+    ks, rs = [], []
+    for i, img in enumerate(images):
+        k = geo[i][0].astype(np.float32)
+        r = geo[i][1][i].astype(np.float32)
+        payload = exif.camera_to_image_description(
+            focal=float(k[1, 1]), ppx=float(k[0, 2]), ppy=float(k[1, 2]),
+            R=r, is_portrait=False)
+        image_io.write_jpeg_with_description(
+            os.path.join(directory, f"{i}.jpg"),
+            image_io.rotate_180(np.clip(img, 0, 255).astype(np.uint8)),
+            payload, quality=92)
+        ks.append(k.astype(np.float64))
+        rs.append(r.astype(np.float64))
+    return ks, rs
+
+
+def render_phase12_dirs(root: str, workers: int):
+    """Phase 12's capture sets, the views rendered in one process pool:
+    {name: directory} for "mixed8", "spher16" and "spher16 warm-up", and
+    their ground truth."""
+    import multiprocessing as mp
+    from image_stitching_tpu_torch.data.synth import (_noisy_views,
+                                                      ring_geometry,
+                                                      write_capture_dir)
+    dirs = {name: os.path.join(root, name.replace(" ", "_"))
+            for name in ("mixed8", "spher16", "spher16 warm-up")}
+    with mp.get_context("spawn").Pool(workers) as pool:
+        ks, rs = write_mixed_dir(dirs["mixed8"], MIXED_HWS, pool)
+        g = SPHER16
+        k16, rs16 = ring_geometry(g["n_images"], g["hw"], g["fov_deg"],
+                                  g["overlap_ratio"])
+        images, k32, rs32 = _noisy_views(k16, rs16, g["hw"], g["seed"],
+                                         DEFAULT_RING["noise_sigma"], pool)
+    write_capture_dir(dirs["spher16"], images, k32, rs32)
+    write_capture_dir(dirs["spher16 warm-up"], noisy_twin(images), k32,
+                      rs32)
+    return dirs, dict(mixed_k=ks, mixed_rs=rs,
+                      k16=np.asarray(k32, np.float64),
+                      rs16=[np.asarray(r, np.float64) for r in rs32])
+
+
+class HostTimer:
+    """Pass-through wrapper on a module function that adds each call's
+    host seconds to `seconds` while the context is open."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.seconds = 0.0
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def k2_loop_check(calls):
+    """K2 on the loop compose's (src, sx, sy) calls: against its plain
+    version under phase 3's gate, device and call ms per call, the plain
+    version's ms and the bound."""
+    from image_stitching_tpu_torch.kernels.warp_gather import (
+        warp_bilinear, warp_bilinear_plain)
+    err = k2_max_diff(calls)
+
+    def run(fn):
+        for src, sx, sy in calls:
+            fn(src, sx, sy)
+    bound_ms, bound_by = k2_bound(calls)
+    return dict(err=err,
+                device_ms=device_ms(lambda: run(warp_bilinear)) / len(calls),
+                call_ms=time_ms(lambda: run(warp_bilinear)) / len(calls),
+                plain_ms=time_ms(lambda: run(warp_bilinear_plain), reps=3)
+                / len(calls), library_ms=k2_library_ms(calls)[0],
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k5_loop_check(calls):
+    """K5 on the loop blender's calls (a bucket of one padded rect each,
+    into the blender's band accumulators), replayed into fresh
+    accumulators against its plain version under phase 7's gates; kernel
+    launches, device and call ms per call, the plain version's ms, and the
+    bound per call (the rect in, its window in every band read and written
+    once)."""
+    from image_stitching_tpu_torch.kernels.multiband import (
+        band_offsets, pyramid_accumulate, pyramid_accumulate_plain)
+    nb = calls[0][4]
+    shapes = [tuple(a.shape) for a in calls[0][3]]
+    dev = calls[0][0].device
+
+    def fresh():
+        return [torch.zeros(sh, device=dev) for sh in shapes]
+    acc_k, acc_p, scratch = fresh(), fresh(), fresh()
+    for warped, weight, offs, _, _ in calls:
+        pyramid_accumulate(warped, weight, offs, acc_k, nb)
+        pyramid_accumulate_plain(warped, weight, offs, acc_p, nb)
+    err, u8 = _k5_gates(acc_k, acc_p, nb, "loop compose")
+
+    def run(fn):
+        for warped, weight, offs, _, _ in calls:
+            fn(warped, weight, offs, scratch, nb)
+    per_call = kernel_launches(lambda: run(pyramid_accumulate)) / len(calls)
+    assert per_call <= 2 * nb + 1, f"K5 loop: {per_call} launches a call"
+    n_bytes = n_ops = 0.0
+    for warped, weight, offs, _, _ in calls:
+        _, ph, pw = weight.shape
+        n_bytes += 16 * ph * pw + sum(
+            2 * 16 * (ph >> b) * (pw >> b) for b in range(nb + 1))
+        n_ops += (sum(4 * 50 * (ph >> b) * (pw >> b)
+                      for b in range(1, nb + 1)) +
+                  sum((3 * 18 + 12) * (ph >> b) * (pw >> b)
+                      for b in range(nb + 1)))
+        assert len(band_offsets(offs[0], scratch, ph, pw)) == nb + 1
+    bound_ms, bound_by = bound(n_bytes / len(calls), n_ops / len(calls))
+    return dict(err=err, u8=u8, n_bands=nb, launches_per_call=per_call,
+                rects=sorted({tuple(c[0].shape) for c in calls}),
+                device_ms=device_ms(lambda: run(pyramid_accumulate)) /
+                len(calls),
+                call_ms=time_ms(lambda: run(pyramid_accumulate)) /
+                len(calls),
+                plain_ms=time_ms(lambda: run(pyramid_accumulate_plain),
+                                 reps=3) / len(calls),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def run_phase12(stitch, counters, names, caps12, truth, caps_default,
+                k_true, rs_true, base_9b, work, smi):
+    """Phase 12, the loop compose, each stitch under the counts as in
+    phase 9: (a) mixed8, StitchConfig() on DEFAULT_RING's geometry at two
+    sizes (legacy decode, ORB per image, the host exposure feed, the loop
+    compose), after a warm-up on the same files, with K2 and K5 on the
+    loop's shapes; (b) StitchConfig(timelapse=True, timelapse_type=
+    "as_is") on DEFAULT_RING in a working directory of its own; (c)
+    spher16, StitchConfig(crop_result=True) on 16 x 3000x4000 after a
+    warm-up on its +-2 LSB twin.  Returns the counts by path and the
+    kernel numbers of (a)."""
+    from image_stitching_tpu_torch.config import StitchConfig
+    from image_stitching_tpu_torch.ops import blend, crop, warps
+    from image_stitching_tpu_torch.ops.warps import result_roi
+    from image_stitching_tpu_torch.pipeline import stitcher
+    by_path = {}
+
+    # (a) mixed8 under StitchConfig().
+    cfg = StitchConfig()
+    n_mixed = len(MIXED_HWS)
+    stitch(caps12["mixed8"], cfg, output="", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = [Recorder(warps, "warp_bilinear"),
+           Recorder(blend, "pyramid_accumulate"),
+           Recorder(stitcher, "start_fast_ingest", "feed", "find_seams")]
+    with rec[0], rec[1]:
+        res, wall, launches = stitch_run(stitch, caps12["mixed8"], cfg,
+                                         counters, rec[2])
+    peak = torch.cuda.max_memory_allocated()
+    assert rec[2].calls["start_fast_ingest"][0][2] is None, \
+        "fast ingest took a mixed-size set"
+    assert res.kept_indices == list(range(n_mixed)), res.kept_indices
+    assert bool(torch.isfinite(res.panorama).all()), "non-finite panorama"
+    err = reproj_err_px(res.cameras, res.kept_indices, truth["mixed_k"],
+                        truth["mixed_rs"], res.work_scale, list(MIXED_HWS))
+    assert err <= 1.0, f"mixed8 reprojection {err:.4f} px > 1 px"
+    cov = float(res.mask.float().mean())
+    assert cov > 0.9, f"mixed8 mask coverage {cov:.4f}"
+    comp = rec[2].calls["feed"][0][2]
+    for i, (gh, gw) in enumerate(comp.grid_sizes):
+        gains = comp.gains[i, :gh, :gw]
+        assert np.all(np.isfinite(gains)) and np.all(gains > 0), \
+            f"mixed8 image {i}: gains not finite and positive"
+    covered, cut = seam_union_gate(rec[2].calls["find_seams"][0])
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    k2_calls = [args for args, _, _ in rec[0].calls["warp_bilinear"]]
+    k5_calls = [args for args, _, _ in rec[1].calls["pyramid_accumulate"]]
+    assert len(k2_calls) == 2 * n_mixed and len(k5_calls) == n_mixed, \
+        (len(k2_calls), len(k5_calls))
+    by_path["phase 12a"] = launches
+    mp_in = sum(h * w for h, w in MIXED_HWS) / 1e6
+    mixed_stages = res.stage_times
+    print(f"phase 12a mixed8 (StitchConfig(), {n_mixed} views of "
+          f"{sorted(set(MIXED_HWS))} alternating, DEFAULT_RING's geometry, "
+          f"each view its own K; after a warm-up on the same files): fast "
+          f"ingest declined the set "
+          f"(legacy decode), kept {len(res.kept_indices)}/{n_mixed}, "
+          f"reprojection {err:.4f} px (per-image K), panorama "
+          f"{tuple(res.panorama.shape)} float, mask {cov:.4f}, gains "
+          f"finite and positive (host feed, grids "
+          f"{[tuple(int(v) for v in g) for g in comp.grid_sizes]}), seam "
+          f"union = warped union ({covered} px, {cut} px cut), launches "
+          f"{launches}, wall {wall:.4f} s ({mp_in / wall:.3f} MP/s, "
+          f"{mp_in:.2f} MP in), peak device memory {peak / 2 ** 30:.3f} GiB "
+          f"({peak} bytes); card '{smi}'", flush=True)
+    del res, rec
+    k2 = k2_loop_check(k2_calls[n_mixed:])
+    print(f"phase 12a K2 on the loop compose's {n_mixed} rects "
+          f"{sorted({tuple(c[1].shape) for c in k2_calls[n_mixed:]})} "
+          f"(sources {sorted({tuple(c[0].shape) for c in k2_calls[n_mixed:]})}"
+          f"; {n_mixed} more seam-scale warps in the stitch): max |diff| "
+          f"{k2['err']:.3g} (atol 1e-4), per call: kernel device "
+          f"{k2['device_ms']:.4f} ms, call {k2['call_ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, grid_sample device "
+          f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+          f"({k2['bound_by']}, {k2['bound_ms'] / k2['device_ms']:.1%} of it "
+          f"reached)", flush=True)
+    k5 = k5_loop_check(k5_calls)
+    print(f"phase 12a K5 on the loop blender's {n_mixed} calls (a bucket of "
+          f"one each, rects {k5['rects']}, {k5['n_bands']} bands): "
+          f"accumulators {k5['err']:.3g} (tol 2e-3), finalized u8 "
+          f"{k5['u8']} (tol 1), masks equal, {k5['launches_per_call']:g} "
+          f"kernel launches a call; per call: kernel device "
+          f"{k5['device_ms']:.4f} ms, call {k5['call_ms']:.4f} ms, plain "
+          f"{k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms "
+          f"({k5['bound_by']}, {k5['bound_ms'] / k5['device_ms']:.1%} of it "
+          f"reached)", flush=True)
+    del k2_calls, k5_calls
+
+    # (b) The timelapse on DEFAULT_RING, in a working directory of its own
+    # (the frames go to it), with the default result name.
+    cfg = StitchConfig(timelapse=True, timelapse_type="as_is")
+    tl_dir = os.path.join(work, "timelapse")
+    os.makedirs(tl_dir)
+    cwd = os.getcwd()
+    os.chdir(tl_dir)
+    try:
+        rec = Recorder(stitcher, "_loop_compose")
+        res, wall, launches = stitch_run(stitch, caps_default, cfg,
+                                         counters, rec, output=None)
+    finally:
+        os.chdir(cwd)
+    comp_in = rec.calls["_loop_compose"][0][0][1]
+    _, _, cw, ch = result_roi(comp_in.corners, comp_in.sizes)
+    frames = sorted(f for f in os.listdir(tl_dir) if f.startswith("fixed_"))
+    assert frames == sorted(f"fixed_{i}.jpg" for i in range(N_IMAGES)), \
+        frames
+    assert res.timelapse_frames == [f"fixed_{i}.jpg"
+                                    for i in range(N_IMAGES)]
+    assert not os.path.exists(os.path.join(tl_dir, "result.jpg")), \
+        "the timelapse wrote result.jpg"
+    from PIL import Image
+    for f in frames:
+        with Image.open(os.path.join(tl_dir, f)) as im:
+            assert im.size == (cw, ch), (f, im.size, (cw, ch))
+    assert res.kept_indices == list(range(N_IMAGES)), res.kept_indices
+    err = reproj_err_px(res.cameras, res.kept_indices, k_true, rs_true,
+                        res.work_scale)
+    assert err <= 1.0, f"timelapse reprojection {err:.4f} px > 1 px"
+    tl_names = [nm for nm in names if nm != "pyramid_accumulate"]
+    for name in tl_names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    assert launches["warp_bilinear"] >= N_IMAGES, launches
+    by_path["phase 12b"] = launches
+    timelapse_stages = res.stage_times
+    print(f"phase 12b timelapse (StitchConfig(timelapse=True, "
+          f"timelapse_type='as_is')) on DEFAULT_RING: kept "
+          f"{len(res.kept_indices)}/{N_IMAGES}, reprojection {err:.4f} px, "
+          f"{len(frames)} frames fixed_*.jpg of the union canvas {cw}x{ch} "
+          f"in the working directory, no result.jpg, launches {launches}, "
+          f"wall {wall:.4f} s; Compositing "
+          f"{res.stage_times['Compositing']:.4f} s (loop) against phase 9b's "
+          f"{base_9b.stage_times['Compositing']:.4f} s (fused); card "
+          f"'{smi}'", flush=True)
+    del res, rec
+
+    # (c) spher16 with the auto-crop, timed after a warm-up on its twin.
+    cfg = StitchConfig(crop_result=True)
+    g = SPHER16
+    stitch(caps12["spher16 warm-up"], cfg, output="", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorder(stitcher, "fused_compose")
+    with HostTimer(stitcher, "crop_rect") as crop_t:
+        res, wall, launches = stitch_run(stitch, caps12["spher16"], cfg,
+                                         counters, rec)
+    peak = torch.cuda.max_memory_allocated()
+    assert res.kept_indices == list(range(g["n_images"])), res.kept_indices
+    err = reproj_err_px(res.cameras, res.kept_indices, truth["k16"],
+                        truth["rs16"], res.work_scale, g["hw"])
+    assert err <= 1.0, f"spher16 reprojection {err:.4f} px > 1 px"
+    pano = res.panorama
+    assert bool(torch.isfinite(pano).all()), "non-finite panorama"
+    canvas = tuple(res.mask.shape)
+    assert pano.shape[0] * pano.shape[1] < canvas[0] * canvas[1], \
+        (tuple(pano.shape), canvas)
+    img8 = np.clip(pano.cpu().numpy(), 0, 255).astype(np.uint8)
+    gray = (0.299 * img8[..., 0] + 0.587 * img8[..., 1] +
+            0.114 * img8[..., 2])
+    inner = crop.check_interior_exterior(
+        np.where(gray > 0, np.uint8(255), np.uint8(0)),
+        (0, 0, img8.shape[1], img8.shape[0]))
+    assert inner[0], f"the cropped panorama's border holds black: {inner}"
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    by_path["phase 12c"] = launches
+    mp_in = g["n_images"] * g["hw"][0] * g["hw"][1] / 1e6
+    print(f"phase 12c spher16 (StitchConfig(crop_result=True), "
+          f"{g['n_images']} x {g['hw'][0]}x{g['hw'][1]}, 55 deg, overlap "
+          f"{g['overlap_ratio']}, seed {g['seed']}, sigma-8 noise, after a "
+          f"warm-up on its +-2 LSB twin): kept {len(res.kept_indices)}/"
+          f"{g['n_images']}, reprojection {err:.4f} px, canvas {canvas} "
+          f"cropped to {tuple(pano.shape)}, its border clean "
+          f"(check_interior_exterior finished), crop's host time "
+          f"{crop_t.seconds:.4f} s, launches {launches}, wall {wall:.4f} s "
+          f"({mp_in / wall:.3f} MP/s, {mp_in:.2f} MP in), peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB ({peak} bytes); card '{smi}'\n"
+          + stage_table([("phase 9b", base_9b.stage_times),
+                         ("12a mixed8", mixed_stages),
+                         ("12b timelapse", timelapse_stages),
+                         ("12c spher16", res.stage_times)]), flush=True)
+    del res, rec
+    return dict(by_path=by_path, k2=k2, k5=k5)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1748,6 +2127,15 @@ def main() -> int:
               f"with frames {INFILL_FRAMES} made noise, and the affine scan "
               f"(2x2 tiles of {TILE_HW[0]}x{TILE_HW[1]}, no EXIF) rendered "
               f"and written in {time.perf_counter() - t0:.3f} s", flush=True)
+        t0 = time.perf_counter()
+        caps12, truth12 = render_phase12_dirs(work, workers)
+        print(f"phase 0 captures: mixed8 ({len(MIXED_HWS)} views of "
+              f"{sorted(set(MIXED_HWS))} alternating, DEFAULT_RING's "
+              f"geometry and noise) and bench.py's spher16 "
+              f"({SPHER16['n_images']} x {SPHER16['hw'][0]}x"
+              f"{SPHER16['hw'][1]}, seed {SPHER16['seed']}, sigma-8 noise) "
+              f"with its +-2 LSB twin rendered and written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
 
         # The kernels (nvcc) and the host runtime (g++) build side by side.
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -1964,6 +2352,23 @@ def main() -> int:
                       rig37_bound_ms_per_call=phase11["k5"]["bound_ms"])
             k2.update(affine_device_ms=phase11["k2"]["device_ms"],
                       affine_bound_ms=phase11["k2"]["bound_ms"])
+            phase12 = run_phase12(stitch, counters, names, caps12, truth12,
+                                  caps_default, k_true, rs_true, base_9b,
+                                  work, smi)
+            by_path.update(phase12["by_path"])
+            loop2, loop5 = phase12["k2"], phase12["k5"]
+            k2.update(loop_device_ms=loop2["device_ms"],
+                      loop_call_ms=loop2["call_ms"],
+                      loop_plain_ms=loop2["plain_ms"],
+                      loop_bound_ms=loop2["bound_ms"],
+                      loop_library_ms=loop2["library_ms"],
+                      loop_max_abs_err=loop2["err"])
+            k5.update(loop_device_ms_per_call=loop5["device_ms"],
+                      loop_call_ms=loop5["call_ms"],
+                      loop_plain_ms=loop5["plain_ms"],
+                      loop_bound_ms_per_call=loop5["bound_ms"],
+                      loop_launches_per_call=loop5["launches_per_call"],
+                      loop_max_abs_err=loop5["err"])
         finally:
             os.chdir(cwd)
 

@@ -19,7 +19,14 @@ alone and its block column on x alone, for both images of a pair, so each
 table is Y^T @ fields @ X with one-hot Y and X (float32 `torch.matmul`;
 the counts are exact integers).  Only the small tables go to the host,
 which maps the ranks back to block indices and assembles the system.
-The compose applies the maps (`pipeline/compose_fused.py::prep_gains`).
+The fused compose applies the maps (`pipeline/compose_fused.py::
+prep_gains`).
+
+`feed` is the reference's host route, kept for the non-uniform branch:
+the same statistics from host images of any sizes (the warped float
+seam images), by bincounts in float64, whose numbers the reference's
+non-uniform stitch reads.  `apply_gain` is the loop compose's apply:
+the block map resized over each compose-scale warped image.
 """
 
 from __future__ import annotations
@@ -32,9 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ExposureCompensatorType as ECType
+from .imgproc import resize
 from .seams import bucket_dim, overlap_box, periodic_corner
 
-__all__ = ["ExposureCompensator", "feed_device"]
+__all__ = ["ExposureCompensator", "feed", "feed_device", "apply_gain"]
 
 _ALPHA = 0.01
 _BETA = 100.0
@@ -377,3 +385,104 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
                            offs, i, j, cnt, si, sj)
     return _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat,
                       nr_feeds, nr_filtering, per_channel, blocks)
+
+
+def feed(corners, images_warped, masks_warped,
+         comp_type: ECType = ECType.GAIN_BLOCKS, nr_feeds: int = 1,
+         nr_filtering: int = 2, block_size: int = 64,
+         period=None) -> ExposureCompensator:
+    """Fit the compensator from host images (h_i, w_i, 3) and masks
+    (h_i, w_i) of any sizes at the seam-scale corners: self and pair
+    block statistics by float64 bincounts, then the one gain system.
+    period: the warped u-axis period that couples cross-dateline pairs."""
+    if isinstance(comp_type, str):
+        comp_type = ECType(comp_type.lower())
+    n = len(images_warped)
+    if comp_type == ECType.NO:
+        return ExposureCompensator(comp_type, np.ones(n),
+                                   np.ones((n, 2), np.int32))
+    blocks = comp_type in (ECType.GAIN_BLOCKS, ECType.CHANNELS_BLOCKS)
+    per_channel = comp_type in (ECType.CHANNELS, ECType.CHANNELS_BLOCKS)
+    nch = 3 if per_channel else 1
+
+    imgs = [np.asarray(im, np.float64) for im in images_warped]
+    msks = [np.asarray(m) > 0 for m in masks_warped]
+    sizes = [(im.shape[1], im.shape[0]) for im in imgs]
+    intens = [im if per_channel else
+              np.linalg.norm(im, axis=-1)[..., None] for im in imgs]
+    grids: List[Tuple[int, int, int, int]] = []
+    offs: List[int] = []
+    b_tot = 0
+    for w, h in sizes:
+        g = _block_grid(w, h, block_size) if blocks else (1, 1, w, h)
+        grids.append(g)
+        offs.append(b_tot)
+        b_tot += g[0] * g[1]
+    n_mat = np.zeros((b_tot, b_tot))
+    i_mat = np.zeros((b_tot, b_tot, nch))
+
+    def block_index_map(i, x0, y0, w, h):
+        """Block index of image i over local pixels [x0, x0 + w) x
+        [y0, y0 + h)."""
+        gw, _, bw, bh = grids[i]
+        bx = (x0 + np.arange(w)) // bw
+        by = (y0 + np.arange(h)) // bh
+        return by[:, None] * gw + bx[None, :]
+
+    for i in range(n):
+        gw, gh, _, _ = grids[i]
+        bi = gw * gh
+        ai = offs[i] + np.arange(bi)
+        key = block_index_map(i, 0, 0, *sizes[i])[msks[i]]
+        cnt = np.bincount(key, minlength=bi).astype(np.float64)
+        n_mat[ai, ai] = np.maximum(cnt, 1.0)
+        for c in range(nch):
+            s = np.bincount(key, weights=intens[i][..., c][msks[i]],
+                            minlength=bi)
+            i_mat[ai, ai, c] = s / np.maximum(cnt, 1.0)
+        for j in range(i + 1, n):
+            cj = periodic_corner(corners[i], sizes[i], corners[j], sizes[j],
+                                 period)
+            x, y, w, h = overlap_box(corners[i], sizes[i], cj, sizes[j])
+            if w <= 0 or h <= 0:
+                continue
+            bj = grids[j][0] * grids[j][1]
+            oxi, oyi = x - corners[i][0], y - corners[i][1]
+            oxj, oyj = x - cj[0], y - cj[1]
+            both = (msks[i][oyi:oyi + h, oxi:oxi + w] &
+                    msks[j][oyj:oyj + h, oxj:oxj + w])
+            key = (block_index_map(i, oxi, oyi, w, h) * bj +
+                   block_index_map(j, oxj, oyj, w, h))[both]
+            cnt = np.bincount(key, minlength=bi * bj).astype(
+                np.float64).reshape(bi, bj)
+            ii = intens[i][oyi:oyi + h, oxi:oxi + w]
+            ij = intens[j][oyj:oyj + h, oxj:oxj + w]
+            si = np.stack([np.bincount(key, weights=ii[..., c][both],
+                                       minlength=bi * bj).reshape(bi, bj)
+                           for c in range(nch)], -1)
+            sj = np.stack([np.bincount(key, weights=ij[..., c][both],
+                                       minlength=bi * bj).reshape(bi, bj)
+                           for c in range(nch)], -1)
+            _assemble_pair(n_mat, i_mat, grids, sizes, corners[i], cj,
+                           offs, i, j, cnt, si, sj)
+    return _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat,
+                      nr_feeds, nr_filtering, per_channel, blocks)
+
+
+def apply_gain(comp: ExposureCompensator, index: int,
+               img: torch.Tensor) -> torch.Tensor:
+    """compensator->apply for image `index`: the (h, w, 3) image times its
+    gain, its channel gains, or its block gain map resized over the image
+    (cv::resize INTER_LINEAR, as BlocksCompensator::apply does)."""
+    img = img.to(torch.float32)
+    if comp.comp_type == ECType.NO:
+        return img
+    if comp.comp_type == ECType.GAIN:
+        return img * float(comp.gains[index])
+    gains = torch.as_tensor(np.asarray(comp.gains[index], np.float32),
+                            device=img.device)
+    if comp.comp_type == ECType.CHANNELS:
+        return img * gains
+    gh, gw = int(comp.grid_sizes[index][0]), int(comp.grid_sizes[index][1])
+    gmap = resize(gains[:gh, :gw], (img.shape[0], img.shape[1]))
+    return img * (gmap[..., None] if gmap.ndim == 2 else gmap)

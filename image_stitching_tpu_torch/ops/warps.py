@@ -8,7 +8,9 @@ over torch, for the backward maps from warped-plane coordinates to source
 pixels on the device.  Plane, spherical and cylindrical maps take the
 separable form: on an axis-aligned grid the ray factors into functions of
 u alone and v alone, so the transcendentals are O(W + H); the other
-projections evaluate the meshgrid.
+projections evaluate the meshgrid.  `Warper.warp` warps one image (the
+non-uniform branch and the loop compose): its bilinear BORDER_REFLECT
+gather is kernel K2.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+
+from ..kernels.warp_gather import int32_taps, warp_bilinear
 
 __all__ = ["Warper", "make_warper", "PROJECTIONS", "backward_xy_1d",
            "camera_backward_xy", "warper_rotations", "result_roi",
@@ -408,6 +412,67 @@ class Warper:
         """dst rect (x, y, width, height), cv::Rect semantics."""
         tlx, tly, brx, bry = self.detect_result_roi(src_hw, k, r)
         return (tlx, tly, brx - tlx + 1, bry - tly + 1)
+
+    def warp(self, src: torch.Tensor, k, r, interp: str = "linear",
+             border: str = "reflect", dst_roi=None):
+        """warper->warp(src, K, R, interp, border): ((tl_x, tl_y), the
+        float32 warped image (H, W[, C]) on src's device).  The dst rect is
+        `dst_roi` (x, y, w, h), else the detected ROI.  linear/reflect (the
+        images) is kernel K2 on an (h, w, 3) source, zeroed where the ray
+        is behind the camera; nearest (the masks) and linear/constant are
+        plain gathers.  For "affine", r is the warper's H
+        (`warper_rotations`) and the map is `camera_backward_xy`'s."""
+        h, w = src.shape[0], src.shape[1]
+        if dst_roi is None:
+            tlx, tly, brx, bry = self.detect_result_roi((h, w), k, r)
+            dst_w, dst_h = brx - tlx + 1, bry - tly + 1
+        else:
+            tlx, tly, dst_w, dst_h = dst_roi
+        dev = src.device
+        us = tlx + torch.arange(dst_w, dtype=torch.float32, device=dev)
+        vs = tly + torch.arange(dst_h, dtype=torch.float32, device=dev)
+        sx, sy, valid = camera_backward_xy(
+            self.proj_name, us, vs,
+            torch.as_tensor(np.asarray(k, np.float32), device=dev),
+            torch.as_tensor(np.asarray(r, np.float32), device=dev),
+            self.scale)
+        img = src.to(torch.float32)
+        if interp == "linear" and border == "reflect":
+            if img.ndim != 3 or img.shape[2] != 3:
+                raise ValueError("Warper.warp: linear/reflect takes an "
+                                 f"(h, w, 3) image, got {tuple(img.shape)}")
+            out = warp_bilinear(img.contiguous(), sx.contiguous(),
+                                sy.contiguous())
+            out = torch.where(valid, out, 0.0).permute(1, 2, 0)
+            return (tlx, tly), out
+        flat = img.ndim == 2
+        if flat:
+            img = img[..., None]
+        if interp == "nearest":
+            xi = int32_taps(torch.round(sx))[0]
+            yi = int32_taps(torch.round(sy))[0]
+            inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h) & valid
+            out = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+            if border == "constant":
+                out = torch.where(inside[..., None], out, 0.0)
+        else:
+            x0 = torch.floor(sx)
+            y0 = torch.floor(sy)
+            fx = (sx - x0)[..., None]
+            fy = (sy - y0)[..., None]
+            x0i = int32_taps(x0)[0].clamp(-1, w)
+            y0i = int32_taps(y0)[0].clamp(-1, h)
+
+            def fetch(yy, xx):
+                inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+                val = img[yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
+                return torch.where(inside[..., None], val, 0.0)
+            out = (fetch(y0i, x0i) * (1 - fx) * (1 - fy) +
+                   fetch(y0i, x0i + 1) * fx * (1 - fy) +
+                   fetch(y0i + 1, x0i) * (1 - fx) * fy +
+                   fetch(y0i + 1, x0i + 1) * fx * fy)
+            out = torch.where(valid[..., None], out, 0.0)
+        return (tlx, tly), out[..., 0] if flat else out
 
 
 def u_period(proj_name: str, scale: float):

@@ -34,9 +34,8 @@ from ..config import BlenderType
 from ..config import ExposureCompensatorType as ECType
 from ..kernels.multiband import pyramid_accumulate
 from ..kernels.warp_gather import warp_bilinear
-from ..ops.blend import WEIGHT_EPS, num_bands_for
+from ..ops.blend import collapse, num_bands_for
 from ..ops.imgproc import dilate3
-from ..ops.pyr_mat import pyr_up_mm
 from ..ops.seams import bucket_dim
 from ..kernels.warp_gather import int32_taps
 from ..ops.warps import Warper, camera_backward_xy, result_roi
@@ -191,15 +190,12 @@ def _feather_weight(weight, us, vs, roi, sharpness: float, rounds: int):
 
 
 def _finalize(accs: List[torch.Tensor], n_bands: int):
-    """Normalise each band by its weight and collapse the pyramid."""
-    bands = [accs[b][:3] / (accs[b][3:4] + WEIGHT_EPS)
-             for b in range(n_bands + 1)]
-    out = bands[-1]
-    for b in range(n_bands - 1, -1, -1):
-        out = pyr_up_mm(out, bands[b].shape[1:]) + bands[b]
+    """Normalise each band by its weight, collapse the pyramid and round
+    to u8."""
+    out, mask = collapse(accs, n_bands)
     out_u8 = torch.clamp(torch.round(out.permute(1, 2, 0)), 0.0, 255.0).to(
         torch.uint8)
-    return out_u8, accs[0][3] > WEIGHT_EPS
+    return out_u8, mask
 
 
 def _prep_seam_masks(seam_masks: Sequence[np.ndarray], device):

@@ -10,15 +10,22 @@ the estimate from the match graph -> bundle adjustment (reproj, ray,
 affine or none) -> checkpoint -> pose infill of dropped images
 (infill_dropped) -> wave correction -> median focal -> seam-scale warp (any
 projection) -> exposure compensation -> seams -> compose-scale fused blend,
-multiband, FEATHER or NO (kernels K2 and K5) -> result.
+multiband, FEATHER or NO (kernels K2 and K5) -> result [-> auto-crop].
 `serialize_data=False` resumes from the checkpoint (`cams.data`,
 `indices.data`) with no features, matching or BA; `find_features=False`
 takes the EXIF priors (or identity cameras) as the cameras.
 
-This port runs one slice of the reference's configuration surface: every
-option the fused path takes, on captures of one size.  `check_slice`
-raises NotImplementedError for every option outside it, so the port never
-takes another path quietly.  The device is explicit:
+Captures of different sizes take the reference's non-uniform branch: ORB
+per image, the seam-scale warp per image (`Warper.warp`, K2), the host
+exposure `feed` and the seams on a padded stack of the fractional warped
+images.  Such sets, and `timelapse`, compose in the loop: per image the
+compose-scale warp (K2), the gain, the seam mask, then the blender
+(`ops/blend.py`, multiband through K5) or the timelapser, which writes
+each frame to `fixed_<name>` in the working directory.  `crop_result`
+cuts the panorama (not its mask) to `ops/crop.py::crop_rect`.
+
+`check_slice` raises NotImplementedError for every option outside the
+port, so it never takes another path quietly.  The device is explicit:
 `stitch(..., device="cuda")` raises when no GPU is present, and nothing
 falls back to the CPU.
 """
@@ -46,11 +53,14 @@ from ..estimation.homography_estimator import (affine_based_estimate,
 from ..estimation.pose_infill import infill_dropped_cameras
 from ..estimation.wave_correct import wave_correct
 from ..geometry.camera import Cameras
+from ..ops.blend import make_blender
+from ..ops.crop import crop_rect
+from ..ops.exposure import apply_gain, feed, feed_device
 from ..ops.features.orb import orb_detect_stack
-from ..ops.imgproc import resize, rgb_to_gray, scale_size
-from ..ops.exposure import feed_device
+from ..ops.imgproc import dilate3, resize, rgb_to_gray, scale_size
 from ..ops.matching import match_all_pairs
 from ..ops.seams import find_seams
+from ..ops.timelapse import Timelapser, fixed_name
 from ..ops.warps import (Warper, make_warper, result_roi, u_period,
                          warper_rotations)
 from .compose_fused import fused_compose, warp_stack
@@ -67,6 +77,7 @@ class StitchResult:
     kept_indices: List[int]
     cameras: Cameras                # at work scale
     stage_times: Dict[str, float]
+    timelapse_frames: List[str] = dataclasses.field(default_factory=list)
     work_scale: float = 1.0
 
 
@@ -79,8 +90,6 @@ def check_slice(cfg: StitchConfig, device="cpu") -> None:
     sharded = (cfg.use_sharded_compose and device.type == "cuda"
                and torch.cuda.device_count() > 1)
     refused = [
-        ("timelapse", cfg.timelapse, "True"),
-        ("crop_result", cfg.crop_result, "True"),
         ("use_sharded_compose", sharded,
          f"True on {torch.cuda.device_count()} devices"),
         ("features_type", cfg.features_type != "orb", cfg.features_type),
@@ -139,37 +148,41 @@ class ComposeInputs:
     rs: np.ndarray                  # (N, 3, 3) float32, the warper's R
     corners: List[Tuple[int, int]]
     sizes: List[Tuple[int, int]]
-    resize_hw: Optional[Tuple[int, int]]  # compose source size, or None
+    # Compose source size of each image, or None where the sources stay at
+    # full resolution.
+    resize_hws: Optional[List[Tuple[int, int]]]
 
 
-def compose_inputs(cameras: Cameras, full_hw: Tuple[int, int],
-                   work_scale: float, compose_megapix: float,
-                   warp_type: str) -> ComposeInputs:
+def compose_inputs(cameras: Cameras, hws: Sequence[Tuple[int, int]],
+                   work_scale: float, compose_megapix: float, warp_type: str,
+                   area0: Optional[int] = None) -> ComposeInputs:
     """The compose warper, cameras and per-image ROIs for work-scale
-    `cameras` of uniform full-size (h, w) images, as the reference's
-    compose stage sets them up.  The sources are resized only when the
-    scale is more than 0.1 away from 1."""
-    h0, w0 = full_hw
+    `cameras` of images of full sizes `hws` (one (h, w) each), as the
+    reference's compose stage sets them up.  The compose scale is set by
+    `area0`, the pixel count of the capture set's first image (kept or
+    not), by default the first (h, w)'s; the sources are resized only when
+    it is more than 0.1 away from 1."""
+    cam_np = cameras.numpy()
+    if area0 is None:
+        area0 = hws[0][0] * hws[0][1]
     scale = 1.0
     if compose_megapix > 0:
-        scale = min(1.0, float(np.sqrt(compose_megapix * 1e6 / (h0 * w0))))
+        scale = min(1.0, float(np.sqrt(compose_megapix * 1e6 / area0)))
     aspect = scale / work_scale
-    cam_np = cameras.numpy()
     warper = make_warper(warp_type, _median_focal(cam_np["focal"]) * aspect)
     ks = np.asarray(cameras.scaled(aspect).K().cpu().numpy(), np.float32)
     rs = warper_rotations(warp_type, cam_np["R"])
-    sh, sw = h0, w0
-    resize_hw = None
-    if abs(scale - 1) > 1e-1:
-        sw = int(round(sw * scale))
-        sh = int(round(sh * scale))
-        resize_hw = scale_size(h0, w0, scale)
+    resized = abs(scale - 1) > 1e-1
+    resize_hws = ([scale_size(h, w, scale) for h, w in hws] if resized
+                  else None)
     corners, sizes = [], []
-    for i in range(len(ks)):
-        roi = warper.warp_roi((sh, sw), ks[i], rs[i])
+    for i, (h, w) in enumerate(hws):
+        src_hw = ((int(round(h * scale)), int(round(w * scale))) if resized
+                  else (h, w))
+        roi = warper.warp_roi(src_hw, ks[i], rs[i])
         corners.append((roi[0], roi[1]))
         sizes.append((roi[2], roi[3]))
-    return ComposeInputs(scale, warper, ks, rs, corners, sizes, resize_hw)
+    return ComposeInputs(scale, warper, ks, rs, corners, sizes, resize_hws)
 
 
 def _resolve_device(device) -> torch.device:
@@ -218,6 +231,7 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
     want_feats = cfg.find_features and cfg.serialize_data
 
     fast = None
+    device_imgs = None
     with stage_timer("Reading images and priors", times, dev):
         priors, is_portrait = (_load_priors(paths) if cfg.use_sensor_priors
                                else (None, False))
@@ -243,7 +257,8 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
         # reads full-resolution pixels.
         compose_src_scale = (compose_scale
                              if abs(compose_scale - 1) > 1e-1 else 1.0)
-        if cfg.fast_ingest:
+        # The timelapse composes in the loop, from full-resolution pixels.
+        if cfg.fast_ingest and not cfg.timelapse:
             fast = start_fast_ingest(
                 paths, is_portrait, want_gray=want_feats,
                 gray_scale=work_scale,
@@ -256,37 +271,42 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                 im = image_io.orient_capture(image_io.imread(p), is_portrait)
                 device_imgs.append(torch.from_numpy(im).to(dev))
             full_sizes = [(im.shape[1], im.shape[0]) for im in device_imgs]
-    if len(set(full_sizes)) != 1:
-        raise NotImplementedError(
-            "captures of different sizes are outside the PyTorch port's "
-            "slice")
     n = len(paths)
+    uniform = len(set(full_sizes)) == 1
 
+    stack_u8 = seam_stack = None
+    seam_imgs: List[torch.Tensor] = []     # the non-uniform branch's
     with stage_timer("Finding features", times, dev):
         h0, w0 = full_sizes[0][1], full_sizes[0][0]
-        work_hw = (scale_size(h0, w0, work_scale) if work_scale != 1.0
-                   else (h0, w0))
         seam_hw = scale_size(h0, w0, seam_scale)
         if fast is not None:
             # stack_u8 is at decode scale; the compose resizes it to dims
             # computed from the full-resolution size.
+            work_hw = (scale_size(h0, w0, work_scale) if work_scale != 1.0
+                       else (h0, w0))
             grays, stack_u8, seam_stack = fast_prep(
                 fast, gray_raw, rgb_raw, is_portrait, work_hw, seam_hw)
         else:
             grays, seam_list = [], []
             for im in device_imgs:
+                h, w = im.shape[0], im.shape[1]
                 if want_feats:
-                    work = (resize(im, work_hw) if work_scale != 1.0
-                            else im.to(torch.float32))
+                    work = (resize(im, scale_size(h, w, work_scale))
+                            if work_scale != 1.0 else im.to(torch.float32))
                     grays.append(rgb_to_gray(work))
-                seam_list.append(torch.clamp(torch.round(
-                    resize(im, seam_hw)), 0, 255).to(torch.uint8))
-            seam_stack = torch.stack(seam_list)
-            stack_u8 = torch.stack(device_imgs)
+                if uniform:
+                    seam_list.append(torch.clamp(torch.round(
+                        resize(im, seam_hw)), 0, 255).to(torch.uint8))
+                else:
+                    # Each image at its own seam size, left fractional.
+                    seam_imgs.append(resize(im, scale_size(h, w,
+                                                           seam_scale)))
+            if uniform:
+                seam_stack = torch.stack(seam_list)
+                stack_u8 = torch.stack(device_imgs)
         if want_feats:
-            fstack = orb_detect_stack(
-                grays if fast is not None else torch.stack(grays),
-                n_features=cfg.num_features, pattern=cfg.orb_pattern)
+            fstack = orb_detect_stack(grays, n_features=cfg.num_features,
+                                      pattern=cfg.orb_pattern)
 
     cameras_all = (Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
                    if priors is not None else None)
@@ -359,9 +379,15 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
         cameras = dataclasses.replace(
             cameras, R=wave_correct(cameras.R, cfg.wave_correct))
 
-    sel = torch.as_tensor(indices, device=dev)
-    stack_u8 = stack_u8[sel]
-    seam_stack = seam_stack[sel]
+    paths = [paths[i] for i in indices]
+    full_sizes = [full_sizes[i] for i in indices]
+    if uniform:
+        sel = torch.as_tensor(indices, device=dev)
+        stack_u8 = stack_u8[sel]
+        seam_stack = seam_stack[sel]
+    else:
+        device_imgs = [device_imgs[i] for i in indices]
+        seam_imgs = [seam_imgs[i] for i in indices]
     n = len(indices)
     cam_np = cameras.numpy()
 
@@ -374,58 +400,147 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
         k_seam[:, 0, :] *= swa
         k_seam[:, 1, :] *= swa
         r_all = warper_rotations(cfg.warp_type, cam_np["R"])
-        rois = [warper.warp_roi(seam_hw, k_seam[i], r_all[i])
+        seam_shapes = ([seam_hw] * n if uniform else
+                       [tuple(im.shape[:2]) for im in seam_imgs])
+        rois = [warper.warp_roi(seam_shapes[i], k_seam[i], r_all[i])
                 for i in range(n)]
         corners = [(r[0], r[1]) for r in rois]
-        # Snap to 64, as the reference does: the pad sizes change which
-        # pixels the padded stack holds, hence the output.  The stacks
-        # stay on the device for the exposure statistics and the seams.
-        images_pad, masks_pad = warp_stack(
-            seam_stack, torch.as_tensor(k_seam, device=dev),
-            torch.as_tensor(r_all, device=dev), warper.scale,
-            torch.as_tensor(np.asarray([[r[0], r[1]] for r in rois],
-                                       np.float32), device=dev),
-            warper.proj_name,
-            pad_h=-(-max(r[3] for r in rois) // 64) * 64,
-            pad_w=-(-max(r[2] for r in rois) // 64) * 64)
-        masks_host = masks_pad.cpu().numpy()
-        masks_warped = [masks_host[i, :rois[i][3], :rois[i][2]]
-                        for i in range(n)]
+        images_warped = None
+        if uniform:
+            # Snap to 64, as the reference does: the pad sizes change
+            # which pixels the padded stack holds, hence the output.  The
+            # stacks stay on the device for the exposure statistics and
+            # the seams.
+            images_pad, masks_pad = warp_stack(
+                seam_stack, torch.as_tensor(k_seam, device=dev),
+                torch.as_tensor(r_all, device=dev), warper.scale,
+                torch.as_tensor(np.asarray([[r[0], r[1]] for r in rois],
+                                           np.float32), device=dev),
+                warper.proj_name,
+                pad_h=-(-max(r[3] for r in rois) // 64) * 64,
+                pad_w=-(-max(r[2] for r in rois) // 64) * 64)
+            masks_host = masks_pad.cpu().numpy()
+            masks_warped = [masks_host[i, :rois[i][3], :rois[i][2]]
+                            for i in range(n)]
+        else:
+            # Each image warped alone; the seams read the fractional warped
+            # images from one padded stack, each rect at the origin.
+            images_pad = torch.zeros(
+                (n, max(r[3] for r in rois), max(r[2] for r in rois), 3),
+                dtype=torch.float32, device=dev)
+            images_warped, masks_warped = [], []
+            for i, im in enumerate(seam_imgs):
+                _, img_w = warper.warp(im, k_seam[i], r_all[i],
+                                       dst_roi=rois[i])
+                _, mask_w = warper.warp(
+                    torch.full(im.shape[:2], 255, dtype=torch.uint8,
+                               device=dev), k_seam[i], r_all[i],
+                    interp="nearest", border="constant", dst_roi=rois[i])
+                images_pad[i, :rois[i][3], :rois[i][2]] = img_w
+                images_warped.append(img_w.cpu().numpy())
+                masks_warped.append(mask_w.cpu().numpy().astype(np.uint8))
 
     # Cross-dateline pairs of a full ring sit a u-period apart; the period
     # re-couples them for exposure and seams.
     seam_u_period = u_period(warper.proj_name, warper.scale)
     with stage_timer("Compensating exposure", times, dev):
-        compensator = feed_device(
-            corners, [(r[2], r[3]) for r in rois], images_pad, masks_pad,
-            comp_type=cfg.expos_comp_type, nr_feeds=cfg.expos_comp_nr_feeds,
-            nr_filtering=cfg.expos_comp_nr_filtering,
-            block_size=cfg.expos_comp_block_size, period=seam_u_period)
+        expos = dict(comp_type=cfg.expos_comp_type,
+                     nr_feeds=cfg.expos_comp_nr_feeds,
+                     nr_filtering=cfg.expos_comp_nr_filtering,
+                     block_size=cfg.expos_comp_block_size,
+                     period=seam_u_period)
+        if uniform:
+            compensator = feed_device(corners, [(r[2], r[3]) for r in rois],
+                                      images_pad, masks_pad, **expos)
+        else:
+            compensator = feed(corners, images_warped, masks_warped, **expos)
 
     with stage_timer("Finding seams", times, dev):
         seam_masks = find_seams(corners, masks_warped, cfg.seam_find_type,
                                 images_dev=images_pad, period=seam_u_period)
 
+    timelapse_frames: List[str] = []
     with stage_timer("Compositing", times, dev):
-        comp = compose_inputs(cameras, (h0, w0), work_scale,
-                              cfg.compose_megapix, cfg.warp_type)
-        canvas = result_roi(comp.corners, comp.sizes)
-        if 0 < cfg.compose_strips_mp <= canvas[2] * canvas[3] / 1e6:
-            raise NotImplementedError(
-                f"compose_strips_mp={cfg.compose_strips_mp}: the strip-"
-                "streamed compose is outside the PyTorch port's slice")
-        comp_imgs = (torch.stack([resize(im, comp.resize_hw)
-                                  for im in stack_u8])
-                     if comp.resize_hw is not None else stack_u8)
-        pano, pano_mask = fused_compose(
-            comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
-            comp.sizes, seam_masks, corners,
-            seam_work_aspect * work_scale / comp.scale, compensator,
-            cfg.blend_type, cfg.blend_strength)
+        comp = compose_inputs(cameras, [(h, w) for w, h in full_sizes],
+                              work_scale, cfg.compose_megapix, cfg.warp_type,
+                              area0)
+        seam_ratio = seam_work_aspect * work_scale / comp.scale
+        if uniform and not cfg.timelapse:
+            canvas = result_roi(comp.corners, comp.sizes)
+            if 0 < cfg.compose_strips_mp <= canvas[2] * canvas[3] / 1e6:
+                raise NotImplementedError(
+                    f"compose_strips_mp={cfg.compose_strips_mp}: the "
+                    "strip-streamed compose is outside the PyTorch port's "
+                    "slice")
+            comp_imgs = (torch.stack([resize(im, hw) for im, hw in
+                                      zip(stack_u8, comp.resize_hws)])
+                         if comp.resize_hws is not None else stack_u8)
+            pano, pano_mask = fused_compose(
+                comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
+                comp.sizes, seam_masks, corners, seam_ratio, compensator,
+                cfg.blend_type, cfg.blend_strength)
+        else:
+            sources = list(stack_u8) if uniform else device_imgs
+            frames = _loop_compose(sources, comp, seam_masks, compensator,
+                                   cfg, dev, paths)
+            if cfg.timelapse:
+                timelapse_frames = frames
+                pano = torch.zeros((1, 1, 3), dtype=torch.float32,
+                                   device=dev)
+                pano_mask = torch.zeros((1, 1), dtype=torch.bool, device=dev)
+            else:
+                pano, pano_mask = frames
+                pano = torch.clamp(pano, 0.0, 255.0)
 
-    out = output if output is not None else cfg.result_name
-    if out:
-        image_io.imwrite(out, pano.cpu().numpy())
+    if cfg.crop_result and not cfg.timelapse:
+        x, y, w, h = crop_rect(pano.cpu().numpy())
+        pano = pano[y:y + h, x:x + w]
+
+    if not cfg.timelapse:
+        out = output if output is not None else cfg.result_name
+        if out:
+            image_io.imwrite(out, pano.cpu().numpy())
     return StitchResult(panorama=pano, mask=pano_mask,
                         kept_indices=list(indices), cameras=cameras,
-                        stage_times=times, work_scale=work_scale)
+                        stage_times=times, timelapse_frames=timelapse_frames,
+                        work_scale=work_scale)
+
+
+def _loop_compose(sources: Sequence[torch.Tensor], comp: ComposeInputs,
+                  seam_masks: Sequence[np.ndarray], compensator,
+                  cfg: StitchConfig, dev: torch.device, paths: Sequence[str]):
+    """The reference's per-image compose, for mixed sizes and the
+    timelapse: each full-resolution source resized to compose scale,
+    warped with its mask onto its compose ROI, its gain applied, its seam
+    mask dilated, resized to the warped rect and cut by the warped mask;
+    then fed to the blender, or pasted by the timelapser and written to
+    `fixed_<name>` in the working directory.  Returns the blender's
+    (panorama, mask), or the timelapse's frame names."""
+    if cfg.timelapse:
+        sink = Timelapser(comp.corners, comp.sizes, cfg.timelapse_type, dev)
+    else:
+        sink = make_blender(comp.corners, comp.sizes, cfg.blend_type,
+                            cfg.blend_strength, dev)
+    frames = []
+    for i, img in enumerate(sources):
+        logger.info("Compositing image #%d", i + 1)
+        if comp.resize_hws is not None:
+            img = resize(img, comp.resize_hws[i])
+        roi = comp.corners[i] + comp.sizes[i]
+        corner, img_w = comp.warper.warp(img, comp.ks[i], comp.rs[i],
+                                         dst_roi=roi)
+        _, mask_w = comp.warper.warp(
+            torch.full(img.shape[:2], 255, dtype=torch.uint8, device=dev),
+            comp.ks[i], comp.rs[i], interp="nearest", border="constant",
+            dst_roi=roi)
+        img_w = apply_gain(compensator, i, img_w)
+        seam_m = dilate3(torch.as_tensor(seam_masks[i], device=dev))
+        seam_m = resize(seam_m.to(torch.float32), tuple(mask_w.shape))
+        final_mask = (seam_m > 127) & (mask_w > 0)
+        if cfg.timelapse:
+            frames.append(fixed_name(paths[i]))
+            image_io.imwrite(frames[-1], sink.process(
+                img_w, None, corner).cpu().numpy())
+        else:
+            sink.feed(img_w, final_mask, corner)
+    return frames if cfg.timelapse else sink.blend()

@@ -94,3 +94,34 @@ def reference_draws(seed: int, n_pairs: int):
     finally:
         tmatching.ransac_homography = real_h
         tmatching.ransac_affine_partial = real_a
+
+
+def write_mixed_ring(directory, hws, fov_deg=55.0, overlap_ratio=0.6,
+                     seed=7, noise_sigma=4.0):
+    """A horizontal ring whose view i is rendered at its own size hws[i]
+    with its own K (the same horizontal field of view), sigma-4 sensor
+    noise drawn in view order from `seed`, stored rotated 180 degrees as
+    JPEGs with each view's EXIF pose payload.  Returns ([K float64],
+    [R float64])."""
+    import os
+    from image_stitching_tpu_torch.core import exif, image_io
+    from image_stitching_tpu_torch.data.synth import (ring_geometry,
+                                                      render_view)
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ks, rs_out = [], []
+    for i, hw in enumerate(hws):
+        k, rs = ring_geometry(len(hws), hw, fov_deg, overlap_ratio)
+        view = render_view(k, rs[i], hw, seed)
+        img = np.clip(view + rng.normal(0.0, noise_sigma, view.shape).astype(
+            np.float32), 0.0, 255.0)
+        r32 = rs[i].astype(np.float32)
+        payload = exif.camera_to_image_description(
+            focal=float(k[1, 1]), ppx=float(k[0, 2]), ppy=float(k[1, 2]),
+            R=r32, is_portrait=False)
+        image_io.write_jpeg_with_description(
+            os.path.join(directory, f"{i}.jpg"),
+            image_io.rotate_180(img.astype(np.uint8)), payload, quality=92)
+        ks.append(k)
+        rs_out.append(r32.astype(np.float64))
+    return ks, rs_out

@@ -98,13 +98,13 @@ def test_main_writes_the_stitch_panorama(captures, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,option", [
-    (["--crop"], "crop_result"),
-    (["--timelapse"], "timelapse"),
-    (["--features", "sift"], "features_type")])
+    (["--features", "sift"], "features_type"),
+    (["--features", "akaze"], "features_type"),
+    (["--features", "surf"], "features_type")])
 def test_refused_option_exits_nonzero(captures, tmp_path, capsys, flags,
                                       option):
-    """An option outside the slice exits 1, naming it, and writes
-    nothing."""
+    """An option outside the port (a detector other than ORB) exits 1,
+    naming it, and writes nothing."""
     out = str(tmp_path / "r.jpg")
     assert cli.main([captures, "--device", "cpu", "--result", out] +
                     flags) == 1
@@ -131,10 +131,10 @@ def test_python_dash_m_entry_point(captures):
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("usage: image_stitching_tpu_torch")
     assert "--device" in out.stdout
-    out = subprocess.run(cmd + [captures, "--device", "cpu", "--crop"],
-                         env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 1 and "crop_result" in out.stderr
+    out = subprocess.run(cmd + [captures, "--device", "cpu", "--features",
+                                "sift"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 1 and "features_type" in out.stderr
 
 
 def test_graph_profile_and_resume_flags(captures, tmp_path, capsys):
@@ -180,3 +180,40 @@ def test_registration_flags_stitch(captures, tmp_path, capsys, flags):
         assert len(f.read().split()) >= 2
     with Image.open(out) as im:
         assert im.size[0] > 224
+
+
+def test_crop_flag_stitches(captures, tmp_path, capsys):
+    """--crop exits 0 and writes the cropped panorama, smaller than the
+    canvas of the same stitch without it, with the size it prints."""
+    base = [captures, "--device", "cpu", "--checkpoint-dir",
+            str(tmp_path)] + SMALL
+    full, cut = str(tmp_path / "full.jpg"), str(tmp_path / "cut.jpg")
+    assert cli.main(base + ["--result", full]) == 0
+    capsys.readouterr()
+    assert cli.main(base + ["--result", cut, "--crop"]) == 0
+    with Image.open(full) as a, Image.open(cut) as b:
+        assert b.size[0] <= a.size[0] and b.size[1] <= a.size[1]
+        assert b.size != a.size
+        size = b.size
+    assert f"wrote {cut} ({size[0]}x{size[1]})" in capsys.readouterr().out
+
+
+def test_timelapse_flag_writes_frames(captures, tmp_path, capsys,
+                                      monkeypatch):
+    """--timelapse --timelapse-type as_is exits 0, writes fixed_<name> for
+    each capture into the working directory, all the size of the
+    canvas, prints the stage lines and, as the reference's CLI, no
+    "wrote" line, and writes no result file."""
+    monkeypatch.chdir(tmp_path)
+    out = str(tmp_path / "r.jpg")
+    assert cli.main([captures, "--device", "cpu", "--result", out,
+                     "--checkpoint-dir", str(tmp_path), "--timelapse",
+                     "--timelapse-type", "as_is"] + SMALL) == 0
+    printed = capsys.readouterr().out
+    assert "Compositing, time:" in printed and "wrote" not in printed
+    assert not os.path.exists(out)
+    sizes = set()
+    for i in range(3):
+        with Image.open(tmp_path / f"fixed_{i}.jpg") as im:
+            sizes.add(im.size)
+    assert len(sizes) == 1 and sizes.pop()[0] > 224

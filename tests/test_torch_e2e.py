@@ -120,7 +120,7 @@ def test_compose_geometry_reproduces_k2_inputs(both):
     its order: what the GPU smoke checks K2 on is the main path's input."""
     _, got, _, _, caps, k2_calls = both
     cfg = StitchConfig(**SLICE)
-    comp = compose_inputs(got.cameras, HW, got.work_scale,
+    comp = compose_inputs(got.cameras, [HW] * N_IMAGES, got.work_scale,
                           cfg.compose_megapix, cfg.warp_type)
     g = compose_fused.compose_rects(comp.corners, comp.sizes, cfg.blend_type,
                                     cfg.blend_strength)

@@ -136,7 +136,8 @@ def _affine_maps_gate(got, cfg, k2_calls):
     """Every compose rect's K2 map (sx, sy) within 1e-3 px of the exact
     A^-1 of its camera, in float64, on its valid pixels; the panorama
     covers more than 0.9 of its canvas."""
-    comp = compose_inputs(got.cameras, HW, got.work_scale, -1, "affine")
+    comp = compose_inputs(got.cameras, [HW] * len(got.kept_indices),
+                          got.work_scale, -1, "affine")
     cfg = StitchConfig(**cfg)
     g = compose_fused.compose_rects(comp.corners, comp.sizes,
                                     cfg.blend_type, cfg.blend_strength)

@@ -66,8 +66,8 @@ SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
 
 
 @pytest.mark.parametrize("option,value", [
-    ("timelapse", True), ("crop_result", True), ("features_type", "sift"),
-    ("features_type", "akaze"), ("features_type", "surf")])
+    ("features_type", "sift"), ("features_type", "akaze"),
+    ("features_type", "surf")])
 def test_options_outside_slice_raise(option, value):
     check_slice(StitchConfig(**SLICE))
     cfg = StitchConfig(**dict(SLICE, **{option: value}))
@@ -87,10 +87,11 @@ def test_options_outside_slice_raise(option, value):
     ("ba_cost_func", "ray"), ("ba_cost_func", "affine"),
     ("ba_cost_func", "no"), ("matcher_type", "affine"),
     ("estimator_type", "affine"), ("use_sensor_priors", False),
-    ("infill_dropped", True), ("warp_type", "affine")])
+    ("infill_dropped", True), ("warp_type", "affine"), ("timelapse", True),
+    ("crop_result", True)])
 def test_options_inside_slice_accepted(option, value):
-    """Options of the fused path that the slice runs: check_slice takes
-    them on the CPU and on one CUDA device."""
+    """Options that the port runs: check_slice takes them on the CPU and
+    on one CUDA device."""
     cfg = StitchConfig(**dict(SLICE, **{option: value}))
     check_slice(cfg)
     check_slice(cfg, "cuda")
