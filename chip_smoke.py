@@ -7,7 +7,8 @@ Phases, one line each; any failure raises and exits non-zero:
      CPU count, the libjpeg/libpng16 files the native runtime links when it
      is built here; then the captures: an 8-image 2448x3264 spherical
      ring (55 deg FOV, 0.5 overlap) rendered with the port's synth and
-     written as JPEGs with EXIF pose priors, twice: sigma-4 sensor noise
+     written as JPEGs with EXIF pose priors, twice (each view rendered
+     once, its noise drawn at both levels): sigma-4 sensor noise
      (E2E_RING) for the
      work-scale path, sigma 8 (DEFAULT_RING) for the default path, where
      sigma 4 makes some adjacent pairs near-duplicates by the reference's
@@ -135,7 +136,28 @@ Phases, one line each; any failure raises and exits non-zero:
      twin: kept 16/16, <= 1 px reprojection, the cropped panorama smaller
      than the canvas with a clean border (check_interior_exterior of its
      gray > 0 mask finished); its wall, MP/s, peak device memory, the
-     crop's host time, and the stage table of 9b, 12a, 12b and 12c.
+     crop's host time, and the stage table of 9b, 12a, 12b and 12c;
+ 13. the strip-streamed compose and bench.py's mosaic100 and gigapixel,
+     under the counts as in phase 9: (a) StitchConfig(compose_strips_mp=
+     half of 9b's canvas MP, compose_strip_w=a quarter of its width) on
+     DEFAULT_RING: the stitch takes fused_compose_strips (>= 3 strips),
+     its host panorama's mask equals 9b's, mean |diff| < 0.5 and p99 <= 2
+     over it, "Compositing" beside 9b's; (b) mosaic100,
+     StitchConfig(range_width=3) on 100 x 480x640 (fov 8, overlap 0.55,
+     seed 31, detailed texture, rendered in phase 0), timed after a
+     warm-up on its +-2 LSB twin: kept 100/100, <= 1 px reprojection,
+     every kernel launched; its wall, MP/s, stage table, peak device
+     memory, and K4 on its 197 pairs; (c) gigapixel: 12 x 24 tiles of
+     1024x1536 at focal 6000 made on the device (CUDA generator seeded 1
+     for a warm pass, 2 timed), the seam-scale prep (warp_stack,
+     feed_device GAIN_BLOCKS, dp_color seams), then fused_compose_strips
+     of the 271.2 MP canvas in strips of 4096 into a u8 host panorama:
+     coverage > 0.5, the compose's peak device memory below the tiles
+     plus the whole-canvas band accumulators; its seconds, canvas MP/s and
+     peak beside its terms; (d) K2 and K5 on one K5 call of the strip
+     with the most rects (9 bands) against their plain versions under
+     phase 3's and 7's gates, device, call and plain ms and the bounds,
+     grid_sample beside K2.
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
@@ -147,7 +169,8 @@ scan's (`affine_device_ms`), K5's its device time and launches per call
 at 0 bands on the vga_pair rects (`zero_band_device_ms`,
 `zero_band_launches_per_call`); K4's and K5's rows their rig37 times and
 bounds (`rig37_*`); K2's and K5's rows their times, bounds and errors on
-mixed8's loop compose (`loop_*`).
+mixed8's loop compose (`loop_*`) and on a gigapixel strip (`strip_*`);
+K4's row its mosaic100 times and bound (`mosaic100_*`).
 Then a JSON line of those kernel results with the launches on the path
 the kernel was checked on, the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
@@ -170,8 +193,7 @@ import numpy as np
 import torch
 
 from image_stitching_tpu_torch.core.logging import Recorder
-from image_stitching_tpu_torch.data.synth import (DEFAULT_RING, E2E_RING,
-                                                  write_ring_dir)
+from image_stitching_tpu_torch.data.synth import DEFAULT_RING, E2E_RING
 
 N_IMAGES = E2E_RING["n_images"]
 H, W = E2E_RING["hw"]
@@ -353,18 +375,27 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
     keypoints `detect_levels` gives the describe step, in the one
     `orb_sample_levels` launch the detector makes.  Returns the row of
     that launch and, for K3, the row of a launch of level 0 alone."""
-    from image_stitching_tpu_torch.kernels.orb_sample import (
-        orb_sample_levels, orb_sample_levels_plain, N_SAMPLES)
     from image_stitching_tpu_torch.ops.features.orb import (
         detect_levels, pattern_xy, resolve_pattern)
     levels = detect_levels(gray, n_features)
     pat = pattern_xy(resolve_pattern(None), dev)
-    raws = [lv[1] for lv in levels]
-    blurs = [lv[2] for lv in levels]
     ks = [lv[3].shape[0] for lv in levels]
-    xy = torch.cat([lv[3] for lv in levels])
     lvl = torch.cat([torch.full((k,), i, dtype=torch.int32, device=dev)
                      for i, k in enumerate(ks)])
+    return k1_launch_check(
+        dev, [lv[1] for lv in levels], [lv[2] for lv in levels],
+        torch.cat([lv[3] for lv in levels]), lvl, pat,
+        [int(lv[5].sum()) for lv in levels], phase, name, replaces)
+
+
+def k1_launch_check(dev, raws, blurs, xy, lvl, pat, valid, phase: str,
+                    name: str, replaces: str):
+    """`check_k1` on one launch's inputs (level planes, blurred planes,
+    keypoints, level index, pattern), `valid` the valid keypoints per
+    level where known."""
+    from image_stitching_tpu_torch.kernels.orb_sample import (
+        orb_sample_levels, orb_sample_levels_plain, N_SAMPLES)
+    ks = torch.bincount(lvl.long(), minlength=len(raws)).tolist()
     out_k = orb_sample_levels(raws, blurs, xy, lvl, pat, 20,
                               with_samples=True)
     out_p = orb_sample_levels_plain(raws, blurs, xy, lvl, pat, 20,
@@ -424,16 +455,16 @@ def check_k1(dev, gray, n_features: int, phase: str, name: str,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
     plane = raws[0].numel() * 4
-    print(f"phase {phase} K1 orb_sample_levels: image {tuple(gray.shape)} "
-          f"(level 0 {plane} bytes, {plane / TPU_VMEM_BUDGET:.2f}x the TPU "
-          f"kernel's {TPU_VMEM_BUDGET}-byte VMEM budget), {len(levels)} "
-          f"levels, K per level {ks} (valid "
-          f"{[int(lv[5].sum()) for lv in levels]}); per level moments max "
+    print(f"phase {phase} K1 orb_sample_levels: image "
+          f"{tuple(raws[0].shape)} (level 0 {plane} bytes, "
+          f"{plane / TPU_VMEM_BUDGET:.2f}x the TPU kernel's "
+          f"{TPU_VMEM_BUDGET}-byte VMEM budget), {len(raws)} levels, K per "
+          f"level {ks} (valid {valid}); per level moments max "
           f"|dm|/magnitude {[f'{g[0]:.3g}' for g in per_level]} (tol 1e-5), "
           f"samples unequal at agreeing coords {[g[1] for g in per_level]}, "
           f"coords disagreeing {[g[2] for g in per_level]}, bit flips "
           f"{[f'{g[3]}/{g[4]}' for g in per_level]} (tol 1e-4)", flush=True)
-    full = row(list(range(len(levels))), "K1 one launch, every level")
+    full = row(list(range(len(raws))), "K1 one launch, every level")
     full["name"] = name
     level0 = row([0], "K1 level 0 alone")
     return full, level0
@@ -573,11 +604,15 @@ def _tie_stack(dev, k: int = 4000, seed: int = 0):
             torch.as_tensor(ju, dtype=torch.int32, device=dev))
 
 
-def k4_args(dev, feats):
+def k4_args(dev, feats, range_width: int = -1):
     """K4's arguments as match_all_pairs makes them for a features stack:
-    every pair i < j, both directions in one call."""
+    every pair i < j (within range_width when > 0), both directions in one
+    call."""
     n = feats.xy.shape[0]
     iu, ju = np.triu_indices(n, 1)
+    if range_width > 0:
+        keep = (ju - iu) < range_width
+        iu, ju = iu[keep], ju[keep]
     return (feats.desc.contiguous(), feats.valid.contiguous(),
             torch.as_tensor(iu, dtype=torch.int32, device=dev),
             torch.as_tensor(ju, dtype=torch.int32, device=dev))
@@ -917,6 +952,36 @@ def check_ingest(dev, paths, seam_hw):
     return prep_ms
 
 
+def write_e2e_rings(caps, caps_default, caps_plain, workers: int):
+    """E2E_RING into `caps` and DEFAULT_RING into `caps_default` (and
+    without EXIF into `caps_plain`), the files `write_ring_dir` writes for
+    each: the two share geometry and seed, so each view is rendered once
+    and takes `write_ring_dir`'s noise (`ring_view_noise`) at sigma 4 and
+    8.
+    Returns the ground truth (K float64, [R float64])."""
+    import multiprocessing as mp
+    from image_stitching_tpu_torch.data.synth import (_render_args,
+                                                      ring_geometry,
+                                                      ring_view_noise,
+                                                      write_capture_dir)
+    assert {k: v for k, v in DEFAULT_RING.items() if k != "noise_sigma"} \
+        == E2E_RING
+    g = E2E_RING
+    k, rs = ring_geometry(g["n_images"], g["hw"], g["fov_deg"],
+                          g["overlap_ratio"])
+    with mp.get_context("spawn").Pool(workers) as pool:
+        views = pool.map(_render_args,
+                         [(k, r, g["hw"], g["seed"]) for r in rs])
+    rs32 = np.stack([r.astype(np.float32) for r in rs])
+    for directory, sigma in ((caps, 4.0), (caps_default,
+                                           DEFAULT_RING["noise_sigma"])):
+        images = [ring_view_noise(v, i, sigma) for i, v in enumerate(views)]
+        write_capture_dir(directory, images, k.astype(np.float32), rs32)
+    write_capture_dir(caps_plain, images, k.astype(np.float32), rs32,
+                      with_exif=False)
+    return k.astype(np.float64), [r.astype(np.float64) for r in rs32]
+
+
 def stage_table(columns) -> str:
     """Stage times (s) of several runs side by side, one line a stage."""
     names = list(dict.fromkeys(k for _, times in columns for k in times))
@@ -1067,11 +1132,28 @@ def check_k2_more(dev, stitch, caps, work):
     return dev_ms
 
 
-def k5_compose_check(dev, compose_call, what: str):
+def k5_union_bytes(shape, offs, accs, nb) -> int:
+    """Phase 7's bytes of one K5 call on n rects of (ph, pw) at `offs`:
+    the rects in, the union of their windows in every band read and
+    written once."""
+    from image_stitching_tpu_torch.kernels.multiband import band_offsets
+    n, ph, pw = shape
+    n_bytes = 16 * n * ph * pw
+    for b in range(nb + 1):
+        cover = np.zeros(tuple(accs[b].shape[1:]), bool)
+        for off in offs:
+            oy, ox = band_offsets(off, accs, ph, pw)[b]
+            cover[oy:oy + (ph >> b), ox:ox + (pw >> b)] = True
+        n_bytes += 2 * 16 * int(cover.sum())
+    return n_bytes
+
+
+def k5_compose_check(dev, compose_call, what: str, plain: bool = False):
     """K5 on the buckets of a recorded fused_compose call, one call per
     bucket, against its plain version under phase 7's gates; kernel
     launches per call (CUDA graph nodes, at most 2 n_bands + 1) and device
-    ms per call."""
+    ms per call; with `plain`, also the call ms and the plain version's ms
+    per call."""
     from image_stitching_tpu_torch.kernels.multiband import (
         pyramid_accumulate, pyramid_accumulate_plain)
     from image_stitching_tpu_torch.pipeline import compose_fused as cf
@@ -1094,24 +1176,24 @@ def k5_compose_check(dev, compose_call, what: str):
             pyramid_accumulate(warped, weight, offs, scratch, nb)
     per_call = kernel_launches(run) / len(buckets)
     assert per_call <= 2 * nb + 1, f"K5 {what}: {per_call} launches a call"
-    # Bound as phase 7 counts it: the rects in, the union of their windows
-    # in every band read and written once.
-    from image_stitching_tpu_torch.kernels.multiband import band_offsets
-    n_bytes = 0
-    for warped, weight, offs in buckets:
-        n, ph, pw = weight.shape
-        n_bytes += 16 * n * ph * pw
-        for b in range(nb + 1):
-            cover = np.zeros(tuple(scratch[b].shape[1:]), bool)
-            for off in offs:
-                oy, ox = band_offsets(off, scratch, ph, pw)[b]
-                cover[oy:oy + (ph >> b), ox:ox + (pw >> b)] = True
-            n_bytes += 2 * 16 * int(cover.sum())
-    return dict(n_bands=nb, buckets=[tuple(w.shape) for w, _, _ in buckets],
-                err=err, u8=u8, launches_per_call=per_call,
-                device_ms=device_ms(run) / len(buckets),
-                bound_ms=n_bytes / len(buckets) / HBM_BYTES_PER_S * 1e3,
-                feather_sharpness=g.feather_sharpness)
+    n_bytes = sum(k5_union_bytes(weight.shape, offs, scratch, nb)
+                  for _, weight, offs in buckets)
+    out = dict(n_bands=nb, buckets=[tuple(w.shape) for w, _, _ in buckets],
+               err=err, u8=u8, launches_per_call=per_call,
+               accs=(g.canvas_h, g.canvas_w),
+               device_ms=device_ms(run) / len(buckets),
+               bound_ms=n_bytes / len(buckets) / HBM_BYTES_PER_S * 1e3,
+               feather_sharpness=g.feather_sharpness)
+    if plain:
+        bounds = [k5_chunk_bound(warped, offs, scratch, nb)
+                  for warped, _, offs in buckets]
+        out["bound_ms"] = sum(ms for ms, _ in bounds) / len(buckets)
+        out["bound_by"] = max(bounds)[1]
+        out["call_ms"] = time_ms(run, reps=5) / len(buckets)
+        out["plain_ms"] = time_ms(lambda: [pyramid_accumulate_plain(
+            warped, weight, offs, scratch, nb)
+            for warped, weight, offs in buckets], reps=1) / len(buckets)
+    return out
 
 
 def resume_gates(res, base, ba_cams, ck_dir, corners, base_corners,
@@ -2072,6 +2154,729 @@ def run_phase12(stitch, counters, names, caps12, truth, caps_default,
     return dict(by_path=by_path, k2=k2, k5=k5)
 
 
+# Phase 13's configurations, as the JAX package's bench.py makes them.
+# mosaic100 (bench.py:378-442): 100 narrow-fov views with the detailed
+# texture, the range matcher, BA's CG solver past 64 cameras, and its
+# +-2 LSB warm-up twin.  gigapixel (bench.py:561-731): a 12 x 24 grid of
+# 1024x1536 tiles at focal 6000 made on the device, seam-scale prep, then
+# the strip-streamed compose of the 271.2 MP canvas.
+MOSAIC100 = dict(n_images=100, hw=(480, 640), fov_deg=8.0,
+                 overlap_ratio=0.55, seed=31)
+MOSAIC_RANGE = 3
+GIGAPIXEL = dict(rows=12, cols=24, hw=(1024, 1536), focal=6000.0,
+                 overlap=0.25, strip_w=4096, chunk=48, seeds=(1, 2))
+# Beside the strip compose's terms in 13c's memory gate: the allocator's
+# rounding and the small tensors (rect grids, offsets, events).
+MEM_SLACK = 128 * 2 ** 20
+
+
+def render_phase13_dirs(root: str, workers: int):
+    """mosaic100 and its warm-up twin, rendered in one process pool:
+    ({name: directory}, ground truth)."""
+    import multiprocessing as mp
+    from image_stitching_tpu_torch.data.synth import (make_ring_captures,
+                                                      write_capture_dir)
+    dirs = {name: os.path.join(root, name.replace(" ", "_"))
+            for name in ("mosaic100", "mosaic100 warm-up")}
+    with mp.get_context("spawn").Pool(workers) as pool:
+        images, k, rs = make_ring_captures(texture_detail=True, pool=pool,
+                                           **MOSAIC100)
+    write_capture_dir(dirs["mosaic100"], images, k, rs)
+    write_capture_dir(dirs["mosaic100 warm-up"], noisy_twin(images), k, rs)
+    return dirs, dict(k=np.asarray(k, np.float64),
+                      rs=[np.asarray(r, np.float64) for r in rs])
+
+
+def gigapixel_geometry():
+    """bench.py's gigapixel cameras, compose ROIs and seam-scale ROIs."""
+    from scipy.spatial.transform import Rotation
+    from image_stitching_tpu_torch.ops.warps import make_warper, result_roi
+    g = GIGAPIXEL
+    (h, w), focal = g["hw"], g["focal"]
+    n = g["rows"] * g["cols"]
+    yaw = (w / focal) * (1 - g["overlap"])
+    pitch = (h / focal) * (1 - g["overlap"])
+    k = np.tile(np.array([[focal, 0, w / 2], [0, focal, h / 2],
+                          [0, 0, 1]], np.float32), (n, 1, 1))
+    rs = np.stack([
+        (Rotation.from_euler("y", yaw * (c - (g["cols"] - 1) / 2))
+         * Rotation.from_euler("x", pitch * (r - (g["rows"] - 1) / 2))
+         ).as_matrix().astype(np.float32)
+        for r in range(g["rows"]) for c in range(g["cols"])])
+    warper = make_warper("spherical", focal)
+    rois = [warper.warp_roi((h, w), k[i], rs[i]) for i in range(n)]
+    s = min(1.0, float(np.sqrt(0.1e6 / (h * w))))
+    seam_hw = (int(round(h * s)), int(round(w * s)))
+    k_seam = k.copy()
+    k_seam[:, 0, :] *= s
+    k_seam[:, 1, :] *= s
+    warper_s = make_warper("spherical", focal * s)
+    srois = [warper_s.warp_roi(seam_hw, k_seam[i], rs[i]) for i in range(n)]
+    return dict(n=n, k=k, rs=rs, warper=warper, warper_s=warper_s, s=s,
+                seam_hw=seam_hw, k_seam=k_seam, srois=srois,
+                corners=[(r[0], r[1]) for r in rois],
+                sizes=[(r[2], r[3]) for r in rois],
+                canvas=result_roi([(r[0], r[1]) for r in rois],
+                                  [(r[2], r[3]) for r in rois]))
+
+
+def gigapixel_tiles(seed: int, n: int, dev):
+    """bench.py's tiles on the device: uniform [0, 256) from one CUDA
+    generator, 48 tiles at a time, times the tile's gain
+    0.75 + 0.5 cos(0.37 i), clipped, as u8."""
+    h, w = GIGAPIXEL["hw"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    gain = 0.75 + 0.5 * np.cos(np.arange(n) * 0.37)
+    tiles = torch.empty((n, h, w, 3), dtype=torch.uint8, device=dev)
+    for c0 in range(0, n, GIGAPIXEL["chunk"]):
+        m = min(GIGAPIXEL["chunk"], n - c0)
+        t = torch.rand((m, h, w, 3), generator=gen, device=dev) * 256.0
+        g = torch.as_tensor(gain[c0:c0 + m, None, None, None],
+                            dtype=torch.float32, device=dev)
+        tiles[c0:c0 + m] = torch.clamp(t * g, 0.0, 255.0).to(torch.uint8)
+        del t
+    return tiles
+
+
+def gigapixel_prep(tiles, geo, dev):
+    """The seam-scale prep of bench.py's gigapixel: each tile resized to
+    seam scale, warp_stack, GAIN_BLOCKS (block 64) by feed_device, DP
+    colour seams.  Returns (compensator, seam masks, exposure s, seams s),
+    the exposure seconds including the resize and warp."""
+    from image_stitching_tpu_torch.config import ExposureCompensatorType
+    from image_stitching_tpu_torch.ops.exposure import feed_device
+    from image_stitching_tpu_torch.ops.imgproc import resize
+    from image_stitching_tpu_torch.ops.seams import find_seams
+    from image_stitching_tpu_torch.ops.warps import u_period
+    from image_stitching_tpu_torch.pipeline.compose_fused import warp_stack
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seam = torch.stack([torch.clamp(torch.round(resize(im, geo["seam_hw"])),
+                                    0, 255).to(torch.uint8) for im in tiles])
+    srois = geo["srois"]
+    images_pad, masks_pad = warp_stack(
+        seam, torch.as_tensor(geo["k_seam"], device=dev),
+        torch.as_tensor(geo["rs"], device=dev), geo["warper_s"].scale,
+        torch.as_tensor(np.asarray([[r[0], r[1]] for r in srois],
+                                   np.float32), device=dev), "spherical",
+        pad_h=-(-max(r[3] for r in srois) // 64) * 64,
+        pad_w=-(-max(r[2] for r in srois) // 64) * 64)
+    masks_host = masks_pad.cpu().numpy()
+    masks_warped = [masks_host[i, :r[3], :r[2]] for i, r in enumerate(srois)]
+    period = u_period("spherical", geo["warper_s"].scale)
+    corners = [(r[0], r[1]) for r in srois]
+    comp = feed_device(corners, [(r[2], r[3]) for r in srois], images_pad,
+                       masks_pad,
+                       comp_type=ExposureCompensatorType.GAIN_BLOCKS,
+                       block_size=64, period=period)
+    torch.cuda.synchronize()
+    t_exp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seam_masks = find_seams(corners, masks_warped, "dp_color",
+                            images_dev=images_pad, period=period)
+    torch.cuda.synchronize()
+    return comp, seam_masks, t_exp, time.perf_counter() - t0
+
+
+def k5_chunk_bound(warped, offs, accs, nb):
+    """K5's bound on one call: phase 7's bytes (`k5_union_bytes`) and per
+    rect the pyrDown and band operations of `k5_loop_check`."""
+    n, _, ph, pw = warped.shape
+    n_bytes = k5_union_bytes((n, ph, pw), offs, accs, nb)
+    n_ops = n * (sum(4 * 50 * (ph >> b) * (pw >> b) for b in range(1, nb + 1))
+                 + sum((3 * 18 + 12) * (ph >> b) * (pw >> b)
+                       for b in range(nb + 1)))
+    return bound(n_bytes, n_ops)
+
+
+def strip_kernel_check(dev, tiles, geo, comp, seam_masks, strips):
+    """Phase 13d: K2 and K5 at one strip's shapes.  In the strip with the
+    most rects, the first K5 call of its largest bucket (as many rects as
+    SAMPLE_BUDGET holds) is made again by the compose's own code, its K2
+    calls recorded: K2 against its plain version (phase 3's gate), K5 into
+    fresh strip accumulators against its plain version (phase 7's gates);
+    device, call and plain ms and the bounds, grid_sample beside K2."""
+    import dataclasses
+    from image_stitching_tpu_torch.kernels.multiband import (
+        pyramid_accumulate, pyramid_accumulate_plain)
+    from image_stitching_tpu_torch.kernels.warp_gather import (
+        warp_bilinear, warp_bilinear_plain)
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    g = max(strips, key=lambda st: len(st.tls))
+    (ph, pw), idxs = max(g.buckets.items(),
+                         key=lambda kv: (kv[0][0] * kv[0][1], len(kv[1])))
+    per = max(1, cf.SAMPLE_BUDGET // cf._rect_bytes(ph, pw, g.n_bands))
+    g_one = dataclasses.replace(g, buckets={(ph, pw): idxs[:per]})
+    rec = Recorder(cf, "warp_bilinear")
+    with rec:
+        warped, weight, offs = next(iter(cf.compose_buckets(
+            tiles, geo["k"], geo["rs"], geo["warper"], geo["corners"],
+            geo["sizes"], seam_masks, [(r[0], r[1]) for r in geo["srois"]],
+            geo["s"], comp, g_one)))
+    calls = [args for args, _, _ in rec.calls["warp_bilinear"]]
+    assert len(calls) == warped.shape[0], (len(calls), warped.shape)
+    k2_err = k2_max_diff(calls)
+
+    def run2(fn):
+        for src, sx, sy in calls:
+            fn(src, sx, sy)
+    k2_bound_ms, k2_bound_by = k2_bound(calls)
+    k2 = dict(err=k2_err, rects=[tuple(c[1].shape) for c in calls],
+              device_ms=device_ms(lambda: run2(warp_bilinear), reps=5,
+                                  replays=3) / len(calls),
+              call_ms=time_ms(lambda: run2(warp_bilinear), reps=5)
+              / len(calls),
+              plain_ms=time_ms(lambda: run2(warp_bilinear_plain), reps=1)
+              / len(calls),
+              library_ms=k2_library_ms(calls)[0], bound_ms=k2_bound_ms,
+              bound_by=k2_bound_by)
+    del calls, rec
+    nb = g.n_bands
+
+    def fresh():
+        return [torch.zeros((4, g.canvas_h >> b, g.canvas_w >> b),
+                            device=dev) for b in range(nb + 1)]
+    acc_k, acc_p = fresh(), fresh()
+    pyramid_accumulate(warped, weight, offs, acc_k, nb)
+    pyramid_accumulate_plain(warped, weight, offs, acc_p, nb)
+    err, u8 = _k5_gates(acc_k, acc_p, nb, "strip")
+    del acc_p
+    scratch = acc_k
+    launches = kernel_launches(
+        lambda: pyramid_accumulate(warped, weight, offs, scratch, nb))
+    assert launches <= 2 * nb + 1, f"K5 strip: {launches} launches a call"
+    k5_bound_ms, k5_bound_by = k5_chunk_bound(warped, offs, scratch, nb)
+    k5 = dict(err=err, u8=u8, n_bands=nb, launches_per_call=launches,
+              chunk=tuple(warped.shape), bucket=len(idxs),
+              accs=tuple(scratch[0].shape),
+              device_ms=device_ms(lambda: pyramid_accumulate(
+                  warped, weight, offs, scratch, nb), reps=3, replays=2),
+              call_ms=time_ms(lambda: pyramid_accumulate(
+                  warped, weight, offs, scratch, nb), reps=3),
+              plain_ms=time_ms(lambda: pyramid_accumulate_plain(
+                  warped, weight, offs, scratch, nb), reps=1),
+              bound_ms=k5_bound_ms, bound_by=k5_bound_by)
+    return k2, k5
+
+
+class FirstCall:
+    """While open, keeps the args and kwargs of the first call of
+    `module.name` (later calls pass through unkept)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.args = self.kwargs = None
+
+    def __enter__(self):
+        def first(*args, **kwargs):
+            if self.args is None:
+                self.args, self.kwargs = args, kwargs
+            return self.orig(*args, **kwargs)
+        setattr(self.module, self.name, first)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class StripWatch:
+    """While open, what the strip compose holds, read from the compose
+    itself: the finished strips left on the device after each hand-off to
+    the download (`_StripFetch.put`), and each K5 call's rects and device
+    bytes of samples and scratch (`_rect_bytes`)."""
+
+    def __init__(self):
+        from image_stitching_tpu_torch.pipeline import compose_fused as cf
+        self.cf, self.pending, self.chunks = cf, [], []
+        self.put, self.pa = cf._StripFetch.put, cf.pyramid_accumulate
+
+    def __enter__(self):
+        cf = self.cf
+
+        def put(fetch, *args):
+            self.put(fetch, *args)
+            self.pending.append(len(fetch.pending))
+
+        def pa(warped, weight, offs, accs, nb):
+            n, _, ph, pw = warped.shape
+            self.chunks.append((n, n * cf._rect_bytes(ph, pw, nb)))
+            return self.pa(warped, weight, offs, accs, nb)
+        cf._StripFetch.put = put
+        cf.pyramid_accumulate = pa
+        return self
+
+    def __exit__(self, *exc):
+        self.cf._StripFetch.put = self.put
+        self.cf.pyramid_accumulate = self.pa
+
+
+def hist_percentile(counts, q: float) -> float:
+    """np.percentile's (linear) q-th percentile of the integers 0, 1, ...
+    that occur counts[v] times."""
+    cum = np.cumsum(np.asarray(counts, np.int64))
+    n = int(cum[-1])
+    r = q / 100.0 * (n - 1)
+    i = int(np.floor(r))
+    lo = int(np.searchsorted(cum, i, side="right"))
+    hi = int(np.searchsorted(cum, min(i + 1, n - 1), side="right"))
+    return lo + (r - i) * (hi - lo)
+
+
+def u8_diff_stats(pano_a, pano_b, mask):
+    """|a - b| of two u8-valued (H, W, 3) device panoramas over the mask:
+    (mean, p99, max), from the exact histogram of the integer
+    differences."""
+    d = (pano_a.to(torch.int16) - pano_b.to(torch.int16)).abs_()
+    d = torch.where(mask[..., None], d, torch.full_like(d, -1))
+    vmax = int(d.max())
+    counts = [int((d == v).sum()) for v in range(vmax + 1)]
+    n = sum(counts)
+    mean = sum(v * c for v, c in enumerate(counts)) / n
+    return mean, hist_percentile(counts, 99.0), vmax
+
+
+def big_diff_sites(pano_a, pano_b, mask, cuts, top: int = 3):
+    """Where two u8-valued (H, W, 3) panoramas differ by more than 2 over
+    the mask: the count of such pixels, their count by distance in
+    columns to the nearest of `cuts` (the strip boundaries and canvas
+    edges), and the `top` largest as (row, column, |diff|, share of the
+    mask in their 5x5 window)."""
+    d = (pano_a.to(torch.int16) - pano_b.to(torch.int16)).abs_().amax(-1)
+    d = torch.where(mask, d, torch.zeros_like(d))
+    xs = torch.nonzero(d > 2, as_tuple=True)[1]
+    dist = (xs[:, None] - torch.as_tensor(cuts, device=d.device)[None]
+            ).abs().amin(1)
+    edges = [0, 64, 256, 512, 1024, 2048, 1 << 30]
+    by_dist = {f"{a}-{b}" if b < 1 << 30 else f">={a}":
+               int(((dist >= a) & (dist < b)).sum())
+               for a, b in zip(edges, edges[1:])}
+    vals, idx = torch.topk(d.flatten(), top)
+    sites = []
+    for v, i in zip(vals.tolist(), idx.tolist()):
+        y, x = divmod(i, d.shape[1])
+        win = mask[max(0, y - 2):y + 3, max(0, x - 2):x + 3]
+        sites.append((y, x, v, round(float(win.float().mean()), 2)))
+    return int(xs.numel()), by_dist, sites
+
+
+def banded_up_check(dev, frame_hw, nb: int, what: str):
+    """The collapse's pyrUp on the card at every level of a (h, w) frame
+    whose output has an axis above the dense threshold: the banded
+    `pyr_up_mm` against the dense matrices (`_up_mat_np`, built here
+    without its cache) on the same random band, under the CPU tests'
+    rtol 1e-5 / atol 1e-4.  Returns (max |diff|, output levels checked)."""
+    from image_stitching_tpu_torch.ops import pyr_mat
+    h, w = frame_hw
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    err, levels = 0.0, []
+    for b in range(nb, 0, -1):
+        in_hw, out_hw = (h >> b, w >> b), (h >> (b - 1), w >> (b - 1))
+        if max(out_hw) <= pyr_mat._T_DENSE:
+            continue
+        x = torch.rand((3,) + in_hw, generator=gen, device=dev) * 255.0
+        got = pyr_mat.pyr_up_mm(x, out_hw)
+        uh, uw = (torch.as_tensor(pyr_mat._up_mat_np.__wrapped__(o, i),
+                                  device=dev)
+                  for o, i in zip(out_hw, in_hw))
+        want = uh @ x @ uw.t()
+        del uh, uw
+        excess = float(((got - want).abs() - 1e-5 * want.abs()).max())
+        assert excess <= 1e-4, \
+            f"banded pyrUp {what} {in_hw} -> {out_hw}: {excess} past 1e-5 rel"
+        err = max(err, float((got - want).abs().max()))
+        levels.append(b - 1)
+        del x, got, want
+    torch.cuda.empty_cache()
+    return err, levels
+
+
+def strip_memory_terms(tiles, geo, comp, seam_masks, strips):
+    """The device bytes the strip compose holds at most beside the tile
+    stack: its per-image inputs (`_sample_inputs`: dilated seam masks,
+    gains, cameras; measured), one strip's accumulators, SAMPLE_BUDGET
+    (one K5 call's samples and scratch), one rect's sample with its
+    temporaries (the largest rect sampled alone; measured) and two
+    finished strips (u8 and mask)."""
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    inp = cf._sample_inputs(tiles, geo["k"], geo["rs"], geo["warper"],
+                            geo["corners"], geo["sizes"], seam_masks,
+                            [(r[0], r[1]) for r in geo["srois"]], geo["s"],
+                            comp)
+    torch.cuda.synchronize()
+    inputs = torch.cuda.memory_allocated() - base
+    g = max(strips, key=lambda st: max(ph * pw for ph, pw in st.buckets))
+    (ph, pw), idxs = max(g.buckets.items(), key=lambda kv: kv[0][0] * kv[0][1])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sample = cf._rect_sample(inp, g, idxs[0], ph, pw)
+    torch.cuda.synchronize()
+    rect = torch.cuda.max_memory_allocated() - base
+    del sample, inp
+    torch.cuda.empty_cache()
+    nb = strips[0].n_bands
+    ch = strips[0].canvas[3]
+    strip_w = strips[1].canvas[0] - strips[0].canvas[0] if len(strips) > 1 \
+        else strips[0].canvas_w
+    return dict(inputs=inputs, rect=rect, rect_hw=(ph, pw),
+                strip_accs=sum(16 * (strips[0].canvas_h >> b)
+                               * (strips[0].canvas_w >> b)
+                               for b in range(nb + 1)),
+                budget=cf.SAMPLE_BUDGET, downloads=2 * ch * strip_w * 4)
+
+
+def strips_vs_whole(tiles, geo, comp, seam_masks, pano, mask, margin,
+                    strip_w, dev):
+    """Phase 13c's strips against the whole-canvas compose on the same
+    tiles, gains and seams: `fused_compose` (its time and peak device
+    memory), its mask equal to the strips', |diff| over the mask within
+    phase 13a's gates: mean < 0.5 over the whole mask, p99 <= 2 right of
+    the first `margin` columns.  There the reference's bucket clamp pulls
+    the first strip's rects past the canvas's left edge, so its pyramid
+    meets zero-weight columns where the whole canvas's reflects: the JAX
+    package's own strips differ from its `fused_compose` there (2 x 4
+    tiles of 128x192 at 4 bands: columns 0-8 above 2, p99 5 over the
+    mask), and the port's equal the JAX strips within 1.  That zone's
+    numbers and where the differences above 2 lie are printed."""
+    from image_stitching_tpu_torch.config import BlenderType
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pano_w, mask_w = cf.fused_compose(
+        tiles, geo["k"], geo["rs"], geo["warper"], geo["corners"],
+        geo["sizes"], seam_masks, [(r[0], r[1]) for r in geo["srois"]],
+        geo["s"], comp, BlenderType.MULTI_BAND, 5.0)
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    mask_s = torch.from_numpy(mask).to(dev)
+    assert torch.equal(mask_w, mask_s), "13c: strip mask differs from the " \
+        f"whole canvas's ({int((mask_w != mask_s).sum())} px)"
+    pano_s = torch.from_numpy(pano).to(dev)
+    mean, p99_all, vmax = u8_diff_stats(pano_w, pano_s, mask_w)
+    _, p99, vmax_in = u8_diff_stats(pano_w[:, margin:], pano_s[:, margin:],
+                                    mask_w[:, margin:])
+    edge = u8_diff_stats(pano_w[:, :margin], pano_s[:, :margin],
+                         mask_w[:, :margin])
+    cw = mask_w.shape[1]
+    sites = big_diff_sites(pano_w, pano_s, mask_w,
+                           list(range(0, cw, strip_w)) + [cw])
+    assert mean < 0.5 and p99 <= 2.0, (mean, p99)
+    del pano_w, mask_w, mask_s, pano_s
+    torch.cuda.empty_cache()
+    return dict(t_whole=t_whole, peak=peak, mean=mean, p99=p99,
+                max=vmax_in, p99_all=p99_all, max_all=vmax, edge=edge,
+                sites=sites)
+
+
+def run_phase13(stitch, counters, names, caps13, truth, caps_default,
+                base_9b, work, smi, dev):
+    """Phase 13, the strip-streamed compose and bench.py's mosaic100 and
+    gigapixel: (a) StitchConfig() on DEFAULT_RING with compose_strips_mp
+    below its canvas, against phase 9b's panorama; (b) mosaic100 after a
+    warm-up on its twin, with K1 on its first launch, K2 and K5 on its
+    compose, K4 on its 197 pairs and the banded pyrUp of its collapse;
+    (c) gigapixel's 271.2 MP compose from 288 device tiles after a warm
+    pass: one finished strip left on the device after each hand-off, K5
+    calls within SAMPLE_BUDGET, the peak device memory within the
+    design's terms and below the whole-canvas accumulators, the panorama
+    against the whole-canvas compose, the banded pyrUp of a strip's
+    collapse; (d) K2 and K5 at one strip's shapes.  Each stitch and the
+    timed compose run under the counts as in phase 9.  Returns the counts
+    by path and the kernel numbers."""
+    from image_stitching_tpu_torch.config import BlenderType, StitchConfig
+    from image_stitching_tpu_torch.ops.features import orb as orb_mod
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    from image_stitching_tpu_torch.pipeline import stitcher
+    by_path = {}
+
+    # (a) The strip dispatch through stitch(): 9b's captures and
+    # configuration with the strips switched on below its canvas.
+    ch9, cw9 = tuple(base_9b.mask.shape)
+    mp_9b = ch9 * cw9 / 1e6
+    cfg = StitchConfig(compose_strips_mp=round(mp_9b / 2, 3),
+                       compose_strip_w=cw9 // 4)
+    rec = Recorder(stitcher, "fused_compose", "fused_compose_strips")
+    res, wall, launches = stitch_run(stitch, caps_default, cfg, counters, rec)
+    assert rec.calls["fused_compose"] == [], "the whole-canvas compose ran"
+    (args, kwargs, _), = rec.calls["fused_compose_strips"]
+    strip_w, margin, strips = cf.strip_rects(args[4], args[5], args[10],
+                                             args[11], kwargs["strip_w"])
+    assert len(strips) >= 3, len(strips)
+    assert res.panorama.device.type == "cpu", res.panorama.device
+    mask_9b = base_9b.mask.cpu()
+    assert torch.equal(res.mask, mask_9b), "13a: mask differs from 9b's"
+    diff = (res.panorama - base_9b.panorama.cpu()).abs()[mask_9b].numpy()
+    mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+    assert mean < 0.5 and p99 <= 2.0, (mean, p99)
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    by_path["phase 13a"] = launches
+    print(f"phase 13a strips through stitch() (StitchConfig(compose_strips_mp"
+          f"={cfg.compose_strips_mp}, compose_strip_w={cfg.compose_strip_w})"
+          f" on DEFAULT_RING, canvas {ch9}x{cw9} = {mp_9b:.3f} MP): "
+          f"{len(strips)} strips of {strip_w} columns, margin {margin}, "
+          f"{strips[0].n_bands} bands, rects per strip "
+          f"{[len(st.tls) for st in strips]}; panorama on the host, mask "
+          f"equal to 9b's, |diff| over the mask mean {mean:.4f} (< 0.5), "
+          f"p99 {p99:.1f} (<= 2); launches {launches}, wall {wall:.4f} s; "
+          f"Compositing {res.stage_times['Compositing']:.4f} s against 9b's "
+          f"{base_9b.stage_times['Compositing']:.4f} s; card '{smi}'",
+          flush=True)
+    del res, rec, args
+
+    # (b) mosaic100, timed after a warm-up on its +-2 LSB twin; the timed
+    # stitch's first K1 launch and its compose call are kept for the
+    # kernels at its shapes.
+    m = MOSAIC100
+    cfg = StitchConfig(range_width=MOSAIC_RANGE,
+                       checkpoint_dir=os.path.join(work, "mosaic100_run"))
+    os.makedirs(cfg.checkpoint_dir)
+    stitch(caps13["mosaic100 warm-up"], cfg, output="", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorder(stitcher, "match_all_pairs", "fused_compose")
+    with FirstCall(orb_mod, "orb_sample_levels") as k1_call:
+        res, wall, launches = stitch_run(stitch, caps13["mosaic100"], cfg,
+                                         counters, rec)
+    peak = torch.cuda.max_memory_allocated()
+    assert res.kept_indices == list(range(m["n_images"])), res.kept_indices
+    err = reproj_err_px(res.cameras, res.kept_indices, truth["k"],
+                        truth["rs"], res.work_scale, m["hw"])
+    assert err <= 1.0, f"mosaic100 reprojection {err:.4f} px > 1 px"
+    assert bool(torch.isfinite(res.panorama).all()), "non-finite panorama"
+    for name in names:
+        assert launches[name] > 0, f"{name} was not launched by the path"
+    by_path["phase 13b"] = launches
+    mp_in = m["n_images"] * m["hw"][0] * m["hw"][1] / 1e6
+    cov = float(res.mask.float().mean())
+    print(f"phase 13b mosaic100 (StitchConfig(range_width={MOSAIC_RANGE}), "
+          f"{m['n_images']} x {m['hw'][0]}x{m['hw'][1]}, fov "
+          f"{m['fov_deg']} deg, overlap {m['overlap_ratio']}, seed "
+          f"{m['seed']}, detailed texture, after a warm-up on its +-2 LSB "
+          f"twin): kept {len(res.kept_indices)}/{m['n_images']}, "
+          f"reprojection {err:.4f} px, canvas {tuple(res.mask.shape)} "
+          f"(mask {cov:.4f}), launches {launches}, wall {wall:.4f} s "
+          f"({mp_in / wall:.3f} MP/s, {mp_in:.2f} MP in), peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB ({peak} bytes); card '{smi}'\n"
+          + stage_table([("phase 9b", base_9b.stage_times),
+                         ("13b mosaic100", res.stage_times)]), flush=True)
+    feats = rec.calls["match_all_pairs"][0][0][0]
+    k4_in = k4_args(dev, feats, MOSAIC_RANGE)
+    k4 = dict(k4_times(k4_in, feats.valid), pairs=len(k4_in[2]))
+    print(f"phase 13b K4 on mosaic100's descriptors: {k4['pairs']} pairs "
+          f"(range {MOSAIC_RANGE}) of K={feats.xy.shape[1]}, both "
+          f"directions, one call: equal to the plain version; device "
+          f"{k4['dev_ms']:.4f} ms, call {k4['call_ms']:.4f} ms, plain "
+          f"{k4['plain_ms']:.4f} ms; bound over {k4['n_dist']:.0f} valid "
+          f"distances {k4['bound_ms']:.4f} ms ({k4['route']}; CUDA cores "
+          f"{k4['cuda_core_ms']:.4f} ms), {k4['bound_ms'] / k4['dev_ms']:.1%}"
+          f" of it reached", flush=True)
+    raws = k1_call.args[0]
+    valid = torch.bincount(feats.octave[0][feats.valid[0]].long(),
+                           minlength=len(raws)).tolist()
+    k1, _ = k1_launch_check(
+        dev, *k1_call.args[:5], valid, "13b", "orb_sample_levels",
+        "image_stitching_tpu/kernels/orb_sample_pallas.py:145")
+    print(f"phase 13b K1 on the stitch's first launch (view 0, K="
+          f"{k1_call.args[2].shape[0]}, valid {sum(valid)}): equal to the "
+          f"plain version under phase 2's gates; "
+          f"{launches['orb_sample_levels']} launches a stitch", flush=True)
+    del res, feats, k4_in, k1_call, raws
+    compose_call = rec.calls["fused_compose"][0]
+    calls, g_m = compose_k2_calls(compose_call)
+    k2 = k2_loop_check(calls)
+    print(f"phase 13b K2 on mosaic100's {len(calls)} compose rects "
+          f"{sorted({tuple(c[1].shape) for c in calls})} (sources "
+          f"{sorted({tuple(c[0].shape) for c in calls})}): max |diff| "
+          f"{k2['err']:.3g} (atol 1e-4), per rect: kernel device "
+          f"{k2['device_ms']:.4f} ms, call {k2['call_ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, grid_sample device "
+          f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+          f"({k2['bound_by']}, {k2['bound_ms'] / k2['device_ms']:.1%} of it "
+          f"reached); {launches['warp_bilinear']} launches a stitch",
+          flush=True)
+    del calls
+    k5 = k5_compose_check(dev, compose_call, "mosaic100", plain=True)
+    print(f"phase 13b K5 on mosaic100's compose calls {k5['buckets']} "
+          f"({k5['n_bands']} bands, accumulators {k5['accs']}): accumulators"
+          f" {k5['err']:.3g} (tol 2e-3), finalized u8 {k5['u8']} (tol 1), "
+          f"masks equal, {k5['launches_per_call']:g} kernel launches a call;"
+          f" per call: kernel device {k5['device_ms']:.4f} ms, call "
+          f"{k5['call_ms']:.4f} ms, plain {k5['plain_ms']:.4f} ms, bound "
+          f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}, "
+          f"{k5['bound_ms'] / k5['device_ms']:.1%} of it reached); "
+          f"{launches['pyramid_accumulate']} calls a stitch", flush=True)
+    del compose_call, rec
+    torch.cuda.empty_cache()
+    mosaic = dict(k1=k1, k2=k2, k5=k5)
+    band_err, band_lv = banded_up_check(dev, (g_m.canvas_h, g_m.canvas_w),
+                                        g_m.n_bands, "mosaic100")
+    print(f"phase 13b banded pyrUp of mosaic100's collapse ({g_m.n_bands} "
+          f"bands, frame {g_m.canvas_h}x{g_m.canvas_w}) at output levels "
+          f"{band_lv}: against the dense matrices max |diff| {band_err:.3g}"
+          f" (rtol 1e-5, atol 1e-4)", flush=True)
+
+    # (c) gigapixel: a warm pass on seed 1, the timed pass on seed 2.
+    geo = gigapixel_geometry()
+    gp = GIGAPIXEL
+    cx, cy, cw, ch = geo["canvas"]
+    canvas_mp = cw * ch / 1e6
+    seam_corners = [(r[0], r[1]) for r in geo["srois"]]
+    strip_w, margin, strips = cf.strip_rects(
+        geo["corners"], geo["sizes"], BlenderType.MULTI_BAND, 5.0,
+        gp["strip_w"])
+    g_whole = cf.compose_rects(geo["corners"], geo["sizes"],
+                               BlenderType.MULTI_BAND, 5.0)
+    nb = strips[0].n_bands
+
+    def pass_(seed):
+        tiles = gigapixel_tiles(seed, geo["n"], dev)
+        comp, seam_masks, t_exp, t_seam = gigapixel_prep(tiles, geo, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with StripWatch() as watch:
+            pano, mask = cf.fused_compose_strips(
+                tiles, geo["k"], geo["rs"], geo["warper"], geo["corners"],
+                geo["sizes"], seam_masks, seam_corners, geo["s"], comp,
+                BlenderType.MULTI_BAND, 5.0, strip_w=gp["strip_w"],
+                out_dtype=np.uint8)
+            torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+        return dict(tiles=tiles, comp=comp, seam_masks=seam_masks,
+                    t_exp=t_exp, t_seam=t_seam, t_comp=t_comp, pano=pano,
+                    mask=mask, peak=torch.cuda.max_memory_allocated(),
+                    watch=watch, resident=resident,
+                    launches={fn.__name__: fn.launches for fn in counters})
+
+    warm = pass_(gp["seeds"][0])
+    warm_s = (warm["t_exp"], warm["t_seam"], warm["t_comp"])
+    del warm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = pass_(gp["seeds"][1])
+    t_e2e = time.perf_counter() - t0
+    pano, mask, peak = run["pano"], run["mask"], run["peak"]
+    assert pano.shape == (ch, cw, 3) and pano.dtype == np.uint8, \
+        (pano.shape, pano.dtype)
+    cov = float(mask.mean())
+    assert cov > 0.5, f"gigapixel mask coverage {cov:.4f}"
+    level = float(pano[mask].mean())
+    assert 8.0 < level < 248.0, f"gigapixel panorama mean {level:.2f}"
+    # The rolling download and the sample budget, from the compose itself;
+    # then the peak against the terms the design allows.
+    watch = run["watch"]
+    assert len(watch.pending) == len(strips) and max(watch.pending) <= 1, \
+        f"finished strips left on the device after each hand-off: " \
+        f"{watch.pending}"
+    over = [c for c in watch.chunks if c[0] > 1 and c[1] > cf.SAMPLE_BUDGET]
+    assert not over, f"K5 calls past SAMPLE_BUDGET: {over}"
+    tile_bytes = run["tiles"].numel()
+    whole_accs = sum(16 * (g_whole.canvas_h >> b) * (g_whole.canvas_w >> b)
+                     for b in range(g_whole.n_bands + 1))
+    terms = strip_memory_terms(run["tiles"], geo, run["comp"],
+                               run["seam_masks"], strips)
+    allowed = run["resident"] + sum(terms[k] for k in (
+        "inputs", "strip_accs", "budget", "rect", "downloads")) + MEM_SLACK
+    assert peak <= allowed, f"compose peak {peak} > {allowed} ({terms})"
+    assert peak < tile_bytes + whole_accs, \
+        f"compose peak {peak} >= tiles {tile_bytes} + whole {whole_accs}"
+    launches = run["launches"]
+    for name in ("warp_bilinear", "pyramid_accumulate"):
+        assert launches[name] > 0, f"{name} was not launched by the compose"
+    by_path["phase 13c"] = launches
+    gb = 1e9
+    print(f"phase 13c gigapixel ({gp['rows']} x {gp['cols']} tiles of "
+          f"{gp['hw'][0]}x{gp['hw'][1]}, focal {gp['focal']}, overlap "
+          f"{gp['overlap']}, made on the device from a CUDA generator "
+          f"seeded {gp['seeds'][1]} after a warm pass on "
+          f"{gp['seeds'][0]}): canvas {ch}x{cw} = {canvas_mp:.1f} MP, "
+          f"{nb} bands, {len(strips)} strips of {strip_w} (margin {margin}, "
+          f"accumulators {strips[0].canvas_h}x{strips[0].canvas_w}), rects "
+          f"per strip {[len(st.tls) for st in strips]}; exposure "
+          f"{run['t_exp']:.3f} s (resize, warp_stack, feed_device), seams "
+          f"{run['t_seam']:.3f} s, compose {run['t_comp']:.3f} s "
+          f"({canvas_mp / run['t_comp']:.2f} canvas MP/s, the download "
+          f"included), e2e {t_e2e:.3f} s (warm pass: exposure "
+          f"{warm_s[0]:.3f}, seams {warm_s[1]:.3f}, compose "
+          f"{warm_s[2]:.3f} s); mask coverage {cov:.4f}, panorama mean "
+          f"{level:.2f} over it; launches {launches}; finished strips on "
+          f"the device after each hand-off {watch.pending}, K5 calls' rects "
+          f"{sorted({c[0] for c in watch.chunks})} (largest "
+          f"{max(c[1] for c in watch.chunks) / gb:.3f} GB of samples and "
+          f"scratch, budget {cf.SAMPLE_BUDGET / gb:.3f}); compose peak "
+          f"device memory {peak / gb:.3f} GB ({peak} bytes), gate: at most "
+          f"what was resident before it {run['resident'] / gb:.3f} (tiles "
+          f"{tile_bytes / gb:.3f}) + inputs {terms['inputs'] / gb:.3f}"
+          f" + one strip's accumulators {terms['strip_accs'] / gb:.3f} + "
+          f"sample budget {terms['budget'] / gb:.3f} + one rect "
+          f"{terms['rect_hw']} with its temporaries {terms['rect'] / gb:.3f}"
+          f" + two strip downloads {terms['downloads'] / gb:.3f} + slack "
+          f"{MEM_SLACK / gb:.3f} = {allowed / gb:.3f} GB; whole-canvas "
+          f"accumulators ({g_whole.canvas_h}x{g_whole.canvas_w}) "
+          f"{whole_accs / gb:.3f} GB, tiles + them "
+          f"{(tile_bytes + whole_accs) / gb:.3f} GB; card '{smi}'",
+          flush=True)
+    whole = strips_vs_whole(run["tiles"], geo, run["comp"],
+                            run["seam_masks"], pano, mask, margin, strip_w,
+                            dev)
+    print(f"phase 13c strips against the whole-canvas compose "
+          f"(fused_compose on the same tiles, gains and seams, "
+          f"{whole['t_whole']:.3f} s on the device, peak "
+          f"{whole['peak'] / gb:.3f} GB above what was resident): mask "
+          f"equal, |diff| over the mask mean {whole['mean']:.4f} (< 0.5), "
+          f"p99 {whole['p99_all']:.1f}, max {whole['max_all']}; right of "
+          f"the first {margin} columns p99 {whole['p99']:.1f} (<= 2), max "
+          f"{whole['max']}; in them (the first strip's rects pulled past the"
+          f" canvas edge, as the reference's) mean {whole['edge'][0]:.4f}, "
+          f"p99 {whole['edge'][1]:.1f}, max {whole['edge'][2]}; pixels "
+          f"above 2: {whole['sites'][0]}, by columns to the nearest strip "
+          f"boundary or canvas edge {whole['sites'][1]}, largest (row, col, "
+          f"|diff|, mask share around) {whole['sites'][2]}", flush=True)
+    del pano, mask
+    band_err, band_lv = banded_up_check(
+        dev, (strips[0].canvas_h, strips[0].canvas_w), nb, "gigapixel strip")
+    print(f"phase 13c banded pyrUp of a strip's collapse ({nb} bands, frame "
+          f"{strips[0].canvas_h}x{strips[0].canvas_w}) at output levels "
+          f"{band_lv}: against the dense matrices max |diff| {band_err:.3g}"
+          f" (rtol 1e-5, atol 1e-4)", flush=True)
+    k2, k5 = strip_kernel_check(dev, run["tiles"], geo, run["comp"],
+                                run["seam_masks"], strips)
+    del run
+    torch.cuda.empty_cache()
+    print(f"phase 13d K2 on one strip's rects {k2['rects']} (sources "
+          f"{gp['hw'][0]}x{gp['hw'][1]}x3): max |diff| {k2['err']:.3g} "
+          f"(atol 1e-4), per rect: kernel device {k2['device_ms']:.4f} ms, "
+          f"call {k2['call_ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
+          f"grid_sample device {k2['library_ms']:.4f} ms, bound "
+          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}, "
+          f"{k2['bound_ms'] / k2['device_ms']:.1%} of it reached)",
+          flush=True)
+    print(f"phase 13d K5 on one strip's K5 call {k5['chunk']} (of a bucket "
+          f"of {k5['bucket']}, {k5['n_bands']} bands, accumulators "
+          f"{k5['accs']}): accumulators {k5['err']:.3g} (tol 2e-3), "
+          f"finalized u8 {k5['u8']} (tol 1), masks equal, "
+          f"{k5['launches_per_call']} kernel launches; per call: kernel "
+          f"device {k5['device_ms']:.4f} ms, call {k5['call_ms']:.4f} ms, "
+          f"plain {k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms "
+          f"({k5['bound_by']}, {k5['bound_ms'] / k5['device_ms']:.1%} of it "
+          f"reached)", flush=True)
+    return dict(by_path=by_path, k4=k4, k2=k2, k5=k5, mosaic100=mosaic)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2105,15 +2910,14 @@ def main() -> int:
         caps_default = os.path.join(work, "caps_default")
         caps_plain = os.path.join(work, "caps_plain")
         t0 = time.perf_counter()
-        k_true, rs_true = write_ring_dir(caps, **E2E_RING)
-        write_ring_dir(caps_default, plain_directory=caps_plain,
-                       **DEFAULT_RING)
+        workers = max(1, min(8, os.cpu_count() or 1))
+        k_true, rs_true = write_e2e_rings(caps, caps_default, caps_plain,
+                                          workers)
         print(f"phase 0 captures: 2 rings of {N_IMAGES} x {H}x{W} (noise "
               f"sigma 4 and {DEFAULT_RING['noise_sigma']}, the second also "
               f"written without EXIF) rendered and written in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         t0 = time.perf_counter()
-        workers = max(1, min(8, os.cpu_count() or 1))
         bench_caps = render_bench_dirs(work, workers)
         print(f"phase 0 captures: bench.py's cyl4 sets (4 x 1080x1920, 55 "
               f"deg, 0.45 overlap, seeds {CYL4_SEEDS}) and vga_pair sets "
@@ -2136,6 +2940,14 @@ def main() -> int:
               f"{SPHER16['hw'][1]}, seed {SPHER16['seed']}, sigma-8 noise) "
               f"with its +-2 LSB twin rendered and written in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
+        t0 = time.perf_counter()
+        caps13, truth13 = render_phase13_dirs(work, workers)
+        print(f"phase 0 captures: bench.py's mosaic100 ("
+              f"{MOSAIC100['n_images']} x {MOSAIC100['hw'][0]}x"
+              f"{MOSAIC100['hw'][1]}, fov {MOSAIC100['fov_deg']} deg, seed "
+              f"{MOSAIC100['seed']}, detailed texture) with its +-2 LSB twin "
+              f"rendered and written in {time.perf_counter() - t0:.3f} s",
+              flush=True)
 
         # The kernels (nvcc) and the host runtime (g++) build side by side.
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -2369,6 +3181,48 @@ def main() -> int:
                       loop_bound_ms_per_call=loop5["bound_ms"],
                       loop_launches_per_call=loop5["launches_per_call"],
                       loop_max_abs_err=loop5["err"])
+            phase13 = run_phase13(stitch, counters, names, caps13, truth13,
+                                  caps_default, base_9b, work, smi, dev)
+            by_path.update(phase13["by_path"])
+            m4, s2, s5 = phase13["k4"], phase13["k2"], phase13["k5"]
+            m1, m2, m5 = (phase13["mosaic100"][k] for k in ("k1", "k2", "k5"))
+            k1.update(mosaic100_device_ms=m1["device_ms"],
+                      mosaic100_call_ms=m1["call_ms"],
+                      mosaic100_plain_ms=m1["plain_ms"],
+                      mosaic100_bound_ms=m1["bound_ms"],
+                      mosaic100_max_abs_err=m1["max_abs_err"])
+            k2.update(mosaic100_device_ms=m2["device_ms"],
+                      mosaic100_call_ms=m2["call_ms"],
+                      mosaic100_plain_ms=m2["plain_ms"],
+                      mosaic100_bound_ms=m2["bound_ms"],
+                      mosaic100_library_ms=m2["library_ms"],
+                      mosaic100_max_abs_err=m2["err"])
+            k5.update(mosaic100_buckets=m5["buckets"],
+                      mosaic100_device_ms_per_call=m5["device_ms"],
+                      mosaic100_call_ms=m5["call_ms"],
+                      mosaic100_plain_ms=m5["plain_ms"],
+                      mosaic100_bound_ms_per_call=m5["bound_ms"],
+                      mosaic100_max_abs_err=m5["err"])
+            k4.update(mosaic100_pairs=m4["pairs"],
+                      mosaic100_device_ms=m4["dev_ms"],
+                      mosaic100_call_ms=m4["call_ms"],
+                      mosaic100_plain_ms=m4["plain_ms"],
+                      mosaic100_bound_ms=m4["bound_ms"])
+            k2.update(strip_rects=s2["rects"],
+                      strip_device_ms=s2["device_ms"],
+                      strip_call_ms=s2["call_ms"],
+                      strip_plain_ms=s2["plain_ms"],
+                      strip_bound_ms=s2["bound_ms"],
+                      strip_library_ms=s2["library_ms"],
+                      strip_max_abs_err=s2["err"])
+            k5.update(strip_call_shape=list(s5["chunk"]),
+                      strip_n_bands=s5["n_bands"],
+                      strip_device_ms_per_call=s5["device_ms"],
+                      strip_call_ms=s5["call_ms"],
+                      strip_plain_ms=s5["plain_ms"],
+                      strip_bound_ms_per_call=s5["bound_ms"],
+                      strip_launches_per_call=s5["launches_per_call"],
+                      strip_max_abs_err=s5["err"])
         finally:
             os.chdir(cwd)
 

@@ -24,13 +24,16 @@ from ..geometry.euler import euler_to_rotation_matrix
 
 __all__ = ["sphere_texture_rgb", "render_view", "ring_geometry",
            "make_ring_captures", "make_rig_captures", "E2E_RING",
-           "DEFAULT_RING", "write_ring_dir", "write_capture_dir"]
+           "DEFAULT_RING", "ring_view_noise", "write_ring_dir",
+           "write_capture_dir"]
 
 
 def sphere_texture_rgb(lon: np.ndarray, lat: np.ndarray,
-                       seed: int = 7) -> np.ndarray:
+                       seed: int = 7, detail: bool = False) -> np.ndarray:
     """Trig base layers, 400 sharp lon/lat boxes and three octaves of cell
-    noise, as float32 0..255 RGB."""
+    noise, as float32 0..255 RGB.  With `detail` the base is compressed
+    into [0.15, 0.85] first, so the cell octaves survive where it
+    saturates (narrow-fov captures need them)."""
     rng = np.random.default_rng(seed)
     out = np.zeros(lon.shape + (3,), np.float32)
     for c in range(3):
@@ -67,6 +70,8 @@ def sphere_texture_rgb(lon: np.ndarray, lat: np.ndarray,
     def cell_hash(u, v, salt):
         s = np.sin(u * 127.1 + v * 311.7 + salt) * 43758.547
         return (s - np.floor(s)).astype(np.float32)
+    if detail:
+        out = np.clip(out, 0.0, 1.0) * 0.7 + 0.15
     for amp, scale in ((0.22, 60.0), (0.15, 220.0), (0.12, 800.0)):
         cu = np.floor(lon * scale)
         cv = np.floor(lat * scale)
@@ -76,7 +81,8 @@ def sphere_texture_rgb(lon: np.ndarray, lat: np.ndarray,
     return (out * 255.0).astype(np.float32)
 
 
-def render_view(k, r, hw: Tuple[int, int], seed: int = 7) -> np.ndarray:
+def render_view(k, r, hw: Tuple[int, int], seed: int = 7,
+                detail: bool = False) -> np.ndarray:
     """The sphere texture seen by camera (k, r) at size hw = (h, w)."""
     h, w = hw
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float64) + 0.0
@@ -87,7 +93,7 @@ def render_view(k, r, hw: Tuple[int, int], seed: int = 7) -> np.ndarray:
     lon = np.arctan2(rays[..., 0], rays[..., 2])
     lat = np.arcsin(np.clip(rays[..., 1] / np.maximum(norm, 1e-12), -1, 1))
     return sphere_texture_rgb(lon.astype(np.float32), lat.astype(np.float32),
-                              seed)
+                              seed, detail)
 
 
 def _intrinsics(hw: Tuple[int, int], fov_deg: float) -> np.ndarray:
@@ -115,13 +121,14 @@ def _render_args(args) -> np.ndarray:
     return render_view(*args)
 
 
-def _noisy_views(k, rs, hw, seed: int, noise_sigma: float, pool):
+def _noisy_views(k, rs, hw, seed: int, noise_sigma: float, pool,
+                 detail: bool = False):
     """(images, K float32, Rs float32): the views of cameras (k, rs) with
     Gaussian sensor noise drawn in view order from `seed`; `pool` (a
     multiprocessing pool) renders them in parallel."""
     rng = np.random.default_rng(seed)
     views = (pool.map if pool is not None else map)(
-        _render_args, [(k, r, hw, seed) for r in rs])
+        _render_args, [(k, r, hw, seed, detail) for r in rs])
     images = [np.clip(view + rng.normal(0.0, noise_sigma, view.shape).astype(
         np.float32), 0.0, 255.0) for view in views]
     return images, k.astype(np.float32), np.stack(
@@ -131,11 +138,12 @@ def _noisy_views(k, rs, hw, seed: int, noise_sigma: float, pool):
 def make_ring_captures(n_images: int = 4, hw: Tuple[int, int] = (240, 320),
                        fov_deg: float = 55.0, pitch_deg: float = 0.0,
                        overlap_ratio: float = 0.45, seed: int = 7,
-                       pool=None):
+                       texture_detail: bool = False, pool=None):
     """A single-ring horizontal panorama: (images, K, Rs), with sigma-4
-    per-view sensor noise."""
+    per-view sensor noise; `texture_detail` renders the detailed texture
+    (`sphere_texture_rgb`'s `detail`)."""
     k, rs = ring_geometry(n_images, hw, fov_deg, overlap_ratio, pitch_deg)
-    return _noisy_views(k, rs, hw, seed, 4.0, pool)
+    return _noisy_views(k, rs, hw, seed, 4.0, pool, texture_detail)
 
 
 def make_rig_captures(hw: Tuple[int, int] = (240, 320),
@@ -165,13 +173,17 @@ E2E_RING = dict(n_images=8, hw=(2448, 3264), fov_deg=55.0, overlap_ratio=0.5,
 DEFAULT_RING = dict(E2E_RING, noise_sigma=8.0)
 
 
-def _render_noisy(args) -> np.ndarray:
-    """One ring view with Gaussian sensor noise from its own seed (worker
-    process)."""
-    i, k, r, hw, seed, sigma = args
-    view = render_view(k, r, hw, seed)
+def ring_view_noise(view: np.ndarray, i: int, sigma: float) -> np.ndarray:
+    """View i of a `write_ring_dir` ring with its Gaussian sensor noise,
+    drawn from its own seed 1000 + i, clipped to 0..255 float32."""
     noise = np.random.default_rng(1000 + i).normal(0.0, sigma, view.shape)
     return np.clip(view + noise.astype(np.float32), 0.0, 255.0)
+
+
+def _render_noisy(args) -> np.ndarray:
+    """One ring view with its sensor noise (worker process)."""
+    i, k, r, hw, seed, sigma = args
+    return ring_view_noise(render_view(k, r, hw, seed), i, sigma)
 
 
 def write_ring_dir(directory: str, n_images: int, hw: Tuple[int, int],

@@ -61,12 +61,15 @@ def pyr_up(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 def collapse(accs: List[torch.Tensor], n_bands: int):
     """Normalise each (4, Hb, Wb) band accumulator by its weight (channel
-    3) and collapse the pyramid: (planar float32 (3, H, W), mask (H, W))."""
-    bands = [accs[b][:3] / (accs[b][3:4] + WEIGHT_EPS)
-             for b in range(n_bands + 1)]
-    out = bands[-1]
+    3) and collapse the pyramid: (planar float32 (3, H, W), mask (H, W)).
+    Each band is normalised as the collapse reaches it, so one normalised
+    band is held at a time."""
+    def band(b):
+        return accs[b][:3] / (accs[b][3:4] + WEIGHT_EPS)
+    out = band(n_bands)
     for b in range(n_bands - 1, -1, -1):
-        out = pyr_up_mm(out, bands[b].shape[1:]) + bands[b]
+        out = pyr_up_mm(out, accs[b].shape[1:])
+        out += band(b)
     return out, accs[0][3] > WEIGHT_EPS
 
 

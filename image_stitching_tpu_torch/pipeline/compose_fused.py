@@ -1,5 +1,5 @@
-"""Seam-scale warp and fused compose (port of
-`pipeline/compose_fused.py:45,151,215,332,370,461,496,515,536,551`).
+"""Seam-scale warp, fused compose and strip-streamed compose (port of
+`pipeline/compose_fused.py:45,151,215,332,370,461,496,515,536,551,863`).
 
 Per image, on the device: backward warp of the compose source over a
 padded, band-aligned canvas rect (kernel K2, `kernels/warp_gather.py`,
@@ -8,24 +8,27 @@ scalar, one per channel, or the block map stretched over the image's ROI),
 the seam mask sampled at ratio-scaled warped coordinates (for FEATHER,
 the blend weight is then the clipped L1 distance to the nearest invalid
 pixel inside the image's ROI), then the Laplacian pyramid of the planar
-(4, h, w) image + weight accumulated into the canvas band accumulators
-(kernel K5, `kernels/multiband.py`, one call per bucket of same-size
-rects; FEATHER and NO accumulate 0 bands).  Then one normalise +
-collapse.  The
-rect geometry (gap 3 * 2^nb, band-aligned corners, half-octave bucket
-dims, canvas clamp) is host integer arithmetic copied from the reference,
+(4, h, w) image + weight accumulated into the band accumulators (kernel
+K5, `kernels/multiband.py`, one call per bucket of same-size rects, or
+per chunk of SAMPLE_BUDGET bytes; FEATHER and NO accumulate 0 bands).
+Then one normalise + collapse.  `fused_compose_strips` runs the same per
+vertical canvas strip, with a recompute margin, and downloads each
+finished strip while the next one computes.  The rect geometry (gap
+3 * 2^nb, band-aligned corners, half-octave bucket dims, frame clamp, the
+strips' cuts) is host integer arithmetic copied from the reference,
 because it sets what the pyramid sees at rect borders.  The reference's
-`lax.scan` over images is a Python loop.  For warp_type="affine" both
-warps sample the map of each camera's affine H split as the warper's ROIs
-split it (`ops/warps.py::camera_backward_xy`); the reference's fused path
-samples the plane map of the raw H, away from those ROIs.
+`lax.scan` over images is a Python loop, and its power-of-two padding of
+a strip's bucket counts (dummy slots that add zero, so XLA compiles
+once) is left out.  For warp_type="affine" both warps sample the map of
+each camera's affine H split as the warper's ROIs split it
+(`ops/warps.py::camera_backward_xy`); the reference's fused path samples
+the plane map of the raw H, away from those ROIs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +43,9 @@ from ..ops.seams import bucket_dim
 from ..kernels.warp_gather import int32_taps
 from ..ops.warps import Warper, camera_backward_xy, result_roi
 
-__all__ = ["warp_stack", "compose_rects", "rect_grid", "prep_gains",
-           "compose_samples", "compose_buckets", "fused_compose"]
+__all__ = ["warp_stack", "compose_rects", "strip_rects", "rect_grid",
+           "prep_gains", "compose_samples", "compose_buckets",
+           "fused_compose", "fused_compose_strips", "SAMPLE_BUDGET"]
 
 
 def _patch_bilinear(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
@@ -142,12 +146,14 @@ def _warp_seam(img, k, r, us, vs, scale, smask, stl, seam_ratio: float,
     sx, sy, valid = camera_backward_xy(proj_name, us, vs, k, r, scale)
     warped = warp_bilinear(img, sx.contiguous(), sy.contiguous())
     wmask = _valid_mask(sx, sy, valid, hc, wc)
+    # The gain scales K2's fresh output in place (one rect of a strip is
+    # up to 6144 x 6144 pixels).
     if gain is not None and gain.ndim == 0:
-        warped = warped * gain
+        warped.mul_(gain)
     elif gain is not None and gain.ndim == 1:
-        warped = warped * gain[:, None, None]
+        warped.mul_(gain[:, None, None])
     elif gain is not None:
-        warped = warped * _gain_sample(us, vs, gain, gain_grid, gain_roi)
+        warped.mul_(_gain_sample(us, vs, gain, gain_grid, gain_roi))
     ratio = torch.tensor(seam_ratio, dtype=torch.float32, device=us.device)
     mx = us * ratio - stl[0]
     my = vs * ratio - stl[1]
@@ -191,11 +197,10 @@ def _feather_weight(weight, us, vs, roi, sharpness: float, rounds: int):
 
 def _finalize(accs: List[torch.Tensor], n_bands: int):
     """Normalise each band by its weight, collapse the pyramid and round
-    to u8."""
+    to u8: (panorama u8 (H, W, 3), mask (H, W))."""
     out, mask = collapse(accs, n_bands)
-    out_u8 = torch.clamp(torch.round(out.permute(1, 2, 0)), 0.0, 255.0).to(
-        torch.uint8)
-    return out_u8, mask
+    out = out.round_().clamp_(0.0, 255.0)
+    return out.permute(1, 2, 0).to(torch.uint8), mask
 
 
 def _prep_seam_masks(seam_masks: Sequence[np.ndarray], device):
@@ -210,14 +215,16 @@ def _prep_seam_masks(seam_masks: Sequence[np.ndarray], device):
 
 @dataclasses.dataclass
 class ComposeRects:
-    """Host integer geometry of the fused compose: the canvas rect, the
-    band count, the padded canvas dims, each image's band-aligned rect
-    corner, and the images of each (pad_h, pad_w) bucket."""
+    """Host integer geometry of one accumulator frame: its rect on the
+    canvas (x, y, w, h) (the canvas, or one strip with its margins), the
+    band count, the padded frame dims, the band-aligned rect corner of each
+    image it holds (indexed by image), and the images of each
+    (pad_h, pad_w) bucket."""
     canvas: Tuple[int, int, int, int]
     n_bands: int
     canvas_h: int
     canvas_w: int
-    tls: List[Tuple[int, int]]
+    tls: Sequence[Tuple[int, int]]
     buckets: Dict[Tuple[int, int], List[int]]
     feather_sharpness: float = 0.0
     feather_rounds: int = 0
@@ -240,49 +247,105 @@ def _blend_params(canvas, blend_type: BlenderType, blend_strength: float):
     return n_bands, feather_sharpness, feather_rounds
 
 
+def _padded_rects(comp_corners, comp_sizes, canvas, n_bands: int,
+                  canvas_w: int, canvas_h: int):
+    """Each image's rect (tlx, tly, brx, bry): its ROI grown by the gap
+    3 * 2^nb, cut to the padded canvas, its corner band-aligned."""
+    cx, cy = canvas[0], canvas[1]
+    gap = 3 * (1 << n_bands)
+    rects = []
+    for (x, y), (w, h) in zip(comp_corners, comp_sizes):
+        tlx = max(cx, x - gap)
+        tly = max(cy, y - gap)
+        rects.append((cx + (((tlx - cx) >> n_bands) << n_bands),
+                      cy + (((tly - cy) >> n_bands) << n_bands),
+                      min(cx + canvas_w, x + w + gap),
+                      min(cy + canvas_h, y + h + gap)))
+    return rects
+
+
+def _bucketed(rects: Dict[int, Tuple[int, int, int, int]], frame,
+              n_bands: int):
+    """Bucket the rects {image: (tlx, tly, brx, bry)} of one frame
+    (x, y, w, h): half-octave dims snapped to max(2^nb, 128) and capped at
+    the frame, each corner pulled in so its bucket's rect fits the frame.
+    Returns ({image: corner}, {(pad_h, pad_w): [images]})."""
+    x0, y0, fw, fh = frame
+    pad_step = max(1 << max(n_bands, 1), 128)
+
+    def _bdim(v, cap):
+        return min(-(-bucket_dim(v) // pad_step) * pad_step, cap)
+    tls, buckets = {}, {}
+    for i, (tlx, tly, brx, bry) in rects.items():
+        bw, bh = _bdim(brx - tlx, fw), _bdim(bry - tly, fh)
+        buckets.setdefault((int(bh), int(bw)), []).append(i)
+        tls[i] = (min(tlx, x0 + fw - bw), min(tly, y0 + fh - bh))
+    return tls, buckets
+
+
+def _quantised(v: int, n_bands: int) -> int:
+    """A padded canvas dim: v rounded up to max(2^max(nb, 1), 64)."""
+    quant = max(1 << max(n_bands, 1), 64)
+    return -(-v // quant) * quant
+
+
 def compose_rects(comp_corners, comp_sizes, blend_type: BlenderType,
                   blend_strength: float) -> ComposeRects:
     """The reference's rect geometry (`compose_fused.py:575-615`): gap
     3 * 2^nb around each ROI, band-aligned corners, half-octave bucket dims
     snapped to max(step, 128), clamped to the canvas; and the blend's
     parameters."""
-    n = len(comp_corners)
+    canvas = result_roi(comp_corners, comp_sizes)
+    n_bands, sharpness, rounds = _blend_params(canvas, blend_type,
+                                               blend_strength)
+    canvas_w = _quantised(canvas[2], n_bands)
+    canvas_h = _quantised(canvas[3], n_bands)
+    rects = _padded_rects(comp_corners, comp_sizes, canvas, n_bands,
+                          canvas_w, canvas_h)
+    tls, buckets = _bucketed(dict(enumerate(rects)),
+                             (canvas[0], canvas[1], canvas_w, canvas_h),
+                             n_bands)
+    return ComposeRects(canvas, int(n_bands), canvas_h, canvas_w,
+                        [tls[i] for i in range(len(rects))], buckets,
+                        float(sharpness), int(rounds))
+
+
+def strip_rects(comp_corners, comp_sizes, blend_type: BlenderType,
+                blend_strength: float, strip_w: int):
+    """The reference's strip geometry (`compose_fused.py:903-983`): the
+    interior width `strip_w` rounded up to the band step, a recompute
+    margin of 3 * 2^nb columns (FEATHER: at least 2^rounds, the L1
+    distance's reach) rounded up to a band, the global rects with their
+    gap on a canvas of n_strips * strip_w columns, each cut to its strip's
+    extended columns [x0, x0 + strip_w + 2 margin) and bucketed inside
+    that frame.  Returns (strip_w, margin, [ComposeRects of each strip])."""
     canvas = result_roi(comp_corners, comp_sizes)
     n_bands, sharpness, rounds = _blend_params(canvas, blend_type,
                                                blend_strength)
     step = 1 << max(n_bands, 1)
-    cx, cy, cw, ch = canvas
-    quant = max(step, 64)
-    canvas_w = -(-cw // quant) * quant
-    canvas_h = -(-ch // quant) * quant
-
-    gap = 3 * (1 << n_bands)
-    tls, brs = [], []
-    for i in range(n):
-        tlx = max(cx, comp_corners[i][0] - gap)
-        tly = max(cy, comp_corners[i][1] - gap)
-        brx = min(cx + canvas_w, comp_corners[i][0] + comp_sizes[i][0] + gap)
-        bry = min(cy + canvas_h, comp_corners[i][1] + comp_sizes[i][1] + gap)
-        tlx = cx + (((tlx - cx) >> n_bands) << n_bands)
-        tly = cy + (((tly - cy) >> n_bands) << n_bands)
-        tls.append((tlx, tly))
-        brs.append((brx, bry))
-    pad_step = max(step, 128)
-
-    def _bdim(v, cap):
-        return min(-(-bucket_dim(v) // pad_step) * pad_step, cap)
-
-    buckets: Dict[Tuple[int, int], List[int]] = {}
-    for i in range(n):
-        bw_i = _bdim(brs[i][0] - tls[i][0], canvas_w)
-        bh_i = _bdim(brs[i][1] - tls[i][1], canvas_h)
-        buckets.setdefault((int(bh_i), int(bw_i)), []).append(i)
-    for (bh_i, bw_i), idxs in buckets.items():
-        for i in idxs:
-            tls[i] = (min(tls[i][0], cx + canvas_w - bw_i),
-                      min(tls[i][1], cy + canvas_h - bh_i))
-    return ComposeRects(canvas, int(n_bands), canvas_h, canvas_w, tls,
-                        buckets, float(sharpness), int(rounds))
+    canvas_h = _quantised(canvas[3], n_bands)
+    band = 1 << n_bands
+    strip_w = max(-(-strip_w // step) * step, step)
+    margin = 3 * band
+    if sharpness > 0.0:
+        margin = max(margin, 1 << rounds)
+    margin = -(-margin // band) * band
+    w_ext = strip_w + 2 * margin
+    cx, cy = canvas[0], canvas[1]
+    n_strips = -(-canvas[2] // strip_w)
+    rects = _padded_rects(comp_corners, comp_sizes, canvas, n_bands,
+                          n_strips * strip_w, canvas_h)
+    strips = []
+    for s in range(n_strips):
+        x0 = cx + s * strip_w - margin
+        cut = {i: (max(tlx, x0), tly, min(brx, x0 + w_ext), bry)
+               for i, (tlx, tly, brx, bry) in enumerate(rects)
+               if min(brx, x0 + w_ext) > max(tlx, x0)}
+        tls, buckets = _bucketed(cut, (x0, cy, w_ext, canvas_h), n_bands)
+        strips.append(ComposeRects((x0, cy, w_ext, canvas_h), int(n_bands),
+                                   canvas_h, w_ext, tls, buckets,
+                                   float(sharpness), int(rounds)))
+    return strip_w, margin, strips
 
 
 def prep_gains(compensator, comp_corners, comp_sizes, device):
@@ -299,6 +362,54 @@ def prep_gains(compensator, comp_corners, comp_sizes, device):
                  for a in (compensator.gains, compensator.grid_sizes, rois))
 
 
+@dataclasses.dataclass
+class _SampleInputs:
+    """The per-image device inputs of the compose samples."""
+    images: torch.Tensor
+    warper: Warper
+    seam_ratio: float
+    ks: torch.Tensor
+    rs: torch.Tensor
+    seam_tls: torch.Tensor
+    rois: torch.Tensor
+    smask: torch.Tensor
+    gains: Optional[Tuple[torch.Tensor, ...]]
+
+
+def _sample_inputs(images, ks, rs, warper, comp_corners, comp_sizes,
+                   seam_masks, seam_corners, seam_ratio,
+                   compensator) -> _SampleInputs:
+    dev = images.device
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return _SampleInputs(
+        images, warper, seam_ratio, f32(ks), f32(rs), f32(seam_corners),
+        f32([[c[0], c[1], s[0], s[1]]
+             for c, s in zip(comp_corners, comp_sizes)]),
+        _prep_seam_masks(seam_masks, dev),
+        prep_gains(compensator, comp_corners, comp_sizes, dev))
+
+
+def _rect_sample(inp: _SampleInputs, g: ComposeRects, i: int, ph: int,
+                 pw: int):
+    """Image i's sample on its (ph, pw) rect of frame g: (warped planar
+    (3, ph, pw) float32, weight (ph, pw), offset (x, y) in the frame).  A
+    u8 source is cast alone, never the stack."""
+    us, vs = rect_grid(g.tls[i], ph, pw, inp.images.device)
+    gain = (None,) * 3 if inp.gains is None else tuple(
+        a[i] for a in inp.gains)
+    warped, weight = _warp_seam(
+        inp.images[i].to(torch.float32), inp.ks[i], inp.rs[i], us, vs,
+        inp.warper.scale, inp.smask[i], inp.seam_tls[i], inp.seam_ratio,
+        *gain, proj_name=inp.warper.proj_name)
+    if g.feather_sharpness > 0.0:
+        weight = _feather_weight(weight, us, vs, inp.rois[i],
+                                 g.feather_sharpness, g.feather_rounds)
+    return (warped.contiguous(), weight,
+            (g.tls[i][0] - g.canvas[0], g.tls[i][1] - g.canvas[1]))
+
+
 def compose_samples(images: torch.Tensor, ks, rs, warper: Warper,
                     comp_corners, comp_sizes, seam_masks, seam_corners,
                     seam_ratio: float, compensator, g: ComposeRects):
@@ -307,48 +418,70 @@ def compose_samples(images: torch.Tensor, ks, rs, warper: Warper,
     band-0 canvas offset (x, y) as host ints) for each image of the
     (N, hc, wc, 3) stack, with the exposure gains of `compensator` (None or
     an ExposureCompensator) and the rect geometry `g` of `compose_rects`."""
-    dev = images.device
-    smask = _prep_seam_masks(seam_masks, dev)
-    gains = prep_gains(compensator, comp_corners, comp_sizes, dev)
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    ks_d, rs_d, stl_d = f32(ks), f32(rs), f32(seam_corners)
-    rois = f32([[c[0], c[1], s[0], s[1]]
-                for c, s in zip(comp_corners, comp_sizes)])
-    cx, cy = g.canvas[0], g.canvas[1]
-    for (bh_i, bw_i), idxs in sorted(g.buckets.items()):
+    inp = _sample_inputs(images, ks, rs, warper, comp_corners, comp_sizes,
+                         seam_masks, seam_corners, seam_ratio, compensator)
+    for (ph, pw), idxs in sorted(g.buckets.items()):
         for i in idxs:
-            us, vs = rect_grid(g.tls[i], bh_i, bw_i, dev)
-            gain = (None,) * 3 if gains is None else (
-                gains[0][i], gains[1][i], gains[2][i])
-            warped, weight = _warp_seam(
-                images[i].to(torch.float32), ks_d[i], rs_d[i], us, vs,
-                warper.scale, smask[i], stl_d[i], seam_ratio, *gain,
-                proj_name=warper.proj_name)
-            if g.feather_sharpness > 0.0:
-                weight = _feather_weight(weight, us, vs, rois[i],
-                                         g.feather_sharpness,
-                                         g.feather_rounds)
-            yield (warped.contiguous(), weight,
-                   (g.tls[i][0] - cx, g.tls[i][1] - cy))
+            yield _rect_sample(inp, g, i, ph, pw)
+
+
+# Device bytes of one K5 call's inputs: the chunk's samples and weights and
+# the kernel's scratch levels (`_rect_bytes`).  A bucket larger than this
+# goes to K5 in chunks, which adds the images in the same order.
+SAMPLE_BUDGET = 2 * 2 ** 30
+
+
+def _rect_bytes(ph: int, pw: int, n_bands: int) -> int:
+    """What one rect of a K5 call holds on the device: its planar sample
+    and weight (16 B a pixel) and K5's scratch of its levels 1..nb."""
+    return 16 * sum((ph >> b) * (pw >> b) for b in range(n_bands + 1))
+
+
+def _bucket_chunks(inp: _SampleInputs, g: ComposeRects):
+    """Each bucket of g, sorted by dims, in chunks of at most
+    SAMPLE_BUDGET bytes (`_rect_bytes`, at least one rect): (warped
+    (n, 3, ph, pw), weight (n, ph, pw), offsets [(x, y)] * n), each
+    sample written into the chunk as it is made."""
+    dev = inp.images.device
+    for (ph, pw), idxs in sorted(g.buckets.items()):
+        per = max(1, SAMPLE_BUDGET // _rect_bytes(ph, pw, g.n_bands))
+        for c0 in range(0, len(idxs), per):
+            chunk = idxs[c0:c0 + per]
+            warped = torch.empty((len(chunk), 3, ph, pw),
+                                 dtype=torch.float32, device=dev)
+            weight = torch.empty((len(chunk), ph, pw), dtype=torch.float32,
+                                 device=dev)
+            offs = []
+            for j, i in enumerate(chunk):
+                w_j, wt_j, off = _rect_sample(inp, g, i, ph, pw)
+                warped[j] = w_j
+                weight[j] = wt_j
+                offs.append(off)
+                del w_j, wt_j       # freed before the next rect is made
+            yield warped, weight, offs
 
 
 def compose_buckets(images: torch.Tensor, ks, rs, warper: Warper,
                     comp_corners, comp_sizes, seam_masks, seam_corners,
                     seam_ratio: float, compensator, g: ComposeRects):
-    """What the compose hands K5, bucket by bucket: `compose_samples`
-    stacked per bucket into (warped (N, 3, ph, pw), weight (N, ph, pw),
-    band-0 offsets [(x, y)] * N).  A bucket's samples are held at once:
-    16 * N * ph * pw bytes."""
-    for _, rects in itertools.groupby(
-            compose_samples(images, ks, rs, warper, comp_corners, comp_sizes,
-                            seam_masks, seam_corners, seam_ratio,
-                            compensator, g),
-            key=lambda r: tuple(r[1].shape)):
-        rects = list(rects)
-        yield (torch.stack([r[0] for r in rects]),
-               torch.stack([r[1] for r in rects]), [r[2] for r in rects])
+    """What the compose hands K5: `compose_samples` stacked per bucket
+    into (warped (N, 3, ph, pw), weight (N, ph, pw), band-0 offsets
+    [(x, y)] * N), a bucket above SAMPLE_BUDGET bytes in chunks."""
+    return _bucket_chunks(_sample_inputs(
+        images, ks, rs, warper, comp_corners, comp_sizes, seam_masks,
+        seam_corners, seam_ratio, compensator), g)
+
+
+def _accumulate(inp: _SampleInputs, g: ComposeRects) -> List[torch.Tensor]:
+    """The band accumulators of frame g: K5 on each chunk of each bucket
+    into fresh (4, canvas_h >> b, canvas_w >> b) planes."""
+    accs = [torch.zeros((4, g.canvas_h >> b, g.canvas_w >> b),
+                        dtype=torch.float32, device=inp.images.device)
+            for b in range(g.n_bands + 1)]
+    for warped, weight, offs in _bucket_chunks(inp, g):
+        pyramid_accumulate(warped, weight, offs, accs, g.n_bands)
+        del warped, weight          # freed before the next chunk is made
+    return accs
 
 
 def fused_compose(images: torch.Tensor, ks, rs, warper: Warper,
@@ -358,19 +491,102 @@ def fused_compose(images: torch.Tensor, ks, rs, warper: Warper,
     """Compose an (N, hc, wc, 3) stack into the panorama, with the
     exposure gains of `compensator` (None or an ExposureCompensator) and
     the blend `blend_type` (multiband, FEATHER or NO): the compose sample
-    of each rect, K5 into the band accumulators (one call per bucket,
-    which adds overlapping rects in image order; 0 bands for FEATHER and
-    NO), then normalise and collapse.  Returns (panorama float32 (H, W, 3), mask
-    bool (H, W)) on the stack's device."""
-    dev = images.device
+    of each rect, K5 into the band accumulators (one call per bucket, or
+    per chunk of SAMPLE_BUDGET bytes, adding overlapping rects in image
+    order; 0 bands for FEATHER and NO), then normalise and collapse.
+    Returns (panorama float32 (H, W, 3), mask bool (H, W)) on the stack's
+    device."""
     g = compose_rects(comp_corners, comp_sizes, blend_type, blend_strength)
     cw, ch = g.canvas[2], g.canvas[3]
-    accs = [torch.zeros((4, g.canvas_h >> b, g.canvas_w >> b),
-                        dtype=torch.float32, device=dev)
-            for b in range(g.n_bands + 1)]
-    for warped, weight, offs in compose_buckets(
-            images, ks, rs, warper, comp_corners, comp_sizes, seam_masks,
-            seam_corners, seam_ratio, compensator, g):
-        pyramid_accumulate(warped, weight, offs, accs, g.n_bands)
+    accs = _accumulate(_sample_inputs(
+        images, ks, rs, warper, comp_corners, comp_sizes, seam_masks,
+        seam_corners, seam_ratio, compensator), g)
     pano, mask = _finalize(accs, g.n_bands)
     return pano[:ch, :cw].to(torch.float32), mask[:ch, :cw]
+
+
+class _StripFetch:
+    """Downloads finished strips into the host panorama: on a CUDA device
+    each strip's (u8, mask) is copied into pinned host memory on a side
+    stream while the next strip computes, and written into `out`/`mask`
+    when the strip after it is finished, so at most two finished strips
+    stay on the device.  On the CPU the strip is written at once."""
+
+    def __init__(self, out: np.ndarray, mask: np.ndarray, device):
+        self.out, self.mask = out, mask
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.pending = []
+
+    def put(self, pano_u8: torch.Tensor, valid: torch.Tensor, x0: int):
+        if not self.cuda:
+            self._write(pano_u8, valid, x0)
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(pano_u8.device))
+        with torch.cuda.stream(self.stream):
+            host = (torch.empty(pano_u8.shape, dtype=torch.uint8,
+                                pin_memory=True),
+                    torch.empty(valid.shape, dtype=torch.bool,
+                                pin_memory=True))
+            host[0].copy_(pano_u8, non_blocking=True)
+            host[1].copy_(valid, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        # The device tensors are held until their copy has ended.
+        self.pending.append((done, host, (pano_u8, valid), x0))
+        while len(self.pending) > 1:
+            self._drain()
+
+    def _drain(self):
+        done, host, _, x0 = self.pending.pop(0)
+        done.synchronize()
+        self._write(*host, x0)
+
+    def _write(self, pano_u8, valid, x0: int):
+        h, w = valid.shape
+        self.out[:h, x0:x0 + w] = pano_u8.numpy()
+        self.mask[:h, x0:x0 + w] = valid.numpy()
+
+    def finish(self):
+        while self.pending:
+            self._drain()
+
+
+def fused_compose_strips(images: torch.Tensor, ks, rs, warper: Warper,
+                         comp_corners, comp_sizes, seam_masks, seam_corners,
+                         seam_ratio: float, compensator,
+                         blend_type: BlenderType, blend_strength: float, *,
+                         strip_w: int = 2048, out=None,
+                         out_dtype=np.float32):
+    """`fused_compose` streamed over vertical canvas strips
+    (`compose_fused.py:863`), for canvases too large for whole-canvas band
+    accumulators: the device holds one strip's accumulators, one K5 call's
+    samples (SAMPLE_BUDGET), the source stack (u8 stays u8) and at most
+    two finished strips.  Each strip (`strip_rects`) composes its cut
+    rects as `fused_compose` does, with a recompute margin on both sides
+    so the pyramid (and the FEATHER distance) never sees the strip's
+    edge; its interior columns are kept.  `out` (optional) is a
+    preallocated host array (>= ch, >= cw, 3), an np.memmap included,
+    that the panorama is written into.  Returns host numpy arrays
+    (panorama `out_dtype` (H, W, 3), mask bool (H, W)), like the
+    reference; interior pixels match `fused_compose` to the pyramid's
+    boundary effects."""
+    strip_w, margin, strips = strip_rects(comp_corners, comp_sizes,
+                                          blend_type, blend_strength, strip_w)
+    cw, ch = result_roi(comp_corners, comp_sizes)[2:]
+    if out is None:
+        out = np.empty((ch, cw, 3), out_dtype)
+    mask = np.empty((ch, cw), bool)
+    inp = _sample_inputs(images, ks, rs, warper, comp_corners, comp_sizes,
+                         seam_masks, seam_corners, seam_ratio, compensator)
+    fetch = _StripFetch(out, mask, images.device)
+    for s, g in enumerate(strips):
+        accs = _accumulate(inp, g)
+        pano_u8, valid = _finalize(accs, g.n_bands)
+        del accs
+        wv = min(strip_w, cw - s * strip_w)
+        fetch.put(pano_u8[:ch, margin:margin + wv].contiguous(),
+                  valid[:ch, margin:margin + wv].contiguous(), s * strip_w)
+        del pano_u8, valid
+    fetch.finish()
+    return out, mask

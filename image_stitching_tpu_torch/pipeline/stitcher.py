@@ -11,6 +11,11 @@ affine or none) -> checkpoint -> pose infill of dropped images
 (infill_dropped) -> wave correction -> median focal -> seam-scale warp (any
 projection) -> exposure compensation -> seams -> compose-scale fused blend,
 multiband, FEATHER or NO (kernels K2 and K5) -> result [-> auto-crop].
+A compose canvas of `compose_strips_mp` megapixels or more (when that is
+above 0) is streamed in vertical strips of `compose_strip_w` columns
+(`compose_fused.py::fused_compose_strips`): the device holds one strip's
+band accumulators, and the panorama and its mask come back to the host,
+where the result, the crop and the written file take them as CPU tensors.
 `serialize_data=False` resumes from the checkpoint (`cams.data`,
 `indices.data`) with no features, matching or BA; `find_features=False`
 takes the EXIF priors (or identity cameras) as the cameras.
@@ -24,8 +29,9 @@ compose-scale warp (K2), the gain, the seam mask, then the blender
 each frame to `fixed_<name>` in the working directory.  `crop_result`
 cuts the panorama (not its mask) to `ops/crop.py::crop_rect`.
 
-`check_slice` raises NotImplementedError for every option outside the
-port, so it never takes another path quietly.  The device is explicit:
+`check_slice` raises NotImplementedError for the options outside the
+port, the non-ORB detectors and the canvas sharded over more than one CUDA
+device, so it never takes another path quietly.  The device is explicit:
 `stitch(..., device="cuda")` raises when no GPU is present, and nothing
 falls back to the CPU.
 """
@@ -63,7 +69,7 @@ from ..ops.seams import find_seams
 from ..ops.timelapse import Timelapser, fixed_name
 from ..ops.warps import (Warper, make_warper, result_roi, u_period,
                          warper_rotations)
-from .compose_fused import fused_compose, warp_stack
+from .compose_fused import fused_compose, fused_compose_strips, warp_stack
 from .ingest import fast_prep, pick_num8, start_fast_ingest
 
 __all__ = ["stitch", "StitchResult", "check_slice", "compose_inputs",
@@ -72,8 +78,10 @@ __all__ = ["stitch", "StitchResult", "check_slice", "compose_inputs",
 
 @dataclasses.dataclass
 class StitchResult:
-    panorama: torch.Tensor          # float32 (H, W, 3) RGB, on the device
-    mask: torch.Tensor              # bool (H, W), on the device
+    # float32 (H, W, 3) RGB and bool (H, W), on the device; on the host
+    # (CPU tensors) where the strip-streamed compose made them.
+    panorama: torch.Tensor
+    mask: torch.Tensor
     kept_indices: List[int]
     cameras: Cameras                # at work scale
     stage_times: Dict[str, float]
@@ -83,7 +91,9 @@ class StitchResult:
 
 def check_slice(cfg: StitchConfig, device="cpu") -> None:
     """Raise NotImplementedError naming the first option outside the
-    port's slice.  use_sharded_compose is the plain fused compose unless
+    port's slice: a non-ORB `features_type`, or the canvas sharded over
+    more than one CUDA device.  use_sharded_compose is the plain fused
+    compose (or the strips, above compose_strips_mp) unless
     more than one CUDA device would shard the canvas, as in the reference
     (which shards only when more than one device is present)."""
     device = torch.device(device)
@@ -467,18 +477,21 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
         seam_ratio = seam_work_aspect * work_scale / comp.scale
         if uniform and not cfg.timelapse:
             canvas = result_roi(comp.corners, comp.sizes)
-            if 0 < cfg.compose_strips_mp <= canvas[2] * canvas[3] / 1e6:
-                raise NotImplementedError(
-                    f"compose_strips_mp={cfg.compose_strips_mp}: the "
-                    "strip-streamed compose is outside the PyTorch port's "
-                    "slice")
             comp_imgs = (torch.stack([resize(im, hw) for im, hw in
                                       zip(stack_u8, comp.resize_hws)])
                          if comp.resize_hws is not None else stack_u8)
-            pano, pano_mask = fused_compose(
-                comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
-                comp.sizes, seam_masks, corners, seam_ratio, compensator,
-                cfg.blend_type, cfg.blend_strength)
+            args = (comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
+                    comp.sizes, seam_masks, corners, seam_ratio, compensator,
+                    cfg.blend_type, cfg.blend_strength)
+            if (cfg.compose_strips_mp > 0 and canvas[2] * canvas[3] / 1e6
+                    >= cfg.compose_strips_mp):
+                # The device holds one strip's accumulators; the panorama
+                # comes back to the host strip by strip and stays there.
+                pano, pano_mask = (torch.from_numpy(a) for a in
+                                   fused_compose_strips(
+                                       *args, strip_w=cfg.compose_strip_w))
+            else:
+                pano, pano_mask = fused_compose(*args)
         else:
             sources = list(stack_u8) if uniform else device_imgs
             frames = _loop_compose(sources, comp, seam_masks, compensator,

@@ -88,7 +88,8 @@ def test_options_outside_slice_raise(option, value):
     ("ba_cost_func", "no"), ("matcher_type", "affine"),
     ("estimator_type", "affine"), ("use_sensor_priors", False),
     ("infill_dropped", True), ("warp_type", "affine"), ("timelapse", True),
-    ("crop_result", True)])
+    ("crop_result", True), ("compose_strips_mp", 0.5),
+    ("compose_strip_w", 256)])
 def test_options_inside_slice_accepted(option, value):
     """Options that the port runs: check_slice takes them on the CPU and
     on one CUDA device."""
@@ -159,6 +160,31 @@ def test_synth_renders_the_reference_scene():
     np.testing.assert_allclose(rs, rs_ref, atol=1e-6)
     for a, b in zip(got, ref):
         assert (np.abs(a - b) <= 1e-3).mean() >= 0.99
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_synth_texture_detail_bit_equal(detail):
+    """`detail` (mosaic100's narrow-fov texture) renders bit for bit as the
+    reference does: the texture on one lon/lat grid, one view, and
+    mosaic100's ring geometry at 60x80 (fov 8, overlap 0.55, seed 31)."""
+    rng = np.random.default_rng(0)
+    lon = rng.uniform(-np.pi, np.pi, (40, 50)).astype(np.float32)
+    lat = rng.uniform(-1.4, 1.4, (40, 50)).astype(np.float32)
+    np.testing.assert_array_equal(
+        synth.sphere_texture_rgb(lon, lat, 31, detail),
+        jsynth.sphere_texture_rgb(lon, lat, 31, detail=detail))
+    k = np.array([[400.0, 0, 40], [0, 400.0, 30], [0, 0, 1]])
+    np.testing.assert_array_equal(
+        synth.render_view(k, np.eye(3), (60, 80), 31, detail),
+        jsynth.render_view(k, np.eye(3), (60, 80), 31, detail=detail))
+    got = synth.make_ring_captures(n_images=3, hw=(60, 80), fov_deg=8,
+                                   overlap_ratio=0.55, seed=31,
+                                   texture_detail=detail)
+    ref = jsynth.make_ring_captures(n_images=3, hw=(60, 80), fov_deg=8,
+                                    overlap_ratio=0.55, seed=31,
+                                    texture_detail=detail)
+    for a, b in zip(got[0], ref[0]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_capture_dir_priors_round_trip(tmp_path):
