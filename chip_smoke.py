@@ -12,8 +12,8 @@ Phases, one line each; any failure raises and exits non-zero:
      (E2E_RING) for the
      work-scale path, sigma 8 (DEFAULT_RING) for the default path, where
      sigma 4 makes some adjacent pairs near-duplicates by the reference's
-     confidence rule (see data/synth.py); and phase 10's cyl4 and
-     vga_pair capture sets;
+     confidence rule (see data/synth.py), and sigma 12 for phase 14; and
+     phase 10's cyl4 and vga_pair capture sets;
   1. build: the four CUDA kernel sources compiled with nvcc for sm_90a,
      one nvcc per source, all at once, and beside them the native host
      runtime (`native/stitch_runtime.cpp`, g++ against the vendored codec
@@ -157,7 +157,26 @@ Phases, one line each; any failure raises and exits non-zero:
      peak beside its terms; (d) K2 and K5 on one K5 call of the strip
      with the most rects (9 bands) against their plain versions under
      phase 3's and 7's gates, device, call and plain ms and the bounds,
-     grid_sample beside K2.
+     grid_sample beside K2;
+ 14. the other detectors, under the counts as in phase 9: for sift, surf
+     and akaze, StitchConfig(features_type=X, match_conf 0.65 for the
+     float descriptors, 0.32 for AKAZE) on DEFAULT_RING, a warm-up and a
+     timed stitch: K2 and K5 launched (and K4 for AKAZE), K1 not; kept
+     8/8, <= 1 px reprojection, mask > 0.9, seam union = warped union;
+     where the reference's near-duplicate rule drops views (SIFT, SURF)
+     every zeroed adjacent pair must have a raw confidence above 3, the
+     numbers are printed ungated, and the detector stitches the sigma-12
+     ring under those gates (SIFT at 1500 features); the stage table
+     beside 9b's, wall, MP/s and peak device memory; the
+     detector on the card against the same module on the CPU on view 0
+     at full size (equal valid counts, >= 99% of the keypoints paired
+     within 1e-2 px and 1e-3 rad, >= 99% of the paired descriptors within
+     1e-4 or, for AKAZE, bit flips only where the compared means differ
+     by < 1e-3; the rest counted); for AKAZE, K4 at 12 words on the
+     stitch's 28 pairs in one call against its plain version (and its
+     unpack against pm1_rows, a tie-heavy stack at 12 words) with its
+     device, call and plain ms and bound; SIFT's peak device memory on
+     one view.
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
@@ -170,7 +189,9 @@ at 0 bands on the vga_pair rects (`zero_band_device_ms`,
 `zero_band_launches_per_call`); K4's and K5's rows their rig37 times and
 bounds (`rig37_*`); K2's and K5's rows their times, bounds and errors on
 mixed8's loop compose (`loop_*`) and on a gigapixel strip (`strip_*`);
-K4's row its mosaic100 times and bound (`mosaic100_*`).
+K4's row its mosaic100 times and bound (`mosaic100_*`).  A sixth row is
+K4 at 12 words (`words: 12`), checked and timed on phase 14's AKAZE
+descriptors, its launches those of phase 14's stitches.
 Then a JSON line of those kernel results with the launches on the path
 the kernel was checked on, the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
@@ -583,13 +604,14 @@ def _k4_equal(got, want, what: str) -> None:
         assert torch.equal(g[2][real], w[2][real]), f"K4 {what} {side} i2"
 
 
-def _tie_stack(dev, k: int = 4000, seed: int = 0):
-    """Four images of K descriptors: image 1 repeats rows of image 0 (each
-    twice, so both nearest columns tie at distance 0) and image 0 holds
-    duplicates (ties in reverse); image 2 has one valid descriptor, image
-    3 none."""
+def _tie_stack(dev, k: int = 4000, seed: int = 0, words: int = 8):
+    """Four images of K descriptors of `words` words: image 1 repeats rows
+    of image 0 (each twice, so both nearest columns tie at distance 0) and
+    image 0 holds duplicates (ties in reverse); image 2 has one valid
+    descriptor, image 3 none."""
     rng = np.random.default_rng(seed)
-    d = rng.integers(0, 2 ** 32, (4, k, 8), dtype=np.uint64).astype(np.uint32)
+    d = rng.integers(0, 2 ** 32, (4, k, words), dtype=np.uint64).astype(
+        np.uint32)
     d[0, k // 2:] = d[0, :k - k // 2]
     src = rng.integers(0, k // 2, k)
     d[1] = d[0, src]
@@ -621,17 +643,18 @@ def k4_args(dev, feats, range_width: int = -1):
 def k4_times(args, valid):
     """K4 against its plain version on `args`, then its device, call and
     plain times per call and its bound over the distances this data needs
-    (valid rows against valid columns, per pair and direction).  CUDA
-    cores: 8 XOR, 8 POPC, 7 adds and one compare each at the float32
-    peak; tensor cores: a 256-deep int8 dot product, 512 operations, at
-    the int8 dense peak.  Bytes: the packed descriptors and validity in,
-    four (2, P, K) outputs of 8 + 4 + 8 + 4 bytes a row out."""
+    (valid rows against valid columns, per pair and direction).  With W
+    descriptor words, CUDA cores: W XOR, W POPC, W - 1 adds and one
+    compare each at the float32 peak (24 at W = 8); tensor cores: a
+    32 W-deep int8 dot product, 64 W operations (512 at W = 8), at the
+    int8 dense peak.  Bytes: the packed descriptors and validity in, four
+    (2, P, K) outputs of 8 + 4 + 8 + 4 bytes a row out."""
     from image_stitching_tpu_torch.kernels.hamming import (
         hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
     _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
               f"{len(args[2])} pairs")
     torch.cuda.synchronize()
-    k = args[0].shape[1]
+    k, words = args[0].shape[1], args[0].shape[2]
     out = dict(dev_ms=device_ms(lambda: hamming_two_nn_pairs(*args)),
                call_ms=time_ms(lambda: hamming_two_nn_pairs(*args)),
                plain_ms=time_ms(lambda: hamming_two_nn_pairs_plain(*args),
@@ -641,8 +664,10 @@ def k4_times(args, valid):
     n_bytes = args[0].numel() * 4 + args[1].numel() + 2 * len(args[2]) * \
         k * 24
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    cuda_core_ms = max(t_bytes, 24 * n_dist / CUDA_CORE_OPS_PER_S * 1e3)
-    tensor_ms = max(t_bytes, 512 * n_dist / INT8_TENSOR_OPS_PER_S * 1e3)
+    cuda_core_ms = max(t_bytes, 3 * words * n_dist / CUDA_CORE_OPS_PER_S *
+                       1e3)
+    tensor_ms = max(t_bytes, 64 * words * n_dist / INT8_TENSOR_OPS_PER_S *
+                    1e3)
     bound_ms = min(cuda_core_ms, tensor_ms)
     out.update(n_dist=n_dist, t_bytes=t_bytes, cuda_core_ms=cuda_core_ms,
                tensor_ms=tensor_ms, bound_ms=bound_ms,
@@ -952,12 +977,13 @@ def check_ingest(dev, paths, seam_hw):
     return prep_ms
 
 
-def write_e2e_rings(caps, caps_default, caps_plain, workers: int):
+def write_e2e_rings(caps, caps_default, caps_plain, workers: int,
+                    caps_noisy=None):
     """E2E_RING into `caps` and DEFAULT_RING into `caps_default` (and
     without EXIF into `caps_plain`), the files `write_ring_dir` writes for
     each: the two share geometry and seed, so each view is rendered once
     and takes `write_ring_dir`'s noise (`ring_view_noise`) at sigma 4 and
-    8.
+    8; and, when given, into `caps_noisy` at DETECTOR_RING_SIGMA.
     Returns the ground truth (K float64, [R float64])."""
     import multiprocessing as mp
     from image_stitching_tpu_torch.data.synth import (_render_args,
@@ -973,12 +999,15 @@ def write_e2e_rings(caps, caps_default, caps_plain, workers: int):
         views = pool.map(_render_args,
                          [(k, r, g["hw"], g["seed"]) for r in rs])
     rs32 = np.stack([r.astype(np.float32) for r in rs])
-    for directory, sigma in ((caps, 4.0), (caps_default,
-                                           DEFAULT_RING["noise_sigma"])):
+    dirs = [(caps, 4.0), (caps_default, DEFAULT_RING["noise_sigma"])]
+    if caps_noisy is not None:
+        dirs.append((caps_noisy, DETECTOR_RING_SIGMA))
+    for directory, sigma in dirs:
         images = [ring_view_noise(v, i, sigma) for i, v in enumerate(views)]
         write_capture_dir(directory, images, k.astype(np.float32), rs32)
-    write_capture_dir(caps_plain, images, k.astype(np.float32), rs32,
-                      with_exif=False)
+        if directory == caps_default:
+            write_capture_dir(caps_plain, images, k.astype(np.float32), rs32,
+                              with_exif=False)
     return k.astype(np.float64), [r.astype(np.float64) for r in rs32]
 
 
@@ -2877,6 +2906,291 @@ def run_phase13(stitch, counters, names, caps13, truth, caps_default,
     return dict(by_path=by_path, k4=k4, k2=k2, k5=k5, mosaic100=mosaic)
 
 
+# Phase 14's detectors, with the CLI's match_conf rule (0.65 for the float
+# descriptors, 0.32 for AKAZE's binary ones).
+DETECTORS = ("sift", "surf", "akaze")
+DETECTOR_MATCH_CONF = {"sift": 0.65, "surf": 0.65, "akaze": 0.32}
+# On DEFAULT_RING the reference's near-duplicate rule (conf > 3 -> 0)
+# zeroes every adjacent SIFT pair and two SURF pairs (ROADMAP fault (q)).
+# The same views at this noise keep 8/8 with SURF's defaults and with
+# SIFT at 1500 features (its raw confidences 2.45-2.99 there).
+DETECTOR_RING_SIGMA = 12.0
+DETECTOR_KEEP = {"sift": dict(num_features=1500), "surf": {}, "akaze": {}}
+
+
+def detector_vs_cpu(feat, gray, got, n_features: int):
+    """The detector on the card (`got`, the stitch's features of view 0)
+    against the same module on the CPU on the same gray image: equal valid
+    counts; each valid CPU keypoint paired with a card keypoint of the
+    same octave within 1e-2 px and 1e-3 rad, at least 99% of them paired;
+    at least 99% of the paired descriptors within 1e-4 (SIFT, SURF), or
+    (AKAZE) with bits that differ only where the two means the bit
+    compares differ by < 1e-3 on the CPU; the rest counted.  (SURF and
+    AKAZE sample the nearest pixel of each rotated offset: an angle a few
+    ulps apart can move a sample by one pixel.)  Returns the counts and
+    the CPU seconds."""
+    from image_stitching_tpu_torch.ops.features import (
+        akaze, sift_detect_and_describe, surf_detect_and_describe)
+    t0 = time.perf_counter()
+    if feat == "akaze":
+        ref, means = akaze.akaze_with_means(gray.cpu(), n_features)
+    else:
+        fn = (sift_detect_and_describe if feat == "sift"
+              else surf_detect_and_describe)
+        ref = fn(gray.cpu(), n_features)
+    cpu_s = time.perf_counter() - t0
+    got = type(got)(*(getattr(got, name).cpu() for name in (
+        "xy", "response", "angle", "octave", "size", "desc", "valid")))
+    n_ref, n_got = int(ref.valid.sum()), int(got.valid.sum())
+    assert n_ref == n_got, f"{feat}: {n_got} valid on the card, {n_ref} CPU"
+    ri = torch.nonzero(ref.valid)[:, 0]
+    gi = torch.nonzero(got.valid)[:, 0]
+    near = ((torch.abs(ref.xy[ri, None, 0] - got.xy[None, gi, 0]) <= 1e-2) &
+            (torch.abs(ref.xy[ri, None, 1] - got.xy[None, gi, 1]) <= 1e-2) &
+            (ref.octave[ri, None] == got.octave[None, gi]))
+    turn = torch.remainder(ref.angle[ri, None].double() -
+                           got.angle[None, gi].double() + np.pi,
+                           2 * np.pi) - np.pi
+    near &= torch.abs(turn) <= 1e-3
+    paired = near.any(1)
+    j = gi[near.to(torch.uint8).argmax(1)]
+    same_slot = int((j == ri)[paired].sum())
+    frac = float(paired.float().mean())
+    assert frac >= 0.99, f"{feat}: {frac:.4f} of keypoints paired"
+    rp, gp = ri[paired], j[paired]
+    if feat == "akaze":
+        chan, bi, bj = (torch.as_tensor(x) for x in akaze.bit_pairs())
+        shifts = torch.arange(32, dtype=torch.int32)
+        flips = (((ref.desc[rp][:, :, None] >> shifts) ^
+                  (got.desc[gp][:, :, None] >> shifts)) & 1).reshape(
+                      len(rp), -1)[:, :360].bool()
+        gap = torch.abs(means[chan, :, bi] - means[chan, :, bj]).t()[rp]
+        bad = flips & (gap >= 1e-3)
+        ok = ~bad.any(1)
+        desc_note = (f"{int(flips.sum())} bit flips in {len(rp) * 360} "
+                     f"bits, {int(bad.sum())} of them where the compared "
+                     f"means differ by >= 1e-3 (max "
+                     f"{float(gap[flips].max()) if flips.any() else 0.0:.3g})")
+    else:
+        err = torch.abs(ref.desc[rp] - got.desc[gp]).amax(1)
+        ok = err <= 1e-4
+        turned = float(torch.abs(ref.angle[rp] - got.angle[gp]).max())
+        desc_note = (f"descriptors max |diff| {float(err.max()):.3g}, "
+                     f"{int((~ok).sum())} above 1e-4 (max angle difference "
+                     f"{turned:.3g} rad)")
+    frac_ok = float(ok.float().mean())
+    assert frac_ok >= 0.99, f"{feat}: {desc_note}"
+    return dict(valid=n_ref, paired=int(paired.sum()),
+                unpaired=int((~paired).sum()), same_slot=same_slot,
+                desc_note=desc_note, cpu_s=cpu_s)
+
+
+def check_k4_words(dev, feats, what: str):
+    """K4 at the stitch's own descriptor word count (AKAZE: 12): the +-1
+    unpack against pm1_rows, every pair in both directions in one call
+    against the plain version, a tie-heavy stack at the same K and word
+    count, and the times and bound as phase 6 reckons them."""
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain, pm1_rows,
+        unpack_pm1)
+    k, words = feats.xy.shape[1], feats.desc.shape[2]
+    args = k4_args(dev, feats)
+    assert torch.equal(unpack_pm1(args[0]), pm1_rows(args[0])), \
+        f"K4's +-1 unpack at {words} words differs from pm1_rows"
+    ties = _tie_stack(dev, k, words=words)
+    _k4_equal(hamming_two_nn_pairs(*ties), hamming_two_nn_pairs_plain(*ties),
+              f"tie case at {words} words")
+    tm = k4_times(args, feats.valid)
+    print(f"phase 14 K4 at {words} words ({32 * words} bits, {what}): "
+          f"{len(args[2])} pairs of K={k}, both directions, in one call, "
+          f"+-1 unpack equal to pm1_rows, i1/d1/d2 equal and i2 equal where "
+          f"d2 < 2^30, the tie case equal; per call: device "
+          f"{tm['dev_ms']:.4f} ms, call {tm['call_ms']:.4f} ms, plain "
+          f"{tm['plain_ms']:.4f} ms; bound over {tm['n_dist']:.0f} valid "
+          f"distances: CUDA cores {tm['cuda_core_ms']:.4f} ms, tensor cores "
+          f"{tm['tensor_ms']:.4f} ms -> {tm['bound_ms']:.4f} ms "
+          f"({tm['route']})", flush=True)
+    return dict(name=f"hamming_two_nn_pairs [K4 at {words} words: {what}]",
+                route="cuda",
+                source="image_stitching_tpu_torch/csrc/hamming.cu",
+                replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
+                words=words, max_abs_err=0.0, ms=tm["dev_ms"],
+                device_ms=tm["dev_ms"], call_ms=tm["call_ms"],
+                plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
+                bound_by=("operations" if tm["bound_ms"] > tm["t_bytes"]
+                          else "bytes"),
+                bound_route=tm["route"],
+                bound_cuda_core_ms=tm["cuda_core_ms"],
+                bound_tensor_core_ms=tm["tensor_ms"], library_ms=None)
+
+
+def near_duplicate_drops(graph, n: int):
+    """The adjacent pairs (a, a + 1) a stitch's match graph zeroed, each
+    with its raw confidence n_inliers / (8 + 0.3 n_matches); raises unless
+    every one was zeroed by the reference's near-duplicate rule (raw > 3),
+    the JAX package's `match_pair` as the port's."""
+    raw = [float(graph.num_inliers[a, a + 1]) /
+           (8.0 + 0.3 * float(graph.num_matches[a, a + 1]))
+           for a in range(n - 1)]
+    dropped = [(a, a + 1, round(r, 4)) for a, r in enumerate(raw)
+               if float(graph.confidence[a, a + 1]) == 0.0]
+    assert all(r > 3.0 for _, _, r in dropped), \
+        f"adjacent pairs zeroed below the near-duplicate rule: {dropped}"
+    return dropped, [round(r, 4) for r in raw]
+
+
+def detector_stitch(stitch, stitcher, counters, caps, cfg):
+    """One stitch() under the counts as in phase 9 with the detector,
+    matching and seam calls recorded; the reference's "Need more images"
+    is returned, not raised."""
+    rec = Recorder(stitcher, "detect_features", "match_all_pairs",
+                   "find_seams")
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with rec:
+            res, failed = stitch(caps, cfg, output="", device="cuda"), None
+    except RuntimeError as e:
+        if not str(e).startswith("Need more images"):
+            raise
+        res, failed = None, str(e)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, failed, wall, {fn.__name__: fn.launches
+                               for fn in counters}, rec
+
+
+def run_phase14(stitch, stitcher, counters, caps_default, caps_noisy,
+                k_true, rs_true, base_9b, smi, dev):
+    """Phase 14, the other detectors: for each of sift, surf and akaze,
+    StitchConfig(features_type=X, match_conf=0.65 for the float
+    descriptors, 0.32 for AKAZE) on DEFAULT_RING, a warm-up stitch and a
+    timed one under the counts as in phase 9, with K2 and K5 (and for
+    AKAZE K4) launched and K1 not; its stage table, wall, MP/s and peak
+    device memory.  Where the ring keeps 8/8 the stitch is held to phase
+    9b's gates (<= 1 px, mask > 0.9, finite, seam union = warped union);
+    where it does not (SIFT, SURF), every zeroed adjacent pair must be
+    the reference's near-duplicate rule's (`near_duplicate_drops`; the
+    JAX package's matching zeroes the same pairs on these features, ROADMAP
+    fault (q)), the numbers are printed ungated, and the detector
+    stitches DETECTOR_RING_SIGMA's ring under those gates with
+    DETECTOR_KEEP's settings.  Then the detector on the card against the
+    same module on the CPU on view 0 (`detector_vs_cpu`); for AKAZE, K4
+    at 12 words on the stitch's own descriptors (`check_k4_words`);
+    SIFT's peak device memory on one view.  Returns the counts by path
+    and K4's 12-word row."""
+    import dataclasses
+    from image_stitching_tpu_torch.config import StitchConfig
+    by_path, columns = {}, [("phase 9b orb", base_9b.stage_times)]
+    k4_12 = None
+    mp_in = N_IMAGES * H * W / 1e6
+
+    def report(what, run, peak, names):
+        """Print one stitch; hold it to the gates when it kept every
+        image, else to the near-duplicate rule.  Returns whether gated."""
+        res, failed, wall, launches, rec = run
+        (feats, *_), _, graph = rec.calls["match_all_pairs"][0]
+        dropped, raw = near_duplicate_drops(graph, N_IMAGES)
+        assert launches["orb_sample_levels"] == 0, launches
+        head = (f"{what}: descriptors {tuple(feats.desc.shape)} "
+                f"{feats.desc.dtype}, valid per image "
+                f"{feats.valid.sum(-1).tolist()}, adjacent pairs' n_inliers"
+                f" / (8 + 0.3 n_matches) {raw}")
+        if res is not None and res.kept_indices == list(range(N_IMAGES)):
+            err, coverage, stages = e2e_gates(res, k_true, rs_true, launches,
+                                              names, N_IMAGES, (H, W))
+            covered, cut = seam_union_gate(rec.calls["find_seams"][0])
+            print(f"{head}; kept {N_IMAGES}/{N_IMAGES}, reprojection "
+                  f"{err:.4f} px, panorama {tuple(res.panorama.shape)}, mask "
+                  f"{coverage:.4f}, seam union = warped union ({covered} px,"
+                  f" {cut} px cut), launches {launches}, wall {wall:.4f} s "
+                  f"({mp_in / wall:.3f} MP/s), peak device memory "
+                  f"{peak / 2 ** 30:.3f} GiB ({peak} bytes), stages: "
+                  f"{stages}; card '{smi}'", flush=True)
+            columns.append((what, res.stage_times))
+            return True
+        assert dropped, f"{what} dropped images with no zeroed pair"
+        if res is None:
+            kept = f"the stitch stopped: '{failed}'"
+        else:
+            err = reproj_err_px(res.cameras, res.kept_indices, k_true,
+                                rs_true, res.work_scale)
+            kept = (f"kept {res.kept_indices}, reprojection {err:.4f} px, "
+                    f"mask {float(res.mask.float().mean()):.4f}, stages: "
+                    + ", ".join(f"{k}={v:.4f}s"
+                                for k, v in res.stage_times.items()))
+        print(f"{head}; pairs zeroed by the near-duplicate rule (raw > 3, "
+              f"as the reference's matching zeroes them): {dropped}; "
+              f"ungated: {kept}, launches {launches}, wall {wall:.4f} s, "
+              f"peak device memory {peak / 2 ** 30:.3f} GiB; card '{smi}'",
+              flush=True)
+        return False
+
+    for feat in DETECTORS:
+        cfg = StitchConfig(features_type=feat,
+                           match_conf=DETECTOR_MATCH_CONF[feat])
+        names = ["warp_bilinear", "pyramid_accumulate"]
+        if feat == "akaze":
+            names.append("hamming_two_nn_pairs")
+        detector_stitch(stitch, stitcher, counters, caps_default, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        what = f"phase 14 {feat}"
+        run = detector_stitch(stitch, stitcher, counters, caps_default, cfg)
+        by_path[what] = run[3]
+        rec = run[4]
+        feats = rec.calls["match_all_pairs"][0][0][0]
+        assert feats.desc.dtype == (torch.int32 if feat == "akaze"
+                                    else torch.float32), feats.desc.dtype
+        if not report(what, run, torch.cuda.max_memory_allocated(), names):
+            keep = dataclasses.replace(cfg, **DETECTOR_KEEP[feat])
+            what_k = (f"phase 14 {feat} sigma-{DETECTOR_RING_SIGMA:g} "
+                      f"{DETECTOR_KEEP[feat]}")
+            torch.cuda.reset_peak_memory_stats()
+            run_k = detector_stitch(stitch, stitcher, counters, caps_noisy,
+                                    keep)
+            by_path[what_k] = run_k[3]
+            assert report(what_k, run_k, torch.cuda.max_memory_allocated(),
+                          names), f"{what_k} dropped images"
+            del run_k
+        grays = [args[0] for args, _, _ in rec.calls["detect_features"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stitcher.detect_stack(grays, cfg)
+        torch.cuda.synchronize()
+        print(f"phase 14 {feat} detect_stack on the timed stitch's "
+              f"{len(grays)} work images {tuple(grays[0].shape)}, "
+              f"{cfg.num_features} features: {time.perf_counter() - t0:.4f} "
+              f"s; card '{smi}'", flush=True)
+        (gray, _), _, got = rec.calls["detect_features"][0]
+        cmp = detector_vs_cpu(feat, gray, got, cfg.num_features)
+        print(f"phase 14 {feat} detector on the card vs the CPU on view 0 "
+              f"({tuple(gray.shape)}): {cmp['valid']} valid on both, "
+              f"{cmp['paired']} paired (same octave, 1e-2 px, 1e-3 rad; "
+              f"{cmp['same_slot']} at the same slot), {cmp['unpaired']} not "
+              f"paired; {cmp['desc_note']}; the CPU detector took "
+              f"{cmp['cpu_s']:.3f} s", flush=True)
+        if feat == "akaze":
+            k4_12 = check_k4_words(dev, feats, "AKAZE")
+        elif feat == "sift":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            stitcher.detect_features(gray, cfg)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            one = torch.cuda.max_memory_allocated() - base
+            print(f"phase 14 sift on one {tuple(gray.shape)} view: peak "
+                  f"device memory above its input {one / 2 ** 30:.3f} GiB "
+                  f"({one} bytes), {one_s:.4f} s; card '{smi}'", flush=True)
+        del run, rec, feats, gray, got, grays
+        torch.cuda.empty_cache()
+    print("phase 14 " + stage_table(columns), flush=True)
+    return dict(by_path=by_path, k4_12=k4_12)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2909,13 +3223,15 @@ def main() -> int:
         caps = os.path.join(work, "caps")
         caps_default = os.path.join(work, "caps_default")
         caps_plain = os.path.join(work, "caps_plain")
+        caps_noisy = os.path.join(work, "caps_noisy")
         t0 = time.perf_counter()
         workers = max(1, min(8, os.cpu_count() or 1))
         k_true, rs_true = write_e2e_rings(caps, caps_default, caps_plain,
-                                          workers)
+                                          workers, caps_noisy)
         print(f"phase 0 captures: 2 rings of {N_IMAGES} x {H}x{W} (noise "
               f"sigma 4 and {DEFAULT_RING['noise_sigma']}, the second also "
-              f"written without EXIF) rendered and written in "
+              f"written without EXIF; the same views at sigma "
+              f"{DETECTOR_RING_SIGMA:g} for phase 14) rendered and written in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         t0 = time.perf_counter()
         bench_caps = render_bench_dirs(work, workers)
@@ -3215,6 +3531,11 @@ def main() -> int:
                       strip_bound_ms=s2["bound_ms"],
                       strip_library_ms=s2["library_ms"],
                       strip_max_abs_err=s2["err"])
+            phase14 = run_phase14(stitch, stitcher, counters, caps_default,
+                                  caps_noisy, k_true, rs_true, base_9b, smi,
+                                  dev)
+            by_path.update(phase14["by_path"])
+            k4_12 = phase14["k4_12"]
             k5.update(strip_call_shape=list(s5["chunk"]),
                       strip_n_bands=s5["n_bands"],
                       strip_device_ms_per_call=s5["device_ms"],
@@ -3233,8 +3554,13 @@ def main() -> int:
         row["launches"] = main_path[fn.__name__]
         row["launches_by_path"] = {path: counts[fn.__name__]
                                    for path, counts in by_path.items()}
+    # K4 at 12 words: its path is phase 14's AKAZE stitch.
+    k4_12["launches"] = by_path["phase 14 akaze"]["hamming_two_nn_pairs"]
+    k4_12["launches_by_path"] = {
+        path: counts["hamming_two_nn_pairs"]
+        for path, counts in by_path.items() if path.startswith("phase 14")}
 
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ defaults (the zero-flag invocation is the reference run, `StitchConfig()`:
 stitch <dir> -> result.jpg plus the cams.data / indices.data
 checkpoints), the same `config_from_args`, stage-time lines and exit
 codes, and one flag more, `--device` (default cuda).  The device is
-explicit: nothing falls back to the CPU.  An option outside the port's
-slice exits 1 with the NotImplementedError message that names it.
+explicit: nothing falls back to the CPU.  Every `--features` choice runs
+(orb, akaze, sift, surf); a stitch that fails exits 1 with its message,
+as the reference's does ("Need more images: ..." when all but one image
+are dropped).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 The reference's `Cameras`, `Features` and `PairMatches` are
 read through their attributes and `np.asarray`, so this module needs no
 jax; the tests use it to feed both packages identical intermediate state.
-uint32 descriptor words keep their bit pattern as int32.
+uint32 descriptor words keep their bit pattern as int32; float descriptors
+(SIFT, SURF) stay float32.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ def features_from_numpy(f, device="cpu") -> Features:
         angle=_t(f.angle, device, torch.float32),
         octave=_t(f.octave, device, torch.int32),
         size=_t(f.size, device, torch.float32),
-        desc=_t(f.desc, device, torch.int32),
+        desc=_t(f.desc, device,
+                torch.float32 if np.issubdtype(np.asarray(f.desc).dtype,
+                                               np.floating) else torch.int32),
         valid=_t(f.valid, device, torch.bool))
 
 

@@ -57,10 +57,10 @@ def _declare(lib) -> None:
     lib.orb_sample_levels_launch.restype = ci
     lib.warp_bilinear_launch.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, vp]
     lib.warp_bilinear_launch.restype = ci
-    lib.hamming_unpack_launch.argtypes = [vp, ctypes.c_longlong, vp, vp]
+    lib.hamming_unpack_launch.argtypes = [vp, ctypes.c_longlong, ci, vp, vp]
     lib.hamming_unpack_launch.restype = ci
-    lib.hamming_pairs_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp,
-                                         vp, vp]
+    lib.hamming_pairs_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp,
+                                         vp, vp, vp]
     lib.hamming_pairs_launch.restype = ci
     lib.pyramid_accumulate_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
                                               vp, vp, vp]

@@ -1,11 +1,14 @@
-"""K4: Hamming 2-NN over 256-bit descriptors, all pairs, both directions.
+"""K4: Hamming 2-NN over binary descriptors, all pairs, both directions.
 
 Hopper replacement for `image_stitching_tpu/kernels/hamming_pallas.py`
 (`hamming_two_nn_pallas`, `:178`, and `hamming_two_nn_pallas_batched`,
-`:104`).  The CUDA kernels are `csrc/hamming.cu`: one unpacks every
-descriptor of the stack once into 256 int8 of +-1 (`pm1_rows` is its plain
-twin), the other takes every pair and both directions in one launch, with
-the dot products on the tensor cores (hamming = (256 - dot) / 2).  The
+`:104`), which take descriptors of any word count W: ORB's are W = 8
+(256 bits), AKAZE's W = 12 (360 bits, zero-padded to 384).  The CUDA
+kernels are `csrc/hamming.cu`: one unpacks every descriptor of the stack
+once into 32 W int8 of +-1 (`pm1_rows` is its plain twin), the other takes
+every pair and both directions in one launch, with the dot products on the
+tensor cores (hamming = (32 W - dot) / 2); it is built for the word counts
+in `KERNEL_WORDS`, and a CUDA call at any other W raises.  The
 plain version is the reference pipeline's live path, `match_pair`'s
 `_two_nn(hamming_matrix(...))` and `_two_nn` of the transposed matrix
 (`ops/matching.py:79-167`): a float32 bit-plane product for the distance
@@ -22,14 +25,16 @@ from ._build import check_launch, load_library
 
 __all__ = ["hamming_two_nn_pairs", "hamming_two_nn_pairs_plain",
            "hamming_two_nn_plain", "hamming_matrix", "two_nn", "pm1_rows",
-           "pair_chunk", "unpack_pm1"]
+           "pair_chunk", "unpack_pm1", "KERNEL_WORDS"]
 
 # The kernel packs (distance, column) into one 32-bit key.
 MAX_K = 1 << 16
+# The descriptor word counts the pairs kernel is instantiated for.
+KERNEL_WORDS = (8, 12)
 
 
 def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
-    """(..., K, 8) int32 words -> (..., K, 256) int32 bits, bit b of word
+    """(..., K, W) int32 words -> (..., K, 32 W) int32 bits, bit b of word
     w at 32 w + b."""
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     bits = (words[..., None] >> shifts) & 1
@@ -37,14 +42,14 @@ def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
 
 
 def pm1_rows(desc: torch.Tensor) -> torch.Tensor:
-    """(..., K, 8) int32 words -> (..., K, 256) int8 rows of +1 (bit 0) and
-    -1 (bit 1): the layout the CUDA kernel's unpack writes, so that
-    hamming(a, b) = (256 - <pm1(a), pm1(b)>) / 2."""
+    """(..., K, W) int32 words -> (..., K, 32 W) int8 rows of +1 (bit 0)
+    and -1 (bit 1): the layout the CUDA kernel's unpack writes, so that
+    hamming(a, b) = (32 W - <pm1(a), pm1(b)>) / 2."""
     return (1 - 2 * _unpack_bits(desc)).to(torch.int8)
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor):
-    """(..., Ka, 8) x (..., Kb, 8) int32 -> (..., Ka, Kb) int32 distances."""
+    """(..., Ka, W) x (..., Kb, W) int32 -> (..., Ka, Kb) int32 distances."""
     ba = _unpack_bits(desc_a).to(torch.float32)
     bb = _unpack_bits(desc_b).to(torch.float32)
     pa = ba.sum(-1)
@@ -115,8 +120,8 @@ def _check(desc, valid, ii, jj):
         if not x.is_contiguous():
             raise ValueError(f"hamming_two_nn_pairs: {name} must be "
                              f"contiguous")
-    if desc.ndim != 3 or desc.shape[2] != 8:
-        raise ValueError(f"hamming_two_nn_pairs: desc must be (N, K, 8), "
+    if desc.ndim != 3:
+        raise ValueError(f"hamming_two_nn_pairs: desc must be (N, K, W), "
                          f"got {tuple(desc.shape)}")
     if tuple(valid.shape) != tuple(desc.shape[:2]):
         raise ValueError(f"hamming_two_nn_pairs: valid must be (N, K), got "
@@ -130,15 +135,16 @@ def _check(desc, valid, ii, jj):
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
-    """`pm1_rows` of a contiguous CUDA (..., K, 8) int32 tensor by the
+    """`pm1_rows` of a contiguous CUDA (..., K, W) int32 tensor by the
     kernel's unpack step (the first of the two launches of
     `hamming_two_nn_pairs`)."""
     if desc.device.type != "cuda":
         raise ValueError(f"unpack_pm1: no kernel for device {desc.device}")
-    out = torch.empty(desc.shape[:-1] + (256,), dtype=torch.int8,
+    w = desc.shape[-1]
+    out = torch.empty(desc.shape[:-1] + (32 * w,), dtype=torch.int8,
                       device=desc.device)
     check_launch(load_library().hamming_unpack_launch(
-        desc.data_ptr(), desc.numel() // 8, out.data_ptr(),
+        desc.data_ptr(), desc.numel() // max(w, 1), w, out.data_ptr(),
         torch.cuda.current_stream(desc.device).cuda_stream),
         "hamming_two_nn_pairs (unpack)")
     return out
@@ -148,9 +154,10 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
                          ii: torch.Tensor, jj: torch.Tensor):
     """The 2-NN of every pair (ii[p], jj[p]) of an image stack, both ways.
 
-    desc (N, K, 8) int32 words, valid (N, K) bool, ii/jj (P,) int32 image
-    indices.  Returns (fwd, rev), each (i1 int64, d1 float32, i2 int64,
-    d2 float32) of shape (P, K): fwd per row of image ii[p] its nearest and
+    desc (N, K, W) int32 words (W in `KERNEL_WORDS` on CUDA, any W on the
+    CPU), valid (N, K) bool, ii/jj (P,) int32 image indices.  Returns
+    (fwd, rev), each (i1 int64, d1 float32, i2 int64, d2 float32) of shape
+    (P, K): fwd per row of image ii[p] its nearest and
     second-nearest valid column of image jj[p], rev the same with the
     images swapped.  The d values are exact integers; an invalid column
     counts as 2^30."""
@@ -160,6 +167,10 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
         return hamming_two_nn_pairs_plain(desc, valid, ii, jj)
     if dev.type != "cuda":
         raise ValueError(f"hamming_two_nn_pairs: no kernel for device {dev}")
+    words = desc.shape[2]
+    if words not in KERNEL_WORDS:
+        raise ValueError(f"hamming_two_nn_pairs: the kernel is built for "
+                         f"descriptors of {KERNEL_WORDS} words, got {words}")
     lib = load_library()
     k, p = desc.shape[1], ii.shape[0]
     pm1 = unpack_pm1(desc)
@@ -169,7 +180,7 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
     d2 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
     code = lib.hamming_pairs_launch(
         pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(), p, k,
-        i1.data_ptr(), d1.data_ptr(), i2.data_ptr(), d2.data_ptr(),
+        words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(), d2.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "hamming_two_nn_pairs")
     hamming_two_nn_pairs.launches += 1

@@ -1,8 +1,9 @@
 """Static-shaped keypoint containers (port of `ops/features/types.py`).
 
 Every image yields exactly `max_features` slots with a validity mask.
-Descriptor words are int32 with the bit pattern of the reference's uint32
-words (torch's uint32 lacks most operators).
+Binary descriptors (ORB, AKAZE) are int32 words with the bit pattern of the
+reference's uint32 words (torch's uint32 lacks most operators); SIFT and
+SURF descriptors are float32.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ __all__ = ["Features"]
 @dataclasses.dataclass(frozen=True)
 class Features:
     """xy (..., K, 2) f32; response, angle, size (..., K) f32;
-    octave (..., K) int32; desc (..., K, 8) int32; valid (..., K) bool."""
+    octave (..., K) int32; valid (..., K) bool; desc (..., K, W) int32
+    words for binary descriptors (ORB W = 8, AKAZE W = 12) or (..., K, D)
+    float32 (SIFT D = 128, SURF D = 64)."""
 
     xy: torch.Tensor
     response: torch.Tensor

@@ -1,11 +1,16 @@
 """All-pairs BestOf2Nearest matching (port of `ops/matching.py`).
 
-The 2-NN of both directions of every pair come from one call of kernel
-K4 (`kernels/hamming.py`, `csrc/hamming.cu`) before the pairs are
-chunked; on CPU tensors its plain version computes each pair's Hamming
-matrix as a float32 bit-plane product, d = pop(a) + pop(b) - 2 <bits_a,
-bits_b> (exact: the counts are integers below 2^24), and takes two masked
-argmins per direction.  Then the ratio test in both directions with
+For binary descriptors (ORB, AKAZE) the 2-NN of both directions of every
+pair come from one call of kernel K4 (`kernels/hamming.py`,
+`csrc/hamming.cu`) before the pairs are chunked; on CPU tensors its plain
+version computes each pair's Hamming matrix as a float32 bit-plane
+product, d = pop(a) + pop(b) - 2 <bits_a, bits_b> (exact: the counts are
+integers below 2^24), and takes two masked argmins per direction.  For
+float descriptors (SIFT, SURF) each chunk of pairs takes its squared L2
+matrices, na + nb - 2 a b^T clamped at 0 (`l2_matrix`, FLANN's squared
+distances, the reference's XLA product), by one float32 matmul on the
+descriptors' device, and the same two argmins.  Then the ratio test (on
+squared distances for float descriptors) in both directions with
 duplicate suppression; RANSAC per pair, a homography or, with
 matcher_type="affine" (AffineBestOf2NearestMatcher), a similarity;
 confidence n_inliers / (8 + 0.3 n_matches) with the conf > 3 -> 0
@@ -26,8 +31,33 @@ from ..kernels.hamming import (hamming_matrix, hamming_two_nn_pairs,
 from .features.types import Features
 from .ransac import ransac_affine_partial, ransac_homography
 
-__all__ = ["MatchGraph", "hamming_matrix", "two_nn", "match_pairs",
-           "match_all_pairs"]
+__all__ = ["MatchGraph", "hamming_matrix", "l2_matrix", "two_nn",
+           "l2_two_nn_pairs", "match_pairs", "match_all_pairs"]
+
+
+def l2_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(..., Ka, D) x (..., Kb, D) float -> (..., Ka, Kb) SQUARED L2
+    distances.  Squared on purpose: BestOf2NearestMatcher's FLANN KNN
+    reports squared L2 for CV_32F descriptors and the ratio test (and the
+    reference's match_conf 0.65 for SIFT and SURF) reads those."""
+    a = desc_a.to(torch.float32)
+    b = desc_b.to(torch.float32)
+    dots = torch.matmul(a, b.transpose(-1, -2))
+    na = torch.sum(a * a, dim=-1)
+    nb = torch.sum(b * b, dim=-1)
+    return torch.clamp(na[..., :, None] + nb[..., None, :] - 2 * dots,
+                       min=0.0)
+
+
+def l2_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
+                    ii: torch.Tensor, jj: torch.Tensor):
+    """The squared-L2 2-NN of pairs (ii[p], jj[p]) of a float descriptor
+    stack (N, K, D), both ways, in `hamming_two_nn_pairs`'s layout: one
+    (P, K, K) matrix, read as it is forward and transposed in reverse."""
+    a, b = ii.long(), jj.long()
+    dist = l2_matrix(desc[a], desc[b])
+    return (two_nn(dist, valid[b]),
+            two_nn(dist.transpose(-1, -2), valid[a]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +108,9 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
                 score_idx=None, nn=None, matcher_type: str = "homography"):
     """BestOf2NearestMatcher::match for a batch of pairs (leading axis P).
 
-    nn: the pairs' (fwd, rev) 2-NN as `hamming_two_nn_pairs` returns them;
-    computed here when not given.  hyp_idx/score_idx: injected RANSAC
+    nn: the pairs' (fwd, rev) 2-NN as `hamming_two_nn_pairs` (or, for float
+    descriptors, `l2_two_nn_pairs`) returns them; computed here when not
+    given.  hyp_idx/score_idx: injected RANSAC
     draws (the affine matcher takes no scoring indices).  Returns (a_idx,
     b_idx, valid, inlier (P, 2K), h (P, 3, 3), num_inliers (P,),
     confidence (P,)): K forward then K reverse slots."""
@@ -88,9 +119,10 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
     dev = fa.xy.device
     if nn is None:
         idx = torch.arange(p, dtype=torch.int32, device=dev)
-        nn = hamming_two_nn_pairs(torch.cat([fa.desc, fb.desc]),
-                                  torch.cat([fa.valid, fb.valid]), idx,
-                                  idx + p)
+        two_nn_pairs = (l2_two_nn_pairs if torch.is_floating_point(fa.desc)
+                        else hamming_two_nn_pairs)
+        nn = two_nn_pairs(torch.cat([fa.desc, fb.desc]),
+                          torch.cat([fa.valid, fb.valid]), idx, idx + p)
     (b1, d1, _, d2), (a1, rd1, _, rd2) = nn
     fwd_ok = (d1 < (1.0 - match_conf) * d2) & fa.valid
     rev_ok = (rd1 < (1.0 - match_conf) * rd2) & fb.valid
@@ -139,12 +171,17 @@ def match_all_pairs(feats: Features, generator=None,
     m_slots = 2 * k if pair_cap <= 0 else min(pair_cap, 2 * k)
     ii = torch.as_tensor(iu, dtype=torch.int32, device=dev)
     jj = torch.as_tensor(ju, dtype=torch.int32, device=dev)
-    fwd, rev = hamming_two_nn_pairs(feats.desc, feats.valid, ii, jj)
+    binary = not torch.is_floating_point(feats.desc)
+    if binary:
+        fwd, rev = hamming_two_nn_pairs(feats.desc, feats.valid, ii, jj)
     outs = []
     chunk = pair_chunk(k)
     for s in range(0, len(iu), chunk):
         cut = slice(s, s + chunk)
-        nn = (tuple(x[cut] for x in fwd), tuple(x[cut] for x in rev))
+        if binary:
+            nn = (tuple(x[cut] for x in fwd), tuple(x[cut] for x in rev))
+        else:
+            nn = l2_two_nn_pairs(feats.desc, feats.valid, ii[cut], jj[cut])
         outs.append(match_pairs(feats[ii[cut]], feats[jj[cut]], match_conf,
                                 generator, n_hyp, nn=nn,
                                 matcher_type=matcher_type))

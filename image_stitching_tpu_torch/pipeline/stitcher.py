@@ -2,9 +2,11 @@
 `image_stitching_tpu/pipeline/stitcher.py`.
 
 Stages: read images and EXIF priors (fast ingest: the background native
-decode of the codec's 4:2:0 planes, `pipeline/ingest.py`) -> ORB features
-(kernel K1) -> all-pairs matching with RANSAC, homography or affine
-(kernel K4) -> biggest connected component -> camera seed: the priors, or
+decode of the codec's 4:2:0 planes, `pipeline/ingest.py`) -> features
+(`features_type`: ORB over the stack, kernel K1; SIFT, SURF or AKAZE per
+image, `detect_features`) -> all-pairs matching with RANSAC, homography
+or affine (binary descriptors by kernel K4, float ones by squared L2)
+-> biggest connected component -> camera seed: the priors, or
 without them (or with use_sensor_priors=False, or the affine estimator)
 the estimate from the match graph -> bundle adjustment (reproj, ray,
 affine or none) -> checkpoint -> pose infill of dropped images
@@ -20,8 +22,8 @@ where the result, the crop and the written file take them as CPU tensors.
 `indices.data`) with no features, matching or BA; `find_features=False`
 takes the EXIF priors (or identity cameras) as the cameras.
 
-Captures of different sizes take the reference's non-uniform branch: ORB
-per image, the seam-scale warp per image (`Warper.warp`, K2), the host
+Captures of different sizes take the reference's non-uniform branch:
+features per image, the seam-scale warp per image (`Warper.warp`, K2), the host
 exposure `feed` and the seams on a padded stack of the fractional warped
 images.  Such sets, and `timelapse`, compose in the loop: per image the
 compose-scale warp (K2), the gain, the seam mask, then the blender
@@ -29,9 +31,9 @@ compose-scale warp (K2), the gain, the seam mask, then the blender
 each frame to `fixed_<name>` in the working directory.  `crop_result`
 cuts the panorama (not its mask) to `ops/crop.py::crop_rect`.
 
-`check_slice` raises NotImplementedError for the options outside the
-port, the non-ORB detectors and the canvas sharded over more than one CUDA
-device, so it never takes another path quietly.  The device is explicit:
+`check_slice` raises NotImplementedError for the one option outside the
+port, the canvas sharded over more than one CUDA device, so it never
+takes another path quietly.  The device is explicit:
 `stitch(..., device="cuda")` raises when no GPU is present, and nothing
 falls back to the CPU.
 """
@@ -62,6 +64,10 @@ from ..geometry.camera import Cameras
 from ..ops.blend import make_blender
 from ..ops.crop import crop_rect
 from ..ops.exposure import apply_gain, feed, feed_device
+from ..ops.features import (Features, akaze_detect_and_describe,
+                            orb_detect_and_describe,
+                            sift_detect_and_describe,
+                            surf_detect_and_describe)
 from ..ops.features.orb import orb_detect_stack
 from ..ops.imgproc import dilate3, resize, rgb_to_gray, scale_size
 from ..ops.matching import match_all_pairs
@@ -73,7 +79,7 @@ from .compose_fused import fused_compose, fused_compose_strips, warp_stack
 from .ingest import fast_prep, pick_num8, start_fast_ingest
 
 __all__ = ["stitch", "StitchResult", "check_slice", "compose_inputs",
-           "ComposeInputs"]
+           "ComposeInputs", "detect_features", "detect_stack"]
 
 
 @dataclasses.dataclass
@@ -90,24 +96,42 @@ class StitchResult:
 
 
 def check_slice(cfg: StitchConfig, device="cpu") -> None:
-    """Raise NotImplementedError naming the first option outside the
-    port's slice: a non-ORB `features_type`, or the canvas sharded over
-    more than one CUDA device.  use_sharded_compose is the plain fused
-    compose (or the strips, above compose_strips_mp) unless
-    more than one CUDA device would shard the canvas, as in the reference
-    (which shards only when more than one device is present)."""
+    """Raise NotImplementedError for the option outside the port's slice:
+    the canvas sharded over more than one CUDA device.  use_sharded_compose
+    is the plain fused compose (or the strips, above compose_strips_mp)
+    unless more than one CUDA device would shard the canvas, as in the
+    reference (which shards only when more than one device is present)."""
     device = torch.device(device)
-    sharded = (cfg.use_sharded_compose and device.type == "cuda"
-               and torch.cuda.device_count() > 1)
-    refused = [
-        ("use_sharded_compose", sharded,
-         f"True on {torch.cuda.device_count()} devices"),
-        ("features_type", cfg.features_type != "orb", cfg.features_type),
-    ]
-    for name, outside, value in refused:
-        if outside:
-            raise NotImplementedError(
-                f"{name}={value}: outside the PyTorch port's slice")
+    if (cfg.use_sharded_compose and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            f"use_sharded_compose=True on {torch.cuda.device_count()} "
+            f"devices: outside the PyTorch port's slice")
+
+
+def detect_features(gray: torch.Tensor, cfg: StitchConfig) -> Features:
+    """One (H, W) image's features of `cfg.features_type` (the reference's
+    `image_stitching.cpp:542-565` dispatch); an unknown type raises with
+    the reference's message."""
+    if cfg.features_type == "orb":
+        return orb_detect_and_describe(gray, n_features=cfg.num_features,
+                                       pattern=cfg.orb_pattern)
+    detectors = {"sift": sift_detect_and_describe,
+                 "akaze": akaze_detect_and_describe,
+                 "surf": surf_detect_and_describe}
+    if cfg.features_type not in detectors:
+        raise ValueError(
+            f"Unknown 2D features type: '{cfg.features_type}'.")
+    return detectors[cfg.features_type](gray, n_features=cfg.num_features)
+
+
+def detect_stack(grays, cfg: StitchConfig) -> Features:
+    """Features of each work image, stacked: ORB by `orb_detect_stack`,
+    the other detectors image by image."""
+    if cfg.features_type == "orb":
+        return orb_detect_stack(grays, n_features=cfg.num_features,
+                                pattern=cfg.orb_pattern)
+    return Features.stack([detect_features(g, cfg) for g in grays])
 
 
 def _load_priors(paths: Sequence[str]):
@@ -315,8 +339,7 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                 seam_stack = torch.stack(seam_list)
                 stack_u8 = torch.stack(device_imgs)
         if want_feats:
-            fstack = orb_detect_stack(grays, n_features=cfg.num_features,
-                                      pattern=cfg.orb_pattern)
+            fstack = detect_stack(grays, cfg)
 
     cameras_all = (Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
                    if priors is not None else None)

@@ -103,13 +103,36 @@ def test_main_writes_the_stitch_panorama(captures, tmp_path, capsys):
     (["--features", "surf"], "features_type")])
 def test_refused_option_exits_nonzero(captures, tmp_path, capsys, flags,
                                       option):
-    """An option outside the port (a detector other than ORB) exits 1,
-    naming it, and writes nothing."""
-    out = str(tmp_path / "r.jpg")
-    assert cli.main([captures, "--device", "cpu", "--result", out] +
-                    flags) == 1
-    assert option in capsys.readouterr().err
-    assert not os.path.exists(out)
+    """The detectors other than ORB, which the port once refused, exit as
+    the reference's CLI does on the same captures (fast ingest): the same
+    code; on 0 both write a panorama of the same size, on 1 both print the
+    reference's message and write nothing.  On these 160x224 captures
+    SIFT keeps too few keypoints and exits 1 with "Need more images"."""
+    runs = {}
+    for name, main, extra in (("jax", jcli.main, []),
+                              ("torch", cli.main, ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}.jpg")
+        run_dir = tmp_path / name
+        run_dir.mkdir()
+        code = main([captures, "--result", out, "--checkpoint-dir",
+                     str(run_dir)] + SMALL + flags + extra)
+        printed = capsys.readouterr()
+        runs[name] = (code, out, printed.err)
+    (code_j, out_j, err_j), (code_t, out_t, err_t) = runs["jax"], \
+        runs["torch"]
+    assert code_t == code_j, (flags, code_j, err_j[-500:], err_t[-500:])
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        [captures] + flags))
+    assert getattr(cfg, option) == flags[1]
+    if code_j == 0:
+        with Image.open(out_j) as a, Image.open(out_t) as b:
+            assert a.size == b.size and a.size[0] > 224
+    else:
+        assert code_j == 1
+        msg = err_j.strip().splitlines()[-1]
+        assert "Need more images" in msg and msg in err_t
+        assert not os.path.exists(out_j) and not os.path.exists(out_t)
+    assert (flags[1], code_t) != ("sift", 0)
 
 
 def test_bad_flag_exits_two():
@@ -123,7 +146,8 @@ def test_bad_flag_exits_two():
 
 def test_python_dash_m_entry_point(captures):
     """`python -m image_stitching_tpu_torch` runs the CLI's main: --help
-    exits 0 with the port's usage, a refused option exits 1 naming it."""
+    exits 0 with the port's usage, a rejected value exits 2 naming the
+    flag."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     cmd = [sys.executable, "-m", "image_stitching_tpu_torch"]
     out = subprocess.run(cmd + ["--help"], env=env, capture_output=True,
@@ -132,9 +156,9 @@ def test_python_dash_m_entry_point(captures):
     assert out.stdout.startswith("usage: image_stitching_tpu_torch")
     assert "--device" in out.stdout
     out = subprocess.run(cmd + [captures, "--device", "cpu", "--features",
-                                "sift"], env=env, capture_output=True,
+                                "nope"], env=env, capture_output=True,
                          text=True, timeout=120)
-    assert out.returncode == 1 and "features_type" in out.stderr
+    assert out.returncode == 2 and "--features" in out.stderr
 
 
 def test_graph_profile_and_resume_flags(captures, tmp_path, capsys):

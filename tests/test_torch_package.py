@@ -1,4 +1,4 @@
-"""The port's package boundary: no jax at import, the slice's refusals,
+"""The port's package boundary: no jax at import, the slice's refusal,
 explicit devices, host IO and the state conversion from the reference."""
 
 import json
@@ -48,6 +48,9 @@ REGISTRATION_MODULES = (
     "core.rig", "estimation.homography_estimator", "estimation.pose_infill",
     "estimation.bundle_adjust", "geometry.euler", "geometry.rotation",
     "ops.ransac", "ops.matching", "data.synth")
+# The detectors, imported with the rest.
+DETECTOR_MODULES = ("ops.features.hessian", "ops.features.surf",
+                    "ops.features.akaze", "ops.features.sift")
 
 
 def test_import_loads_no_jax():
@@ -58,23 +61,26 @@ def test_import_loads_no_jax():
     seen = json.loads(out.stdout)
     names = seen["names"]
     assert len(names) >= 42 and seen["bad"] == []
-    for mod in REGISTRATION_MODULES:
+    for mod in REGISTRATION_MODULES + DETECTOR_MODULES:
         assert f"image_stitching_tpu_torch.{mod}" in names, mod
 
 
 SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
 
 
-@pytest.mark.parametrize("option,value", [
-    ("features_type", "sift"), ("features_type", "akaze"),
-    ("features_type", "surf")])
-def test_options_outside_slice_raise(option, value):
-    check_slice(StitchConfig(**SLICE))
-    cfg = StitchConfig(**dict(SLICE, **{option: value}))
-    with pytest.raises(NotImplementedError, match=option):
-        check_slice(cfg)
-    with pytest.raises(NotImplementedError, match=option):
-        stitch(["a.jpg", "b.jpg"], cfg, output="", device="cpu")
+@pytest.mark.parametrize("devices", [2, 4, 8])
+def test_options_outside_slice_raise(monkeypatch, devices):
+    """The one option outside the port: the canvas sharded over more than
+    one CUDA device raises naming it, with any such device count; the same
+    configuration on the CPU and every other one on those devices pass."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: devices)
+    cfg = StitchConfig(**dict(SLICE, use_sharded_compose=True))
+    check_slice(cfg)
+    with pytest.raises(NotImplementedError,
+                       match=f"use_sharded_compose=True on {devices}"):
+        check_slice(cfg, "cuda")
+    for feat in ("orb", "sift", "akaze", "surf"):
+        check_slice(StitchConfig(**dict(SLICE, features_type=feat)), "cuda")
 
 
 @pytest.mark.parametrize("option,value", [
@@ -89,7 +95,8 @@ def test_options_outside_slice_raise(option, value):
     ("estimator_type", "affine"), ("use_sensor_priors", False),
     ("infill_dropped", True), ("warp_type", "affine"), ("timelapse", True),
     ("crop_result", True), ("compose_strips_mp", 0.5),
-    ("compose_strip_w", 256)])
+    ("compose_strip_w", 256), ("features_type", "sift"),
+    ("features_type", "akaze"), ("features_type", "surf")])
 def test_options_inside_slice_accepted(option, value):
     """Options that the port runs: check_slice takes them on the CPU and
     on one CUDA device."""
