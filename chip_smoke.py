@@ -176,7 +176,30 @@ Phases, one line each; any failure raises and exits non-zero:
      stitch's 28 pairs in one call against its plain version (and its
      unpack against pm1_rows, a tie-heavy stack at 12 words) with its
      device, call and plain ms and bound; SIFT's peak device memory on
-     one view.
+     one view;
+ 15. the JAX package's bench.py configurations outside stitch(), each
+     under the counts as in phase 9: (a) gp_sharded (bench.py:734-791):
+     12 x 1024x1536x3 noise (numpy seed 0), focal 1400, spherical, yaws
+     0.5 i, full seam masks, no compensator, MULTI_BAND at strength 5,
+     through fused_compose_sharded on a (1, 4) mesh of this card (the
+     shards one after another): after a warm-up, ms per composite over 3
+     reps with fresh content, download included, canvas MP/s, peak device
+     memory and the band count; against fused_compose on the same inputs
+     with tests/test_parallel.py:74-136's bounds (the same shape, mean
+     |diff| < 0.5 and p99 <= 2 over both masks; FEATHER exact); K2 on a
+     shard's samples and K5 on its call against their plain versions
+     (phase 3's and 7's gates) with device, call and plain ms and the
+     bounds; (b) pairs (bench.py:527-558): make_batched_register on a dp
+     mesh of this card, 64 noise pairs of 480x640 (seed 0), 1024
+     features, n_hyp 512, pairs/s over 3 reps after a warm-up; 8 pairs of
+     a noise base and its roll by (7, 5): every n_inliers > 20, one
+     register_pair a pair with the same per-pair seeds and a dp-2 mesh
+     of this card against dp 1 (n_inliers equal, H within 1e-4 of its
+     largest entry, `h_close`); K1 on one image and K4 on the batch's 64
+     pairs against their plain versions with their bounds.  The
+     multi-process path (`parallel/distributed.py`) is held on CPU
+     processes only (tests/test_torch_distributed.py): NCCL cannot put
+     two ranks on one card.
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
@@ -189,11 +212,15 @@ at 0 bands on the vga_pair rects (`zero_band_device_ms`,
 `zero_band_launches_per_call`); K4's and K5's rows their rig37 times and
 bounds (`rig37_*`); K2's and K5's rows their times, bounds and errors on
 mixed8's loop compose (`loop_*`) and on a gigapixel strip (`strip_*`);
-K4's row its mosaic100 times and bound (`mosaic100_*`).  A sixth row is
+K4's row its mosaic100 times and bound (`mosaic100_*`); K2's and K5's
+rows their times, bounds and errors on a gp_sharded shard (`shard_*`),
+K1's and K4's on the pairs batch (`pairs_*`).  A sixth row is
 K4 at 12 words (`words: 12`), checked and timed on phase 14's AKAZE
 descriptors, its launches those of phase 14's stitches.
-Then a JSON line of those kernel results with the launches on the path
-the kernel was checked on, the nvidia-smi
+Then the smoke's total seconds and phase 15's end-to-end numbers, a JSON
+line of those kernel results with the launches on the path the kernel was
+checked on (`launches_by_path` every path's, phase 15a and 15b included),
+the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
 device it exits non-zero and prints no result.  Imports nothing of JAX.
 """
@@ -3191,7 +3218,299 @@ def run_phase14(stitch, stitcher, counters, caps_default, caps_noisy,
     return dict(by_path=by_path, k4_12=k4_12)
 
 
+# Phase 15: the JAX package's bench.py gp_sharded (bench.py:734-791) and
+# pairs (bench.py:527-558) configurations.
+GP_SHARDED = dict(n_images=12, hw=(1024, 1536), focal=1400.0, yaw=0.5,
+                  seed=0, shards=4, strength=5.0)
+PAIRS = dict(batch=64, hw=(480, 640), n_features=1024, n_hyp=512, seed=0,
+             check_batch=8, check_seed=42, roll=(7, 5))
+PHASE15_REPS = 3
+
+
+def gp_sharded_args(dev, blend_type):
+    """gp_sharded's compose arguments: noise images (numpy seed 0) on the
+    device, focal 1400, spherical, yaws 0.5 i, full seam masks, no
+    compensator, blend strength 5."""
+    from scipy.spatial.transform import Rotation
+    from image_stitching_tpu_torch.ops.warps import make_warper
+    gp = GP_SHARDED
+    n, (h, w), focal = gp["n_images"], gp["hw"], gp["focal"]
+    rng = np.random.default_rng(gp["seed"])
+    imgs = torch.as_tensor(rng.uniform(0, 255, (n, h, w, 3)).astype(
+        np.float32), device=dev)
+    k = np.tile(np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
+                         np.float32), (n, 1, 1))
+    rs = np.stack([Rotation.from_euler("y", gp["yaw"] * i).as_matrix()
+                   .astype(np.float32) for i in range(n)])
+    warper = make_warper("spherical", focal)
+    rois = [warper.warp_roi((h, w), k[i], rs[i]) for i in range(n)]
+    corners = [(r[0], r[1]) for r in rois]
+    sizes = [(r[2], r[3]) for r in rois]
+    masks = [np.full((s[1], s[0]), 255, np.uint8) for s in sizes]
+    return (imgs, k, rs, warper, corners, sizes, masks, corners, 1.0, None,
+            blend_type, gp["strength"])
+
+
+def sharded_vs_fused(dev, mesh, args, exact: bool):
+    """fused_compose_sharded against fused_compose on the same inputs, as
+    tests/test_parallel.py:74-136 holds them: the same shape, over both
+    masks mean |diff| < 0.5 and p99 <= 2, or (FEATHER) no difference."""
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    pano_s, mask_s = cf.fused_compose_sharded(mesh, *args)
+    pano_f, mask_f = cf.fused_compose(*args)
+    pano_f, mask_f = pano_f.cpu().numpy(), mask_f.cpu().numpy()
+    assert pano_s.shape == pano_f.shape and mask_s.shape == mask_f.shape, \
+        (pano_s.shape, pano_f.shape)
+    both = mask_s & mask_f
+    diff = np.abs(pano_s - pano_f)[both]
+    out = dict(mean=float(diff.mean()), p99=float(np.percentile(diff, 99)),
+               max=float(diff.max()), mask_equal=bool(np.array_equal(
+                   mask_s, mask_f)), shape=pano_s.shape)
+    if exact:
+        assert out["max"] == 0.0, f"sharded FEATHER differs by {out['max']}"
+    else:
+        assert out["mean"] < 0.5 and out["p99"] <= 2.0, out
+    return out
+
+
+def shard_kernel_check(dev, k2_calls, k5_call):
+    """Phase 15a: K2 on one shard's samples (one call per image over the
+    shard's frame) and K5 on that shard's one call, each against its plain
+    version (phase 3's and 7's gates) with device, call and plain ms and
+    the bounds, grid_sample beside K2."""
+    from image_stitching_tpu_torch.kernels.multiband import (
+        pyramid_accumulate, pyramid_accumulate_plain)
+    from image_stitching_tpu_torch.kernels.warp_gather import (
+        warp_bilinear, warp_bilinear_plain)
+    k2_err = k2_max_diff(k2_calls)
+
+    def run2(fn):
+        for src, sx, sy in k2_calls:
+            fn(src, sx, sy)
+    k2_bound_ms, k2_bound_by = k2_bound(k2_calls)
+    n_calls = len(k2_calls)
+    k2 = dict(err=k2_err, rects=[tuple(c[1].shape) for c in k2_calls[:1]],
+              calls=n_calls,
+              device_ms=device_ms(lambda: run2(warp_bilinear), reps=3,
+                                  replays=2) / n_calls,
+              call_ms=time_ms(lambda: run2(warp_bilinear), reps=3) / n_calls,
+              plain_ms=time_ms(lambda: run2(warp_bilinear_plain), reps=1)
+              / n_calls,
+              library_ms=k2_library_ms(k2_calls)[0], bound_ms=k2_bound_ms,
+              bound_by=k2_bound_by)
+    warped, weight, offs, accs, nb = k5_call
+
+    def fresh():
+        return [torch.zeros(a.shape, device=dev) for a in accs]
+    acc_k, acc_p = fresh(), fresh()
+    pyramid_accumulate(warped, weight, offs, acc_k, nb)
+    pyramid_accumulate_plain(warped, weight, offs, acc_p, nb)
+    err, u8 = _k5_gates(acc_k, acc_p, nb, "shard")
+    del acc_p
+    scratch = acc_k
+    launches = kernel_launches(
+        lambda: pyramid_accumulate(warped, weight, offs, scratch, nb))
+    assert launches <= 2 * nb + 1, f"K5 shard: {launches} launches a call"
+    k5_bound_ms, k5_bound_by = k5_chunk_bound(warped, offs, scratch, nb)
+    k5 = dict(err=err, u8=u8, n_bands=nb, launches_per_call=launches,
+              chunk=tuple(warped.shape), accs=tuple(scratch[0].shape),
+              device_ms=device_ms(lambda: pyramid_accumulate(
+                  warped, weight, offs, scratch, nb), reps=3, replays=2),
+              call_ms=time_ms(lambda: pyramid_accumulate(
+                  warped, weight, offs, scratch, nb), reps=3),
+              plain_ms=time_ms(lambda: pyramid_accumulate_plain(
+                  warped, weight, offs, scratch, nb), reps=1),
+              bound_ms=k5_bound_ms, bound_by=k5_bound_by)
+    return k2, k5
+
+
+def run_phase15a(counters, smi, dev):
+    """Phase 15a, gp_sharded: fused_compose_sharded on a (1, 4) mesh of
+    this card, the shards one after another; its ms per composite
+    (download included, fresh content each rep) after a warm-up, canvas
+    MP/s and peak device memory; the composite against fused_compose
+    (multiband and FEATHER); K2 and K5 at a shard's shapes."""
+    from image_stitching_tpu_torch.config import BlenderType
+    from image_stitching_tpu_torch.parallel.mesh import make_mesh
+    from image_stitching_tpu_torch.pipeline import compose_fused as cf
+    gp = GP_SHARDED
+    mesh = make_mesh((1, gp["shards"]), ("dp", "sp"),
+                     devices=[dev] * gp["shards"])
+    args = gp_sharded_args(dev, BlenderType.MULTI_BAND)
+    imgs = args[0]
+    cf.fused_compose_sharded(mesh, *args)          # warm-up
+    rec = Recorder(cf, "warp_bilinear", "pyramid_accumulate")
+    for fn in counters:
+        fn.launches = 0
+    with rec:
+        pano, mask = cf.fused_compose_sharded(mesh, *args)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    assert launches["warp_bilinear"] == gp["shards"] * gp["n_images"], \
+        launches
+    assert launches["pyramid_accumulate"] >= gp["shards"], launches
+    assert np.isfinite(pano).all() and mask.mean() > 0.5, mask.mean()
+    k5_calls = rec.calls["pyramid_accumulate"]
+    nb = k5_calls[0][0][4]
+    frame = tuple(k5_calls[0][0][0].shape[2:])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(PHASE15_REPS):
+        pano, mask = cf.fused_compose_sharded(mesh, imgs + float(i + 1),
+                                              *args[1:])
+    dt = (time.perf_counter() - t0) / PHASE15_REPS
+    peak = torch.cuda.max_memory_allocated()
+    mp = pano.shape[0] * pano.shape[1] / 1e6
+    print(f"phase 15a gp_sharded (bench.py:734-791): {gp['n_images']} x "
+          f"{gp['hw'][0]}x{gp['hw'][1]}x3 noise, focal {gp['focal']:g}, "
+          f"spherical, MULTI_BAND strength {gp['strength']:g} -> {nb} "
+          f"bands; canvas {pano.shape[0]}x{pano.shape[1]} ({mp:.3f} MP) "
+          f"on a (1, {gp['shards']}) mesh of {dev} (shards one after "
+          f"another, frame {frame} each), launches {launches} for one "
+          f"composite; {dt * 1e3:.3f} ms per composite over "
+          f"{PHASE15_REPS} reps with fresh content, download included "
+          f"({mp / dt:.3f} canvas MP/s), peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB; card '{smi}'", flush=True)
+    del pano, mask
+    mb = sharded_vs_fused(dev, mesh, args, exact=False)
+    fe = sharded_vs_fused(dev, mesh, gp_sharded_args(
+        dev, BlenderType.FEATHER), exact=True)
+    print(f"phase 15a sharded against fused_compose (tests/test_parallel.py"
+          f":74-136's bounds): multiband shape {mb['shape']}, masks equal "
+          f"{mb['mask_equal']}, |diff| over both masks mean "
+          f"{mb['mean']:.4f} (< 0.5), p99 {mb['p99']:.1f} (<= 2), max "
+          f"{mb['max']:.1f}; FEATHER masks equal {fe['mask_equal']}, max "
+          f"|diff| {fe['max']:.1f} (exact)", flush=True)
+    n_img = gp["n_images"]
+    k2_calls = [c[0] for c in rec.calls["warp_bilinear"][:n_img]]
+    k5_call = k5_calls[0][0]
+    del rec, k5_calls
+    k2, k5 = shard_kernel_check(dev, k2_calls, k5_call)
+    del k2_calls, k5_call
+    torch.cuda.empty_cache()
+    print(f"phase 15a K2 on shard 0's {k2['calls']} samples of "
+          f"{k2['rects'][0]} (sources {gp['hw'][0]}x{gp['hw'][1]}x3): max "
+          f"|diff| {k2['err']:.3g} (atol 1e-4), per call: kernel device "
+          f"{k2['device_ms']:.4f} ms, call {k2['call_ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, grid_sample device "
+          f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+          f"({k2['bound_by']}, {k2['bound_ms'] / k2['device_ms']:.1%} of it "
+          f"reached)", flush=True)
+    print(f"phase 15a K5 on shard 0's call {k5['chunk']} ({k5['n_bands']} "
+          f"bands, accumulators {k5['accs']}): accumulators "
+          f"{k5['err']:.3g} (tol 2e-3), finalized u8 {k5['u8']} (tol 1), "
+          f"masks equal, {k5['launches_per_call']} kernel launches; per "
+          f"call: kernel device {k5['device_ms']:.4f} ms, call "
+          f"{k5['call_ms']:.4f} ms, plain {k5['plain_ms']:.4f} ms, bound "
+          f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}, "
+          f"{k5['bound_ms'] / k5['device_ms']:.1%} of it reached)",
+          flush=True)
+    return dict(launches=launches, k2=k2, k5=k5, ms=dt * 1e3, mp=mp,
+                peak=peak, n_bands=nb)
+
+
+def h_close(h_got, h_want, what: str):
+    """Batches of H within 1e-4 of each pair's largest entry, the measure
+    tests/test_torch_matching.py holds RANSAC's H to: the card's batched
+    9x9 eigensolver in the DLT refit rounds unlike the one-matrix solver,
+    so a pair's H moves with the batch it is solved in.  Returns (max
+    |diff|, max |diff| over the largest entry)."""
+    diff = (h_got - h_want).abs().amax(dim=(-2, -1))
+    rel = float((diff / h_want.abs().amax(dim=(-2, -1))).max())
+    assert rel <= 1e-4, f"{what}: H differs by {rel:.3g} of its largest entry"
+    return float(diff.max()), rel
+
+
+def run_phase15b(counters, smi, dev):
+    """Phase 15b, pairs: make_batched_register on a dp mesh of this card,
+    64 noise pairs of 480x640 at 1024 features and n_hyp 512, pairs/s
+    after a warm-up; 8 pairs of a noise base and its roll by (7, 5): every
+    n_inliers > 20, one register_pair call a pair with the same draws and
+    a dp-2 mesh of this card against dp 1 (n_inliers equal, H by
+    `h_close`); K1 and K4 at this shape against their plain versions."""
+    from image_stitching_tpu_torch.ops.features.orb import orb_detect_stack
+    from image_stitching_tpu_torch.ops.matching import register_pair
+    from image_stitching_tpu_torch.parallel.batched import (
+        make_batched_register, pair_generators)
+    from image_stitching_tpu_torch.parallel.mesh import make_mesh
+    pp = PAIRS
+    h, w = pp["hw"]
+    kw = dict(n_features=pp["n_features"], n_hyp=pp["n_hyp"])
+    fn = make_batched_register(make_mesh((1, 1), devices=[dev]), (h, w),
+                               **kw)
+    rng = np.random.default_rng(pp["seed"])
+    pairs = torch.as_tensor(rng.uniform(0, 255, (pp["batch"], 2, h, w))
+                            .astype(np.float32), device=dev)
+    seeds = np.arange(pp["batch"])
+    fn(pairs, seeds)                               # warm-up
+    for c in counters:
+        c.launches = 0
+    fn(pairs, seeds)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    assert launches["orb_sample_levels"] == 2 * pp["batch"], launches
+    assert launches["hamming_two_nn_pairs"] == 1, launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PHASE15_REPS):
+        out = fn(pairs + float(i + 1), seeds)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pairs_per_s = PHASE15_REPS * pp["batch"] / dt
+    print(f"phase 15b pairs (bench.py:527-558): {pp['batch']} noise pairs "
+          f"of {h}x{w}, {pp['n_features']} features, n_hyp {pp['n_hyp']}, "
+          f"a dp mesh of [{dev}]: launches {launches} for one batch; "
+          f"{dt / (PHASE15_REPS * pp['batch']) * 1e3:.4f} ms a pair over "
+          f"{PHASE15_REPS} reps with fresh content ({pairs_per_s:.2f} "
+          f"pairs/s); card '{smi}'", flush=True)
+    del out
+    rng = np.random.default_rng(pp["check_seed"])
+    base = rng.uniform(0, 255, (pp["check_batch"], h, w)).astype(np.float32)
+    check = torch.as_tensor(np.stack(
+        [base, np.roll(base, pp["roll"], (1, 2))], axis=1), device=dev)
+    cseeds = np.arange(pp["check_batch"])
+    hb, cb, nb = fn(check, cseeds)
+    n_min = int(nb.min())
+    assert n_min > 20, f"rolled pairs: n_inliers {nb.tolist()}"
+    single = [register_pair(check[i, 0], check[i, 1],
+                            pair_generators([s], dev)[0], **kw)
+              for i, s in enumerate(cseeds)]
+    n_single = torch.stack([p.num_inliers for p in single])
+    h_single = torch.stack([p.h for p in single])
+    assert torch.equal(n_single, nb), (n_single.tolist(), nb.tolist())
+    h_err, h_rel = h_close(h_single, hb, "single calls")
+    fn2 = make_batched_register(make_mesh((2, 1), devices=[dev, dev]),
+                                (h, w), **kw)
+    h2, c2, n2 = fn2(check, cseeds)
+    assert torch.equal(n2, nb), (n2.tolist(), nb.tolist())
+    h2_err, h2_rel = h_close(h2, hb, "dp 2")
+    print(f"phase 15b rolled pairs ({pp['check_batch']} pairs, base and its "
+          f"roll by {pp['roll']}, seed {pp['check_seed']}): n_inliers "
+          f"{nb.tolist()} (min {n_min} > 20), confidence "
+          f"{[round(float(c), 4) for c in cb]}; one register_pair a pair "
+          f"with the same draws: n_inliers equal, H max |diff| "
+          f"{h_err:.3g} ({h_rel:.3g} of the pair's largest entry, <= 1e-4);"
+          f" a dp-2 mesh of [{dev}, {dev}]: n_inliers equal, H max |diff| "
+          f"{h2_err:.3g} ({h2_rel:.3g}, <= 1e-4)", flush=True)
+    k1, _ = check_k1(dev, pairs[0, 0], pp["n_features"], "15b",
+                     "orb_sample_levels",
+                     "image_stitching_tpu/kernels/orb_sample_pallas.py:145")
+    feats = orb_detect_stack(pairs.reshape(2 * pp["batch"], h, w),
+                             pp["n_features"])
+    ii = torch.arange(0, 2 * pp["batch"], 2, dtype=torch.int32, device=dev)
+    tm = k4_times((feats.desc.contiguous(), feats.valid.contiguous(), ii,
+                   ii + 1), feats.valid)
+    print(f"phase 15b K4 hamming_two_nn_pairs on the batch's {pp['batch']} "
+          f"pairs of K={pp['n_features']}, both directions, one call: "
+          f"equal to its plain version; per call: device "
+          f"{tm['dev_ms']:.4f} ms, call {tm['call_ms']:.4f} ms, plain "
+          f"{tm['plain_ms']:.4f} ms; bound over {tm['n_dist']:.0f} valid "
+          f"distances {tm['bound_ms']:.4f} ms ({tm['route']})", flush=True)
+    return dict(launches=launches, k1=k1, k4=tm, pairs_per_s=pairs_per_s)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -3544,6 +3863,36 @@ def main() -> int:
                       strip_bound_ms_per_call=s5["bound_ms"],
                       strip_launches_per_call=s5["launches_per_call"],
                       strip_max_abs_err=s5["err"])
+            g15 = run_phase15a(counters, smi, dev)
+            by_path["phase 15a"] = g15["launches"]
+            p15 = run_phase15b(counters, smi, dev)
+            by_path["phase 15b"] = p15["launches"]
+            s2, s5, b1, b4 = g15["k2"], g15["k5"], p15["k1"], p15["k4"]
+            k2.update(shard_frame=list(s2["rects"][0]),
+                      shard_device_ms=s2["device_ms"],
+                      shard_call_ms=s2["call_ms"],
+                      shard_plain_ms=s2["plain_ms"],
+                      shard_bound_ms=s2["bound_ms"],
+                      shard_library_ms=s2["library_ms"],
+                      shard_max_abs_err=s2["err"])
+            k5.update(shard_call_shape=list(s5["chunk"]),
+                      shard_n_bands=s5["n_bands"],
+                      shard_device_ms_per_call=s5["device_ms"],
+                      shard_call_ms=s5["call_ms"],
+                      shard_plain_ms=s5["plain_ms"],
+                      shard_bound_ms_per_call=s5["bound_ms"],
+                      shard_launches_per_call=s5["launches_per_call"],
+                      shard_max_abs_err=s5["err"])
+            k1.update(pairs_device_ms=b1["device_ms"],
+                      pairs_call_ms=b1["call_ms"],
+                      pairs_plain_ms=b1["plain_ms"],
+                      pairs_bound_ms=b1["bound_ms"],
+                      pairs_max_abs_err=b1["max_abs_err"])
+            k4.update(pairs_pairs=PAIRS["batch"],
+                      pairs_device_ms=b4["dev_ms"],
+                      pairs_call_ms=b4["call_ms"],
+                      pairs_plain_ms=b4["plain_ms"],
+                      pairs_bound_ms=b4["bound_ms"])
         finally:
             os.chdir(cwd)
 
@@ -3560,6 +3909,11 @@ def main() -> int:
         path: counts["hamming_two_nn_pairs"]
         for path, counts in by_path.items() if path.startswith("phase 14")}
 
+    print(f"smoke total {time.perf_counter() - t_start:.1f} s; phase 15: "
+          f"gp_sharded {g15['ms']:.3f} ms a composite "
+          f"({g15['mp'] / g15['ms'] * 1e3:.3f} canvas MP/s, {g15['n_bands']} "
+          f"bands, peak {g15['peak'] / 2 ** 30:.3f} GiB), pairs "
+          f"{p15['pairs_per_s']:.2f} pairs/s; card '{smi}'", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

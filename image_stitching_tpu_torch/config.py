@@ -1,9 +1,8 @@
 """StitchConfig: the stitcher's configuration as a frozen dataclass.
 
 A copy of `image_stitching_tpu/config.py`, so that both packages read the
-same field names, defaults and enum values.  The PyTorch port runs one slice
-of this surface; `pipeline/stitcher.py::check_slice` names every option it
-refuses with NotImplementedError.
+same field names, defaults and enum values.  The PyTorch port runs the
+whole surface.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ from . import native
 from .persistence import parse_matrix_str
 
 __all__ = ["SensorPrior", "parse_image_description", "sensor_prior_to_camera",
-           "read_image_description", "camera_to_image_description"]
+           "read_image_description", "camera_to_image_description",
+           "format_image_description"]
 
 IMAGE_DESCRIPTION_TAG = 270
 
@@ -127,6 +128,14 @@ def _matrix_str(m) -> str:
     return "[" + ",".join(repr(float(v)) for v in flat) + "]"
 
 
+def format_image_description(is_portrait: bool, compass_angle: float,
+                             proj, view, cam_transform, k) -> str:
+    """A payload in the field order the reference parses."""
+    return ";".join([str(int(bool(is_portrait))), repr(float(compass_angle)),
+                     _matrix_str(proj), _matrix_str(view),
+                     _matrix_str(cam_transform), _matrix_str(k)])
+
+
 def camera_to_image_description(focal: float, ppx: float, ppy: float,
                                 R, t=None, is_portrait: bool = False,
                                 compass_angle: float = 0.0) -> str:
@@ -142,6 +151,5 @@ def camera_to_image_description(focal: float, ppx: float, ppy: float,
     k = np.array([[focal, 0.0, ppy if is_portrait else ppx],
                   [0.0, focal, ppx if is_portrait else ppy],
                   [0.0, 0.0, 1.0]])
-    return ";".join([str(int(bool(is_portrait))), repr(float(compass_angle)),
-                     _matrix_str(np.eye(4)), _matrix_str(np.linalg.inv(cam_t)),
-                     _matrix_str(cam_t), _matrix_str(k)])
+    return format_image_description(is_portrait, compass_angle, np.eye(4),
+                                    np.linalg.inv(cam_t), cam_t, k)

@@ -19,7 +19,8 @@ import numpy as np
 
 from . import native
 
-__all__ = ["list_images", "imread", "imwrite", "probe_oriented_size",
+__all__ = ["list_images", "imread", "imread_batch", "imwrite",
+           "probe_oriented_size",
            "rotate_90_cw", "rotate_180", "orient_capture",
            "write_jpeg_with_description", "codec_name"]
 
@@ -62,6 +63,15 @@ def imread(path: str) -> np.ndarray:
     from PIL import Image
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def imread_batch(paths, nthreads: int = 4) -> List[np.ndarray]:
+    """Decode several files: the native runtime's threaded batch decode,
+    else `imread` one by one."""
+    out = native.read_images(list(paths), nthreads)
+    if out is not None:
+        return out
+    return [imread(p) for p in paths]
 
 
 def probe_oriented_size(path: str, is_portrait: bool) -> Tuple[int, int]:

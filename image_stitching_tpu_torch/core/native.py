@@ -50,7 +50,7 @@ __all__ = ["load", "available", "runtime_info", "codec_libs",
            "probe_jpeg_sampling", "yuv420_layout", "read_jpeg_yuv420",
            "read_image", "scaled_dims", "read_image_opts", "item_shape",
            "DecodeSession", "exif_description", "biggest_component",
-           "edt_sq"]
+           "edt_sq", "read_images", "write_jpeg", "dp_seam"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE = os.path.join(os.path.dirname(_PKG), "native")
@@ -103,6 +103,16 @@ def _declare(lib) -> None:
                               np.ctypeslib.ndpointer(np.float32,
                                                      flags="C_CONTIGUOUS")]
     lib.sr_edt_sq.restype = None
+    lib.sr_read_images.argtypes = [ctypes.c_char_p, c_int, u8_p, c_int,
+                                   c_int, i32_p, i32_p, c_int]
+    lib.sr_read_images.restype = c_int
+    lib.sr_write_jpeg.argtypes = [ctypes.c_char_p, u8_p, c_int, c_int, c_int,
+                                  ctypes.c_char_p]
+    lib.sr_write_jpeg.restype = c_int
+    lib.sr_dp_seam.argtypes = [np.ctypeslib.ndpointer(np.float32,
+                                                      flags="C_CONTIGUOUS"),
+                               c_int, c_int, i32_p]
+    lib.sr_dp_seam.restype = None
 
 
 def _ldconfig_libs() -> List[str]:
@@ -459,4 +469,56 @@ def edt_sq(mask: np.ndarray) -> np.ndarray:
     mask = np.ascontiguousarray((np.asarray(mask) > 0).astype(np.uint8))
     out = np.empty(mask.shape, np.float32)
     lib.sr_edt_sq(mask, mask.shape[0], mask.shape[1], out)
+    return out
+
+
+def read_images(paths: Sequence[str],
+                nthreads: int = 4) -> Optional[List[np.ndarray]]:
+    """Decode several JPEG/PNG files on `nthreads` native threads into
+    uint8 RGB arrays; None when the runtime is missing, a file cannot be
+    probed or a decode fails.  `sr_read_images` writes image i densely at
+    the start of slot i, so each is read back as (h, w, 3) from there; the
+    reference cuts the slot as (max_h, max_w, 3) rows, which is right only
+    when every file has the largest width."""
+    if not available() or not paths:
+        return None
+    dims = [probe_image(p) for p in paths]
+    if any(d is None for d in dims):
+        return None
+    max_w = max(d[0] for d in dims)
+    max_h = max(d[1] for d in dims)
+    n = len(paths)
+    out = np.empty((n, max_h, max_w, 3), np.uint8)
+    ws = np.zeros(n, np.int32)
+    hs = np.zeros(n, np.int32)
+    if load().sr_read_images("\n".join(paths).encode(), n, out, max_w,
+                             max_h, ws, hs, nthreads) != 0:
+        return None
+    slots = out.reshape(n, -1)
+    return [slots[i, :hs[i] * ws[i] * 3].reshape(hs[i], ws[i], 3).copy()
+            for i in range(n)]
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95,
+               exif_description_text: Optional[str] = None) -> bool:
+    """Encode uint8 RGB (H, W, 3) to a JPEG, with an ImageDescription
+    payload when given; False when the runtime is missing or the write
+    fails."""
+    if not available():
+        return False
+    img = np.ascontiguousarray(img, np.uint8)
+    return load().sr_write_jpeg(
+        path.encode(), img, img.shape[1], img.shape[0], quality,
+        exif_description_text.encode() if exif_description_text
+        else None) == 0
+
+
+def dp_seam(cost: np.ndarray) -> Optional[np.ndarray]:
+    """The min-cost vertical seam's column in each row of an (H, W) cost,
+    int32; None when the runtime is missing."""
+    if not available():
+        return None
+    cost = np.ascontiguousarray(cost, np.float32)
+    out = np.zeros(cost.shape[0], np.int32)
+    load().sr_dp_seam(cost, cost.shape[0], cost.shape[1], out)
     return out

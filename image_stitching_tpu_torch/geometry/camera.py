@@ -13,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["Cameras", "make_k"]
+__all__ = ["Cameras", "make_k", "get_fov"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +78,11 @@ def make_k(focal, aspect, ppx, ppy) -> torch.Tensor:
     row1 = torch.stack([zero, focal * aspect, ppy * one], dim=-1)
     row2 = torch.stack([zero, zero, one], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def get_fov(cam: Cameras):
+    """(fov_x, fov_y) in radians by the reference's formula
+    (`image_stitching.cpp:175-186`): 2 atan(pp / f) per axis."""
+    k = cam.K()
+    return (2.0 * torch.arctan(cam.ppx / k[..., 0, 0]),
+            2.0 * torch.arctan(cam.ppy / k[..., 1, 1]))

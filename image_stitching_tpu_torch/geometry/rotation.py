@@ -3,14 +3,28 @@
 Port of `image_stitching_tpu/geometry/rotation.py:32-110`.  The Rodrigues
 maps are branchless (torch.where), so forward-mode `torch.func.jvp`
 differentiates `rodrigues_to_matrix` inside the bundle adjuster.
-`orthonormalize` projects a near-rotation onto SO(3).
+`orthonormalize` projects a near-rotation onto SO(3); `rad_to_deg` and
+`deg_to_rad` convert angles.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["rodrigues_to_matrix", "matrix_to_rodrigues", "orthonormalize"]
+__all__ = ["rodrigues_to_matrix", "matrix_to_rodrigues", "rad_to_deg",
+           "deg_to_rad", "orthonormalize"]
+
+
+def rad_to_deg(rad):
+    """Radians to degrees (`image_stitching.cpp:126-130`)."""
+    return rad / math.pi * 180.0
+
+
+def deg_to_rad(deg):
+    """Degrees to radians (`image_stitching.cpp:132-136`)."""
+    return deg / 180.0 * math.pi
 
 
 def rodrigues_to_matrix(rvec: torch.Tensor) -> torch.Tensor:

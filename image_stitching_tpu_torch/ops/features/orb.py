@@ -22,7 +22,8 @@ from ..imgproc import gaussian_blur, resize, scale_size
 from .types import Features
 
 __all__ = ["orb_detect_and_describe", "orb_detect_stack",
-           "make_brief_pattern", "resolve_pattern", "fast_corner_mask",
+           "make_brief_pattern", "make_cv_pattern", "resolve_pattern",
+           "fast_corner_mask", "fast_score_map",
            "harris_response_map", "pattern_xy", "detect_level",
            "detect_levels", "per_level_counts"]
 
@@ -42,14 +43,19 @@ def make_brief_pattern(patch_size: int = 40, n_bits: int = 256,
     return np.clip(pts, -half, half).astype(np.float32)
 
 
+def make_cv_pattern() -> np.ndarray:
+    """OpenCV's learned bit_pattern_31_ as a (256, 4) float32 table."""
+    from .orb_pattern_cv import BIT_PATTERN_31
+    return BIT_PATTERN_31.astype(np.float32)
+
+
 def resolve_pattern(pattern, patch_size: int = 40) -> np.ndarray:
     """None/'gauss' -> seeded Gaussian pattern; 'cv' -> bit_pattern_31_."""
     if pattern is None or (isinstance(pattern, str) and pattern == "gauss"):
         return make_brief_pattern(patch_size)
     if isinstance(pattern, str):
         if pattern == "cv":
-            from .orb_pattern_cv import BIT_PATTERN_31
-            return BIT_PATTERN_31.astype(np.float32)
+            return make_cv_pattern()
         raise ValueError(f"unknown ORB pattern {pattern!r}")
     return np.asarray(pattern, np.float32)
 
@@ -99,6 +105,12 @@ def fast_corner_mask(img: torch.Tensor, threshold: float = 20.0,
     xx = torch.arange(w, device=img.device)[None, :]
     inb = (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
     return (run_ge(bright) | run_ge(dark)) & inb
+
+
+def fast_score_map(img: torch.Tensor, threshold: float = 20.0,
+                   arc: int = 9) -> torch.Tensor:
+    """The FAST corner mask as a {0, 1} float32 map."""
+    return fast_corner_mask(img, threshold, arc).to(torch.float32)
 
 
 def harris_response_map(img: torch.Tensor, block: int = 7,

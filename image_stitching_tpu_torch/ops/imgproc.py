@@ -13,8 +13,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["scale_size", "resize", "rgb_to_gray", "gaussian_blur",
-           "gaussian_kernel1d", "dilate3", "reflect101_index", "fma"]
+__all__ = ["scale_size", "resize", "resize_scale", "rgb_to_gray",
+           "gaussian_blur", "gaussian_kernel1d", "box_blur", "dilate3",
+           "reflect101_index", "fma"]
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -63,6 +64,11 @@ def resize(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return fma(c1 - c0, wx.reshape((1, -1) + (1,) * (x.ndim - 2)), c0)
 
 
+def resize_scale(img: torch.Tensor, scale: float) -> torch.Tensor:
+    """`resize` to the dims cv::resize gives `scale`."""
+    return resize(img, scale_size(img.shape[0], img.shape[1], scale))
+
+
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """ITU-R BT.601 luma (cv COLOR_RGB2GRAY coefficients), rounded like
     the reference's contraction: fma(.114, b, fma(.299, r, .587 g))."""
@@ -104,6 +110,22 @@ def gaussian_blur(img: torch.Tensor, sigma: float = 2.0,
     acc = taps(lambda i: xp[i:i + h])
     xp = acc[:, reflect101_index(w, radius, x.device)]
     return taps(lambda i: xp[:, i:i + w])
+
+
+def box_blur(img: torch.Tensor, size: int) -> torch.Tensor:
+    """size x size box filter with reflect-101 borders, HW or HWC: the
+    window summed row-major from 0, as the reference's reduce_window,
+    then divided by size^2."""
+    x = img.to(torch.float32)
+    h, w = x.shape[0], x.shape[1]
+    r = size // 2
+    xp = x[reflect101_index(h, r, x.device)][:, reflect101_index(
+        w, r, x.device)]
+    acc = torch.zeros_like(x)
+    for dy in range(size):
+        for dx in range(size):
+            acc = acc + xp[dy:dy + h, dx:dx + w]
+    return acc / (size * size)
 
 
 def dilate3(mask: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ duplicate suppression; RANSAC per pair, a homography or, with
 matcher_type="affine" (AffineBestOf2NearestMatcher), a similarity;
 confidence n_inliers / (8 + 0.3 n_matches) with the conf > 3 -> 0
 near-duplicate rule.  RANSAC takes the pairs on a leading axis in chunks of
-`pair_chunk(K)`.
+`pair_chunk(K)`.  `match_pair` and `register_pair` are one pair's match
+and, from pixels, both ORB detections (kernel K1) and the match.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ from ..kernels.hamming import (hamming_matrix, hamming_two_nn_pairs,
 from .features.types import Features
 from .ransac import ransac_affine_partial, ransac_homography
 
-__all__ = ["MatchGraph", "hamming_matrix", "l2_matrix", "two_nn",
-           "l2_two_nn_pairs", "match_pairs", "match_all_pairs"]
+__all__ = ["PairMatches", "MatchGraph", "hamming_matrix", "l2_matrix",
+           "two_nn", "l2_two_nn_pairs", "match_pair", "match_pairs",
+           "match_all_pairs", "register_pair"]
 
 
 def l2_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -58,6 +60,26 @@ def l2_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
     dist = l2_matrix(desc[a], desc[b])
     return (two_nn(dist, valid[b]),
             two_nn(dist.transpose(-1, -2), valid[a]))
+
+
+@dataclasses.dataclass(frozen=True)
+class PairMatches:
+    """One pair's matches (cv::detail::MatchesInfo, static shapes): a_idx,
+    b_idx (M,) int32 feature indices, valid and inlier (M,) bool, K
+    forward then K reverse slots; h (3, 3); num_inliers and confidence
+    0-d.  With a leading axis, indexing picks pairs."""
+
+    a_idx: Any
+    b_idx: Any
+    valid: Any
+    inlier: Any
+    h: Any
+    num_inliers: Any
+    confidence: Any
+
+    def __getitem__(self, idx) -> "PairMatches":
+        return PairMatches(*(getattr(self, f.name)[idx]
+                             for f in dataclasses.fields(self)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,3 +245,31 @@ def match_all_pairs(feats: Features, generator=None,
         num_inliers=torch.where(tri, ninl_u, ninl_u.t()),
         confidence=torch.where(tri, conf_u, conf_u.t()),
         num_matches=torch.where(tri, nm_u, nm_u.t()))
+
+
+def match_pair(feat_a: Features, feat_b: Features, generator=None,
+               match_conf: float = 0.32, matcher_type: str = "homography",
+               n_hyp: int = 512, hyp_idx=None,
+               score_idx=None) -> PairMatches:
+    """BestOf2NearestMatcher::match for one pair of (K, ...) Features:
+    `match_pairs` with one pair, its 2-NN by K4 (binary descriptors) or
+    the squared L2 product (float ones).  generator: a torch.Generator
+    for the RANSAC draws, or hyp_idx (1, n_hyp, k) and score_idx
+    (1, min(2K, 1024)) injected.  Returns 2K match slots."""
+    out = match_pairs(feat_a[None], feat_b[None], match_conf, generator,
+                      n_hyp, hyp_idx=hyp_idx, score_idx=score_idx,
+                      matcher_type=matcher_type)
+    return PairMatches(*out)[0]
+
+
+def register_pair(img_a: torch.Tensor, img_b: torch.Tensor, generator=None,
+                  n_features: int = 1500, match_conf: float = 0.32,
+                  matcher_type: str = "homography", n_hyp: int = 512,
+                  hyp_idx=None, score_idx=None) -> PairMatches:
+    """Pixels to PairMatches: ORB on both (H, W) gray images (one K1
+    launch each), then `match_pair`."""
+    from .features.orb import orb_detect_and_describe
+    fa = orb_detect_and_describe(img_a, n_features=n_features)
+    fb = orb_detect_and_describe(img_b, n_features=n_features)
+    return match_pair(fa, fb, generator, match_conf, matcher_type, n_hyp,
+                      hyp_idx, score_idx)

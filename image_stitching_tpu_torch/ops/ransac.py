@@ -10,8 +10,9 @@ Similarity (cv::estimateAffinePartial2D, the affine matcher's core):
 least-squares refit of (a, b, tx, ty) on the winner's consensus, kept only
 if it does not lose inliers.
 
-Randomness comes from a `torch.Generator`.  It cannot reproduce the JAX
-threefry stream, so both estimators also take their hypothesis indices
+Randomness comes from a `torch.Generator`, or from a sequence of them, one
+per pair, so that a pair draws the same numbers alone or in a batch (the
+reference's per-pair keys).  It cannot reproduce the JAX threefry stream, so both estimators also take their hypothesis indices
 (and the homography its scoring indices) directly; the parity tests inject
 the indices the reference drew.
 """
@@ -23,8 +24,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["apply_h", "h4_closed_form", "dlt_homography",
-           "sample_valid", "sample_valid_distinct", "ransac_homography",
-           "ransac_affine_partial"]
+           "sample_valid", "sample_valid_distinct", "uniforms",
+           "ransac_homography", "ransac_affine_partial"]
 
 
 def apply_h(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -88,6 +89,15 @@ def h4_closed_form(s4: torch.Tensor, d4: torch.Tensor) -> torch.Tensor:
     h = _quad_h(d4) @ _adjugate3(_quad_h(s4))
     h22 = h[..., 2:3, 2:3]
     return h / torch.where(torch.abs(h22) < 1e-12, 1e-12, h22)
+
+
+def uniforms(shape, generator, device) -> torch.Tensor:
+    """Uniforms of `shape` (P, ...) from `generator`: one generator for
+    all rows, or a sequence of P generators, row p drawn from the p-th."""
+    if isinstance(generator, (list, tuple)):
+        return torch.cat([torch.rand((1,) + tuple(shape[1:]), generator=g,
+                                     device=device) for g in generator])
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def _compact_order(valid: torch.Tensor) -> torch.Tensor:
@@ -165,12 +175,10 @@ def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
     m_score = min(m, 1024)
     if hyp_idx is None:
         hyp_idx = sample_valid_distinct(
-            torch.rand((p, n_hyp, 4), generator=generator,
-                       device=src.device), valid)
+            uniforms((p, n_hyp, 4), generator, src.device), valid)
     if score_idx is None:
         score_idx = sample_valid(
-            torch.rand((p, m_score), generator=generator, device=src.device),
-            valid)
+            uniforms((p, m_score), generator, src.device), valid)
     n_hyp = hyp_idx.shape[1]
     flat = hyp_idx.reshape(p, -1)
     s4 = torch.gather(src, 1, flat[..., None].expand(-1, -1, 2)).reshape(
@@ -251,8 +259,7 @@ def ransac_affine_partial(src: torch.Tensor, dst: torch.Tensor,
     p = valid.shape[0]
     if hyp_idx is None:
         hyp_idx = sample_valid_distinct(
-            torch.rand((p, n_hyp, 2), generator=generator,
-                       device=src.device), valid)
+            uniforms((p, n_hyp, 2), generator, src.device), valid)
     n_hyp = hyp_idx.shape[1]
     s2 = _gather_points(src, hyp_idx)                         # (P, R, 2, 2)
     d2 = _gather_points(dst, hyp_idx)

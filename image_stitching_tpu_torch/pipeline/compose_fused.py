@@ -42,10 +42,12 @@ from ..ops.imgproc import dilate3
 from ..ops.seams import bucket_dim
 from ..kernels.warp_gather import int32_taps
 from ..ops.warps import Warper, camera_backward_xy, result_roi
+from ..parallel.mesh import on_device
 
 __all__ = ["warp_stack", "compose_rects", "strip_rects", "rect_grid",
            "prep_gains", "compose_samples", "compose_buckets",
-           "fused_compose", "fused_compose_strips", "SAMPLE_BUDGET"]
+           "fused_compose", "fused_compose_strips", "fused_compose_sharded",
+           "SAMPLE_BUDGET"]
 
 
 def _patch_bilinear(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
@@ -503,6 +505,71 @@ def fused_compose(images: torch.Tensor, ks, rs, warper: Warper,
         seam_corners, seam_ratio, compensator), g)
     pano, mask = _finalize(accs, g.n_bands)
     return pano[:ch, :cw].to(torch.float32), mask[:ch, :cw]
+
+
+def _shard_frames(canvas, blend_type: BlenderType, blend_strength: float,
+                  n_dev: int, n_images: int):
+    """The reference's sharded geometry (`compose_fused.py:687-707`,
+    `:803-810`): the canvas width rounded up to n_dev * 2^max(nb, 1) and
+    its height to 2^max(nb, 1), w_local = canvas_w / n_dev, a recompute
+    margin of max(3 * 2^nb, 2^rounds for FEATHER) on both sides of each
+    shard.  Returns (w_local, margin, [ComposeRects of each shard's frame,
+    every image sampled over the whole frame])."""
+    n_bands, sharpness, rounds = _blend_params(canvas, blend_type,
+                                               blend_strength)
+    step = 1 << max(n_bands, 1)
+    canvas_w = -(-canvas[2] // (n_dev * step)) * (n_dev * step)
+    canvas_h = -(-canvas[3] // step) * step
+    w_local = canvas_w // n_dev
+    margin = max(3 * (1 << n_bands), (1 << rounds) if sharpness > 0 else 0)
+    w_ext = w_local + 2 * margin
+    frames = []
+    for s in range(n_dev):
+        x0 = canvas[0] + s * w_local - margin
+        frames.append(ComposeRects(
+            (x0, canvas[1], w_ext, canvas_h), int(n_bands), canvas_h, w_ext,
+            [(x0, canvas[1])] * n_images,
+            {(canvas_h, w_ext): list(range(n_images))}, float(sharpness),
+            int(rounds)))
+    return w_local, margin, frames
+
+
+def fused_compose_sharded(mesh, images: torch.Tensor, ks, rs,
+                          warper: Warper, comp_corners, comp_sizes,
+                          seam_masks, seam_corners, seam_ratio: float,
+                          compensator, blend_type: BlenderType,
+                          blend_strength: float, axis: str = "sp"):
+    """`fused_compose` with the canvas width sharded over the devices of
+    `mesh`'s `axis` (`compose_fused.py:786`, the canvas-sharded compose).
+    Each shard, on its device, samples every image over its whole frame,
+    its canvas slice plus the recompute margin (`_shard_frames`), through
+    K2 and the per-image body of `fused_compose`, accumulates through K5
+    into shard-local band accumulators, normalises and collapses, and
+    keeps its slice.  The shards run one after another from the host; the
+    slices are gathered on the host.  Returns host numpy arrays (panorama
+    float32 (H, W, 3), mask bool (H, W)) cut to the canvas, like the
+    reference; interior pixels match `fused_compose` to the pyramid's
+    boundary effects, FEATHER exactly."""
+    canvas = result_roi(comp_corners, comp_sizes)
+    devs = mesh.axis_devices(axis)
+    w_local, margin, frames = _shard_frames(
+        canvas, blend_type, blend_strength, len(devs), images.shape[0])
+    inputs = {}
+    panos, masks = [], []
+    for dev, g in zip(devs, frames):
+        with on_device(dev):
+            if dev not in inputs:
+                inputs[dev] = _sample_inputs(
+                    images.to(dev), ks, rs, warper, comp_corners, comp_sizes,
+                    seam_masks, seam_corners, seam_ratio, compensator)
+            accs = _accumulate(inputs[dev], g)
+            pano_u8, valid = _finalize(accs, g.n_bands)
+            del accs
+            panos.append(pano_u8[:, margin:margin + w_local].cpu().numpy())
+            masks.append(valid[:, margin:margin + w_local].cpu().numpy())
+    cw, ch = canvas[2], canvas[3]
+    pano = np.concatenate(panos, axis=1)[:ch, :cw].astype(np.float32)
+    return pano, np.concatenate(masks, axis=1)[:ch, :cw]
 
 
 class _StripFetch:

@@ -31,9 +31,11 @@ compose-scale warp (K2), the gain, the seam mask, then the blender
 each frame to `fixed_<name>` in the working directory.  `crop_result`
 cuts the panorama (not its mask) to `ops/crop.py::crop_rect`.
 
-`check_slice` raises NotImplementedError for the one option outside the
-port, the canvas sharded over more than one CUDA device, so it never
-takes another path quietly.  The device is explicit:
+With `use_sharded_compose` and more than one device of the stitch's type
+(`parallel/mesh.py::local_devices`: every CUDA device), the canvas is
+sharded over a (1, n) mesh of them
+(`compose_fused.py::fused_compose_sharded`, `compose_route`), as the
+reference shards it over more than one device.  The device is explicit:
 `stitch(..., device="cuda")` raises when no GPU is present, and nothing
 falls back to the CPU.
 """
@@ -75,17 +77,20 @@ from ..ops.seams import find_seams
 from ..ops.timelapse import Timelapser, fixed_name
 from ..ops.warps import (Warper, make_warper, result_roi, u_period,
                          warper_rotations)
-from .compose_fused import fused_compose, fused_compose_strips, warp_stack
+from ..parallel.mesh import local_devices, make_mesh
+from .compose_fused import (fused_compose, fused_compose_sharded,
+                            fused_compose_strips, warp_stack)
 from .ingest import fast_prep, pick_num8, start_fast_ingest
 
-__all__ = ["stitch", "StitchResult", "check_slice", "compose_inputs",
+__all__ = ["stitch", "StitchResult", "compose_route", "compose_uniform",
+           "compose_inputs",
            "ComposeInputs", "detect_features", "detect_stack"]
 
 
 @dataclasses.dataclass
 class StitchResult:
     # float32 (H, W, 3) RGB and bool (H, W), on the device; on the host
-    # (CPU tensors) where the strip-streamed compose made them.
+    # (CPU tensors) where the strip-streamed or sharded compose made them.
     panorama: torch.Tensor
     mask: torch.Tensor
     kept_indices: List[int]
@@ -95,18 +100,38 @@ class StitchResult:
     work_scale: float = 1.0
 
 
-def check_slice(cfg: StitchConfig, device="cpu") -> None:
-    """Raise NotImplementedError for the option outside the port's slice:
-    the canvas sharded over more than one CUDA device.  use_sharded_compose
-    is the plain fused compose (or the strips, above compose_strips_mp)
-    unless more than one CUDA device would shard the canvas, as in the
-    reference (which shards only when more than one device is present)."""
-    device = torch.device(device)
-    if (cfg.use_sharded_compose and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"use_sharded_compose=True on {torch.cuda.device_count()} "
-            f"devices: outside the PyTorch port's slice")
+def compose_route(cfg: StitchConfig, canvas, device) -> str:
+    """Which compose a same-size stack takes, in the reference's order
+    (`stitcher.py:641-660`): "sharded" with use_sharded_compose and more
+    than one device of the stitch's type (`local_devices`), "strips" for a
+    canvas (x, y, w, h) of compose_strips_mp MP or more (when above 0),
+    else "fused"."""
+    if cfg.use_sharded_compose and len(local_devices(
+            torch.device(device).type)) > 1:
+        return "sharded"
+    if (cfg.compose_strips_mp > 0
+            and canvas[2] * canvas[3] / 1e6 >= cfg.compose_strips_mp):
+        return "strips"
+    return "fused"
+
+
+def compose_uniform(args, cfg: StitchConfig, device):
+    """Compose `fused_compose`'s arguments by `compose_route`: the canvas
+    sharded over a (1, n) mesh of the stitch's devices, streamed in strips,
+    or whole.  The sharded and strip composes return the panorama and
+    mask as CPU tensors, the whole compose on the stack's device."""
+    route = compose_route(cfg, result_roi(args[4], args[5]), device)
+    if route == "sharded":
+        devs = local_devices(torch.device(device).type)
+        mesh = make_mesh((1, len(devs)), ("dp", "sp"), devices=devs)
+        return tuple(torch.from_numpy(a)
+                     for a in fused_compose_sharded(mesh, *args))
+    if route == "strips":
+        # The device holds one strip's accumulators; the panorama comes
+        # back to the host strip by strip and stays there.
+        return tuple(torch.from_numpy(a) for a in fused_compose_strips(
+            *args, strip_w=cfg.compose_strip_w))
+    return fused_compose(*args)
 
 
 def detect_features(gray: torch.Tensor, cfg: StitchConfig) -> Features:
@@ -248,7 +273,6 @@ def stitch(source, cfg: StitchConfig = StitchConfig(),
     """Stitch a directory or a list of image paths on `device`.  Writes
     `cfg.result_name` (or `output`) unless output=""."""
     dev = _resolve_device(device)
-    check_slice(cfg, dev)
     with _profiled(cfg.profile_dir, dev):
         return _stitch_body(source, cfg, output, dev)
 
@@ -499,22 +523,13 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                               area0)
         seam_ratio = seam_work_aspect * work_scale / comp.scale
         if uniform and not cfg.timelapse:
-            canvas = result_roi(comp.corners, comp.sizes)
             comp_imgs = (torch.stack([resize(im, hw) for im, hw in
                                       zip(stack_u8, comp.resize_hws)])
                          if comp.resize_hws is not None else stack_u8)
-            args = (comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
-                    comp.sizes, seam_masks, corners, seam_ratio, compensator,
-                    cfg.blend_type, cfg.blend_strength)
-            if (cfg.compose_strips_mp > 0 and canvas[2] * canvas[3] / 1e6
-                    >= cfg.compose_strips_mp):
-                # The device holds one strip's accumulators; the panorama
-                # comes back to the host strip by strip and stays there.
-                pano, pano_mask = (torch.from_numpy(a) for a in
-                                   fused_compose_strips(
-                                       *args, strip_w=cfg.compose_strip_w))
-            else:
-                pano, pano_mask = fused_compose(*args)
+            pano, pano_mask = compose_uniform(
+                (comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
+                 comp.sizes, seam_masks, corners, seam_ratio, compensator,
+                 cfg.blend_type, cfg.blend_strength), cfg, dev)
         else:
             sources = list(stack_u8) if uniform else device_imgs
             frames = _loop_compose(sources, comp, seam_masks, compensator,

@@ -1,4 +1,4 @@
-"""The port's package boundary: no jax at import, the slice's refusal,
+"""The port's package boundary: no jax at import, the compose dispatch,
 explicit devices, host IO and the state conversion from the reference."""
 
 import json
@@ -26,7 +26,8 @@ from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn_pairs
 from image_stitching_tpu_torch.kernels.multiband import pyramid_accumulate
 from image_stitching_tpu_torch.kernels.orb_sample import orb_sample_levels
 from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
-from image_stitching_tpu_torch.pipeline.stitcher import check_slice, stitch
+from image_stitching_tpu_torch.pipeline import stitcher
+from image_stitching_tpu_torch.pipeline.stitcher import stitch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -51,6 +52,10 @@ REGISTRATION_MODULES = (
 # The detectors, imported with the rest.
 DETECTOR_MODULES = ("ops.features.hessian", "ops.features.surf",
                     "ops.features.akaze", "ops.features.sift")
+# The scale-out layer and the quaternion library, imported with the rest.
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.canvas",
+                    "parallel.batched", "parallel.distributed",
+                    "geometry.quaternion")
 
 
 def test_import_loads_no_jax():
@@ -61,26 +66,56 @@ def test_import_loads_no_jax():
     seen = json.loads(out.stdout)
     names = seen["names"]
     assert len(names) >= 42 and seen["bad"] == []
-    for mod in REGISTRATION_MODULES + DETECTOR_MODULES:
+    for mod in REGISTRATION_MODULES + DETECTOR_MODULES + PARALLEL_MODULES:
         assert f"image_stitching_tpu_torch.{mod}" in names, mod
 
 
 SLICE = dict(fast_ingest=False, expos_comp_type="no", seam_find_type="no")
 
 
+def _dispatch(monkeypatch, cfg, device, devices):
+    """Run stitcher.compose_uniform on a tiny canvas with `devices` CUDA
+    devices, each compose replaced by a recorder.  Returns the calls as
+    (name, mesh or None)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: devices)
+    calls = []
+
+    def record(name):
+        def fn(*args, **kw):
+            mesh = args[0] if name == "sharded" else None
+            calls.append((name, mesh))
+            pano = np.zeros((2, 2, 3), np.float32)
+            mask = np.ones((2, 2), bool)
+            return pano, mask
+        return fn
+    monkeypatch.setattr(stitcher, "fused_compose_sharded", record("sharded"))
+    monkeypatch.setattr(stitcher, "fused_compose_strips", record("strips"))
+    monkeypatch.setattr(stitcher, "fused_compose", record("fused"))
+    args = (None, None, None, None, [(0, 0), (30, 0)], [(40, 20), (40, 20)],
+            None, None, 1.0, None, cfg.blend_type, cfg.blend_strength)
+    stitcher.compose_uniform(args, cfg, device)
+    return calls
+
+
 @pytest.mark.parametrize("devices", [2, 4, 8])
 def test_options_outside_slice_raise(monkeypatch, devices):
-    """The one option outside the port: the canvas sharded over more than
-    one CUDA device raises naming it, with any such device count; the same
-    configuration on the CPU and every other one on those devices pass."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: devices)
+    """The option the port once refused, the canvas sharded over more than
+    one CUDA device, now runs: the dispatch calls fused_compose_sharded
+    with a (1, n) mesh of the n CUDA devices; the same configuration on the
+    CPU, and every detector without it on those devices, take
+    fused_compose."""
     cfg = StitchConfig(**dict(SLICE, use_sharded_compose=True))
-    check_slice(cfg)
-    with pytest.raises(NotImplementedError,
-                       match=f"use_sharded_compose=True on {devices}"):
-        check_slice(cfg, "cuda")
+    ((name, mesh),) = _dispatch(monkeypatch, cfg, torch.device("cuda"),
+                                devices)
+    assert name == "sharded"
+    assert mesh.shape == {"dp": 1, "sp": devices}
+    assert mesh.axis_devices("sp") == [torch.device("cuda", i)
+                                       for i in range(devices)]
+    assert _dispatch(monkeypatch, cfg, torch.device("cpu"), devices) == [
+        ("fused", None)]
     for feat in ("orb", "sift", "akaze", "surf"):
-        check_slice(StitchConfig(**dict(SLICE, features_type=feat)), "cuda")
+        cfg = StitchConfig(**dict(SLICE, features_type=feat))
+        assert stitcher.compose_route(cfg, (0, 0, 70, 20), "cuda") == "fused"
 
 
 @pytest.mark.parametrize("option,value", [
@@ -97,23 +132,33 @@ def test_options_outside_slice_raise(monkeypatch, devices):
     ("crop_result", True), ("compose_strips_mp", 0.5),
     ("compose_strip_w", 256), ("features_type", "sift"),
     ("features_type", "akaze"), ("features_type", "surf")])
-def test_options_inside_slice_accepted(option, value):
-    """Options that the port runs: check_slice takes them on the CPU and
-    on one CUDA device."""
+def test_options_inside_slice_accepted(monkeypatch, option, value):
+    """Every option composes on the CPU and on one CUDA device without the
+    canvas sharded: the whole canvas by fused_compose, or the strips for a
+    canvas at compose_strips_mp or above."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     cfg = StitchConfig(**dict(SLICE, **{option: value}))
-    check_slice(cfg)
-    check_slice(cfg, "cuda")
+    for device in ("cpu", "cuda"):
+        assert stitcher.compose_route(cfg, (0, 0, 70, 20), device) == "fused"
+        want = "strips" if option == "compose_strips_mp" else "fused"
+        assert stitcher.compose_route(cfg, (0, 0, 1000, 600),
+                                      device) == want
 
 
 def test_sharded_compose_refused_on_several_devices(monkeypatch):
     """use_sharded_compose shards the canvas only when more than one CUDA
-    device is present; that path is outside the slice and raises."""
+    device is present: 2 devices take fused_compose_sharded on a (1, 2)
+    mesh, 1 device and the CPU fused_compose, and without the option 2
+    devices take fused_compose."""
     cfg = StitchConfig(**dict(SLICE, use_sharded_compose=True))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    check_slice(cfg)
-    with pytest.raises(NotImplementedError, match="use_sharded_compose"):
-        check_slice(cfg, "cuda")
-    check_slice(StitchConfig(**SLICE), "cuda")
+    ((name, mesh),) = _dispatch(monkeypatch, cfg, torch.device("cuda"), 2)
+    assert name == "sharded" and mesh.shape == {"dp": 1, "sp": 2}
+    assert _dispatch(monkeypatch, cfg, torch.device("cuda"), 1) == [
+        ("fused", None)]
+    assert _dispatch(monkeypatch, cfg, torch.device("cpu"), 2) == [
+        ("fused", None)]
+    assert _dispatch(monkeypatch, StitchConfig(**SLICE),
+                     torch.device("cuda"), 2) == [("fused", None)]
 
 
 def test_cuda_device_is_explicit():
