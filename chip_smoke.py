@@ -41,6 +41,18 @@ Phases, one line each; any failure raises and exits non-zero:
      in both directions in the one call matching makes, its +-1 unpack
      against pm1_rows, and a tie-heavy stack at K = 4000 (duplicated
      descriptors, images with 1 and 0 valid descriptors);
+ 6b. K4's popcount route (the word counts the tensor-core template
+     lacks; `check_k4_popc`): at W = 1, 4, 13, 16 and 32, a random stack
+     of 8 x K = 4000 (28 pairs both ways) and the tie stack against the
+     plain version; then the slice's path, match_all_pairs as the default
+     stitch calls it on phase 6's ORB features with the descriptors
+     widened by zero words to W (or cut to the first W words below 8),
+     each call under K4's counts set to 0 just before it and read just
+     after: one popcount launch and no tensor-core one, and at W >= 8
+     tables, inliers, H and confidences equal to the 8-word call's (8 and
+     a 12-word widening take the tensor-core route); K4 at each W on
+     those descriptors against its plain version, its device, call and
+     plain ms, both bounds and the POPC issue time;
   7. K5 (pyramid_accumulate) on the compose rects of that warm-up stitch,
      one call per bucket as the compose makes them, its kernel launches
      per call counted in a CUDA graph of the calls (<= 2 n_bands + 1), and
@@ -209,14 +221,17 @@ graph, where one computes the same function; K2's row also its device
 time on the cylindrical rects (`cylindrical_device_ms`) and the affine
 scan's (`affine_device_ms`), K5's its device time and launches per call
 at 0 bands on the vga_pair rects (`zero_band_device_ms`,
-`zero_band_launches_per_call`); K4's and K5's rows their rig37 times and
-bounds (`rig37_*`); K2's and K5's rows their times, bounds and errors on
+`zero_band_launches_per_call`, `zero_band_bound_ms`); K4's and K5's rows
+their rig37 times and bounds (`rig37_*`); K2's and K5's rows their times,
+bounds and errors on
 mixed8's loop compose (`loop_*`) and on a gigapixel strip (`strip_*`);
 K4's row its mosaic100 times and bound (`mosaic100_*`); K2's and K5's
 rows their times, bounds and errors on a gp_sharded shard (`shard_*`),
 K1's and K4's on the pairs batch (`pairs_*`).  A sixth row is
 K4 at 12 words (`words: 12`), checked and timed on phase 14's AKAZE
-descriptors, its launches those of phase 14's stitches.
+descriptors, its launches those of phase 14's stitches; then one row for
+each W of phase 6b's popcount route (`kernel_route: popc`), its launches
+those of its match_all_pairs call.
 Then the smoke's total seconds and phase 15's end-to-end numbers, a JSON
 line of those kernel results with the launches on the path the kernel was
 checked on (`launches_by_path` every path's, phase 15a and 15b included),
@@ -262,6 +277,14 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
 
 
 def _smi() -> str:
@@ -677,11 +700,16 @@ def k4_times(args, valid):
     int8 dense peak.  Bytes: the packed descriptors and validity in, four
     (2, P, K) outputs of 8 + 4 + 8 + 4 bytes a row out."""
     from image_stitching_tpu_torch.kernels.hamming import (
-        hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
-    _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
-              f"{len(args[2])} pairs")
-    torch.cuda.synchronize()
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain, kernel_route)
     k, words = args[0].shape[1], args[0].shape[2]
+    before = dict(hamming_two_nn_pairs.route_launches)
+    _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
+              f"{len(args[2])} pairs at {words} words")
+    torch.cuda.synchronize()
+    route = kernel_route(words)
+    assert hamming_two_nn_pairs.route_launches == dict(
+        before, **{route: before[route] + 1}), \
+        (words, before, hamming_two_nn_pairs.route_launches)
     out = dict(dev_ms=device_ms(lambda: hamming_two_nn_pairs(*args)),
                call_ms=time_ms(lambda: hamming_two_nn_pairs(*args)),
                plain_ms=time_ms(lambda: hamming_two_nn_pairs_plain(*args),
@@ -697,10 +725,159 @@ def k4_times(args, valid):
                     1e3)
     bound_ms = min(cuda_core_ms, tensor_ms)
     out.update(n_dist=n_dist, t_bytes=t_bytes, cuda_core_ms=cuda_core_ms,
-               tensor_ms=tensor_ms, bound_ms=bound_ms,
+               tensor_ms=tensor_ms, bound_ms=bound_ms, kernel_route=route,
                route=("tensor cores, int8" if tensor_ms <= cuda_core_ms
                       else "CUDA cores"))
     return out
+
+
+# Phase 6b: the descriptor word counts of the popcount route it drives.
+POPC_WORDS = (1, 4, 13, 16, 32)
+
+
+def _word_stack(dev, words: int, k: int = 4000, n: int = 8, seed: int = 0):
+    """n images of K random `words`-word descriptors, images 1..n-1 near
+    copies of image 0 (each bit flipped with probability 0.05, so the
+    nearest distances are small and varied), 90% valid; every pair i < j."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2 ** 32, (n, k, words), dtype=np.uint64).astype(
+        np.uint32)
+    bits = rng.random((n - 1, k, words, 32)) < 0.05
+    flips = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+        -1).astype(np.uint32)
+    d[1:] = d[0] ^ flips
+    valid = rng.random((n, k)) > 0.1
+    iu, ju = np.triu_indices(n, 1)
+    return (torch.as_tensor(d.view(np.int32), device=dev),
+            torch.as_tensor(valid, device=dev),
+            torch.as_tensor(iu, dtype=torch.int32, device=dev),
+            torch.as_tensor(ju, dtype=torch.int32, device=dev))
+
+
+def _with_words(feats, words: int):
+    """The features with their 8-word descriptors cut to the first `words`
+    words, or widened by zero words, which change no distance."""
+    import dataclasses
+    desc = feats.desc
+    if words <= desc.shape[2]:
+        desc = desc[..., :words]
+    else:
+        desc = torch.cat([desc, desc.new_zeros(desc.shape[:2] + (
+            words - desc.shape[2],))], dim=-1)
+    return dataclasses.replace(feats, desc=desc.contiguous())
+
+
+MATCH_FIELDS = ("ii", "jj", "a_idx", "b_idx", "valid", "inlier", "h",
+                "num_inliers", "confidence", "num_matches")
+
+
+def check_k4_popc(dev, feats, cfg):
+    """Phase 6b: K4's popcount route, the word counts the tensor-core
+    template lacks.  (a) At each W in POPC_WORDS a random stack of 8
+    images of K = 4000 (28 pairs both ways) and the tie stack at that W
+    against the plain version.  (b) The slice's path: match_all_pairs, as
+    the default stitch calls it, on the default path's ORB features with
+    their descriptors widened by zero words to W (13, 16, 32) or cut to
+    the first W words (1, 4), each call with K4's counts set to 0 just
+    before it and read just after: one popcount launch, no tensor-core
+    one; at W >= 8 the match tables, inlier counts, homographies and
+    confidences equal the 8-word call's with the same generator (which
+    takes the tensor-core route, as a 12-word widening does).  (c) K4 at
+    each W on those descriptors against its plain version, with its
+    device, call and plain ms and both bounds.  Returns the kernel rows."""
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
+    from image_stitching_tpu_torch.ops.matching import match_all_pairs
+    k = feats.xy.shape[1]
+    for words in POPC_WORDS:
+        args = _word_stack(dev, words, k, seed=words)
+        _k4_equal(hamming_two_nn_pairs(*args),
+                  hamming_two_nn_pairs_plain(*args),
+                  f"random stack at {words} words")
+        ties = _tie_stack(dev, k, words=words)
+        _k4_equal(hamming_two_nn_pairs(*ties),
+                  hamming_two_nn_pairs_plain(*ties),
+                  f"tie case at {words} words")
+    torch.cuda.synchronize()
+    print(f"phase 6b K4 popcount route: random stacks of 8 x K={k} (28 "
+          f"pairs, both directions) and the tie stack at W = {POPC_WORDS} "
+          f"equal to the plain version", flush=True)
+
+    def graph(words):
+        hamming_two_nn_pairs.launches = 0
+        hamming_two_nn_pairs.route_launches.update(tensor=0, popc=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = match_all_pairs(_with_words(feats, words),
+                            torch.Generator(device=dev).manual_seed(cfg.seed),
+                            match_conf=cfg.match_conf,
+                            pair_cap=cfg.num_features)
+        torch.cuda.synchronize()
+        return (g, time.perf_counter() - t0, hamming_two_nn_pairs.launches,
+                dict(hamming_two_nn_pairs.route_launches))
+
+    base, base_s, _, routes8 = graph(8)
+    assert routes8 == {"tensor": 1, "popc": 0}, routes8
+    g12, _, _, routes12 = graph(12)
+    assert routes12 == {"tensor": 1, "popc": 0}, routes12
+    for name in MATCH_FIELDS:
+        assert torch.equal(getattr(g12, name), getattr(base, name)), \
+            f"match_all_pairs at 12 words: {name} differs from 8 words"
+    adj = range(feats.xy.shape[0] - 1)
+    inliers = [int(base.num_inliers[a, a + 1]) for a in adj]
+    # POPC issues 16 a clock on each SM (a quarter of the other 32-bit
+    # integer operations): the popcount route's own ceiling at the card's
+    # highest SM clock.
+    popc_rate = (torch.cuda.get_device_properties(dev).multi_processor_count
+                 * 16 * _max_sm_clock_hz())
+    rows = []
+    for words in POPC_WORDS:
+        g, wall_s, launches, routes = graph(words)
+        assert launches == 1 and routes == {"tensor": 0, "popc": 1}, \
+            (words, launches, routes)
+        if words >= 8:
+            for name in MATCH_FIELDS:
+                assert torch.equal(getattr(g, name), getattr(base, name)), \
+                    f"match_all_pairs at {words} words: {name} differs"
+            same = "tables, inliers, H and confidences equal to 8 words"
+        else:
+            assert bool(torch.isfinite(g.h).all()), words
+            same = (f"adjacent inliers "
+                    f"{[int(g.num_inliers[a, a + 1]) for a in adj]}")
+        args = k4_args(dev, _with_words(feats, words))
+        tm = k4_times(args, feats.valid)
+        assert tm["kernel_route"] == "popc", tm["kernel_route"]
+        popc_ms = tm["n_dist"] * words / popc_rate * 1e3
+        print(f"phase 6b K4 at W = {words} ({32 * words} bits) on "
+              f"DEFAULT_RING's features: match_all_pairs {wall_s * 1e3:.1f} "
+              f"ms (8 words: {base_s * 1e3:.1f} ms; launches 1, popcount "
+              f"route), {same}; per K4 call: device {tm['dev_ms']:.4f} ms, "
+              f"call {tm['call_ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms; "
+              f"bound over {tm['n_dist']:.0f} valid distances: CUDA cores "
+              f"{tm['cuda_core_ms']:.4f} ms, tensor cores "
+              f"{tm['tensor_ms']:.4f} ms -> {tm['bound_ms']:.4f} ms "
+              f"({tm['route']}); POPC issue at {popc_rate / 1e12:.3f} T/s "
+              f"{popc_ms:.4f} ms", flush=True)
+        rows.append(dict(
+            name=f"hamming_two_nn_pairs [K4 popcount route, W = {words}]",
+            route="cuda", source="image_stitching_tpu_torch/csrc/hamming.cu",
+            replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
+            words=words, kernel_route="popc", launches=launches,
+            launches_by_path={f"phase 6b match_all_pairs at {words} words":
+                              launches},
+            max_abs_err=0.0, ms=tm["dev_ms"], device_ms=tm["dev_ms"],
+            call_ms=tm["call_ms"], plain_ms=tm["plain_ms"],
+            match_all_pairs_ms=wall_s * 1e3, bound_ms=tm["bound_ms"],
+            bound_by=("operations" if tm["bound_ms"] > tm["t_bytes"]
+                      else "bytes"),
+            bound_route=tm["route"], bound_cuda_core_ms=tm["cuda_core_ms"],
+            bound_tensor_core_ms=tm["tensor_ms"], popc_issue_ms=popc_ms,
+            library_ms=None))
+    print(f"phase 6b the slice's path: match_all_pairs on DEFAULT_RING at 8 "
+          f"and 12 words took the tensor-core route, at {POPC_WORDS} words "
+          f"the popcount route; adjacent inliers at 8 words {inliers}",
+          flush=True)
+    return rows
 
 
 def check_k4(dev, feats):
@@ -3643,6 +3820,8 @@ def main() -> int:
         with rec:
             warm = stitch(caps_default, cfg, output="", device="cuda")
         k4 = check_k4(dev, rec.calls["match_all_pairs"][0][0][0])
+        k4_popc = check_k4_popc(dev, rec.calls["match_all_pairs"][0][0][0],
+                                cfg)
         k5 = check_k5(dev, rec.calls["fused_compose"][0])
         del warm, rec
         rec = Recorder(stitcher, "match_all_pairs", "find_seams",
@@ -3785,6 +3964,7 @@ def main() -> int:
             k5["zero_band_device_ms"] = phase10["k5_zero_band"]["device_ms"]
             k5["zero_band_launches_per_call"] = \
                 phase10["k5_zero_band"]["launches_per_call"]
+            k5["zero_band_bound_ms"] = phase10["k5_zero_band"]["bound_ms"]
             phase11 = run_phase11(stitch, stitcher, counters, names, caps11,
                                   truth11, caps_default, caps_plain, k_true,
                                   rs_true, smi, dev)
@@ -3914,7 +4094,7 @@ def main() -> int:
           f"({g15['mp'] / g15['ms'] * 1e3:.3f} canvas MP/s, {g15['n_bands']} "
           f"bands, peak {g15['peak'] / 2 ** 30:.3f} GiB), pairs "
           f"{p15['pairs_per_s']:.2f} pairs/s; card '{smi}'", flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12] + k4_popc}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

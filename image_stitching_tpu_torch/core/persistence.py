@@ -78,7 +78,7 @@ def serialize_camera_params(cams, directory: str = ".") -> str:
 
 
 def deserialize_camera_params(directory: str = ".",
-                              device="cpu") -> Cameras:
+                              device="cuda") -> Cameras:
     """Read ``cams.data`` into `Cameras` (float32) on `device`."""
     focal, aspect, ppx, ppy, rs, ts = [], [], [], [], [], []
     with open(os.path.join(directory, "cams.data")) as fs:

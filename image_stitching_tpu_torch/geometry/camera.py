@@ -29,7 +29,7 @@ class Cameras:
 
     @classmethod
     def from_numpy(cls, focal, aspect, ppx, ppy, R, t,
-                   device="cpu") -> "Cameras":
+                   device="cuda") -> "Cameras":
         def f32(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
         return cls(f32(focal), f32(aspect), f32(ppx), f32(ppy), f32(R),
@@ -37,7 +37,7 @@ class Cameras:
 
     @classmethod
     def identity(cls, n: int, focal: float = 1.0,
-                 device="cpu") -> "Cameras":
+                 device="cuda") -> "Cameras":
         """n cameras of one focal, unit aspect, principal point 0 and
         rotation I."""
         return cls.from_numpy(np.full(n, focal), np.ones(n), np.zeros(n),

@@ -28,13 +28,13 @@ def _t(a, device, dtype=None):
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
-def cameras_from_numpy(cams, device="cpu") -> Cameras:
+def cameras_from_numpy(cams, device="cuda") -> Cameras:
     """focal/aspect/ppx/ppy (N,), R (N, 3, 3), t (N, 3) -> Cameras."""
     return Cameras.from_numpy(cams.focal, cams.aspect, cams.ppx, cams.ppy,
                               cams.R, cams.t, device=device)
 
 
-def features_from_numpy(f, device="cpu") -> Features:
+def features_from_numpy(f, device="cuda") -> Features:
     """xy/response/angle/octave/size/desc/valid -> Features."""
     return Features(
         xy=_t(f.xy, device, torch.float32),
@@ -52,7 +52,7 @@ _PAIR_FIELDS = ("a_idx", "b_idx", "valid", "inlier", "h", "num_inliers",
                 "confidence")
 
 
-def pair_matches_from_numpy(pm, device="cpu") -> Dict[str, torch.Tensor]:
+def pair_matches_from_numpy(pm, device="cuda") -> Dict[str, torch.Tensor]:
     """A reference PairMatches as a dict of tensors."""
     return {name: _t(getattr(pm, name), device) for name in _PAIR_FIELDS}
 

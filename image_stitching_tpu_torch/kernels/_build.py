@@ -62,6 +62,9 @@ def _declare(lib) -> None:
     lib.hamming_pairs_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                          vp, vp, vp]
     lib.hamming_pairs_launch.restype = ci
+    lib.hamming_popc_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp,
+                                        vp, vp, vp]
+    lib.hamming_popc_launch.restype = ci
     lib.pyramid_accumulate_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
                                               vp, vp, vp]
     lib.pyramid_accumulate_launch.restype = ci

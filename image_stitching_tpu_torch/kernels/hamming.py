@@ -3,13 +3,18 @@
 Hopper replacement for `image_stitching_tpu/kernels/hamming_pallas.py`
 (`hamming_two_nn_pallas`, `:178`, and `hamming_two_nn_pallas_batched`,
 `:104`), which take descriptors of any word count W: ORB's are W = 8
-(256 bits), AKAZE's W = 12 (360 bits, zero-padded to 384).  The CUDA
-kernels are `csrc/hamming.cu`: one unpacks every descriptor of the stack
-once into 32 W int8 of +-1 (`pm1_rows` is its plain twin), the other takes
-every pair and both directions in one launch, with the dot products on the
-tensor cores (hamming = (32 W - dot) / 2); it is built for the word counts
-in `KERNEL_WORDS`, and a CUDA call at any other W raises.  The
-plain version is the reference pipeline's live path, `match_pair`'s
+(256 bits), AKAZE's W = 12 (360 bits, zero-padded to 384), BRIEF-128's
+W = 4, BRIEF-512's, BRISK's, FREAK's and the full 486-bit MLDB's W = 16.
+The CUDA kernels are `csrc/hamming.cu`, on one of two routes
+(`kernel_route`):
+  * "tensor", W in `KERNEL_WORDS`: one launch unpacks every descriptor of
+    the stack once into 32 W int8 of +-1 (`pm1_rows` is its plain twin),
+    the other takes every pair and both directions, with the dot products
+    on the tensor cores (hamming = (32 W - dot) / 2), a template on W;
+  * "popc", every other W from 1 to `MAX_WORDS`: one launch takes every
+    pair and both directions from the packed words, XOR and popcount on
+    the CUDA cores, W a run-time argument.
+The plain version is the reference pipeline's live path, `match_pair`'s
 `_two_nn(hamming_matrix(...))` and `_two_nn` of the transposed matrix
 (`ops/matching.py:79-167`): a float32 bit-plane product for the distance
 matrix, then two masked argmins per direction.  Unlike the TPU kernel, an
@@ -25,12 +30,27 @@ from ._build import check_launch, load_library
 
 __all__ = ["hamming_two_nn_pairs", "hamming_two_nn_pairs_plain",
            "hamming_two_nn_plain", "hamming_matrix", "two_nn", "pm1_rows",
-           "pair_chunk", "unpack_pm1", "KERNEL_WORDS"]
+           "pair_chunk", "unpack_pm1", "kernel_route", "KERNEL_WORDS",
+           "MAX_WORDS", "MAX_K"]
 
-# The kernel packs (distance, column) into one 32-bit key.
+# The kernels pack (distance, column) into one 32-bit key: a column in 16
+# bits, a distance (at most 32 W) in the other 16.
 MAX_K = 1 << 16
-# The descriptor word counts the pairs kernel is instantiated for.
+MAX_WORDS = 2047
+# The descriptor word counts the tensor-core kernel is instantiated for.
 KERNEL_WORDS = (8, 12)
+
+
+def kernel_route(words: int) -> str:
+    """The CUDA route of a call with W-word descriptors: "tensor" (the
+    int8 tensor-core template, W in `KERNEL_WORDS`) or "popc" (XOR and
+    popcount on the CUDA cores, any other W up to `MAX_WORDS`).  Raises
+    ValueError for W < 1 or W > MAX_WORDS."""
+    if words < 1 or words > MAX_WORDS:
+        raise ValueError(f"hamming_two_nn_pairs: descriptors of {words} "
+                         f"words; the kernels take 1 to {MAX_WORDS} words "
+                         f"(32 W bits must fit a 16-bit distance)")
+    return "tensor" if words in KERNEL_WORDS else "popc"
 
 
 def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
@@ -131,7 +151,7 @@ def _check(desc, valid, ii, jj):
                          f"{tuple(ii.shape)} and {tuple(jj.shape)}")
     if desc.shape[1] > MAX_K:
         raise ValueError(f"hamming_two_nn_pairs: K = {desc.shape[1]} > "
-                         f"{MAX_K}")
+                         f"{MAX_K} (a column must fit 16 bits)")
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
@@ -154,13 +174,14 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
                          ii: torch.Tensor, jj: torch.Tensor):
     """The 2-NN of every pair (ii[p], jj[p]) of an image stack, both ways.
 
-    desc (N, K, W) int32 words (W in `KERNEL_WORDS` on CUDA, any W on the
-    CPU), valid (N, K) bool, ii/jj (P,) int32 image indices.  Returns
-    (fwd, rev), each (i1 int64, d1 float32, i2 int64, d2 float32) of shape
-    (P, K): fwd per row of image ii[p] its nearest and
-    second-nearest valid column of image jj[p], rev the same with the
-    images swapped.  The d values are exact integers; an invalid column
-    counts as 2^30."""
+    desc (N, K, W) int32 words (on CUDA, 1 <= W <= `MAX_WORDS` by the
+    route `kernel_route(W)` picks; any W on the CPU), valid (N, K) bool,
+    ii/jj (P,) int32 image indices.  Returns (fwd, rev), each (i1 int64,
+    d1 float32, i2 int64, d2 float32) of shape (P, K): fwd per row of
+    image ii[p] its nearest and second-nearest valid column of image
+    jj[p], rev the same with the images swapped.  The d values are exact
+    integers; an invalid column counts as 2^30.  A CUDA call counts one
+    launch in `launches` and one in `route_launches[route]`."""
     _check(desc, valid, ii, jj)
     dev = desc.device
     if dev.type == "cpu":
@@ -168,23 +189,30 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"hamming_two_nn_pairs: no kernel for device {dev}")
     words = desc.shape[2]
-    if words not in KERNEL_WORDS:
-        raise ValueError(f"hamming_two_nn_pairs: the kernel is built for "
-                         f"descriptors of {KERNEL_WORDS} words, got {words}")
+    route = kernel_route(words)
     lib = load_library()
     k, p = desc.shape[1], ii.shape[0]
-    pm1 = unpack_pm1(desc)
+    pm1 = unpack_pm1(desc) if route == "tensor" else None
     i1 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
     i2 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
     d1 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
     d2 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
-    code = lib.hamming_pairs_launch(
-        pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(), p, k,
-        words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(), d2.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(code, "hamming_two_nn_pairs")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "tensor":
+        code = lib.hamming_pairs_launch(
+            pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+            p, k, words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(),
+            d2.data_ptr(), stream)
+    else:
+        code = lib.hamming_popc_launch(
+            desc.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+            p, k, words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(),
+            d2.data_ptr(), stream)
+    check_launch(code, f"hamming_two_nn_pairs ({route} route)")
     hamming_two_nn_pairs.launches += 1
+    hamming_two_nn_pairs.route_launches[route] += 1
     return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
 
 
 hamming_two_nn_pairs.launches = 0
+hamming_two_nn_pairs.route_launches = {"tensor": 0, "popc": 0}

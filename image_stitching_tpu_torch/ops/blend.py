@@ -89,7 +89,7 @@ class MultiBandBlender:
     """cv::detail::MultiBandBlender with device band accumulators, fed
     through K5."""
 
-    def __init__(self, corners, sizes, num_bands: int, device="cpu"):
+    def __init__(self, corners, sizes, num_bands: int, device="cuda"):
         x, y, w, h = result_roi(corners, sizes)
         self.final_roi = (x, y, w, h)
         step = 1 << num_bands
@@ -149,7 +149,7 @@ class FeatherBlender:
     """cv::detail::FeatherBlender: each pixel weighs min(d * sharpness,
     1), d its Euclidean distance to the nearest unset mask pixel."""
 
-    def __init__(self, corners, sizes, sharpness: float, device="cpu"):
+    def __init__(self, corners, sizes, sharpness: float, device="cuda"):
         x, y, w, h = result_roi(corners, sizes)
         self.roi = (x, y, w, h)
         self.sharpness = sharpness
@@ -174,7 +174,7 @@ class FeatherBlender:
 class NoBlender:
     """Blender::NO: a plain overwrite where the mask is set."""
 
-    def __init__(self, corners, sizes, device="cpu"):
+    def __init__(self, corners, sizes, device="cuda"):
         x, y, w, h = result_roi(corners, sizes)
         self.roi = (x, y, w, h)
         self.canvas = torch.zeros((h, w, 3), dtype=torch.float32,
@@ -195,7 +195,7 @@ class NoBlender:
 
 
 def make_blender(corners, sizes, blend_type: BlenderType,
-                 blend_strength: float = 5.0, device="cpu"):
+                 blend_strength: float = 5.0, device="cuda"):
     """The blender for the compose ROIs, with the reference's fallback to
     NO when the blend width is under 1."""
     roi = result_roi(corners, sizes)

@@ -61,13 +61,13 @@ def _on_device(kind: str, shape: tuple, device: str) -> torch.Tensor:
     return torch.as_tensor(m, device=device)
 
 
-def down_mats(h: int, w: int, device="cpu"):
+def down_mats(h: int, w: int, device="cuda"):
     """(D_h (ceil(h/2), h), D_w (ceil(w/2), w))."""
     dev = str(device)
     return _on_device("down", (h,), dev), _on_device("down", (w,), dev)
 
 
-def up_mats(out_h: int, out_w: int, in_h: int, in_w: int, device="cpu"):
+def up_mats(out_h: int, out_w: int, in_h: int, in_w: int, device="cuda"):
     """(U_h (out_h, in_h), U_w (out_w, in_w))."""
     dev = str(device)
     return (_on_device("up", (out_h, in_h), dev),

@@ -21,7 +21,7 @@ __all__ = ["Timelapser", "fixed_name"]
 
 class Timelapser:
     def __init__(self, corners, sizes,
-                 kind: TimelapserType = TimelapserType.CROP, device="cpu"):
+                 kind: TimelapserType = TimelapserType.CROP, device="cuda"):
         if kind == TimelapserType.CROP:
             self.roi = result_roi_intersection(corners, sizes)
         else:

@@ -102,7 +102,7 @@ class FastIngest:
     # Packed-plane layout of the raw decode: (ya_h, ya_w, h_d, w_d), the
     # iMCU-aligned Y strides and the valid (scaled) dims; chroma halves.
     raw_layout: Tuple[int, int, int, int] = (0, 0, 0, 0)
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     def upload(self):
         """Wait for the decodes in order, queueing each image's upload
@@ -132,7 +132,7 @@ class FastIngest:
 
 def start_fast_ingest(paths: Sequence[str], is_portrait: bool,
                       want_gray: bool, gray_scale: float, rgb_scale: float,
-                      device="cpu") -> Optional[FastIngest]:
+                      device="cuda") -> Optional[FastIngest]:
     """Begin the background decode of a uniform all-JPEG capture set, into
     pinned host buffers when `device` is CUDA.
 

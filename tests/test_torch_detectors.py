@@ -248,7 +248,7 @@ def test_l2_match_all_pairs_matches_reference(feat):
     ref = jax.tree.map(np.asarray, jm.match_all_pairs(
         _jstack(feats), jax.random.PRNGKey(seed), match_conf=0.65))
     stack = Features.stack([features_from_numpy(JFeatures(
-        *(f[name] for name in FIELDS))) for f in feats])
+        *(f[name] for name in FIELDS)), device="cpu") for f in feats])
     assert stack.desc.dtype == torch.float32
     with reference_draws(seed, 3) as drawn:
         got = matching.match_all_pairs(stack, match_conf=0.65).numpy()

@@ -147,7 +147,7 @@ def test_bundle_adjust_cg64_past_64_cameras(monkeypatch):
         return inner(a, b, solver)
     monkeypatch.setattr(tba, "_inner_solve", recording)
     ref = jba.bundle_adjust(cams, jba.BAProblem(**packed))
-    got = tba.bundle_adjust(cameras_from_numpy(cams),
+    got = tba.bundle_adjust(cameras_from_numpy(cams, device="cpu"),
                             tba.BAProblem(**packed)).numpy()
     assert solvers and set(solvers) == {"cg64"}
     np.testing.assert_array_equal(got["focal"], np.asarray(ref.focal))

@@ -110,7 +110,7 @@ def test_bundle_adjust_from_identical_inputs(ba_inputs, refine_mask,
         np.testing.assert_array_equal(getattr(prob, name),
                                       getattr(ref_prob, name))
     ref = jba.bundle_adjust(cams, ref_prob, refine_mask=refine_mask)
-    got = tba.bundle_adjust(cameras_from_numpy(cams), prob,
+    got = tba.bundle_adjust(cameras_from_numpy(cams, device="cpu"), prob,
                             refine_mask=refine_mask).numpy()
     np.testing.assert_allclose(got["focal"], np.asarray(ref.focal),
                                rtol=1e-3)
@@ -120,7 +120,8 @@ def test_bundle_adjust_from_identical_inputs(ba_inputs, refine_mask,
             ang = rel_rotation_deg(got["R"][a] @ got["R"][b].T,
                                    rr[a] @ rr[b].T)
             assert ang <= max_deg, (a, b, ang)
-    assert tba.bundle_adjust(cameras_from_numpy(cams), None).focal is not None
+    assert tba.bundle_adjust(cameras_from_numpy(cams, device="cpu"),
+                             None).focal is not None
 
 
 def test_matches_graph_dot_text_equal():

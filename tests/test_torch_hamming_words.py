@@ -1,0 +1,204 @@
+"""Port parity: kernel K4 (`hamming_two_nn_pairs`) at descriptor word
+counts other than ORB's 8 and AKAZE's 12.
+
+The JAX package matches binary descriptors of any word count W
+(`ops/matching.py`'s `hamming_matrix` and `_two_nn`); on CUDA the port
+takes W = 8 and 12 to the tensor-core kernel and every other W from 1 to
+2047 to the popcount kernel (`kernel_route`).  On the CPU the wrapper runs
+its plain version, held here to the JAX live route at W in {1, 3, 4, 13,
+16, 32}, at W + z zero words, and through `match_pair` and
+`match_all_pairs` on 16-word descriptors."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import cuda_device, n, reference_draws, t
+from test_torch_hamming import BIG, _assert_two_nn_equal, _reference
+from image_stitching_tpu.data.synth import make_ring_captures
+from image_stitching_tpu.ops import imgproc as jimg
+from image_stitching_tpu.ops import matching as jm
+from image_stitching_tpu.ops.features import Features as JFeatures
+from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
+from image_stitching_tpu_torch.interop import features_from_numpy
+from image_stitching_tpu_torch.kernels.hamming import (
+    KERNEL_WORDS, MAX_WORDS, hamming_two_nn_pairs,
+    hamming_two_nn_pairs_plain, kernel_route)
+from image_stitching_tpu_torch.ops import matching
+from image_stitching_tpu_torch.ops.features import Features
+
+WORDS = (1, 3, 4, 13, 16, 32)
+FIELDS = ("xy", "response", "angle", "octave", "size", "desc", "valid")
+
+
+def _stack(seed, words, n_img=5, k=90):
+    """An image stack of random `words`-word descriptors with near copies
+    of image 0 (small, varied distances), duplicate columns (a tie for row
+    10 forward), a duplicate row (a tie in reverse), a run of ten equal
+    descriptors, invalid columns, one image with a single valid
+    descriptor and one with none; and every pair i < j."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2 ** 32, (n_img, k, words), dtype=np.uint64).astype(
+        np.uint32)
+    flips = (rng.random((n_img - 1, 40, words)) < 0.02).astype(
+        np.uint32) << rng.integers(0, 32, (n_img - 1, 40, words)).astype(
+        np.uint32)
+    d[1:, :40] = d[0, :40] ^ flips
+    d[1, 50] = d[1, 10]
+    d[1, 61] = d[1, 10]
+    d[0, 55] = d[0, 12]
+    d[2, 70:80] = d[2, 70]
+    valid = rng.random((n_img, k)) > 0.15
+    valid[1, 50] = valid[1, 61] = True
+    valid[0, 12] = valid[0, 55] = True
+    valid[1, 10] = False
+    valid[n_img - 2] = False
+    valid[n_img - 2, 33] = True
+    valid[n_img - 1] = False
+    iu, ju = np.triu_indices(n_img, 1)
+    return d, valid, iu.astype(np.int32), ju.astype(np.int32)
+
+
+def _args(d, valid, iu, ju, device="cpu"):
+    return [t(x).to(device) for x in (d.view(np.int32), valid, iu, ju)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("words", WORDS)
+def test_plain_matches_reference_at_any_width(words, seed):
+    d, valid, iu, ju = _stack(seed + 10 * words, words)
+    want_f, want_r = _reference(d, valid, iu, ju)
+    got_f, got_r = hamming_two_nn_pairs(*_args(d, valid, iu, ju))
+    _assert_two_nn_equal(got_f, want_f)
+    _assert_two_nn_equal(got_r, want_r)
+    # The cases the data was built for did occur.
+    none = ju == len(valid) - 1
+    one = ju == len(valid) - 2
+    assert np.all(want_f[1][none] == BIG)
+    assert np.all(want_f[1][one] < BIG) and np.all(want_f[3][one] == BIG)
+    assert (want_f[1][~none] == want_f[3][~none]).any()
+    assert (want_r[1][iu == 0] == want_r[3][iu == 0]).any()
+    assert want_f[1][~none].max() <= 32 * words
+
+
+@pytest.mark.parametrize("words,zeros", [(1, 1), (4, 12), (8, 8), (8, 5),
+                                         (12, 4), (13, 19)])
+def test_zero_words_change_nothing(words, zeros):
+    """Words that are 0 in every descriptor agree in every pair of rows:
+    the 2-NN at W + z words equals the 2-NN at W, bit for bit (the smoke's
+    16-word ring check on the card rests on this)."""
+    d, valid, iu, ju = _stack(words, words)
+    wide = np.concatenate([d, np.zeros(d.shape[:2] + (zeros,), np.uint32)],
+                          axis=-1)
+    got = hamming_two_nn_pairs_plain(*_args(wide, valid, iu, ju))
+    want = hamming_two_nn_pairs_plain(*_args(d, valid, iu, ju))
+    for side_g, side_w in zip(got, want):
+        for g, w in zip(side_g, side_w):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("words,route", [
+    (1, "popc"), (3, "popc"), (4, "popc"), (7, "popc"), (8, "tensor"),
+    (9, "popc"), (12, "tensor"), (13, "popc"), (16, "popc"), (32, "popc"),
+    (MAX_WORDS, "popc")])
+def test_route_by_word_count(words, route):
+    """W in KERNEL_WORDS takes the tensor-core template, every other W up
+    to 2047 the popcount kernel."""
+    assert KERNEL_WORDS == (8, 12) and MAX_WORDS == 2047
+    assert kernel_route(words) == route
+
+
+@pytest.mark.parametrize("words", [0, -1, MAX_WORDS + 1, 4096])
+def test_route_raises_outside_the_key(words):
+    """The kernels' 32-bit key holds a distance of at most 65535 = 32 W
+    bits; outside 1..2047 words the route raises, naming the limit."""
+    with pytest.raises(ValueError, match="1 to 2047 words"):
+        kernel_route(words)
+
+
+def _wide(desc):
+    """ORB's 8 words and each rotated left by 5 bits: a 16-word (512-bit)
+    descriptor whose distances are twice the 8-word ones."""
+    d = np.asarray(desc, np.uint32)
+    return np.concatenate([d, (d << 5) | (d >> 27)], axis=-1)
+
+
+@pytest.fixture(scope="module")
+def ring16():
+    """ORB features of a 3-view ring with 16-word descriptors."""
+    images, _, _ = make_ring_captures(n_images=3, hw=(160, 224), fov_deg=55,
+                                      overlap_ratio=0.55)
+    feats = []
+    for im in images:
+        f = jax.tree.map(np.asarray, orb_detect_and_describe(
+            jimg.rgb_to_gray(jnp.asarray(im)), n_features=400))
+        feats.append(JFeatures(*(_wide(f.desc) if name == "desc"
+                                 else getattr(f, name) for name in FIELDS)))
+    assert feats[0].desc.shape == (400, 16)
+    return feats
+
+
+def _assert_pair_equal(got, want):
+    for name in ("a_idx", "b_idx", "valid", "inlier", "num_inliers"):
+        assert np.array_equal(n(getattr(got, name)),
+                              np.asarray(getattr(want, name))), name
+    np.testing.assert_allclose(n(got.confidence), np.asarray(want.confidence),
+                               rtol=0, atol=1e-5)
+    want_h = np.asarray(want.h, np.float64)
+    scale = np.abs(want_h).max(axis=(-2, -1), keepdims=True)
+    assert np.all(np.abs(n(got.h) - want_h) <= 1e-4 * scale)
+
+
+def test_match_pair_at_16_words(ring16):
+    """match_pair on 16-word descriptors gives the JAX package's match
+    table, with the reference's RANSAC draws for the key."""
+    fa, fb = ring16[0], ring16[1]
+    key = jax.random.split(jax.random.PRNGKey(0), 1)[0]
+    want = jm.match_pair(jax.tree.map(jnp.asarray, fa),
+                         jax.tree.map(jnp.asarray, fb), key)
+    ta, tb = (features_from_numpy(f, device="cpu") for f in (fa, fb))
+    assert ta.desc.shape == (400, 16)
+    with reference_draws(0, 1):
+        got = matching.match_pair(ta, tb)
+    assert int(got.num_inliers) > 8
+    _assert_pair_equal(got, want)
+
+
+def test_match_all_pairs_at_16_words(ring16):
+    """The slice as a whole: match_all_pairs on the 16-word ring equals
+    the JAX package's, pair for pair, with its draws."""
+    stack = JFeatures(*(jnp.stack([jnp.asarray(getattr(f, name))
+                                   for f in ring16]) for name in FIELDS))
+    ref = jax.tree.map(np.asarray, jm.match_all_pairs(
+        stack, jax.random.PRNGKey(0)))
+    with reference_draws(0, 3) as drawn:
+        got = matching.match_all_pairs(Features.stack(
+            [features_from_numpy(f, device="cpu") for f in ring16])).numpy()
+    assert drawn[0] == 3
+    for name in ("ii", "jj", "a_idx", "b_idx", "valid", "inlier",
+                 "num_matches", "num_inliers"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.confidence, ref.confidence, rtol=0,
+                               atol=1e-5)
+    scale = np.abs(ref.h).max(axis=(-2, -1), keepdims=True)
+    assert np.all(np.abs(got.h - ref.h) <= 1e-4 * scale)
+    assert got.num_inliers[0, 1] > 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 4, 13, 16, 32])
+def test_popc_kernel_matches_plain_on_cuda(words):
+    dev = cuda_device()
+    d, valid, iu, ju = _stack(words, words, n_img=4, k=1100)
+    args = _args(d, valid, iu, ju, dev)
+    before = dict(hamming_two_nn_pairs.route_launches)
+    got = hamming_two_nn_pairs(*args)
+    torch.cuda.synchronize()
+    assert hamming_two_nn_pairs.route_launches == dict(
+        before, popc=before["popc"] + 1)
+    want = hamming_two_nn_pairs_plain(*args)
+    for g, w in zip(got, want):
+        _assert_two_nn_equal(g, [n(x) for x in w])

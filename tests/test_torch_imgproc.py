@@ -59,7 +59,7 @@ def test_dilate3_and_scale_size():
 def test_pyramid_matrices_and_ops(h, w):
     """Dense pyrDown/pyrUp matrices equal the reference's; the products
     agree to float32 summation order (atol 1e-3 on 0-255 values)."""
-    dh, dw = pyr_mat.down_mats(h, w)
+    dh, dw = pyr_mat.down_mats(h, w, device="cpu")
     rdh, rdw = jpyr.down_mats(h, w)
     np.testing.assert_array_equal(n(dh), np.asarray(rdh))
     np.testing.assert_array_equal(n(dw), np.asarray(rdw))

@@ -171,7 +171,7 @@ def test_fast_path_needs_the_runtime(tmp_path, monkeypatch):
     monkeypatch.setitem(native._state, "lib", None)
     monkeypatch.setitem(native._state, "error", "no runtime (test)")
     with pytest.raises(RuntimeError, match="no runtime"):
-        ingest.start_fast_ingest(paths, False, True, 1.0, 1.0)
+        ingest.start_fast_ingest(paths, False, True, 1.0, 1.0, device="cpu")
     assert not native.available()
 
 
@@ -201,7 +201,7 @@ def test_fast_prep_matches_reference(tmp_path, route, portrait):
     fj = jingest.start_fast_ingest(paths, portrait, True, gray_scale,
                                    rgb_scale)
     ft = ingest.start_fast_ingest(paths, portrait, True, gray_scale,
-                                  rgb_scale)
+                                  rgb_scale, device="cpu")
     assert _fields(ft) == _fields(fj)
     assert ft.raw_yuv == (mode == "yuv")
     assert ft.want_gray == (mode == "luma")
@@ -233,7 +233,7 @@ def test_start_fast_ingest_route_equal(tmp_path, capture_set):
     }[capture_set]
     paths = _write_set(tmp_path, hws, subsampling=sub, ext=ext)
     fj = jingest.start_fast_ingest(paths, False, True, 0.5, 0.25)
-    ft = ingest.start_fast_ingest(paths, False, True, 0.5, 0.25)
+    ft = ingest.start_fast_ingest(paths, False, True, 0.5, 0.25, device="cpu")
     if capture_set in ("png", "mixed sizes"):
         assert fj is None and ft is None
         return

@@ -137,15 +137,16 @@ def test_blenders_match_reference(feeds, kind):
     sizes = [s for _, s in RECTS]
     if kind == "multiband":
         jb = jblend.MultiBandBlender(corners, sizes, num_bands=3)
-        tb = blend.MultiBandBlender(corners, sizes, num_bands=3)
+        tb = blend.MultiBandBlender(corners, sizes, num_bands=3, device="cpu")
         assert tb.rect(corners[2], 50, 12)[2] - tb.rect(
             corners[2], 50, 12)[0] > 12 + 2 * 12
     elif kind == "feather":
         jb = jblend.FeatherBlender(corners, sizes, sharpness=1.0 / 6)
-        tb = blend.FeatherBlender(corners, sizes, sharpness=1.0 / 6)
+        tb = blend.FeatherBlender(corners, sizes, sharpness=1.0 / 6,
+                                  device="cpu")
     else:
         jb = jblend.NoBlender(corners, sizes)
-        tb = blend.NoBlender(corners, sizes)
+        tb = blend.NoBlender(corners, sizes, device="cpu")
     for img, mask, corner in feeds:
         jb.feed(jnp.asarray(img), jnp.asarray(mask), corner)
         tb.feed(t(img), t(mask), corner)
@@ -166,7 +167,7 @@ def test_make_blender_and_pyramids_match_reference(feeds):
                          (JBlend.NO, 5.0), (JBlend.MULTI_BAND, 0.5)):
         jb = jblend.make_blender(corners, sizes, bt, strength)
         tb = blend.make_blender(corners, sizes, BlenderType(bt.value),
-                                strength)
+                                strength, device="cpu")
         assert type(tb).__name__ == type(jb).__name__
         if isinstance(jb, jblend.MultiBandBlender):
             assert tb.num_bands == jb.num_bands and tb.roi == jb.roi
@@ -198,7 +199,8 @@ def test_timelapser_matches_reference(feeds, kind, scene):
     corners = [c for c, _ in TL_SCENES[scene]]
     sizes = [s for _, s in TL_SCENES[scene]]
     jt = jtimelapse.Timelapser(corners, sizes, JTL(kind))
-    tt = timelapse.Timelapser(corners, sizes, TimelapserType(kind))
+    tt = timelapse.Timelapser(corners, sizes, TimelapserType(kind),
+                              device="cpu")
     assert tt.roi == jt.roi
     rng = np.random.default_rng(4)
     for corner, (w, h) in zip(corners, sizes):

@@ -103,10 +103,10 @@ def test_match_pair_equal_given_identical_descriptors(ring_features, pair):
         JFeatures(*map(jnp.asarray, (fb.xy, fb.response, fb.angle, fb.octave,
                                      fb.size, fb.desc, fb.valid))), key))
     hyp, sub = _draws(key, ref.valid)
-    ta = Features.stack([features_from_numpy(fa)])
-    tb = Features.stack([features_from_numpy(fb)])
+    ta = Features.stack([features_from_numpy(fa, device="cpu")])
+    tb = Features.stack([features_from_numpy(fb, device="cpu")])
     got = matching.match_pairs(ta, tb, hyp_idx=hyp, score_idx=sub)
-    want = pair_matches_from_numpy(ref)
+    want = pair_matches_from_numpy(ref, device="cpu")
     for name, g in zip(("a_idx", "b_idx", "valid", "inlier"), got):
         assert torch.equal(g[0], want[name].to(g.dtype)), name
     h, ninl, conf = got[4:]
@@ -127,7 +127,8 @@ def test_match_all_pairs_tables(ring_features):
     ref = jax.tree.map(np.asarray, jm.match_all_pairs(
         stack, jax.random.PRNGKey(0), pair_cap=400))
     got = matching.match_all_pairs(
-        Features.stack([features_from_numpy(f) for f in ring_features]),
+        Features.stack([features_from_numpy(f, device="cpu")
+                        for f in ring_features]),
         torch.Generator().manual_seed(0), pair_cap=400).numpy()
     for name in ("ii", "jj", "a_idx", "b_idx", "valid", "num_matches"):
         np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
@@ -155,7 +156,8 @@ def test_match_all_pairs_slices_the_one_two_nn_call(ring_features,
     monkeypatch.setattr(matching, "hamming_two_nn_pairs",
                         lambda *a: calls.append(a) or real(*a))
     got = matching.match_all_pairs(
-        Features.stack([features_from_numpy(f) for f in ring_features]),
+        Features.stack([features_from_numpy(f, device="cpu")
+                        for f in ring_features]),
         torch.Generator().manual_seed(0)).numpy()
     assert len(calls) == 1 and calls[0][2].tolist() == [0, 0, 1]
     for name in ("ii", "jj", "a_idx", "b_idx", "valid", "num_matches"):
@@ -200,10 +202,11 @@ def test_full_resolution_ring_pair(ring_full, a):
     ref = jax.tree.map(np.asarray, jm.match_pair(
         jax.tree.map(jnp.asarray, fa), jax.tree.map(jnp.asarray, fb), key))
     hyp, sub = _draws(key, ref.valid)
-    got = matching.match_pairs(Features.stack([features_from_numpy(fa)]),
-                               Features.stack([features_from_numpy(fb)]),
+    got = matching.match_pairs(
+        Features.stack([features_from_numpy(fa, device="cpu")]),
+        Features.stack([features_from_numpy(fb, device="cpu")]),
                                hyp_idx=hyp, score_idx=sub)
-    want = pair_matches_from_numpy(ref)
+    want = pair_matches_from_numpy(ref, device="cpu")
     for name, g in zip(("a_idx", "b_idx", "valid"), got):
         assert torch.equal(g[0], want[name].to(g.dtype)), name
     n_matches = int(ref.valid.sum())

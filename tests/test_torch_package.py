@@ -1,8 +1,11 @@
 """The port's package boundary: no jax at import, the compose dispatch,
 explicit devices, host IO and the state conversion from the reference."""
 
+import importlib
+import inspect
 import json
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -11,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import image_stitching_tpu_torch as port_pkg
 from _torch_port import n, t
 from image_stitching_tpu.core import exif as jexif
 from image_stitching_tpu.core import persistence as jpersist
@@ -169,6 +173,70 @@ def test_cuda_device_is_explicit():
                device="cuda")
 
 
+def _device_params():
+    """(where, parameter, default) for every parameter whose name holds
+    "device" of every public callable of the port: the module-level
+    functions and classes each module defines, and their public methods,
+    classmethods and staticmethods, `__init__` included."""
+    found = []
+    for info in pkgutil.walk_packages(port_pkg.__path__,
+                                      port_pkg.__name__ + "."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__",
+                                               None) != mod.__name__:
+                continue
+            members = [(name, obj)]
+            if inspect.isclass(obj):
+                for attr, member in vars(obj).items():
+                    if attr.startswith("_") and attr != "__init__":
+                        continue
+                    if isinstance(member, (classmethod, staticmethod)):
+                        member = member.__func__
+                    if inspect.isfunction(member):
+                        members.append((f"{name}.{attr}", member))
+            for where, fn in members:
+                if not callable(fn):
+                    continue
+                try:
+                    sig = inspect.signature(fn)
+                except (TypeError, ValueError):
+                    continue
+                for p in sig.parameters.values():
+                    if "device" in p.name:
+                        found.append((f"{info.name}.{where}", p.name,
+                                      p.default))
+    return found
+
+
+def test_no_public_cpu_default():
+    """Entry points run on the card unless the caller asks for the CPU:
+    no public callable of the port defaults a device to the CPU (the
+    blenders, the Timelapser, the camera and feature constructors, the
+    checkpoint reader, fast ingest and the pyramid matrices default to
+    "cuda", as stitch() does)."""
+    found = _device_params()
+    cpu = [(where, name, default) for where, name, default in found
+           if isinstance(default, (str, torch.device))
+           and str(default).startswith("cpu")]
+    assert cpu == []
+    cuda = {where for where, _, default in found
+            if isinstance(default, (str, torch.device))
+            and str(default) == "cuda"}
+    for where in ("ops.blend.MultiBandBlender", "ops.blend.FeatherBlender",
+                  "ops.blend.NoBlender", "ops.blend.make_blender",
+                  "ops.timelapse.Timelapser", "ops.pyr_mat.down_mats",
+                  "ops.pyr_mat.up_mats", "geometry.camera.Cameras.from_numpy",
+                  "geometry.camera.Cameras.identity",
+                  "core.persistence.deserialize_camera_params",
+                  "pipeline.ingest.FastIngest",
+                  "pipeline.ingest.start_fast_ingest",
+                  "interop.cameras_from_numpy", "interop.features_from_numpy",
+                  "interop.pair_matches_from_numpy",
+                  "pipeline.stitcher.stitch"):
+        assert f"image_stitching_tpu_torch.{where}" in cuda, where
+
+
 def test_kernel_wrappers_never_fall_back():
     """A tensor on a device with no kernel raises; only CPU tensors take
     the plain version."""
@@ -268,7 +336,7 @@ def test_checkpoint_text_matches_reference(tmp_path):
     (tmp_path / "p").mkdir()
     jpersist.serialize_camera_params(JCameras(**fields), str(tmp_path / "j"))
     persistence.serialize_camera_params(cameras_from_numpy(
-        JCameras(**fields)), str(tmp_path / "p"))
+        JCameras(**fields), device="cpu"), str(tmp_path / "p"))
     persistence.serialize_indices([0, 2, 5], str(tmp_path / "p"))
     assert (tmp_path / "p" / "cams.data").read_text() == \
         (tmp_path / "j" / "cams.data").read_text()
@@ -279,7 +347,7 @@ def test_features_from_reference_state():
     g = np.random.default_rng(1).uniform(0, 255, (90, 120)).astype(
         np.float32)
     ref = orb_detect_and_describe(jnp.asarray(g), n_features=50)
-    f = features_from_numpy(ref)
+    f = features_from_numpy(ref, device="cpu")
     assert f.desc.dtype == torch.int32 and f.valid.dtype == torch.bool
     np.testing.assert_array_equal(n(f.desc).view(np.uint32),
                                   np.asarray(ref.desc))

@@ -86,7 +86,7 @@ def test_match_pair_matches_reference(matcher_type):
               for i in (0, 1))
     key = jax.random.split(jax.random.PRNGKey(0), B)[0]
     want = jm.match_pair(fa, fb, key, 0.32, matcher_type, 128)
-    ta, tb = (features_from_numpy(jax.tree.map(np.asarray, f))
+    ta, tb = (features_from_numpy(jax.tree.map(np.asarray, f), device=CPU)
               for f in (fa, fb))
     with reference_draws(0, B):
         got = matching.match_pair(ta, tb, None, 0.32, matcher_type, 128)

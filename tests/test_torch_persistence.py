@@ -40,9 +40,10 @@ def test_round_trip_through_both_packages(tmp_path, writer):
         jpersist.serialize_indices([0, 2, 5, 6], str(tmp_path))
     else:
         persistence.serialize_camera_params(
-            cameras_from_numpy(JCameras(**fields)), str(tmp_path))
+            cameras_from_numpy(JCameras(**fields), device="cpu"),
+            str(tmp_path))
         persistence.serialize_indices([0, 2, 5, 6], str(tmp_path))
-    cams = persistence.deserialize_camera_params(str(tmp_path))
+    cams = persistence.deserialize_camera_params(str(tmp_path), device="cpu")
     _same(cams, jpersist.deserialize_camera_params(str(tmp_path)))
     for name, want in fields.items():
         np.testing.assert_allclose(cams.numpy()[name], want, rtol=1e-5,
@@ -67,7 +68,7 @@ def test_hand_authored_cpp_lines(tmp_path):
     values."""
     (tmp_path / "cams.data").write_text(CPP_LINES)
     (tmp_path / "indices.data").write_text("0\n3\n\n7\n")
-    cams = persistence.deserialize_camera_params(str(tmp_path))
+    cams = persistence.deserialize_camera_params(str(tmp_path), device="cpu")
     _same(cams, jpersist.deserialize_camera_params(str(tmp_path)))
     assert len(cams) == 3
     assert float(cams.focal[1]) == 2500.0

@@ -82,8 +82,9 @@ def test_dense_sizes_keep_the_matrix_order(shape):
     """Up to the threshold each axis is its dense matrix, rows first: the
     result is bit-equal to D_h @ x @ D_w^T and U_h @ x @ U_w^T."""
     x = t(np.random.default_rng(3).uniform(0, 255, shape).astype(np.float32))
-    dh, dw = pm.down_mats(shape[1], shape[2])
+    dh, dw = pm.down_mats(shape[1], shape[2], device="cpu")
     d = pm.pyr_down_mm(x)
     assert torch.equal(d, dh @ x @ dw.t())
-    uh, uw = pm.up_mats(shape[1], shape[2], d.shape[1], d.shape[2])
+    uh, uw = pm.up_mats(shape[1], shape[2], d.shape[1], d.shape[2],
+                        device="cpu")
     assert torch.equal(pm.pyr_up_mm(d, shape[1:]), uh @ d @ uw.t())

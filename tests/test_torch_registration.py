@@ -202,8 +202,9 @@ def ring_features():
     stack = JFeatures(*(jnp.stack([getattr(f, name) for f in feats])
                         for name in ("xy", "response", "angle", "octave",
                                      "size", "desc", "valid")))
-    tstack = Features.stack([features_from_numpy(jax.tree.map(np.asarray, f))
-                             for f in feats])
+    tstack = Features.stack([
+        features_from_numpy(jax.tree.map(np.asarray, f), device="cpu")
+        for f in feats])
     return stack, k, rs, tstack
 
 
@@ -317,7 +318,8 @@ def test_bundle_adjust_ray_parity(ba_inputs, refine_mask, max_deg):
     want = jba.bundle_adjust(cams, jba.pack_correspondences(
         type("F", (), {"xy": xy}), pm, 0.95), cost_func="ray",
         refine_mask=refine_mask)
-    got = tba.bundle_adjust(cameras_from_numpy(cams), prob, cost_func="ray",
+    got = tba.bundle_adjust(cameras_from_numpy(cams, device="cpu"), prob,
+                            cost_func="ray",
                             refine_mask=refine_mask).numpy()
     np.testing.assert_allclose(got["focal"], np.asarray(want.focal),
                                rtol=1e-3)
@@ -344,7 +346,7 @@ def test_bundle_adjust_affine_parity(ring_features, graphs):
     seed = jhe.affine_based_estimate(pm, SIZES, 0.5)
     want = np.asarray(jba.bundle_adjust(seed, jba.pack_correspondences(
         type("F", (), {"xy": xy}), pm, 0.5), cost_func="affine").R)
-    got = n(tba.bundle_adjust(cameras_from_numpy(seed),
+    got = n(tba.bundle_adjust(cameras_from_numpy(seed, device="cpu"),
                               tba.pack_correspondences(xy, pm, 0.5),
                               cost_func="affine").R)
     np.testing.assert_array_equal(got[0], np.eye(3, dtype=np.float32))
@@ -365,7 +367,7 @@ def test_bundle_adjust_no_and_empty(ba_inputs):
     the reference does; an unknown cost raises ValueError in both."""
     xy, ref, cams = ba_inputs
     prob = tba.pack_correspondences(xy, ref["homography"], 0.95)
-    seed = cameras_from_numpy(cams)
+    seed = cameras_from_numpy(cams, device="cpu")
     for cost in ("no", "reproj", "ray", "affine"):
         out = tba.bundle_adjust(seed, prob if cost == "no" else None,
                                 cost_func=cost)
