@@ -41,18 +41,21 @@ Phases, one line each; any failure raises and exits non-zero:
      in both directions in the one call matching makes, its +-1 unpack
      against pm1_rows, and a tie-heavy stack at K = 4000 (duplicated
      descriptors, images with 1 and 0 valid descriptors);
- 6b. K4's popcount route (the word counts the tensor-core template
-     lacks; `check_k4_popc`): at W = 1, 4, 13, 16 and 32, a random stack
-     of 8 x K = 4000 (28 pairs both ways) and the tie stack against the
-     plain version; then the slice's path, match_all_pairs as the default
-     stitch calls it on phase 6's ORB features with the descriptors
-     widened by zero words to W (or cut to the first W words below 8),
-     each call under K4's counts set to 0 just before it and read just
-     after: one popcount launch and no tensor-core one, and at W >= 8
-     tables, inliers, H and confidences equal to the 8-word call's (8 and
-     a 12-word widening take the tensor-core route); K4 at each W on
+ 6b. K4's chunked route (the word counts the tensor-core template lacks;
+     `check_k4_chunked`): at W = 1, 4, 5, 13, 16 and 32, a random stack of
+     8 x K = 4000 (28 pairs both ways), the same with its valid columns in
+     runs (the first 84 of each 500, so whole column tiles are skipped)
+     and the tie stack against the plain version, indices equal and
+     distances exact; then the slice's path, match_all_pairs as the
+     default stitch calls it on phase 6's ORB features with the
+     descriptors widened by zero words to W (or cut to the first W words
+     below 8), each call under K4's counts set to 0 just before it and
+     read just after: one chunked launch and no tensor-core one, and at W
+     >= 8 tables, inliers, H and confidences equal to the 8-word call's (8
+     and a 12-word widening take the tensor-core route); K4 at each W on
      those descriptors against its plain version, its device, call and
-     plain ms, both bounds and the POPC issue time;
+     plain ms, both bounds and its share of the tensor-core bound; for the
+     record, the chunked kernel at 8 and 12 words beside the template;
   7. K5 (pyramid_accumulate) on the compose rects of that warm-up stitch,
      one call per bucket as the compose makes them, its kernel launches
      per call counted in a CUDA graph of the calls (<= 2 n_bands + 1), and
@@ -230,8 +233,10 @@ rows their times, bounds and errors on a gp_sharded shard (`shard_*`),
 K1's and K4's on the pairs batch (`pairs_*`).  A sixth row is
 K4 at 12 words (`words: 12`), checked and timed on phase 14's AKAZE
 descriptors, its launches those of phase 14's stitches; then one row for
-each W of phase 6b's popcount route (`kernel_route: popc`), its launches
-those of its match_all_pairs call.
+each W of phase 6b's chunked route (`kernel_route: chunked`), its
+launches those of its match_all_pairs call; K4's and the 12-word row's
+`chunked_kernel_record` the chunked kernel's device ms at their word
+count beside the template's.
 Then the smoke's total seconds and phase 15's end-to-end numbers, a JSON
 line of those kernel results with the launches on the path the kernel was
 checked on (`launches_by_path` every path's, phase 15a and 15b included),
@@ -277,14 +282,6 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _max_sm_clock_hz() -> float:
-    """The card's highest SM clock, as nvidia-smi reports it."""
-    return 1e6 * float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
 
 
 def _smi() -> str:
@@ -731,8 +728,12 @@ def k4_times(args, valid):
     return out
 
 
-# Phase 6b: the descriptor word counts of the popcount route it drives.
-POPC_WORDS = (1, 4, 13, 16, 32)
+# Phase 6b: the descriptor word counts of the chunked route it drives (5
+# is not a multiple of 4: a part stage of depth), and the popcount route's
+# device ms at the same shape in PR 12's run (PERF.md), which the chunked
+# route replaced.
+CHUNKED_WORDS = (1, 4, 5, 13, 16, 32)
+POPC_PR12_MS = {1: 0.4645, 4: 1.1277, 13: 4.0138, 16: 4.4189, 32: 10.2532}
 
 
 def _word_stack(dev, words: int, k: int = 4000, n: int = 8, seed: int = 0):
@@ -754,6 +755,16 @@ def _word_stack(dev, words: int, k: int = 4000, n: int = 8, seed: int = 0):
             torch.as_tensor(ju, dtype=torch.int32, device=dev))
 
 
+def _runs_stack(dev, words: int, k: int = 4000, n: int = 8, seed: int = 0,
+                run: int = 84, block: int = 500):
+    """`_word_stack` with the valid columns in runs, as ORB's per-level
+    top-k leaves them on mosaic100 (~670 valid of 4000): per image the
+    first `run` columns of each `block`-column block."""
+    desc, _, iu, ju = _word_stack(dev, words, k, n, seed)
+    valid = (torch.arange(k, device=dev) % block < run).expand(n, k)
+    return desc, valid.contiguous(), iu, ju
+
+
 def _with_words(feats, words: int):
     """The features with their 8-word descriptors cut to the first `words`
     words, or widened by zero words, which change no distance."""
@@ -771,41 +782,47 @@ MATCH_FIELDS = ("ii", "jj", "a_idx", "b_idx", "valid", "inlier", "h",
                 "num_inliers", "confidence", "num_matches")
 
 
-def check_k4_popc(dev, feats, cfg):
-    """Phase 6b: K4's popcount route, the word counts the tensor-core
-    template lacks.  (a) At each W in POPC_WORDS a random stack of 8
-    images of K = 4000 (28 pairs both ways) and the tie stack at that W
-    against the plain version.  (b) The slice's path: match_all_pairs, as
-    the default stitch calls it, on the default path's ORB features with
-    their descriptors widened by zero words to W (13, 16, 32) or cut to
-    the first W words (1, 4), each call with K4's counts set to 0 just
-    before it and read just after: one popcount launch, no tensor-core
-    one; at W >= 8 the match tables, inlier counts, homographies and
-    confidences equal the 8-word call's with the same generator (which
-    takes the tensor-core route, as a 12-word widening does).  (c) K4 at
-    each W on those descriptors against its plain version, with its
-    device, call and plain ms and both bounds.  Returns the kernel rows."""
+def check_k4_chunked(dev, feats, cfg):
+    """Phase 6b: K4's chunked route, the word counts the tensor-core
+    template lacks.  (a) At each W in CHUNKED_WORDS a random stack of 8
+    images of K = 4000 (28 pairs both ways), the same with its valid
+    columns in runs (whole column tiles skipped) and the tie stack against
+    the plain version, indices equal and distances exact (W = 5 is not a
+    multiple of 4: a part stage).  (b) The slice's path: match_all_pairs,
+    as the default stitch calls it, on the default path's ORB features
+    with their descriptors widened by zero words to W (13, 16, 32) or cut
+    to the first W words (1, 4, 5), each call with K4's counts set to 0
+    just before it and read just after: one chunked launch, no
+    tensor-core one; at W >= 8 the match tables, inlier counts,
+    homographies and confidences equal the 8-word call's with the same
+    generator (which takes the tensor-core route, as a 12-word widening
+    does).  (c) K4 at each W on those descriptors against its plain
+    version, with its device, call and plain ms, both bounds and its share
+    of the tensor-core bound; and, for the record, the chunked kernel at 8
+    and 12 words (`_chunked_pairs`) beside the template on the same
+    stacks.  Returns the kernel rows and that record."""
     from image_stitching_tpu_torch.kernels.hamming import (
-        hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
+        KERNEL_WORDS, _chunked_pairs, hamming_two_nn_pairs,
+        hamming_two_nn_pairs_plain)
     from image_stitching_tpu_torch.ops.matching import match_all_pairs
     k = feats.xy.shape[1]
-    for words in POPC_WORDS:
-        args = _word_stack(dev, words, k, seed=words)
-        _k4_equal(hamming_two_nn_pairs(*args),
-                  hamming_two_nn_pairs_plain(*args),
-                  f"random stack at {words} words")
-        ties = _tie_stack(dev, k, words=words)
-        _k4_equal(hamming_two_nn_pairs(*ties),
-                  hamming_two_nn_pairs_plain(*ties),
-                  f"tie case at {words} words")
+    for words in CHUNKED_WORDS:
+        for what, args in (
+                ("random stack", _word_stack(dev, words, k, seed=words)),
+                ("valid runs", _runs_stack(dev, words, k, seed=words)),
+                ("tie case", _tie_stack(dev, k, words=words))):
+            _k4_equal(hamming_two_nn_pairs(*args),
+                      hamming_two_nn_pairs_plain(*args),
+                      f"{what} at {words} words")
     torch.cuda.synchronize()
-    print(f"phase 6b K4 popcount route: random stacks of 8 x K={k} (28 "
-          f"pairs, both directions) and the tie stack at W = {POPC_WORDS} "
-          f"equal to the plain version", flush=True)
+    print(f"phase 6b K4 chunked route: random stacks of 8 x K={k} (28 "
+          f"pairs, both directions), the same with valid columns in runs "
+          f"and the tie stack at W = {CHUNKED_WORDS} equal to the plain "
+          f"version", flush=True)
 
     def graph(words):
         hamming_two_nn_pairs.launches = 0
-        hamming_two_nn_pairs.route_launches.update(tensor=0, popc=0)
+        hamming_two_nn_pairs.route_launches.update(tensor=0, chunked=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         g = match_all_pairs(_with_words(feats, words),
@@ -817,23 +834,18 @@ def check_k4_popc(dev, feats, cfg):
                 dict(hamming_two_nn_pairs.route_launches))
 
     base, base_s, _, routes8 = graph(8)
-    assert routes8 == {"tensor": 1, "popc": 0}, routes8
+    assert routes8 == {"tensor": 1, "chunked": 0}, routes8
     g12, _, _, routes12 = graph(12)
-    assert routes12 == {"tensor": 1, "popc": 0}, routes12
+    assert routes12 == {"tensor": 1, "chunked": 0}, routes12
     for name in MATCH_FIELDS:
         assert torch.equal(getattr(g12, name), getattr(base, name)), \
             f"match_all_pairs at 12 words: {name} differs from 8 words"
     adj = range(feats.xy.shape[0] - 1)
     inliers = [int(base.num_inliers[a, a + 1]) for a in adj]
-    # POPC issues 16 a clock on each SM (a quarter of the other 32-bit
-    # integer operations): the popcount route's own ceiling at the card's
-    # highest SM clock.
-    popc_rate = (torch.cuda.get_device_properties(dev).multi_processor_count
-                 * 16 * _max_sm_clock_hz())
     rows = []
-    for words in POPC_WORDS:
+    for words in CHUNKED_WORDS:
         g, wall_s, launches, routes = graph(words)
-        assert launches == 1 and routes == {"tensor": 0, "popc": 1}, \
+        assert launches == 1 and routes == {"tensor": 0, "chunked": 1}, \
             (words, launches, routes)
         if words >= 8:
             for name in MATCH_FIELDS:
@@ -846,23 +858,27 @@ def check_k4_popc(dev, feats, cfg):
                     f"{[int(g.num_inliers[a, a + 1]) for a in adj]}")
         args = k4_args(dev, _with_words(feats, words))
         tm = k4_times(args, feats.valid)
-        assert tm["kernel_route"] == "popc", tm["kernel_route"]
-        popc_ms = tm["n_dist"] * words / popc_rate * 1e3
+        assert tm["kernel_route"] == "chunked", tm["kernel_route"]
+        share = tm["tensor_ms"] / tm["dev_ms"]
+        popc = POPC_PR12_MS.get(words)
         print(f"phase 6b K4 at W = {words} ({32 * words} bits) on "
               f"DEFAULT_RING's features: match_all_pairs {wall_s * 1e3:.1f} "
-              f"ms (8 words: {base_s * 1e3:.1f} ms; launches 1, popcount "
-              f"route), {same}; per K4 call: device {tm['dev_ms']:.4f} ms, "
-              f"call {tm['call_ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms; "
-              f"bound over {tm['n_dist']:.0f} valid distances: CUDA cores "
-              f"{tm['cuda_core_ms']:.4f} ms, tensor cores "
+              f"ms (8 words: {base_s * 1e3:.1f} ms; launches 1, chunked "
+              f"route), {same}; per K4 call: device {tm['dev_ms']:.4f} ms "
+              f"({share:.1%} of the tensor-core bound"
+              + (f"; the popcount route's PR 12 row {popc} ms" if popc
+                 else "") +
+              f"), call {tm['call_ms']:.4f} ms, plain {tm['plain_ms']:.4f} "
+              f"ms; bound over {tm['n_dist']:.0f} valid distances: CUDA "
+              f"cores {tm['cuda_core_ms']:.4f} ms, tensor cores "
               f"{tm['tensor_ms']:.4f} ms -> {tm['bound_ms']:.4f} ms "
-              f"({tm['route']}); POPC issue at {popc_rate / 1e12:.3f} T/s "
-              f"{popc_ms:.4f} ms", flush=True)
+              f"({tm['route']})", flush=True)
         rows.append(dict(
-            name=f"hamming_two_nn_pairs [K4 popcount route, W = {words}]",
-            route="cuda", source="image_stitching_tpu_torch/csrc/hamming.cu",
+            name=f"hamming_two_nn_pairs [K4 chunked route, W = {words}]",
+            route="cuda",
+            source="image_stitching_tpu_torch/csrc/hamming_chunked.cu",
             replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
-            words=words, kernel_route="popc", launches=launches,
+            words=words, kernel_route="chunked", launches=launches,
             launches_by_path={f"phase 6b match_all_pairs at {words} words":
                               launches},
             max_abs_err=0.0, ms=tm["dev_ms"], device_ms=tm["dev_ms"],
@@ -871,13 +887,28 @@ def check_k4_popc(dev, feats, cfg):
             bound_by=("operations" if tm["bound_ms"] > tm["t_bytes"]
                       else "bytes"),
             bound_route=tm["route"], bound_cuda_core_ms=tm["cuda_core_ms"],
-            bound_tensor_core_ms=tm["tensor_ms"], popc_issue_ms=popc_ms,
+            bound_tensor_core_ms=tm["tensor_ms"], tensor_core_share=share,
             library_ms=None))
+    # The record: the chunked kernel where the template is the route.
+    record = {}
+    for words in KERNEL_WORDS:
+        args = k4_args(dev, _with_words(feats, words))
+        want = hamming_two_nn_pairs_plain(*args)
+        _k4_equal(_chunked_pairs(*args), want, f"chunked at {words} words")
+        tm = k4_times(args, feats.valid)
+        chunked_ms = device_ms(lambda: _chunked_pairs(*args))
+        record[words] = dict(template_device_ms=tm["dev_ms"],
+                             chunked_device_ms=chunked_ms,
+                             bound_tensor_core_ms=tm["tensor_ms"])
+        print(f"phase 6b record at W = {words}: the template (the route) "
+              f"{tm['dev_ms']:.4f} ms, the chunked kernel {chunked_ms:.4f} "
+              f"ms a call on the same stack (tensor-core bound "
+              f"{tm['tensor_ms']:.4f} ms)", flush=True)
     print(f"phase 6b the slice's path: match_all_pairs on DEFAULT_RING at 8 "
-          f"and 12 words took the tensor-core route, at {POPC_WORDS} words "
-          f"the popcount route; adjacent inliers at 8 words {inliers}",
+          f"and 12 words took the tensor-core route, at {CHUNKED_WORDS} "
+          f"words the chunked route; adjacent inliers at 8 words {inliers}",
           flush=True)
-    return rows
+    return rows, record
 
 
 def check_k4(dev, feats):
@@ -3820,8 +3851,8 @@ def main() -> int:
         with rec:
             warm = stitch(caps_default, cfg, output="", device="cuda")
         k4 = check_k4(dev, rec.calls["match_all_pairs"][0][0][0])
-        k4_popc = check_k4_popc(dev, rec.calls["match_all_pairs"][0][0][0],
-                                cfg)
+        k4_chunked, k4_record = check_k4_chunked(
+            dev, rec.calls["match_all_pairs"][0][0][0], cfg)
         k5 = check_k5(dev, rec.calls["fused_compose"][0])
         del warm, rec
         rec = Recorder(stitcher, "match_all_pairs", "find_seams",
@@ -4094,7 +4125,10 @@ def main() -> int:
           f"({g15['mp'] / g15['ms'] * 1e3:.3f} canvas MP/s, {g15['n_bands']} "
           f"bands, peak {g15['peak'] / 2 ** 30:.3f} GiB), pairs "
           f"{p15['pairs_per_s']:.2f} pairs/s; card '{smi}'", flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12] + k4_popc}))
+    # The chunked kernel where the template is the route, for the record.
+    for row, words in ((k4, 8), (k4_12, 12)):
+        row["chunked_kernel_record"] = k4_record[words]
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12] + k4_chunked}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

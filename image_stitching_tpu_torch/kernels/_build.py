@@ -65,6 +65,9 @@ def _declare(lib) -> None:
     lib.hamming_popc_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                         vp, vp, vp]
     lib.hamming_popc_launch.restype = ci
+    lib.hamming_chunked_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                           vp, vp, vp, vp, ci, vp]
+    lib.hamming_chunked_launch.restype = ci
     lib.pyramid_accumulate_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
                                               vp, vp, vp]
     lib.pyramid_accumulate_launch.restype = ci
@@ -122,6 +125,14 @@ def build_seconds():
     return _state["seconds"]
 
 
+# Entry points return this plus a CUresult when the driver refuses a TMA
+# tensor map (`csrc/hamming_chunked.cu`).
+TENSOR_MAP_ERROR = 100000
+
+
 def check_launch(code: int, name: str) -> None:
+    if code >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {code - TENSOR_MAP_ERROR}")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")

@@ -5,15 +5,16 @@ Hopper replacement for `image_stitching_tpu/kernels/hamming_pallas.py`
 `:104`), which take descriptors of any word count W: ORB's are W = 8
 (256 bits), AKAZE's W = 12 (360 bits, zero-padded to 384), BRIEF-128's
 W = 4, BRIEF-512's, BRISK's, FREAK's and the full 486-bit MLDB's W = 16.
-The CUDA kernels are `csrc/hamming.cu`, on one of two routes
-(`kernel_route`):
-  * "tensor", W in `KERNEL_WORDS`: one launch unpacks every descriptor of
-    the stack once into 32 W int8 of +-1 (`pm1_rows` is its plain twin),
-    the other takes every pair and both directions, with the dot products
-    on the tensor cores (hamming = (32 W - dot) / 2), a template on W;
-  * "popc", every other W from 1 to `MAX_WORDS`: one launch takes every
-    pair and both directions from the packed words, XOR and popcount on
-    the CUDA cores, W a run-time argument.
+The CUDA kernels are `csrc/hamming.cu` and `csrc/hamming_chunked.cu`, on
+one of two routes (`kernel_route`); on both, one launch unpacks every
+descriptor of the stack once into 32 W int8 of +-1 (`pm1_rows` is its
+plain twin) and the other takes every pair and both directions, with the
+dot products on the tensor cores (hamming = (32 W - dot) / 2):
+  * "tensor", W in `KERNEL_WORDS`: a template on W that holds each A row
+    in its `mma.sync` fragments;
+  * "chunked", every other W from 1 to `MAX_WORDS`: W at run time, A and
+    B streamed through shared memory in 128-byte stages of depth by TMA
+    into `wgmma` (`hamming_wgmma_kernel`).
 The plain version is the reference pipeline's live path, `match_pair`'s
 `_two_nn(hamming_matrix(...))` and `_two_nn` of the transposed matrix
 (`ops/matching.py:79-167`): a float32 bit-plane product for the distance
@@ -39,18 +40,21 @@ MAX_K = 1 << 16
 MAX_WORDS = 2047
 # The descriptor word counts the tensor-core kernel is instantiated for.
 KERNEL_WORDS = (8, 12)
+# The chunked route's kernel in `csrc/hamming_chunked.cu`: 1 `wgmma` + TMA,
+# 0 `mma.sync` + `cp.async`.
+CHUNKED_IMPL = 1
 
 
 def kernel_route(words: int) -> str:
     """The CUDA route of a call with W-word descriptors: "tensor" (the
-    int8 tensor-core template, W in `KERNEL_WORDS`) or "popc" (XOR and
-    popcount on the CUDA cores, any other W up to `MAX_WORDS`).  Raises
-    ValueError for W < 1 or W > MAX_WORDS."""
+    int8 tensor-core template, W in `KERNEL_WORDS`) or "chunked" (the
+    run-time-width tensor-core kernel, any other W up to `MAX_WORDS`).
+    Raises ValueError for W < 1 or W > MAX_WORDS."""
     if words < 1 or words > MAX_WORDS:
         raise ValueError(f"hamming_two_nn_pairs: descriptors of {words} "
                          f"words; the kernels take 1 to {MAX_WORDS} words "
                          f"(32 W bits must fit a 16-bit distance)")
-    return "tensor" if words in KERNEL_WORDS else "popc"
+    return "tensor" if words in KERNEL_WORDS else "chunked"
 
 
 def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
@@ -170,6 +174,31 @@ def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch(route: str, desc, valid, ii, jj, impl: int = CHUNKED_IMPL):
+    """Launch `route`'s kernels on checked CUDA inputs; (fwd, rev)."""
+    lib = load_library()
+    dev = desc.device
+    n_img, k, words = desc.shape
+    p = ii.shape[0]
+    pm1 = unpack_pm1(desc)
+    i1 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
+    i2 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
+    d1 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
+    d2 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (i1.data_ptr(), d1.data_ptr(), i2.data_ptr(), d2.data_ptr())
+    if route == "tensor":
+        code = lib.hamming_pairs_launch(
+            pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+            p, k, words, *ptrs, stream)
+    else:
+        code = lib.hamming_chunked_launch(
+            pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+            n_img, p, k, words, *ptrs, impl, stream)
+    check_launch(code, f"hamming_two_nn_pairs ({route} route)")
+    return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
+
+
 def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
                          ii: torch.Tensor, jj: torch.Tensor):
     """The 2-NN of every pair (ii[p], jj[p]) of an image stack, both ways.
@@ -188,31 +217,25 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
         return hamming_two_nn_pairs_plain(desc, valid, ii, jj)
     if dev.type != "cuda":
         raise ValueError(f"hamming_two_nn_pairs: no kernel for device {dev}")
-    words = desc.shape[2]
-    route = kernel_route(words)
-    lib = load_library()
-    k, p = desc.shape[1], ii.shape[0]
-    pm1 = unpack_pm1(desc) if route == "tensor" else None
-    i1 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
-    i2 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
-    d1 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
-    d2 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if route == "tensor":
-        code = lib.hamming_pairs_launch(
-            pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-            p, k, words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(),
-            d2.data_ptr(), stream)
-    else:
-        code = lib.hamming_popc_launch(
-            desc.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-            p, k, words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(),
-            d2.data_ptr(), stream)
-    check_launch(code, f"hamming_two_nn_pairs ({route} route)")
+    route = kernel_route(desc.shape[2])
+    out = _launch(route, desc, valid, ii, jj)
     hamming_two_nn_pairs.launches += 1
     hamming_two_nn_pairs.route_launches[route] += 1
-    return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
+    return out
 
 
 hamming_two_nn_pairs.launches = 0
-hamming_two_nn_pairs.route_launches = {"tensor": 0, "popc": 0}
+hamming_two_nn_pairs.route_launches = {"tensor": 0, "chunked": 0}
+
+
+def _chunked_pairs(desc: torch.Tensor, valid: torch.Tensor,
+                   ii: torch.Tensor, jj: torch.Tensor, impl: int):
+    """The chunked route's kernel at any W, 8 and 12 included, by `impl`
+    (1: `wgmma` + TMA, 0: `mma.sync` + `cp.async`), outside the counts: a
+    measuring aid, not a route."""
+    _check(desc, valid, ii, jj)
+    if desc.device.type != "cuda":
+        raise ValueError(f"_chunked_pairs: no kernel for device "
+                         f"{desc.device}")
+    kernel_route(desc.shape[2])
+    return _launch("chunked", desc, valid, ii, jj, impl)

@@ -3,11 +3,14 @@ counts other than ORB's 8 and AKAZE's 12.
 
 The JAX package matches binary descriptors of any word count W
 (`ops/matching.py`'s `hamming_matrix` and `_two_nn`); on CUDA the port
-takes W = 8 and 12 to the tensor-core kernel and every other W from 1 to
-2047 to the popcount kernel (`kernel_route`).  On the CPU the wrapper runs
-its plain version, held here to the JAX live route at W in {1, 3, 4, 13,
-16, 32}, at W + z zero words, and through `match_pair` and
-`match_all_pairs` on 16-word descriptors."""
+takes W = 8 and 12 to the tensor-core template and every other W from 1
+to 2047 to the chunked kernel (`kernel_route`, `csrc/hamming_chunked.cu`).
+On the CPU the wrapper runs its plain version, held here to the JAX live
+route at W in {1, 3, 4, 13, 16, 32}, at W + z zero words, and through
+`match_pair` and `match_all_pairs` on 16-word descriptors; and a plain
+emulation of the chunked kernel's walk (128-byte stages of depth,
+128-column tiles, the all-invalid skip, the key top-2) is held to the JAX
+reference."""
 
 import jax
 import jax.numpy as jnp
@@ -100,12 +103,12 @@ def test_zero_words_change_nothing(words, zeros):
 
 
 @pytest.mark.parametrize("words,route", [
-    (1, "popc"), (3, "popc"), (4, "popc"), (7, "popc"), (8, "tensor"),
-    (9, "popc"), (12, "tensor"), (13, "popc"), (16, "popc"), (32, "popc"),
-    (MAX_WORDS, "popc")])
+    (1, "chunked"), (3, "chunked"), (4, "chunked"), (7, "chunked"),
+    (8, "tensor"), (9, "chunked"), (12, "tensor"), (13, "chunked"),
+    (16, "chunked"), (32, "chunked"), (MAX_WORDS, "chunked")])
 def test_route_by_word_count(words, route):
     """W in KERNEL_WORDS takes the tensor-core template, every other W up
-    to 2047 the popcount kernel."""
+    to 2047 the chunked kernel."""
     assert KERNEL_WORDS == (8, 12) and MAX_WORDS == 2047
     assert kernel_route(words) == route
 
@@ -188,17 +191,125 @@ def test_match_all_pairs_at_16_words(ring16):
     assert got.num_inliers[0, 1] > 8
 
 
+# The chunked kernel's shape (`csrc/hamming_chunked.cu`).
+TILE = 128       # A rows a block, B columns a tile
+DEPTH = 128      # bytes of depth a stage
+NONE = 0xFFFFFFFF
+CHUNKED_WORDS = (1, 3, 4, 5, 13, 16, 32)
+
+
+def _pm1(words):
+    """(..., W) uint32 -> (..., 32 W) int64 of +1 (bit 0) / -1 (bit 1),
+    bit b of word w at 32 w + b."""
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return 1 - 2 * bits.reshape(*words.shape[:-1], -1).astype(np.int64)
+
+
+def _chunked_walk(a_rows, b_rows, valid_b, words):
+    """One direction's 2-NN as the chunked kernel walks it: the +-1 rows
+    zero-filled to whole 128-byte stages and whole 128-row tiles; per
+    column tile with a valid column (the others skipped), the dot products
+    summed stage by stage; each becomes the key (32 W - dot) << 15 |
+    column, or NONE for an invalid column; a key enters the row's running
+    top-2 only below the second's distance (columns come in increasing
+    order).  Returns (i1, d1, i2, d2) and the number of tiles skipped."""
+    k = a_rows.shape[0]
+    r = 32 * words
+    depth = -(-r // DEPTH) * DEPTH
+    kp = -(-k // TILE) * TILE
+    pa = np.zeros((kp, depth), np.int64)
+    pb = np.zeros((kp, depth), np.int64)
+    pa[:k, :r] = _pm1(a_rows)
+    pb[:k, :r] = _pm1(b_rows)
+    vb = np.zeros(kp, bool)
+    vb[:k] = valid_b
+    b1 = np.full(kp, NONE, np.uint64)
+    b2 = np.full(kp, NONE, np.uint64)
+    skipped = 0
+    for c0 in range(0, kp, TILE):
+        cols = np.arange(c0, c0 + TILE)
+        if not vb[cols].any():
+            skipped += 1
+            continue
+        acc = np.zeros((kp, TILE), np.int64)
+        for s0 in range(0, depth, DEPTH):
+            acc += pa[:, s0:s0 + DEPTH] @ pb[cols, s0:s0 + DEPTH].T
+        assert np.all(np.abs(acc) <= r) and np.all((r - acc) % 2 == 0)
+        keys = np.where(vb[cols], ((r - acc).astype(np.uint64) << 15) |
+                        cols.astype(np.uint64), np.uint64(NONE))
+        keys = np.where((keys >> 16) < (b2 >> 16)[:, None], keys,
+                        np.uint64(NONE))
+        top = np.sort(np.concatenate([b1[:, None], b2[:, None], keys], 1),
+                      axis=1)
+        b1, b2 = top[:, 0], top[:, 1]
+    out = []
+    for b in (b1[:k], b2[:k]):
+        out += [np.where(b == NONE, 0, b & 0xFFFF).astype(np.int64),
+                np.where(b == NONE, BIG, b >> 16).astype(np.float32)]
+    return tuple(out), skipped
+
+
+def _runs_valid(valid, run=30, block=150):
+    """The stack's validity with only the first `run` columns of each
+    `block`-column block kept: whole 128-column tiles invalid."""
+    return valid & (np.arange(valid.shape[1]) % block < run)
+
+
+@pytest.mark.parametrize("mask", ["stack", "runs"])
+@pytest.mark.parametrize("words", CHUNKED_WORDS)
+def test_chunked_walk_matches_reference(words, mask):
+    """The chunked kernel's arithmetic, emulated, equals the JAX package's
+    `_two_nn(hamming_matrix(...))` both ways, d exact and indices equal, at
+    K = 300 (two whole tiles and a part) with the stack's ties, single- and
+    zero-valid images, and (runs) all-invalid tiles skipped."""
+    d, valid, iu, ju = _stack(words + 100, words, k=300)
+    if mask == "runs":
+        valid = _runs_valid(valid)
+    want_f, want_r = _reference(d, valid, iu, ju)
+    skipped = 0
+    for want, pairs in ((want_f, zip(iu, ju)), (want_r, zip(ju, iu))):
+        for p, (a, b) in enumerate(pairs):
+            got, n_skip = _chunked_walk(d[a], d[b], valid[b], words)
+            skipped += n_skip
+            _assert_two_nn_equal(got, [w[p] for w in want])
+    if mask == "runs":
+        # Columns 256-299 hold no valid one in any image.
+        assert skipped >= 2 * len(iu)
+    assert (want_f[1] == want_f[3]).any()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("words", [1, 4, 13, 16, 32])
-def test_popc_kernel_matches_plain_on_cuda(words):
+@pytest.mark.parametrize("mask", ["stack", "runs"])
+@pytest.mark.parametrize("words", CHUNKED_WORDS)
+def test_chunked_kernel_matches_plain_on_cuda(words, mask):
     dev = cuda_device()
     d, valid, iu, ju = _stack(words, words, n_img=4, k=1100)
+    if mask == "runs":
+        valid = _runs_valid(valid)
     args = _args(d, valid, iu, ju, dev)
     before = dict(hamming_two_nn_pairs.route_launches)
     got = hamming_two_nn_pairs(*args)
     torch.cuda.synchronize()
     assert hamming_two_nn_pairs.route_launches == dict(
-        before, popc=before["popc"] + 1)
+        before, chunked=before["chunked"] + 1)
     want = hamming_two_nn_pairs_plain(*args)
     for g, w in zip(got, want):
         _assert_two_nn_equal(g, [n(x) for x in w])
+
+
+@pytest.mark.cuda
+def test_chunked_route_limits_raise_on_cuda():
+    """Past 2047 words or 65536 descriptors an image the CUDA call raises,
+    naming the limit, and launches nothing."""
+    dev = cuda_device()
+    pair = torch.zeros((1,), dtype=torch.int32, device=dev)
+    before = hamming_two_nn_pairs.launches
+    with pytest.raises(ValueError, match="1 to 2047 words"):
+        hamming_two_nn_pairs(
+            torch.zeros((1, 4, MAX_WORDS + 1), dtype=torch.int32, device=dev),
+            torch.ones((1, 4), dtype=torch.bool, device=dev), pair, pair)
+    with pytest.raises(ValueError, match="> 65536"):
+        hamming_two_nn_pairs(
+            torch.zeros((1, 65537, 1), dtype=torch.int32, device=dev),
+            torch.ones((1, 65537), dtype=torch.bool, device=dev), pair, pair)
+    assert hamming_two_nn_pairs.launches == before
