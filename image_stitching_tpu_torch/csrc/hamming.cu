@@ -1,10 +1,10 @@
 // Hamming 2-NN over binary descriptors of W 32-bit words (ORB's 256 bits,
-// W = 8; AKAZE's 360 bits padded to 384, W = 12; any W from 1 to 2047):
-// every pair of an image stack, both directions, in one launch.  Two
-// routes: at W = 8 and 12 the distances are int8 dot products on the
-// tensor cores (hamming_pairs_kernel, a template on W); at every other W
-// they are XOR and popcount on the CUDA cores (hamming_popc_kernel, W a
-// run-time argument; see the note above it).
+// W = 8; AKAZE's 360 bits padded to 384, W = 12): every pair of an image
+// stack, both directions, in one launch, the distances int8 dot products
+// on the tensor cores (hamming_pairs_kernel, a template on W).  Every
+// other W from 1 to 2047 takes hamming_chunked.cu, which reads the same
+// unpacked rows with W at run time and shares the key, the top-2 and the
+// output layout.
 //
 // Replaces the TPU kernel image_stitching_tpu/kernels/hamming_pallas.py
 // (hamming_two_nn_pallas and hamming_two_nn_pallas_batched).  For pair p
@@ -60,7 +60,6 @@
 // 2^30): an invalid column never replaces it, and a row with fewer than
 // two valid columns reports what the plain version (two argmins over the
 // masked matrix) reports.  Keys need K <= 65536 and 32 W <= 65535.
-// Both routes share the key, the top-2 and the output layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -315,221 +314,6 @@ void launch_pairs(const void* pm1, const void* valid, const void* ii,
       (long long*)i2, (float*)d2);
 }
 
-// ---- The run-time-width route: XOR + __popc on the CUDA cores ----------
-//
-// The same contract at any W from 1 to 2047 (32 W <= 65535 keeps the key),
-// for the word counts hamming_pairs_kernel is not built for: BRIEF-128
-// (W = 4), BRIEF-512, BRISK, FREAK and the full 486-bit MLDB (W = 16), and
-// any other.  The TPU kernel it replaces at those widths is the same
-// hamming_two_nn_pallas, whose (kb, 32 W) f32 VMEM block is what limits W
-// there.
-//
-// What bounds it: operations.  A distance is W XOR, W POPC and the adds;
-// at 28 pairs of K = 4000 both ways and W = 12 that is 0.48 ms at the
-// CUDA cores' 32-bit peak against 0.35 ms for the tensor cores' 64 W int8
-// operations (chip_smoke.py phases 6 and 6b print both for every W), so
-// the CUDA cores lose little, and POPC's rate (16 a clock per SM, a
-// quarter of the other integer operations) is what this kernel runs at:
-// on an H100 SXM at 700 W, W = 16 on those pairs takes 4.45 ms, 77% of
-// POPC's issue rate (PERF.md).  It takes the
-// CUDA cores because a run-time W cannot hold a row in the tensor-core
-// fragments: the template keeps 2 W registers a row per thread (96 at
-// W = 12, one block an SM already), so its registers and shared memory
-// grow with W.  Here they do not:
-//   * one block per (256 rows of A, pair, direction), as hamming_pairs;
-//     128 threads, two A rows each, so a block walks all of B's columns
-//     and nothing merges across blocks;
-//   * the packed words are read as they are, with no +-1 unpack: a stage
-//     is a tile of 32 B columns by a chunk of CW words (CW = 8, or the
-//     power of two >= W below 8), brought into shared memory by 4-byte
-//     cp.async (a row is 4 W bytes, so 16-byte alignment cannot be
-//     assumed), double-buffered; stages walk the chunks of a tile, then
-//     the next tile.  Words past W and columns past K are zero in both
-//     operands and add nothing.  A stage is 32 CW words, at most 1 KB, so
-//     shared memory stays static and small at every W (no opt-in above
-//     48 KB is needed);
-//   * each thread keeps a running distance for each of its 2 rows and the
-//     tile's 32 columns in registers, adds the chunk's popcounts to them
-//     (every thread reads the same B word: a broadcast), and after the
-//     tile's last chunk turns them into keys and inserts them into its
-//     rows' running top-2.  Its A words come from global memory (L1) once
-//     a stage, or once in all when W <= CW.
-
-constexpr int kPThreads = 128;                        // threads a block
-constexpr int kPRowsPerThread = 2;
-constexpr int kPRows = kPThreads * kPRowsPerThread;   // A rows a block
-constexpr int kPTileB = 32;                           // B columns a stage
-constexpr int kMaxWords = 2047;                       // 32 W <= 65535
-constexpr int kMaxK = 1 << 16;                        // a column in 16 bits
-
-template <int CW>
-struct PopcShared {
-  uint32_t b[2][kPTileB * CW];     // column c's words at c * CW
-  unsigned key[2][kPTileB];        // column index, or kNone if invalid
-};
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Stage: columns base .. base + kPTileB - 1, words w0 .. w0 + CW - 1.
-template <int CW>
-__device__ __forceinline__ void load_popc_stage(
-    PopcShared<CW>& sh, int buf, const uint32_t* bimg, const bool* vimg,
-    int base, int w0, int n_words, int k) {
-  for (int e = threadIdx.x; e < kPTileB * CW; e += kPThreads) {
-    const int c = e / CW;          // CW is a power of two
-    const int w = e % CW;
-    uint32_t* dst = &sh.b[buf][e];
-    if (base + c < k && w0 + w < n_words) {
-      cp_async4(dst, bimg + (size_t)(base + c) * n_words + w0 + w);
-    } else {
-      *dst = 0u;
-    }
-  }
-  if (threadIdx.x < kPTileB) {
-    const int col = base + threadIdx.x;
-    sh.key[buf][threadIdx.x] =
-        (col < k && vimg[col]) ? (unsigned)col : kNone;
-  }
-}
-
-template <int CW>
-__device__ __forceinline__ void read_words(const uint32_t* src,
-                                           uint32_t (&dst)[CW]) {
-  if constexpr (CW % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < CW / 4; ++q) {
-      const uint4 v = reinterpret_cast<const uint4*>(src)[q];
-      dst[4 * q] = v.x;
-      dst[4 * q + 1] = v.y;
-      dst[4 * q + 2] = v.z;
-      dst[4 * q + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int w = 0; w < CW; ++w) dst[w] = src[w];
-  }
-}
-
-template <int CW>
-__global__ void __launch_bounds__(kPThreads)
-hamming_popc_kernel(const uint32_t* __restrict__ desc,
-                    const bool* __restrict__ valid,
-                    const int* __restrict__ ii, const int* __restrict__ jj,
-                    int n_pairs, int k, int n_words,
-                    long long* __restrict__ i1, float* __restrict__ d1,
-                    long long* __restrict__ i2, float* __restrict__ d2) {
-  __shared__ __align__(16) PopcShared<CW> sh;
-  const int p = blockIdx.y;
-  const int dir = blockIdx.z;
-  const int img_a = dir ? jj[p] : ii[p];
-  const int img_b = dir ? ii[p] : jj[p];
-  const uint32_t* aimg = desc + (size_t)img_a * k * n_words;
-  const uint32_t* bimg = desc + (size_t)img_b * k * n_words;
-  const bool* vimg = valid + (size_t)img_b * k;
-  const int row0 = blockIdx.x * kPRows + threadIdx.x;
-  const int n_chunks = (n_words + CW - 1) / CW;
-  const int n_stages = (k + kPTileB - 1) / kPTileB * n_chunks;
-
-  load_popc_stage<CW>(sh, 0, bimg, vimg, 0, 0, n_words, k);
-  cp_async_commit();
-
-  uint32_t a[kPRowsPerThread][CW];
-  unsigned acc[kPRowsPerThread][kPTileB];
-  unsigned b1[kPRowsPerThread], b2[kPRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kPRowsPerThread; ++r) b1[r] = b2[r] = kNone;
-  int tile = 0, chunk = 0;
-  for (int s = 0; s < n_stages; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < n_stages) {
-      const bool last = chunk + 1 == n_chunks;
-      load_popc_stage<CW>(sh, buf ^ 1, bimg, vimg,
-                          (last ? tile + 1 : tile) * kPTileB,
-                          (last ? 0 : chunk + 1) * CW, n_words, k);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (n_chunks > 1 || s == 0) {
-#pragma unroll
-      for (int r = 0; r < kPRowsPerThread; ++r) {
-        const int row = row0 + r * kPThreads;
-#pragma unroll
-        for (int w = 0; w < CW; ++w) {
-          const int word = chunk * CW + w;
-          a[r][w] = (row < k && word < n_words)
-                        ? aimg[(size_t)row * n_words + word] : 0u;
-        }
-      }
-    }
-    if (chunk == 0) {
-#pragma unroll
-      for (int r = 0; r < kPRowsPerThread; ++r) {
-#pragma unroll
-        for (int c = 0; c < kPTileB; ++c) acc[r][c] = 0u;
-      }
-    }
-    const uint32_t* sb = sh.b[buf];
-#pragma unroll
-    for (int c = 0; c < kPTileB; ++c) {
-      uint32_t bw[CW];
-      read_words<CW>(sb + c * CW, bw);
-#pragma unroll
-      for (int r = 0; r < kPRowsPerThread; ++r) {
-        unsigned d = 0u;
-#pragma unroll
-        for (int w = 0; w < CW; ++w) d += __popc(a[r][w] ^ bw[w]);
-        acc[r][c] += d;
-      }
-    }
-    if (chunk + 1 == n_chunks) {
-#pragma unroll
-      for (int c = 0; c < kPTileB; ++c) {
-        // An invalid column's key is kNone, and kNone | anything is kNone.
-        const unsigned key = sh.key[buf][c];
-#pragma unroll
-        for (int r = 0; r < kPRowsPerThread; ++r) {
-          top2(b1[r], b2[r], (acc[r][c] << 16) | key);
-        }
-      }
-      chunk = 0;
-      ++tile;
-    } else {
-      ++chunk;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kPRowsPerThread; ++r) {
-    const int row = row0 + r * kPThreads;
-    if (row < k) {
-      const size_t o = ((size_t)dir * n_pairs + p) * k + row;
-      i1[o] = b1[r] == kNone ? 0 : (long long)(b1[r] & 0xFFFFu);
-      d1[o] = b1[r] == kNone ? (float)kInvalid : (float)(b1[r] >> 16);
-      i2[o] = b2[r] == kNone ? 0 : (long long)(b2[r] & 0xFFFFu);
-      d2[o] = b2[r] == kNone ? (float)kInvalid : (float)(b2[r] >> 16);
-    }
-  }
-}
-
-template <int CW>
-void launch_popc(const void* desc, const void* valid, const void* ii,
-                 const void* jj, int n_pairs, int k, int n_words, void* i1,
-                 void* d1, void* i2, void* d2, cudaStream_t stream) {
-  const dim3 grid((k + kPRows - 1) / kPRows, n_pairs, 2);
-  hamming_popc_kernel<CW><<<grid, kPThreads, 0, stream>>>(
-      (const uint32_t*)desc, (const bool*)valid, (const int*)ii,
-      (const int*)jj, n_pairs, k, n_words, (long long*)i1, (float*)d1,
-      (long long*)i2, (float*)d2);
-}
-
 }  // namespace
 
 extern "C" int hamming_unpack_launch(const void* desc, long long n_desc,
@@ -559,36 +343,6 @@ extern "C" int hamming_pairs_launch(const void* pm1, const void* valid,
       launch_pairs<8>(pm1, valid, ii, jj, n_pairs, k, i1, d1, i2, d2, s);
     } else {
       launch_pairs<12>(pm1, valid, ii, jj, n_pairs, k, i1, d1, i2, d2, s);
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
-// The run-time-width route on the packed (N, K, W) int32 words: any
-// 1 <= W <= 2047 and K <= 65536; outside those it returns
-// cudaErrorInvalidValue without a launch.
-extern "C" int hamming_popc_launch(const void* desc, const void* valid,
-                                   const void* ii, const void* jj,
-                                   int n_pairs, int k, int n_words,
-                                   void* i1, void* d1, void* i2, void* d2,
-                                   void* stream) {
-  if (n_words < 1 || n_words > kMaxWords || k > kMaxK) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n_pairs > 0 && k > 0) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (n_words == 1) {
-      launch_popc<1>(desc, valid, ii, jj, n_pairs, k, n_words, i1, d1, i2,
-                     d2, s);
-    } else if (n_words == 2) {
-      launch_popc<2>(desc, valid, ii, jj, n_pairs, k, n_words, i1, d1, i2,
-                     d2, s);
-    } else if (n_words <= 4) {
-      launch_popc<4>(desc, valid, ii, jj, n_pairs, k, n_words, i1, d1, i2,
-                     d2, s);
-    } else {
-      launch_popc<8>(desc, valid, ii, jj, n_pairs, k, n_words, i1, d1, i2,
-                     d2, s);
     }
   }
   return (int)cudaGetLastError();

@@ -18,32 +18,39 @@
 // tensor cores (1,979 TOP/s dense int8), against W XOR + W POPC on the CUDA
 // cores, where POPC issues 16 a clock per SM.  The template holds each A
 // row in its mma fragments (2 W registers a row), which a run-time W
-// cannot do.  So this route takes the ordinary GEMM shape: per (pair,
+// cannot do.  So this kernel takes the ordinary GEMM shape: per (pair,
 // direction) a product of M = K rows of A by N = K columns of B at depth
-// 32 W, A and B both streamed through shared memory in stages of 128 bytes
-// of depth, the int32 sums of a 128 x 128 tile kept in registers across
-// the stages.  A zero byte adds nothing to a dot product, so rows past K
-// and bytes past 32 W are zero-filled and no W needs padding; the last
-// stage issues only the 32-byte k-steps that hold data.
-//
-// Two kernels of that shape, one launch entry (`impl` picks):
-//   * hamming_wgmma_kernel (impl 1, the route's kernel): two consumer
-//     warpgroups of 64 A rows issue wgmma m64n128k32 (s8 x s8 -> s32) with
-//     both operands in shared memory, K-major under the 128-byte swizzle;
-//     one producer warp fills a ring of kWgStages stages by TMA from a 3-D
-//     tensor map over the (N, K, 32 W) int8 stack (out-of-range rows and
-//     bytes read as zeros) and runs ahead into the next column tile, so
-//     the loads overlap a tile's epilogue; full/empty mbarriers pace it;
-//   * hamming_mma_kernel (impl 0): the same walk by mma.sync m16n8k32 and
-//     16-byte cp.async (zero-filling), eight warps of 64 rows x 32 columns.
-// Both walk every column tile of B for their 128 A rows, so nothing merges
-// across blocks.  Epilogue after a tile's last stage: each distance
-// becomes hamming.cu's key (d << 16 | column), or 0xFFFFFFFF for an invalid
-// column, and enters its row's running top-2 (three min/max operations);
-// the lanes that share a row merge at the end.  A column tile with no
-// valid column is skipped: all its keys are 0xFFFFFFFF, which never enter
-// a top-2.  The block first writes B's validity as bits and the list of
-// live tiles into shared memory.  Keys need K <= 65536 and 32 W <= 65535.
+// 32 W, in stages of 128 bytes of depth (the 128-byte swizzle's width),
+// the int32 sums of a 128 x 128 tile kept in registers across the stages:
+//   * one block per (128 A rows, pair, direction): two consumer
+//     warpgroups of 64 rows issue wgmma m64n128k32 (s8 x s8 -> s32), both
+//     operands K-major in shared memory under the 128-byte swizzle; one
+//     producer warp loads them by TMA from a 3-D tensor map over the
+//     (N, K, 32 W) int8 stack.  Rows past K and bytes past 32 W read as
+//     zeros, which add nothing to a dot product, so no W needs padding;
+//     the last stage issues only the 32-byte k-steps that hold data;
+//   * where A's 128 rows fit beside a ring of B stages with two blocks an
+//     SM (W <= 16: at most 4 stages of 16 KB), A is loaded once and stays;
+//     the ring then carries B alone, which halves the bytes shared memory
+//     takes in from L2 (beyond that A streams with B, 32 KB a stage, 3
+//     stages).  Full/empty mbarriers pace the ring; the producer runs
+//     ahead into the next column tile, so the loads overlap an epilogue;
+//   * the block walks every column tile of B that holds a valid column,
+//     so nothing merges across blocks.  It first writes B's validity as
+//     bits and the list of live tiles into shared memory: a tile with no
+//     valid column is skipped (all its keys would be 0xFFFFFFFF, which
+//     never enter a top-2), and each quad lane gets its 32 columns'
+//     validity of a tile in one word;
+//   * epilogue after a tile's last stage: each distance becomes
+//     hamming.cu's key (d << 16 | column), or 0xFFFFFFFF for an invalid
+//     column, and enters its row's running top-2 (three min/max
+//     operations); the four lanes that share a row merge at the end.
+// On an H100 80GB HBM3 at 700 W (tools/k4_chunked.py, PERF.md) W = 16 over
+// 28 pairs of K = 4000 both ways takes 0.99 ms, 38% of the tensor-core
+// bound; the popcount kernel it replaced took 4.42 ms, an mma.sync version
+// of this walk 3.09 ms.  The epilogue's ~5 integer operations a distance
+// and each stage's wait for its products hold it there.  Keys need
+// K <= 65536 and 32 W <= 65535.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -60,8 +67,6 @@ constexpr int kDepth = 128;                     // bytes of depth a stage
 constexpr int kOperand = kTile * kDepth;        // one operand's stage, 16 KB
 constexpr int kStageBytes = 2 * kOperand;       // A then B
 constexpr int kWgThreads = 288;                 // 2 consumer warpgroups + 1 warp
-constexpr int kMmaStages = 3;
-constexpr int kMmaThreads = 256;
 // A return code past the CUDA runtime's: the tensor map's CUresult + this.
 constexpr int kTensorMapError = 100000;
 
@@ -102,13 +107,15 @@ __device__ __forceinline__ void write_row(long long* i1, float* d1,
   d2[o] = b2 == kNone ? (float)kInvalid : (float)(b2 >> 16);
 }
 
-// Writes B's validity as bits (4 words a tile, 0 past K) into mask and the
-// tiles that hold a valid column, in order, into live; returns their count
-// (kept in *count).  Every thread of the block calls it; it ends in a
-// barrier.
+// Writes B's validity as bits into mask (4 words a tile, 0 past K), the
+// tiles that hold a valid column, in order, into live, and for each tile
+// and quad lane t the word lane_bits[4 tile + t] whose bit 2 j + e is
+// column 8 j + 2 t + e of the tile, the columns lane t holds in a wgmma
+// accumulator.  Returns the count of live tiles (kept in *count).  Every
+// thread of the block calls it; it ends in a barrier.
 __device__ int live_tiles(const bool* __restrict__ vimg, int k,
                           int n_tiles, uint32_t* mask, int* live,
-                          int* count, uint32_t* lane_bits = nullptr) {
+                          uint32_t* lane_bits, int* count) {
   for (int w = threadIdx.x; w < 4 * n_tiles; w += blockDim.x) {
     uint32_t bits = 0;
     for (int b = 0; b < 32; ++b) {
@@ -118,18 +125,14 @@ __device__ int live_tiles(const bool* __restrict__ vimg, int k,
     mask[w] = bits;
   }
   __syncthreads();
-  if (lane_bits != nullptr) {
-    // Word 4 tile + t: bit 2 j + e is column 8 j + 2 t + e of the tile,
-    // the columns quad lane t holds in a wgmma accumulator.
-    for (int w = threadIdx.x; w < 4 * n_tiles; w += blockDim.x) {
-      const int base = (w >> 2) * kTile + 2 * (w & 3);
-      uint32_t bits = 0;
-      for (int j = 0; j < 16; ++j) {
-        const int c = base + 8 * j;
-        bits |= ((mask[c >> 5] >> (c & 31)) & 3u) << (2 * j);
-      }
-      lane_bits[w] = bits;
+  for (int w = threadIdx.x; w < 4 * n_tiles; w += blockDim.x) {
+    const int base = (w >> 2) * kTile + 2 * (w & 3);
+    uint32_t bits = 0;
+    for (int j = 0; j < 16; ++j) {
+      const int c = base + 8 * j;
+      bits |= ((mask[c >> 5] >> (c & 31)) & 3u) << (2 * j);
     }
+    lane_bits[w] = bits;
   }
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
@@ -147,14 +150,6 @@ __device__ int live_tiles(const bool* __restrict__ vimg, int k,
   }
   __syncthreads();
   return *count;
-}
-
-// The keys of columns c and c + 1 (c even) from the validity bits.
-__device__ __forceinline__ void col_keys(const uint32_t* mask, int c,
-                                         unsigned& k0, unsigned& k1) {
-  const uint32_t bits = mask[c >> 5] >> (c & 31);
-  k0 = (bits & 1u) ? (unsigned)c : kNone;
-  k1 = (bits & 2u) ? (unsigned)(c + 1) : kNone;
 }
 
 // ---- wgmma + TMA -------------------------------------------------------
@@ -271,9 +266,10 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// The wgmma kernel's shared memory: A's resident stages (if any), the ring
-// of stages, then the barriers (full[kMaxStages], empty[kMaxStages], A's),
-// the live-tile count, the validity bits and the live tiles.
+// The kernel's shared memory: A's resident stages (if any), the ring of
+// stages, then the barriers (full[kMaxStages], empty[kMaxStages], A's),
+// the live-tile count, the validity bits, the live tiles and the lane
+// bits.
 struct WgLayout {
   bool resident;   // A held for the block's life, B alone in the ring
   int n_stages;    // ring stages
@@ -344,7 +340,7 @@ hamming_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   const int n_live = live_tiles(valid + (size_t)img_b * k, k, n_tiles, mask,
-                                live, count, lane_bits);
+                                live, lane_bits, count);
 
   if (warp == 8) {
     // Producer: one thread walks (live tile, stage) in the consumers'
@@ -443,220 +439,6 @@ hamming_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   }
 }
 
-// ---- mma.sync + cp.async -----------------------------------------------
-
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-size_t mma_smem_bytes(int n_tiles) {
-  return (size_t)kMmaStages * kStageBytes + 8 + (size_t)n_tiles * 4 * 4 +
-         (size_t)n_tiles * 4;
-}
-
-// A stage's 16-byte chunk q of row r sits at chunk q ^ 4 (r & 1) of the
-// row's 128 bytes: a quarter-warp's loads (rows g, g + 1, chunks t or
-// t + 4) then hit eight distinct bank groups.
-__device__ __forceinline__ int swz(int r, int q) {
-  return r * kDepth + ((q ^ ((r & 1) << 2)) << 4);
-}
-
-__global__ void __launch_bounds__(kMmaThreads, 1)
-hamming_mma_kernel(const unsigned char* __restrict__ pm1,
-                   const bool* __restrict__ valid,
-                   const int* __restrict__ ii, const int* __restrict__ jj,
-                   int n_pairs, int k, int n_words,
-                   long long* __restrict__ i1, float* __restrict__ d1,
-                   long long* __restrict__ i2, float* __restrict__ d2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* count = reinterpret_cast<int*>(smem + kMmaStages * kStageBytes);
-  const int n_tiles = (k + kTile - 1) / kTile;
-  uint32_t* mask = reinterpret_cast<uint32_t*>(count + 2);
-  int* live = reinterpret_cast<int*>(mask + 4 * n_tiles);
-
-  const int p = blockIdx.y;
-  const int dir = blockIdx.z;
-  const int img_a = dir ? jj[p] : ii[p];
-  const int img_b = dir ? ii[p] : jj[p];
-  const int row_bytes = 32 * n_words;
-  const unsigned char* aimg = pm1 + (size_t)img_a * k * row_bytes;
-  const unsigned char* bimg = pm1 + (size_t)img_b * k * row_bytes;
-  const int row0 = blockIdx.x * kTile;
-  const int n_kst = (row_bytes + kDepth - 1) / kDepth;
-  const int n_live = live_tiles(valid + (size_t)img_b * k, k, n_tiles, mask,
-                                live, count);
-  const int total = n_live * n_kst;
-
-  // Stage it: tile live[it / n_kst], depth bytes (it % n_kst) * kDepth on.
-  auto load = [&](int it) {
-    unsigned char* sa = smem + (it % kMmaStages) * kStageBytes;
-    const int col0 = live[it / n_kst] * kTile;
-    const int kb = (it % n_kst) * kDepth;
-    for (int c = threadIdx.x; c < 2 * kTile * 8; c += kMmaThreads) {
-      const bool is_b = c >= kTile * 8;
-      const int r = (c >> 3) & (kTile - 1);
-      const int q = c & 7;
-      const int row = (is_b ? col0 : row0) + r;
-      const unsigned char* img = is_b ? bimg : aimg;
-      const bool in = row < k && kb + 16 * q < row_bytes;
-      cp_async16_zfill(sa + (is_b ? kOperand : 0) + swz(r, q),
-                       in ? img + (size_t)row * row_bytes + kb + 16 * q : img,
-                       in ? 16 : 0);
-    }
-  };
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = warp >> 2;   // rows 64 wm .. 64 wm + 63 of the block
-  const int wn = warp & 3;    // columns 32 wn .. 32 wn + 31 of a tile
-  const unsigned rb15 = (unsigned)row_bytes << 15;
-  // Row 64 wm + 16 m + 8 h + g at index 2 m + h.
-  unsigned b1[8], b2[8];
-#pragma unroll
-  for (int f = 0; f < 8; ++f) b1[f] = b2[f] = kNone;
-  int acc[4][4][4];
-
-#pragma unroll
-  for (int st = 0; st < kMmaStages - 1; ++st) {
-    if (st < total) load(st);
-    cp_async_commit();
-  }
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kMmaStages - 2>();
-    __syncthreads();
-    if (it + kMmaStages - 1 < total) load(it + kMmaStages - 1);
-    cp_async_commit();
-    const int s = it % n_kst;
-    if (s == 0) {
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0;
-        }
-      }
-    }
-    const unsigned char* sa = smem + (it % kMmaStages) * kStageBytes;
-    const unsigned char* sb = sa + kOperand;
-    const int nk = min(kDepth, row_bytes - s * kDepth) / 32;
-    // Lane t reads chunks t and t + 4 of each row (8 words) and takes
-    // words 2 s + h of them for k-step s, half h: A and B in the same k
-    // order, so the dot products are those of the rows.  Chunk t + 4 h
-    // holds k-steps 2 h and 2 h + 1.
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (2 * h >= nk) break;
-      uint32_t af[4][2][4], bf[4][4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = wm * 64 + 16 * m + 8 * hr + g;
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              sa + swz(r, t + 4 * h));
-          af[m][hr][0] = v.x;
-          af[m][hr][1] = v.y;
-          af[m][hr][2] = v.z;
-          af[m][hr][3] = v.w;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int r = wn * 32 + 8 * n + g;
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            sb + swz(r, t + 4 * h));
-        bf[n][0] = v.x;
-        bf[n][1] = v.y;
-        bf[n][2] = v.z;
-        bf[n][3] = v.w;
-      }
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            mma_s8(acc[m][n], af[m][0][2 * ks], af[m][1][2 * ks],
-                   af[m][0][2 * ks + 1], af[m][1][2 * ks + 1],
-                   bf[n][2 * ks], bf[n][2 * ks + 1]);
-          }
-        }
-      }
-    }
-    if (s == n_kst - 1) {
-      // acc[m][n][0..1]: row 16 m + g, columns 8 n + 2 t, + 1; [2..3]:
-      // row 16 m + g + 8.
-      const int col0 = live[it / n_kst] * kTile + wn * 32;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        unsigned k0, k1;
-        col_keys(mask, col0 + 8 * n + 2 * t, k0, k1);
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          top2(b1[2 * m], b2[2 * m], dist_key(rb15, acc[m][n][0], k0));
-          top2(b1[2 * m], b2[2 * m], dist_key(rb15, acc[m][n][1], k1));
-          top2(b1[2 * m + 1], b2[2 * m + 1],
-               dist_key(rb15, acc[m][n][2], k0));
-          top2(b1[2 * m + 1], b2[2 * m + 1],
-               dist_key(rb15, acc[m][n][3], k1));
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  // The four column warps of a row merge through shared memory (the
-  // stages are free now): merge[wn][row][2].
-  unsigned* merge = reinterpret_cast<unsigned*>(smem);
-#pragma unroll
-  for (int f = 0; f < 8; ++f) {
-    quad_merge(b1[f], b2[f]);
-    if (t == 0) {
-      const int r = wm * 64 + 16 * (f >> 1) + 8 * (f & 1) + g;
-      merge[(wn * kTile + r) * 2] = b1[f];
-      merge[(wn * kTile + r) * 2 + 1] = b2[f];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kTile && row0 + (int)threadIdx.x < k) {
-    const int r = threadIdx.x;
-    unsigned m1 = merge[r * 2], m2 = merge[r * 2 + 1];
-    for (int w = 1; w < 4; ++w) {
-      const unsigned o1 = merge[(w * kTile + r) * 2];
-      const unsigned o2 = merge[(w * kTile + r) * 2 + 1];
-      m2 = min(max(m1, o1), min(m2, o2));
-      m1 = min(m1, o1);
-    }
-    write_row(i1, d1, i2, d2, ((size_t)dir * n_pairs + p) * k + row0 + r,
-              m1, m2);
-  }
-}
-
 // ---- host --------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(
@@ -707,35 +489,20 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
 
 // The run-time-width route on the +-1 rows that hamming_unpack_launch
 // writes: pm1 (n_images, k, 32 n_words) int8, any 1 <= n_words <= 2047 and
-// k <= 65536 (outside those: cudaErrorInvalidValue, no launch).  impl 1 is
-// the wgmma + TMA kernel, impl 0 the mma.sync one.  Returns the runtime's
-// error code, or kTensorMapError + the CUresult of a refused tensor map.
+// k <= 65536 (outside those: cudaErrorInvalidValue, no launch).  Returns
+// the runtime's error code, or kTensorMapError + the CUresult of a refused
+// tensor map.
 extern "C" int hamming_chunked_launch(const void* pm1, const void* valid,
                                       const void* ii, const void* jj,
                                       int n_images, int n_pairs, int k,
                                       int n_words, void* i1, void* d1,
-                                      void* i2, void* d2, int impl,
-                                      void* stream) {
+                                      void* i2, void* d2, void* stream) {
   if (n_words < 1 || n_words > kMaxWords || k < 0 || k > kMaxK ||
-      n_pairs < 0 || (impl != 0 && impl != 1)) {
+      n_pairs < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_pairs == 0 || k == 0) return (int)cudaGetLastError();
   if (n_images < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int n_tiles = (k + kTile - 1) / kTile;
-  const dim3 grid(n_tiles, n_pairs, 2);
-  if (impl == 0) {
-    static size_t allowed = 48 * 1024;
-    const size_t bytes = mma_smem_bytes(n_tiles);
-    const cudaError_t err = allow_smem(hamming_mma_kernel, bytes, allowed);
-    if (err != cudaSuccess) return (int)err;
-    hamming_mma_kernel<<<grid, kMmaThreads, bytes, s>>>(
-        (const unsigned char*)pm1, (const bool*)valid, (const int*)ii,
-        (const int*)jj, n_pairs, k, n_words, (long long*)i1, (float*)d1,
-        (long long*)i2, (float*)d2);
-    return (int)cudaGetLastError();
-  }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTensorMapError + (int)CUDA_ERROR_NOT_FOUND;
   // Innermost first: the 32 W bytes of a row, the K rows of an image, the
@@ -753,15 +520,16 @@ extern "C" int hamming_chunked_launch(const void* pm1, const void* valid,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return kTensorMapError + (int)res;
-  const int n_kst = (32 * n_words + kDepth - 1) / kDepth;
-  const WgLayout l = wgmma_layout(n_kst, n_tiles);
+  const int n_tiles = (k + kTile - 1) / kTile;
+  const WgLayout l = wgmma_layout((int)((row_bytes + kDepth - 1) / kDepth),
+                                  n_tiles);
   static size_t allowed = 48 * 1024;
   const cudaError_t err = allow_smem(hamming_wgmma_kernel, l.bytes, allowed);
   if (err != cudaSuccess) return (int)err;
-  hamming_wgmma_kernel<<<grid, kWgThreads, l.bytes, s>>>(
+  hamming_wgmma_kernel<<<dim3(n_tiles, n_pairs, 2), kWgThreads, l.bytes,
+                         (cudaStream_t)stream>>>(
       tmap, (const bool*)valid, (const int*)ii, (const int*)jj, n_pairs, k,
       n_words, (int)l.resident, l.n_stages, (long long*)i1, (float*)d1,
       (long long*)i2, (float*)d2);
-  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,9 @@ plain twin) and the other takes every pair and both directions, with the
 dot products on the tensor cores (hamming = (32 W - dot) / 2):
   * "tensor", W in `KERNEL_WORDS`: a template on W that holds each A row
     in its `mma.sync` fragments;
-  * "chunked", every other W from 1 to `MAX_WORDS`: W at run time, A and
-    B streamed through shared memory in 128-byte stages of depth by TMA
-    into `wgmma` (`hamming_wgmma_kernel`).
+  * "chunked", every other W from 1 to `MAX_WORDS`: W at run time, the
+    rows brought into shared memory by TMA in 128-byte stages of depth
+    and multiplied by `wgmma` (`hamming_wgmma_kernel`).
 The plain version is the reference pipeline's live path, `match_pair`'s
 `_two_nn(hamming_matrix(...))` and `_two_nn` of the transposed matrix
 (`ops/matching.py:79-167`): a float32 bit-plane product for the distance
@@ -40,9 +40,6 @@ MAX_K = 1 << 16
 MAX_WORDS = 2047
 # The descriptor word counts the tensor-core kernel is instantiated for.
 KERNEL_WORDS = (8, 12)
-# The chunked route's kernel in `csrc/hamming_chunked.cu`: 1 `wgmma` + TMA,
-# 0 `mma.sync` + `cp.async`.
-CHUNKED_IMPL = 1
 
 
 def kernel_route(words: int) -> str:
@@ -174,7 +171,7 @@ def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch(route: str, desc, valid, ii, jj, impl: int = CHUNKED_IMPL):
+def _launch(route: str, desc, valid, ii, jj):
     """Launch `route`'s kernels on checked CUDA inputs; (fwd, rev)."""
     lib = load_library()
     dev = desc.device
@@ -194,7 +191,7 @@ def _launch(route: str, desc, valid, ii, jj, impl: int = CHUNKED_IMPL):
     else:
         code = lib.hamming_chunked_launch(
             pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-            n_img, p, k, words, *ptrs, impl, stream)
+            n_img, p, k, words, *ptrs, stream)
     check_launch(code, f"hamming_two_nn_pairs ({route} route)")
     return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
 
@@ -229,13 +226,12 @@ hamming_two_nn_pairs.route_launches = {"tensor": 0, "chunked": 0}
 
 
 def _chunked_pairs(desc: torch.Tensor, valid: torch.Tensor,
-                   ii: torch.Tensor, jj: torch.Tensor, impl: int):
-    """The chunked route's kernel at any W, 8 and 12 included, by `impl`
-    (1: `wgmma` + TMA, 0: `mma.sync` + `cp.async`), outside the counts: a
-    measuring aid, not a route."""
+                   ii: torch.Tensor, jj: torch.Tensor):
+    """The chunked route's kernel at any W, 8 and 12 included, outside the
+    counts: a measuring aid beside the template, not a route."""
     _check(desc, valid, ii, jj)
     if desc.device.type != "cuda":
         raise ValueError(f"_chunked_pairs: no kernel for device "
                          f"{desc.device}")
     kernel_route(desc.shape[2])
-    return _launch("chunked", desc, valid, ii, jj, impl)
+    return _launch("chunked", desc, valid, ii, jj)

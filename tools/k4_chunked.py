@@ -1,18 +1,18 @@
-"""K4's run-time-width kernels side by side on one card.
+"""K4's chunked kernel beside the route on one card.
 
     python3 -m tools.k4_chunked [OUT_JSON] [--words 1,4,5,8,12,13,16,32]
 
-For each descriptor word count W, on DEFAULT_RING's matching shape (8
-images of K = 4000, all 28 pairs, both directions; `chip_smoke.
-_word_stack`) and on a stack whose valid columns come in runs
-(`chip_smoke._runs_stack`): the chunked route's two kernels
-(`csrc/hamming_chunked.cu`: impl 1 `wgmma` + TMA, impl 0 `mma.sync` +
-`cp.async`) and the route `kernel_route(W)` picks, each held to the plain
-version (indices equal, distances exact) and timed by `chip_smoke.
-device_ms` (CUDA graph replays, L2 warm), with the tensor-core bound of the
-distances the data needs.  First it prints what `nvcc -Xptxas -v` reports
-for the kernel source (registers, shared memory, spills).  Needs a CUDA
-card; imports nothing of JAX.
+For each descriptor word count W, on the stacks of `STACKS` (DEFAULT_RING's
+matching shape, 8 images of K = 4000, all 28 pairs, both directions, at
+random and with its valid columns in runs; the tie stack; K = 300): the
+chunked kernel (`csrc/hamming_chunked.cu`, by `hamming._chunked_pairs`,
+at every W) and the route `kernel_route(W)` picks (the tensor-core
+template at 8 and 12 words, the chunked kernel elsewhere), each held to
+the plain version (indices equal, distances exact) and timed by
+`chip_smoke.device_ms` (CUDA graph replays, L2 warm), with the
+tensor-core bound of the distances the data needs.  First it prints what
+`nvcc -Xptxas -v` reports for the kernel source (registers, shared
+memory, spills).  Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -59,22 +59,6 @@ def ptxas_report(source: str) -> str:
     return "\n".join(lines)
 
 
-def popc_pairs(args):
-    """The popcount kernel (`csrc/hamming.cu`) on the packed words."""
-    desc, valid, ii, jj = args
-    lib = _build.load_library()
-    n_img, k, words = desc.shape
-    p = ii.shape[0]
-    out = [torch.empty((2, p, k), dtype=dt, device=desc.device)
-           for dt in (torch.int64, torch.float32, torch.int64, torch.float32)]
-    _build.check_launch(lib.hamming_popc_launch(
-        desc.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(), p,
-        k, words, *(x.data_ptr() for x in out),
-        torch.cuda.current_stream().cuda_stream), "popc")
-    i1, d1, i2, d2 = out
-    return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
-
-
 def tensor_bound_ms(args) -> float:
     """64 W operations per valid distance at the dense int8 rate."""
     desc, valid, ii, jj = args
@@ -111,12 +95,10 @@ def main(argv) -> int:
             for key, args in stacks.items()}
     wants = {key: hamming_two_nn_pairs_plain(*args)
              for key, args in stacks.items()}
-    # Kernel by kernel, so that a fault in one leaves the others' rows.
+    # Kernel by kernel, so that a fault in one leaves the other's rows.
     for label, make_fn in (
-            ("mma", lambda a: lambda: _chunked_pairs(*a, impl=0)),
-            ("wgmma", lambda a: lambda: _chunked_pairs(*a, impl=1)),
-            ("route", lambda a: lambda: hamming_two_nn_pairs(*a)),
-            ("popc", lambda a: lambda: popc_pairs(a))):
+            ("chunked", lambda a: lambda: _chunked_pairs(*a)),
+            ("route", lambda a: lambda: hamming_two_nn_pairs(*a))):
         for key, args in stacks.items():
             fn = make_fn(args)
             row = rows[key]
