@@ -45,10 +45,10 @@
 //     hamming.cu's key (d << 16 | column), or 0xFFFFFFFF for an invalid
 //     column, and enters its row's running top-2 (three min/max
 //     operations); the four lanes that share a row merge at the end.
-// On an H100 80GB HBM3 at 700 W (tools/k4_chunked.py, PERF.md) W = 16 over
-// 28 pairs of K = 4000 both ways takes 0.99 ms, 38% of the tensor-core
-// bound; the popcount kernel it replaced took 4.42 ms, an mma.sync version
-// of this walk 3.09 ms.  The epilogue's ~5 integer operations a distance
+// On an H100 80GB HBM3 at 700 W (PERF.md) W = 16 over 28 pairs of K = 4000
+// both ways takes 0.95 ms, 49% of the tensor-core bound; the popcount
+// kernel it replaced took 4.42 ms, an mma.sync version of this walk
+// 3.09 ms.  The epilogue's ~5 integer operations a distance
 // and each stage's wait for its products hold it there.  Keys need
 // K <= 65536 and 32 W <= 65535.
 
@@ -273,7 +273,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
 struct WgLayout {
   bool resident;   // A held for the block's life, B alone in the ring
   int n_stages;    // ring stages
-  int slot;        // bytes a ring stage
   size_t bytes;    // dynamic shared memory, with the 1024-alignment slack
 };
 
@@ -286,11 +285,11 @@ WgLayout wgmma_layout(int n_kst, int n_tiles) {
   const size_t tail = 1024 + 8 * (2 * kMaxStages + 1) + 8 +
                       (size_t)n_tiles * 4 * 4 * 2 + (size_t)n_tiles * 4;
   const size_t a_bytes = (size_t)n_kst * kOperand;
-  WgLayout l{false, 3, kStageBytes, tail + 3 * (size_t)kStageBytes};
+  WgLayout l{false, 3, tail + 3 * (size_t)kStageBytes};
   if (tail + a_bytes + 2 * (size_t)kOperand > kTwoBlocks) return l;
   const size_t fit = (kTwoBlocks - tail - a_bytes) / kOperand;
   const int n = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
-  return WgLayout{true, n, kOperand, tail + a_bytes + (size_t)n * kOperand};
+  return WgLayout{true, n, tail + a_bytes + (size_t)n * kOperand};
 }
 
 __global__ void __launch_bounds__(kWgThreads, 2)
