@@ -729,11 +729,11 @@ def k4_times(args, valid):
 
 
 # Phase 6b: the descriptor word counts of the chunked route it drives (5
-# is not a multiple of 4: a part stage of depth), and the popcount route's
-# device ms at the same shape in PR 12's run (PERF.md), which the chunked
-# route replaced.
+# is not a multiple of 4: a part stage of depth), and the device ms of the
+# popcount kernel that the chunked route replaced, at the same shape on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's earlier rows).
 CHUNKED_WORDS = (1, 4, 5, 13, 16, 32)
-POPC_PR12_MS = {1: 0.4645, 4: 1.1277, 13: 4.0138, 16: 4.4189, 32: 10.2532}
+POPCOUNT_MS = {1: 0.4645, 4: 1.1277, 13: 4.0138, 16: 4.4189, 32: 10.2532}
 
 
 def _word_stack(dev, words: int, k: int = 4000, n: int = 8, seed: int = 0):
@@ -860,13 +860,13 @@ def check_k4_chunked(dev, feats, cfg):
         tm = k4_times(args, feats.valid)
         assert tm["kernel_route"] == "chunked", tm["kernel_route"]
         share = tm["tensor_ms"] / tm["dev_ms"]
-        popc = POPC_PR12_MS.get(words)
+        popc = POPCOUNT_MS.get(words)
         print(f"phase 6b K4 at W = {words} ({32 * words} bits) on "
               f"DEFAULT_RING's features: match_all_pairs {wall_s * 1e3:.1f} "
               f"ms (8 words: {base_s * 1e3:.1f} ms; launches 1, chunked "
               f"route), {same}; per K4 call: device {tm['dev_ms']:.4f} ms "
               f"({share:.1%} of the tensor-core bound"
-              + (f"; the popcount route's PR 12 row {popc} ms" if popc
+              + (f"; the popcount kernel's earlier row {popc} ms" if popc
                  else "") +
               f"), call {tm['call_ms']:.4f} ms, plain {tm['plain_ms']:.4f} "
               f"ms; bound over {tm['n_dist']:.0f} valid distances: CUDA "
