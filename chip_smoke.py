@@ -725,6 +725,23 @@ def k4_times(args, valid):
                tensor_ms=tensor_ms, bound_ms=bound_ms, kernel_route=route,
                route=("tensor cores, int8" if tensor_ms <= cuda_core_ms
                       else "CUDA cores"))
+    if route == "tensor":
+        # The record before the template goes: the chunked kernel on the
+        # same inputs, held to the plain version, timed beside it.
+        from image_stitching_tpu_torch.kernels.hamming import _chunked_pairs
+        _k4_equal(_chunked_pairs(*args), hamming_two_nn_pairs_plain(*args),
+                  f"chunked kernel, {len(args[2])} pairs at {words} words")
+        t_ms = device_ms(lambda: hamming_two_nn_pairs(*args))
+        c_ms = device_ms(lambda: _chunked_pairs(*args))
+        t2_ms = device_ms(lambda: hamming_two_nn_pairs(*args))
+        c2_ms = device_ms(lambda: _chunked_pairs(*args))
+        out.update(chunked_record_ms=[c_ms, c2_ms],
+                   template_record_ms=[t_ms, t2_ms])
+        print(f"K4 record, {len(args[2])} pairs of K={k} at {words} words "
+              f"(valid {int(valid.sum())}): device ms template {t_ms:.4f}, "
+              f"chunked {c_ms:.4f}, template {t2_ms:.4f}, chunked "
+              f"{c2_ms:.4f}; chunked equal to the plain version; tensor-core"
+              f" bound {tensor_ms:.4f} ms", flush=True)
     return out
 
 
