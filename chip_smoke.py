@@ -41,21 +41,24 @@ Phases, one line each; any failure raises and exits non-zero:
      in both directions in the one call matching makes, its +-1 unpack
      against pm1_rows, and a tie-heavy stack at K = 4000 (duplicated
      descriptors, images with 1 and 0 valid descriptors);
- 6b. K4's chunked route (the word counts the tensor-core template lacks;
-     `check_k4_chunked`): at W = 1, 4, 5, 13, 16 and 32, a random stack of
-     8 x K = 4000 (28 pairs both ways), the same with its valid columns in
+ 6b. K4 at other widths and past the 32-bit key (`check_k4_chunked`,
+     `check_k4_wide`): at W = 1, 4, 5, 13, 16 and 32, a random stack of 8
+     x K = 4000 (28 pairs both ways), the same with its valid columns in
      runs (the first 84 of each 500, so whole column tiles are skipped)
      and the tie stack against the plain version, indices equal and
-     distances exact; then the slice's path, match_all_pairs as the
-     default stitch calls it on phase 6's ORB features with the
-     descriptors widened by zero words to W (or cut to the first W words
-     below 8), each call under K4's counts set to 0 just before it and
-     read just after: one chunked launch and no tensor-core one, and at W
-     >= 8 tables, inliers, H and confidences equal to the 8-word call's (8
-     and a 12-word widening take the tensor-core route); K4 at each W on
-     those descriptors against its plain version, its device, call and
-     plain ms, both bounds and its share of the tensor-core bound; for the
-     record, the chunked kernel at 8 and 12 words beside the template;
+     distances exact; match_all_pairs as the default stitch calls it on
+     phase 6's ORB features with the descriptors widened by zero words to
+     W (12 too; or cut to the first W words below 8), each call under K4's
+     count set to 0 just before it and read just after: one launch, and at
+     W >= 8 tables, inliers, H and confidences equal to the 8-word call's;
+     K4 at each W on those descriptors against its plain version, its
+     device, call and plain ms, both bounds and its share of the
+     tensor-core bound; then on 64-bit keys and past grid.y: K = 70000 at
+     8 words (4 images, 6 pairs both ways; random stack with nearest
+     columns past 65535, valid runs, the tie stack) against the plain
+     version on every row by blocks, W = 2048 and 4096 at K = 512, and
+     363 images of K = 128 (65703 pairs in one call) on 256 of its pairs,
+     each with its times and bound;
   7. K5 (pyramid_accumulate) on the compose rects of that warm-up stitch,
      one call per bucket as the compose makes them, its kernel launches
      per call counted in a CUDA graph of the calls (<= 2 n_bands + 1), and
@@ -214,7 +217,13 @@ Phases, one line each; any failure raises and exits non-zero:
      pairs against their plain versions with their bounds.  The
      multi-process path (`parallel/distributed.py`) is held on CPU
      processes only (tests/test_torch_distributed.py): NCCL cannot put
-     two ranks on one card.
+     two ranks on one card;
+ 16. the slice's path past the 32-bit key: StitchConfig(num_features=
+     70000) on DEFAULT_RING (the JAX CLI's `--num-features 70000`) under
+     the counts as in phase 9: one K4 call, on 64-bit keys, held to its
+     plain version on three slices of rows; kept views, reprojection and
+     wall printed, not gated (the reference's near-duplicate rule may drop
+     views at this many matches).
 Each kernel row gives `device_ms`, the device time per call from CUDA
 events around a replayed CUDA graph of the calls (L2 warm, the host
 wrapper left out; also `ms`), `call_ms`, CUDA events around back-to-back
@@ -232,14 +241,15 @@ K4's row its mosaic100 times and bound (`mosaic100_*`); K2's and K5's
 rows their times, bounds and errors on a gp_sharded shard (`shard_*`),
 K1's and K4's on the pairs batch (`pairs_*`).  A sixth row is
 K4 at 12 words (`words: 12`), checked and timed on phase 14's AKAZE
-descriptors, its launches those of phase 14's stitches; then one row for
-each W of phase 6b's chunked route (`kernel_route: chunked`), its
-launches those of its match_all_pairs call; K4's and the 12-word row's
-`chunked_kernel_record` the chunked kernel's device ms at their word
-count beside the template's.
+descriptors, its launches those of phase 14's stitches; then one K4 row
+for each W of phase 6b, its launches those of its match_all_pairs call,
+and one each for K = 70000 (its launches phase 16's; `stitch_*` that
+stitch's K4 call), W = 2048, W = 4096 and 65703 pairs (`key_bits` each
+row's key width; launches those of phase 6b's call).  Every K4 row is
+the one kernel, `csrc/hamming_chunked.cu`.
 Then the smoke's total seconds and phase 15's end-to-end numbers, a JSON
 line of those kernel results with the launches on the path the kernel was
-checked on (`launches_by_path` every path's, phase 15a and 15b included),
+checked on (`launches_by_path` every path's, phases 15a, 15b and 16 included),
 the nvidia-smi
 line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
 device it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -687,30 +697,15 @@ def k4_args(dev, feats, range_width: int = -1):
             torch.as_tensor(ju, dtype=torch.int32, device=dev))
 
 
-def k4_times(args, valid):
-    """K4 against its plain version on `args`, then its device, call and
-    plain times per call and its bound over the distances this data needs
-    (valid rows against valid columns, per pair and direction).  With W
-    descriptor words, CUDA cores: W XOR, W POPC, W - 1 adds and one
-    compare each at the float32 peak (24 at W = 8); tensor cores: a
-    32 W-deep int8 dot product, 64 W operations (512 at W = 8), at the
-    int8 dense peak.  Bytes: the packed descriptors and validity in, four
-    (2, P, K) outputs of 8 + 4 + 8 + 4 bytes a row out."""
-    from image_stitching_tpu_torch.kernels.hamming import (
-        hamming_two_nn_pairs, hamming_two_nn_pairs_plain, kernel_route)
+def k4_bound(args, valid):
+    """K4's bound over the distances this data needs (valid rows against
+    valid columns, per pair and direction).  With W descriptor words, CUDA
+    cores: W XOR, W POPC, W - 1 adds and one compare each at the float32
+    peak (24 at W = 8); tensor cores: a 32 W-deep int8 dot product, 64 W
+    operations (512 at W = 8), at the int8 dense peak.  Bytes: the packed
+    descriptors and validity in, four (2, P, K) outputs of 8 + 4 + 8 + 4
+    bytes a row out."""
     k, words = args[0].shape[1], args[0].shape[2]
-    before = dict(hamming_two_nn_pairs.route_launches)
-    _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
-              f"{len(args[2])} pairs at {words} words")
-    torch.cuda.synchronize()
-    route = kernel_route(words)
-    assert hamming_two_nn_pairs.route_launches == dict(
-        before, **{route: before[route] + 1}), \
-        (words, before, hamming_two_nn_pairs.route_launches)
-    out = dict(dev_ms=device_ms(lambda: hamming_two_nn_pairs(*args)),
-               call_ms=time_ms(lambda: hamming_two_nn_pairs(*args)),
-               plain_ms=time_ms(lambda: hamming_two_nn_pairs_plain(*args),
-                                reps=3))
     nv = valid.sum(-1).double()
     n_dist = float(2 * (nv[args[2].long()] * nv[args[3].long()]).sum())
     n_bytes = args[0].numel() * 4 + args[1].numel() + 2 * len(args[2]) * \
@@ -721,36 +716,45 @@ def k4_times(args, valid):
     tensor_ms = max(t_bytes, 64 * words * n_dist / INT8_TENSOR_OPS_PER_S *
                     1e3)
     bound_ms = min(cuda_core_ms, tensor_ms)
-    out.update(n_dist=n_dist, t_bytes=t_bytes, cuda_core_ms=cuda_core_ms,
-               tensor_ms=tensor_ms, bound_ms=bound_ms, kernel_route=route,
-               route=("tensor cores, int8" if tensor_ms <= cuda_core_ms
-                      else "CUDA cores"))
-    if route == "tensor":
-        # The record before the template goes: the chunked kernel on the
-        # same inputs, held to the plain version, timed beside it.
-        from image_stitching_tpu_torch.kernels.hamming import _chunked_pairs
-        _k4_equal(_chunked_pairs(*args), hamming_two_nn_pairs_plain(*args),
-                  f"chunked kernel, {len(args[2])} pairs at {words} words")
-        t_ms = device_ms(lambda: hamming_two_nn_pairs(*args))
-        c_ms = device_ms(lambda: _chunked_pairs(*args))
-        t2_ms = device_ms(lambda: hamming_two_nn_pairs(*args))
-        c2_ms = device_ms(lambda: _chunked_pairs(*args))
-        out.update(chunked_record_ms=[c_ms, c2_ms],
-                   template_record_ms=[t_ms, t2_ms])
-        print(f"K4 record, {len(args[2])} pairs of K={k} at {words} words "
-              f"(valid {int(valid.sum())}): device ms template {t_ms:.4f}, "
-              f"chunked {c_ms:.4f}, template {t2_ms:.4f}, chunked "
-              f"{c2_ms:.4f}; chunked equal to the plain version; tensor-core"
-              f" bound {tensor_ms:.4f} ms", flush=True)
+    return dict(n_dist=n_dist, t_bytes=t_bytes, cuda_core_ms=cuda_core_ms,
+                tensor_ms=tensor_ms, bound_ms=bound_ms,
+                bound_by="operations" if bound_ms > t_bytes else "bytes",
+                route=("tensor cores, int8" if tensor_ms <= cuda_core_ms
+                       else "CUDA cores"))
+
+
+def k4_times(args, valid):
+    """K4 against its plain version on `args` (one launch counted), then
+    its device, call and plain times per call and `k4_bound`."""
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
+    words = args[0].shape[2]
+    before = hamming_two_nn_pairs.launches
+    _k4_equal(hamming_two_nn_pairs(*args), hamming_two_nn_pairs_plain(*args),
+              f"{len(args[2])} pairs at {words} words")
+    torch.cuda.synchronize()
+    assert hamming_two_nn_pairs.launches == before + 1, \
+        (words, before, hamming_two_nn_pairs.launches)
+    out = dict(dev_ms=device_ms(lambda: hamming_two_nn_pairs(*args)),
+               call_ms=time_ms(lambda: hamming_two_nn_pairs(*args)),
+               plain_ms=time_ms(lambda: hamming_two_nn_pairs_plain(*args),
+                                reps=3))
+    out.update(k4_bound(args, valid))
     return out
 
 
-# Phase 6b: the descriptor word counts of the chunked route it drives (5
+# Phase 6b: the descriptor word counts it drives on the ring's shape (5
 # is not a multiple of 4: a part stage of depth), and the device ms of the
-# popcount kernel that the chunked route replaced, at the same shape on an
+# popcount kernel that K4 replaced at 1-32 words, at the same shape on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md's earlier rows).
 CHUNKED_WORDS = (1, 4, 5, 13, 16, 32)
 POPCOUNT_MS = {1: 0.4645, 4: 1.1277, 13: 4.0138, 16: 4.4189, 32: 10.2532}
+# Past the 32-bit key: a column past 16 bits (K = 70000, the JAX CLI's
+# `--num-features 70000`), a distance past 16 bits (2048 and 4096 words at
+# K = 512), and 363 images of K = 128: 65703 pairs, past grid.y's 65535.
+WIDE_K = 70000
+WIDE_WORDS = (2048, 4096)
+MANY_IMAGES = 363
 
 
 def _word_stack(dev, words: int, k: int = 4000, n: int = 8, seed: int = 0):
@@ -800,27 +804,22 @@ MATCH_FIELDS = ("ii", "jj", "a_idx", "b_idx", "valid", "inlier", "h",
 
 
 def check_k4_chunked(dev, feats, cfg):
-    """Phase 6b: K4's chunked route, the word counts the tensor-core
-    template lacks.  (a) At each W in CHUNKED_WORDS a random stack of 8
-    images of K = 4000 (28 pairs both ways), the same with its valid
-    columns in runs (whole column tiles skipped) and the tie stack against
-    the plain version, indices equal and distances exact (W = 5 is not a
-    multiple of 4: a part stage).  (b) The slice's path: match_all_pairs,
-    as the default stitch calls it, on the default path's ORB features
-    with their descriptors widened by zero words to W (13, 16, 32) or cut
-    to the first W words (1, 4, 5), each call with K4's counts set to 0
-    just before it and read just after: one chunked launch, no
-    tensor-core one; at W >= 8 the match tables, inlier counts,
-    homographies and confidences equal the 8-word call's with the same
-    generator (which takes the tensor-core route, as a 12-word widening
-    does).  (c) K4 at each W on those descriptors against its plain
-    version, with its device, call and plain ms, both bounds and its share
-    of the tensor-core bound; and, for the record, the chunked kernel at 8
-    and 12 words (`_chunked_pairs`) beside the template on the same
-    stacks.  Returns the kernel rows and that record."""
+    """Phase 6b: K4 at the word counts other than ORB's.  (a) At each W in
+    CHUNKED_WORDS a random stack of 8 images of K = 4000 (28 pairs both
+    ways), the same with its valid columns in runs (whole column tiles
+    skipped) and the tie stack against the plain version, indices equal
+    and distances exact (W = 5 is not a multiple of 4: a part stage).
+    (b) match_all_pairs, as the default stitch calls it, on the default
+    path's ORB features with their descriptors widened by zero words to W
+    (12, 13, 16, 32) or cut to the first W words (1, 4, 5), each call with
+    K4's count set to 0 just before it and read just after: one launch; at
+    W >= 8 the match tables, inlier counts, homographies and confidences
+    equal the 8-word call's with the same generator.  (c) K4 at each W on
+    those descriptors against its plain version, with its device, call
+    and plain ms, both bounds and its share of the tensor-core bound.
+    Returns the kernel rows."""
     from image_stitching_tpu_torch.kernels.hamming import (
-        KERNEL_WORDS, _chunked_pairs, hamming_two_nn_pairs,
-        hamming_two_nn_pairs_plain)
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
     from image_stitching_tpu_torch.ops.matching import match_all_pairs
     k = feats.xy.shape[1]
     for words in CHUNKED_WORDS:
@@ -832,14 +831,13 @@ def check_k4_chunked(dev, feats, cfg):
                       hamming_two_nn_pairs_plain(*args),
                       f"{what} at {words} words")
     torch.cuda.synchronize()
-    print(f"phase 6b K4 chunked route: random stacks of 8 x K={k} (28 "
+    print(f"phase 6b K4 at other widths: random stacks of 8 x K={k} (28 "
           f"pairs, both directions), the same with valid columns in runs "
           f"and the tie stack at W = {CHUNKED_WORDS} equal to the plain "
           f"version", flush=True)
 
     def graph(words):
         hamming_two_nn_pairs.launches = 0
-        hamming_two_nn_pairs.route_launches.update(tensor=0, chunked=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         g = match_all_pairs(_with_words(feats, words),
@@ -847,23 +845,16 @@ def check_k4_chunked(dev, feats, cfg):
                             match_conf=cfg.match_conf,
                             pair_cap=cfg.num_features)
         torch.cuda.synchronize()
-        return (g, time.perf_counter() - t0, hamming_two_nn_pairs.launches,
-                dict(hamming_two_nn_pairs.route_launches))
+        return g, time.perf_counter() - t0, hamming_two_nn_pairs.launches
 
-    base, base_s, _, routes8 = graph(8)
-    assert routes8 == {"tensor": 1, "chunked": 0}, routes8
-    g12, _, _, routes12 = graph(12)
-    assert routes12 == {"tensor": 1, "chunked": 0}, routes12
-    for name in MATCH_FIELDS:
-        assert torch.equal(getattr(g12, name), getattr(base, name)), \
-            f"match_all_pairs at 12 words: {name} differs from 8 words"
+    base, base_s, launches8 = graph(8)
+    assert launches8 == 1, launches8
     adj = range(feats.xy.shape[0] - 1)
     inliers = [int(base.num_inliers[a, a + 1]) for a in adj]
     rows = []
-    for words in CHUNKED_WORDS:
-        g, wall_s, launches, routes = graph(words)
-        assert launches == 1 and routes == {"tensor": 0, "chunked": 1}, \
-            (words, launches, routes)
+    for words in (12,) + CHUNKED_WORDS:
+        g, wall_s, launches = graph(words)
+        assert launches == 1, (words, launches)
         if words >= 8:
             for name in MATCH_FIELDS:
                 assert torch.equal(getattr(g, name), getattr(base, name)), \
@@ -873,16 +864,17 @@ def check_k4_chunked(dev, feats, cfg):
             assert bool(torch.isfinite(g.h).all()), words
             same = (f"adjacent inliers "
                     f"{[int(g.num_inliers[a, a + 1]) for a in adj]}")
+        if words == 12:
+            continue
         args = k4_args(dev, _with_words(feats, words))
         tm = k4_times(args, feats.valid)
-        assert tm["kernel_route"] == "chunked", tm["kernel_route"]
         share = tm["tensor_ms"] / tm["dev_ms"]
         popc = POPCOUNT_MS.get(words)
         print(f"phase 6b K4 at W = {words} ({32 * words} bits) on "
               f"DEFAULT_RING's features: match_all_pairs {wall_s * 1e3:.1f} "
-              f"ms (8 words: {base_s * 1e3:.1f} ms; launches 1, chunked "
-              f"route), {same}; per K4 call: device {tm['dev_ms']:.4f} ms "
-              f"({share:.1%} of the tensor-core bound"
+              f"ms (8 words: {base_s * 1e3:.1f} ms; launches 1), {same}; "
+              f"per K4 call: device {tm['dev_ms']:.4f} ms ({share:.1%} of "
+              f"the tensor-core bound"
               + (f"; the popcount kernel's earlier row {popc} ms" if popc
                  else "") +
               f"), call {tm['call_ms']:.4f} ms, plain {tm['plain_ms']:.4f} "
@@ -890,42 +882,182 @@ def check_k4_chunked(dev, feats, cfg):
               f"cores {tm['cuda_core_ms']:.4f} ms, tensor cores "
               f"{tm['tensor_ms']:.4f} ms -> {tm['bound_ms']:.4f} ms "
               f"({tm['route']})", flush=True)
-        rows.append(dict(
-            name=f"hamming_two_nn_pairs [K4 chunked route, W = {words}]",
-            route="cuda",
-            source="image_stitching_tpu_torch/csrc/hamming_chunked.cu",
-            replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
-            words=words, kernel_route="chunked", launches=launches,
-            launches_by_path={f"phase 6b match_all_pairs at {words} words":
-                              launches},
-            max_abs_err=0.0, ms=tm["dev_ms"], device_ms=tm["dev_ms"],
-            call_ms=tm["call_ms"], plain_ms=tm["plain_ms"],
-            match_all_pairs_ms=wall_s * 1e3, bound_ms=tm["bound_ms"],
-            bound_by=("operations" if tm["bound_ms"] > tm["t_bytes"]
-                      else "bytes"),
-            bound_route=tm["route"], bound_cuda_core_ms=tm["cuda_core_ms"],
-            bound_tensor_core_ms=tm["tensor_ms"], tensor_core_share=share,
-            library_ms=None))
-    # The record: the chunked kernel where the template is the route.
-    record = {}
-    for words in KERNEL_WORDS:
-        args = k4_args(dev, _with_words(feats, words))
+        rows.append(k4_row(
+            f"W = {words}", tm, words=words, launches=launches,
+            launches_by_path={
+                f"phase 6b match_all_pairs at {words} words": launches},
+            match_all_pairs_ms=wall_s * 1e3))
+    print(f"phase 6b the slice's path: match_all_pairs on DEFAULT_RING at "
+          f"8, 12 and {CHUNKED_WORDS} words, one K4 launch each; adjacent "
+          f"inliers at 8 words {inliers}", flush=True)
+    return rows
+
+
+def k4_row(what: str, tm, **extra):
+    """A kernels-line row of K4 from `k4_times`-style numbers."""
+    return dict(
+        name=f"hamming_two_nn_pairs [K4, {what}]", route="cuda",
+        source="image_stitching_tpu_torch/csrc/hamming_chunked.cu",
+        replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
+        max_abs_err=0.0, ms=tm["dev_ms"], device_ms=tm["dev_ms"],
+        call_ms=tm["call_ms"], plain_ms=tm["plain_ms"],
+        bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+        bound_route=tm["route"], bound_cuda_core_ms=tm["cuda_core_ms"],
+        bound_tensor_core_ms=tm["tensor_ms"],
+        tensor_core_share=tm["tensor_ms"] / tm["dev_ms"], library_ms=None,
+        **extra)
+
+
+def _flip_bits(rng, shape, p: float) -> np.ndarray:
+    """uint32 words of `shape`, each bit set with probability p."""
+    bits = rng.random(shape + (32,), dtype=np.float32) < p
+    return np.packbits(bits, axis=-1, bitorder="little").view(
+        "<u4")[..., 0]
+
+
+def _wide_stack(dev, k: int = WIDE_K, n: int = 4, seed: int = 0,
+                words: int = 8):
+    """n images of K random descriptors; in images 1..n-1 columns 2 r and
+    2 r + 1 hold near copies of row r of image 0 for r < K / 2 (each bit
+    flipped with probability 0.05), so rows of image 0 from 32768 up find
+    their nearest and second nearest past column 65535; 90% valid; every
+    pair i < j."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2 ** 32, (n, k, words), dtype=np.uint64).astype(
+        np.uint32)
+    half = k // 2
+    d[1:, :2 * half] = np.repeat(d[0, :half], 2, axis=0) ^ _flip_bits(
+        rng, (n - 1, 2 * half, words), 0.05)
+    valid = rng.random((n, k)) > 0.1
+    iu, ju = np.triu_indices(n, 1)
+    return (torch.as_tensor(d.view(np.int32), device=dev),
+            torch.as_tensor(valid, device=dev),
+            torch.as_tensor(iu, dtype=torch.int32, device=dev),
+            torch.as_tensor(ju, dtype=torch.int32, device=dev))
+
+
+def k4_plain_rows(args, rows=None, block: int = 8192):
+    """The plain version's (fwd, rev) of `args` on the rows `rows` of each
+    pair's A image, or on all rows by blocks of `block`: one pair,
+    direction and block at a time (a whole (K, K) matrix at K = 70000
+    takes 20 GB)."""
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_plain)
+    desc, valid, ii, jj = args
+    k = desc.shape[1]
+    blocks = [rows] if rows is not None else [
+        torch.arange(s, min(s + block, k), device=desc.device)
+        for s in range(0, k, block)]
+    sides = []
+    for img_a, img_b in ((ii, jj), (jj, ii)):
+        outs = []
+        for a, b in zip(img_a.tolist(), img_b.tolist()):
+            parts = [hamming_two_nn_plain(desc[a, r], desc[b], valid[b])
+                     for r in blocks]
+            outs.append([torch.cat(x) for x in zip(*parts)])
+        sides.append(tuple(torch.stack(x) for x in zip(*outs)))
+    return tuple(sides)
+
+
+def _one_launch(args):
+    """K4 on `args` with its count set to 0 just before and read just
+    after; (output, launches)."""
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_pairs)
+    hamming_two_nn_pairs.launches = 0
+    out = hamming_two_nn_pairs(*args)
+    torch.cuda.synchronize()
+    return out, hamming_two_nn_pairs.launches
+
+
+def check_k4_wide(dev):
+    """Phase 6b, past the 32-bit key and grid.y: (a) K = 70000 at 8 words,
+    4 images, 6 pairs both ways, on `_wide_stack`, the same with its valid
+    columns in runs and the tie stack (its duplicates at c and c + 35000
+    tie across column 65536), against the plain version on every row by
+    blocks, indices equal and distances exact; (b) W = 2048 and 4096 at K
+    = 512 (`_wide_stack`, 4 images, one row 32 W from a whole image),
+    against the plain version; (c) 363 images of K =
+    128 at 8 words, 65703 pairs in one call, against the plain version on
+    256 of its pairs.  Each in one launch under the count; device, call
+    and plain ms and the bound on the first stack of each.  Returns the
+    kernel rows."""
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain, key_bits)
+    rows = []
+
+    def row(what, args, plain, dev_reps, **extra):
+        fn = lambda: hamming_two_nn_pairs(*args)  # noqa: E731
+        tm = dict(dev_ms=device_ms(fn, reps=dev_reps, replays=2),
+                  call_ms=time_ms(fn, reps=dev_reps),
+                  plain_ms=time_ms(plain, reps=1))
+        tm.update(k4_bound(args, args[1]))
+        k, words = args[0].shape[1], args[0].shape[2]
+        print(f"phase 6b K4 {what}: {len(args[2])} pairs of K={k} at "
+              f"{words} words, {key_bits(k, words)}-bit keys, one launch; "
+              f"device {tm['dev_ms']:.4f} ms "
+              f"({tm['tensor_ms'] / tm['dev_ms']:.1%} of the tensor-core "
+              f"bound), call {tm['call_ms']:.4f} ms, plain "
+              f"{tm['plain_ms']:.4f} ms; bound over {tm['n_dist']:.0f} "
+              f"valid distances {tm['bound_ms']:.4f} ms ({tm['route']})",
+              flush=True)
+        rows.append(k4_row(what, tm, words=words, key_bits=key_bits(
+            k, words), launches=1, launches_by_path={
+                f"phase 6b call, {what}": 1}, **extra))
+
+    # (a) K = 70000.
+    wide = _wide_stack(dev, WIDE_K)
+    for what, args in (
+            ("random", wide),
+            ("valid runs", (wide[0], (torch.arange(WIDE_K, device=dev) %
+                                      500 < 84).expand(4, WIDE_K)
+                            .contiguous(), wide[2], wide[3])),
+            ("tie case", _tie_stack(dev, WIDE_K))):
+        got, launches = _one_launch(args)
+        assert launches == 1, launches
+        want = k4_plain_rows(args)
+        _k4_equal(got, want, f"K = {WIDE_K}, {what}")
+        if what == "random":
+            past = int((want[0][0][:, 32768:] >= 65536).sum())
+            assert past > 0, "no nearest column past 65535"
+        if what == "tie case":
+            ties = int((want[1][1] == want[1][3]).sum())
+        del got, want
+    print(f"phase 6b K4 at K = {WIDE_K} (8 words, 64-bit keys): random "
+          f"stack ({past} forward rows' nearest past column 65535), valid "
+          f"runs and tie stack ({ties} reverse rows with d1 == d2) equal to "
+          f"the plain version on every row", flush=True)
+    row(f"K = {WIDE_K}", wide, lambda: k4_plain_rows(wide), 3)
+    del wide
+    # (b) 2048 and 4096 words; image 3 all the complement of image 2's
+    # row 0, which is then 32 W (past 16 bits) from every column of it.
+    for words in WIDE_WORDS:
+        args = _wide_stack(dev, k=512, seed=words, words=words)
+        args[0][3] = ~args[0][2, 0]
+        got, launches = _one_launch(args)
+        assert launches == 1, launches
         want = hamming_two_nn_pairs_plain(*args)
-        _k4_equal(_chunked_pairs(*args), want, f"chunked at {words} words")
-        tm = k4_times(args, feats.valid)
-        chunked_ms = device_ms(lambda: _chunked_pairs(*args))
-        record[words] = dict(template_device_ms=tm["dev_ms"],
-                             chunked_device_ms=chunked_ms,
-                             bound_tensor_core_ms=tm["tensor_ms"])
-        print(f"phase 6b record at W = {words}: the template (the route) "
-              f"{tm['dev_ms']:.4f} ms, the chunked kernel {chunked_ms:.4f} "
-              f"ms a call on the same stack (tensor-core bound "
-              f"{tm['tensor_ms']:.4f} ms)", flush=True)
-    print(f"phase 6b the slice's path: match_all_pairs on DEFAULT_RING at 8 "
-          f"and 12 words took the tensor-core route, at {CHUNKED_WORDS} "
-          f"words the chunked route; adjacent inliers at 8 words {inliers}",
-          flush=True)
-    return rows, record
+        _k4_equal(got, want, f"{words} words")
+        assert float(want[0][1][5, 0]) == float(want[0][3][5, 0]) == \
+            32 * words, "no distance past 16 bits"
+        row(f"W = {words}", args,
+            lambda: hamming_two_nn_pairs_plain(*args), 5)
+    # (c) 65703 pairs.
+    args = _word_stack(dev, 8, k=128, n=MANY_IMAGES, seed=3)
+    n_pairs = len(args[2])
+    assert n_pairs == 65703 > 65535, n_pairs
+    got, launches = _one_launch(args)
+    assert launches == 1, launches
+    pick = torch.as_tensor(np.r_[0:64, n_pairs - 64:n_pairs, np.random.
+                                 default_rng(0).choice(n_pairs, 128, False)],
+                           device=dev)
+    _k4_equal(tuple(tuple(x[pick] for x in side) for side in got),
+              hamming_two_nn_pairs_plain(args[0], args[1], args[2][pick],
+                                         args[3][pick]),
+              f"{n_pairs} pairs")
+    row(f"{n_pairs} pairs", args, lambda: hamming_two_nn_pairs_plain(*args),
+        5)
+    return rows
 
 
 def check_k4(dev, feats):
@@ -947,7 +1079,7 @@ def check_k4(dev, feats):
     tm = k4_times(args, feats.valid)
     unpack_ms = device_ms(lambda: unpack_pm1(args[0]))
     print(f"phase 6 K4 hamming_two_nn_pairs: {len(args[2])} pairs of K={k}, "
-          f"both directions, in one call (an unpack and a pairs launch), "
+          f"both directions, in one call (an unpack and a 2-NN launch), "
           f"valid per image {feats.valid.sum(-1).tolist()}, +-1 "
           f"unpack equal to pm1_rows: yes, i1/d1/d2 equal and i2 equal where "
           f"d2 < 2^30: yes; tie case (4 images, duplicated descriptors, 1 "
@@ -958,17 +1090,9 @@ def check_k4(dev, feats):
           f"over {tm['n_dist']:.0f} valid distances: CUDA cores "
           f"{tm['cuda_core_ms']:.4f} ms, tensor cores {tm['tensor_ms']:.4f} "
           f"ms -> {tm['bound_ms']:.4f} ms ({tm['route']})", flush=True)
-    return dict(name="hamming_two_nn_pairs", route="cuda",
-                source="image_stitching_tpu_torch/csrc/hamming.cu",
-                replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
-                max_abs_err=0.0, ms=tm["dev_ms"], device_ms=tm["dev_ms"],
-                call_ms=tm["call_ms"], plain_ms=tm["plain_ms"],
-                bound_ms=tm["bound_ms"],
-                bound_by=("operations" if tm["bound_ms"] > tm["t_bytes"]
-                          else "bytes"),
-                bound_route=tm["route"],
-                bound_cuda_core_ms=tm["cuda_core_ms"],
-                bound_tensor_core_ms=tm["tensor_ms"], library_ms=None)
+    row = k4_row("the ring, 8 words", tm, words=8)
+    row["name"] = "hamming_two_nn_pairs"
+    return row
 
 
 def _k5_gates(acc_k, acc_p, nb, what: str):
@@ -3262,18 +3386,7 @@ def check_k4_words(dev, feats, what: str):
           f"distances: CUDA cores {tm['cuda_core_ms']:.4f} ms, tensor cores "
           f"{tm['tensor_ms']:.4f} ms -> {tm['bound_ms']:.4f} ms "
           f"({tm['route']})", flush=True)
-    return dict(name=f"hamming_two_nn_pairs [K4 at {words} words: {what}]",
-                route="cuda",
-                source="image_stitching_tpu_torch/csrc/hamming.cu",
-                replaces="image_stitching_tpu/kernels/hamming_pallas.py:178",
-                words=words, max_abs_err=0.0, ms=tm["dev_ms"],
-                device_ms=tm["dev_ms"], call_ms=tm["call_ms"],
-                plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
-                bound_by=("operations" if tm["bound_ms"] > tm["t_bytes"]
-                          else "bytes"),
-                bound_route=tm["route"],
-                bound_cuda_core_ms=tm["cuda_core_ms"],
-                bound_tensor_core_ms=tm["tensor_ms"], library_ms=None)
+    return k4_row(f"{words} words: {what}", tm, words=words)
 
 
 def near_duplicate_drops(graph, n: int):
@@ -3734,6 +3847,62 @@ def run_phase15b(counters, smi, dev):
     return dict(launches=launches, k1=k1, k4=tm, pairs_per_s=pairs_per_s)
 
 
+def run_phase16(stitch, stitcher, counters, caps_default, k_true, rs_true,
+                smi, dev):
+    """Phase 16, the slice's path: stitch() with StitchConfig(num_features=
+    WIDE_K) on DEFAULT_RING (the JAX CLI's `--num-features 70000`), with
+    the kernels' counts set to 0 just before it and read just after: one
+    K4 call, on K = 70000 (64-bit keys); its kept views, reprojection error
+    and wall printed (the reference's near-duplicate rule may drop views
+    at this many matches, so neither is gated); a finite panorama; and its
+    K4 call again under the count, against the plain version on three
+    slices of rows, with its device ms and bound."""
+    from image_stitching_tpu_torch.config import StitchConfig
+    from image_stitching_tpu_torch.kernels.hamming import (
+        hamming_two_nn_pairs, key_bits)
+    cfg = StitchConfig(num_features=WIDE_K)
+    rec = Recorder(stitcher, "match_all_pairs")
+    res, wall, launches = stitch_run(stitch, caps_default, cfg, counters, rec)
+    assert launches["hamming_two_nn_pairs"] == 1, launches
+    pano = res.panorama
+    assert pano.ndim == 3 and bool(torch.isfinite(pano).all()), pano.shape
+    feats = rec.calls["match_all_pairs"][0][0][0]
+    del rec
+    k, words = feats.desc.shape[1], feats.desc.shape[2]
+    assert k == WIDE_K and key_bits(k, words) == 64, (k, words)
+    kept = res.kept_indices
+    err = (reproj_err_px(res.cameras, kept, k_true, rs_true, res.work_scale)
+           if len(kept) > 1 else float("nan"))
+    args = k4_args(dev, feats)
+    got, k4_launches = _one_launch(args)
+    assert k4_launches == 1, k4_launches
+    rows = torch.cat([torch.arange(0, 256), torch.arange(32768, 33024),
+                      torch.arange(k - 256, k)]).to(dev)
+    _k4_equal(tuple(tuple(x[:, rows] for x in side) for side in got),
+              k4_plain_rows(args, rows), f"the K = {k} stitch's call")
+    del got
+    tm = dict(dev_ms=device_ms(lambda: hamming_two_nn_pairs(*args), reps=2,
+                               replays=2))
+    tm.update(k4_bound(args, feats.valid))
+    stages = ", ".join(f"{name}={v:.4f}s"
+                       for name, v in res.stage_times.items())
+    print(f"phase 16 the slice's path, StitchConfig(num_features={WIDE_K}) "
+          f"on DEFAULT_RING: kept {len(kept)}/{N_IMAGES} {kept}, "
+          f"reprojection {err:.4f} px, panorama {tuple(pano.shape)}, valid "
+          f"features {feats.valid.sum(-1).tolist()}, launches {launches} "
+          f"(K4 once, {key_bits(k, words)}-bit keys), wall {wall:.4f} s "
+          f"(the first stitch at this K), stages: {stages}; its K4 call "
+          f"({len(args[2])} pairs of K={k}, both directions) equal to the "
+          f"plain version on rows 0-255, 32768-33023 and the last 256, "
+          f"device {tm['dev_ms']:.4f} ms, bound over {tm['n_dist']:.0f} "
+          f"valid distances {tm['bound_ms']:.4f} ms "
+          f"({tm['tensor_ms'] / tm['dev_ms']:.1%} of the tensor-core "
+          f"bound); card '{smi}'", flush=True)
+    return dict(launches=launches, dev_ms=tm["dev_ms"],
+                bound_ms=tm["bound_ms"], pairs=len(args[2]), wall=wall,
+                kept=len(kept), err=err)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3868,8 +4037,9 @@ def main() -> int:
         with rec:
             warm = stitch(caps_default, cfg, output="", device="cuda")
         k4 = check_k4(dev, rec.calls["match_all_pairs"][0][0][0])
-        k4_chunked, k4_record = check_k4_chunked(
+        k4_chunked = check_k4_chunked(
             dev, rec.calls["match_all_pairs"][0][0][0], cfg)
+        k4_wide = check_k4_wide(dev)
         k5 = check_k5(dev, rec.calls["fused_compose"][0])
         del warm, rec
         rec = Recorder(stitcher, "match_all_pairs", "find_seams",
@@ -4095,6 +4265,9 @@ def main() -> int:
             by_path["phase 15a"] = g15["launches"]
             p15 = run_phase15b(counters, smi, dev)
             by_path["phase 15b"] = p15["launches"]
+            p16 = run_phase16(stitch, stitcher, counters, caps_default,
+                              k_true, rs_true, smi, dev)
+            by_path["phase 16"] = p16["launches"]
             s2, s5, b1, b4 = g15["k2"], g15["k5"], p15["k1"], p15["k4"]
             k2.update(shard_frame=list(s2["rects"][0]),
                       shard_device_ms=s2["device_ms"],
@@ -4136,16 +4309,20 @@ def main() -> int:
     k4_12["launches_by_path"] = {
         path: counts["hamming_two_nn_pairs"]
         for path, counts in by_path.items() if path.startswith("phase 14")}
+    # K = 70000: its path is phase 16's stitch.
+    k4_wide[0]["launches"] = by_path["phase 16"]["hamming_two_nn_pairs"]
+    k4_wide[0]["launches_by_path"]["phase 16"] = k4_wide[0]["launches"]
+    k4_wide[0].update(stitch_pairs=p16["pairs"],
+                      stitch_device_ms=p16["dev_ms"],
+                      stitch_bound_ms=p16["bound_ms"])
 
     print(f"smoke total {time.perf_counter() - t_start:.1f} s; phase 15: "
           f"gp_sharded {g15['ms']:.3f} ms a composite "
           f"({g15['mp'] / g15['ms'] * 1e3:.3f} canvas MP/s, {g15['n_bands']} "
           f"bands, peak {g15['peak'] / 2 ** 30:.3f} GiB), pairs "
           f"{p15['pairs_per_s']:.2f} pairs/s; card '{smi}'", flush=True)
-    # The chunked kernel where the template is the route, for the record.
-    for row, words in ((k4, 8), (k4_12, 12)):
-        row["chunked_kernel_record"] = k4_record[words]
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12] + k4_chunked}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12] + k4_chunked +
+                      k4_wide}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,34 +1,36 @@
-// Hamming 2-NN at any run-time word count W (1 <= W <= 2047): K4's route for
-// the descriptor widths the tensor-core template of hamming.cu is not built
-// for (everything but ORB's W = 8 and AKAZE's W = 12: BRIEF-128's W = 4,
-// BRIEF-512's, BRISK's, FREAK's and the full MLDB's W = 16, any other).
+// K4, the Hamming 2-NN of binary descriptors: every pair of an image stack,
+// both directions, in one launch, at any word count W, any descriptor
+// count K and any pair count, the dot products on the tensor cores by
+// wgmma with the rows brought in by TMA.
 //
 // Replaces the TPU kernel image_stitching_tpu/kernels/hamming_pallas.py
-// (hamming_two_nn_pallas and hamming_two_nn_pallas_batched) at those
-// widths, with hamming.cu's contract: for pair p the forward direction
-// takes the rows of image ii[p] against the columns of image jj[p], the
-// reverse one the rows of jj[p] against the columns of ii[p]; every row
-// gets its nearest and second-nearest valid column (i1, d1, i2, d2), ties
-// to the lower column, invalid columns at exactly 2^30.
+// (hamming_two_nn_pallas and hamming_two_nn_pallas_batched).  For pair p
+// the forward direction takes the rows of image ii[p] against the columns
+// of image jj[p], the reverse one the rows of jj[p] against the columns of
+// ii[p]; every row gets its nearest and second-nearest valid column (i1,
+// d1, i2, d2), ties to the lower column, invalid columns at exactly 2^30.
+// No distance matrix is written to device memory.
 //
 // What bounds it on the H100: operations.  With each descriptor bit
 // unpacked to +1 (bit 0) or -1 (bit 1) by hamming.cu's unpack kernel,
 //     hamming = (32 W - dot) / 2,
-// an int8 dot product of depth 32 W: 64 W operations a distance on the
-// tensor cores (1,979 TOP/s dense int8), against W XOR + W POPC on the CUDA
-// cores, where POPC issues 16 a clock per SM.  The template holds each A
-// row in its mma fragments (2 W registers a row), which a run-time W
-// cannot do.  So this kernel takes the ordinary GEMM shape: per (pair,
-// direction) a product of M = K rows of A by N = K columns of B at depth
-// 32 W, in stages of 128 bytes of depth (the 128-byte swizzle's width),
-// the int32 sums of a 128 x 128 tile kept in registers across the stages:
-//   * one block per (128 A rows, pair, direction): two consumer
-//     warpgroups of 64 rows issue wgmma m64n128k32 (s8 x s8 -> s32), both
-//     operands K-major in shared memory under the 128-byte swizzle; one
-//     producer warp loads them by TMA from a 3-D tensor map over the
-//     (N, K, 32 W) int8 stack.  Rows past K and bytes past 32 W read as
-//     zeros, which add nothing to a dot product, so no W needs padding;
-//     the last stage issues only the 32-byte k-steps that hold data;
+// exact, since dot = (#equal bits) - (#differing bits): an int8 dot
+// product of depth 32 W, 64 W operations a distance on the tensor cores
+// (1,979 TOP/s dense int8), against W XOR + W POPC on the CUDA cores,
+// where POPC issues 16 a clock per SM.  So the kernel takes the ordinary
+// GEMM shape: per (pair, direction) a product of M = K rows of A by N = K
+// columns of B at depth 32 W, in stages of 128 bytes of depth (the
+// 128-byte swizzle's width), the int32 sums of a 128 x 128 tile kept in
+// registers across the stages:
+//   * one block per (128 A rows, pair, direction), the pairs folded into
+//     grid.x with the row tiles (grid.y would cap them at 65535): two
+//     consumer warpgroups of 64 rows issue wgmma m64n128k32 (s8 x s8 ->
+//     s32), both operands K-major in shared memory under the 128-byte
+//     swizzle; one producer warp loads them by TMA from a 3-D tensor map
+//     over the (N, K, 32 W) int8 stack.  Rows past K and bytes past 32 W
+//     read as zeros, which add nothing to a dot product, so no W needs
+//     padding; the last stage issues only the 32-byte k-steps that hold
+//     data;
 //   * where A's 128 rows fit beside a ring of B stages with two blocks an
 //     SM (W <= 16: at most 4 stages of 16 KB), A is loaded once and stays;
 //     the ring then carries B alone, which halves the bytes shared memory
@@ -38,19 +40,28 @@
 //   * the block walks every column tile of B that holds a valid column,
 //     so nothing merges across blocks.  It first writes B's validity as
 //     bits and the list of live tiles into shared memory: a tile with no
-//     valid column is skipped (all its keys would be 0xFFFFFFFF, which
-//     never enter a top-2), and each quad lane gets its 32 columns'
-//     validity of a tile in one word;
-//   * epilogue after a tile's last stage: each distance becomes
-//     hamming.cu's key (d << 16 | column), or 0xFFFFFFFF for an invalid
-//     column, and enters its row's running top-2 (three min/max
-//     operations); the four lanes that share a row merge at the end.
-// On an H100 80GB HBM3 at 700 W (PERF.md) W = 16 over 28 pairs of K = 4000
-// both ways takes 0.95 ms, 49% of the tensor-core bound; the popcount
-// kernel it replaced took 4.42 ms, an mma.sync version of this walk
-// 3.09 ms.  The epilogue's ~5 integer operations a distance
-// and each stage's wait for its products hold it there.  Keys need
-// K <= 65536 and 32 W <= 65535.
+//     valid column is skipped (all its keys would be the all-ones
+//     sentinel, which never enters a top-2), and each quad lane gets its
+//     32 columns' validity of a tile in one word;
+//   * epilogue after a tile's last stage: each distance d becomes a key
+//     whose order is the (d, column) order, or the all-ones sentinel for
+//     an invalid column, and enters its row's running top-2 (three
+//     min/max operations); the four lanes that share a row merge at the
+//     end.  The key is 32 bits, d << 16 | column, while K <= 65536 and
+//     32 W <= 65535 (ORB's 8 words, AKAZE's 12, every other width in
+//     use); past either, 64 bits, d << 32 | column.  The launch picks the
+//     instantiation from (K, W).
+// The running top-2 starts at the sentinel, read back as (column 0,
+// 2^30): a row with fewer than two valid columns reports what the plain
+// version (two argmins over the masked matrix) reports.  On an H100 80GB
+// HBM3 at 700 W (PERF.md) W = 16 over 28 pairs of K = 4000 both ways
+// takes 0.95 ms, 49% of the tensor-core bound: the epilogue's ~5 integer
+// operations a distance and each stage's wait for its products hold it
+// there.  What bounds the input is memory: the N K 32 W bytes of +-1 rows,
+// 36 bytes of shared memory a column tile (K <= 472960) and TMA's signed
+// 32-bit coordinates.
+
+#include <climits>
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -58,10 +69,7 @@
 
 namespace {
 
-constexpr unsigned kNone = 0xFFFFFFFFu;
 constexpr int kInvalid = 1 << 30;
-constexpr int kMaxWords = 2047;                 // 32 W <= 65535
-constexpr int kMaxK = 1 << 16;                  // a column in 16 bits
 constexpr int kTile = 128;                      // A rows a block, B columns a tile
 constexpr int kDepth = 128;                     // bytes of depth a stage
 constexpr int kOperand = kTile * kDepth;        // one operand's stage, 16 KB
@@ -74,37 +82,61 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Insert a key into a running top-2 (b1 < b2 unless both are kNone).
-__device__ __forceinline__ void top2(unsigned& b1, unsigned& b2, unsigned k) {
+// The keys: a distance above a column of kShift bits, all ones for none.
+template <typename Key>
+struct KeyBits;
+template <>
+struct KeyBits<unsigned> {
+  static constexpr int kShift = 16;
+};
+template <>
+struct KeyBits<unsigned long long> {
+  static constexpr int kShift = 32;
+};
+
+template <typename Key>
+__device__ __forceinline__ constexpr Key none() {
+  return ~(Key)0;
+}
+
+// Insert a key into a running top-2 (b1 < b2 unless both are none).
+template <typename Key>
+__device__ __forceinline__ void top2(Key& b1, Key& b2, Key k) {
   b2 = min(b2, max(b1, k));
   b1 = min(b1, k);
 }
 
 // Merge the top-2 of the four lanes of a quad (disjoint column sets).
-__device__ __forceinline__ void quad_merge(unsigned& b1, unsigned& b2) {
+template <typename Key>
+__device__ __forceinline__ void quad_merge(Key& b1, Key& b2) {
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
-    const unsigned o1 = __shfl_xor_sync(0xffffffffu, b1, off);
-    const unsigned o2 = __shfl_xor_sync(0xffffffffu, b2, off);
+    const Key o1 = __shfl_xor_sync(0xffffffffu, b1, off);
+    const Key o2 = __shfl_xor_sync(0xffffffffu, b2, off);
     b2 = min(max(b1, o1), min(b2, o2));
     b1 = min(b1, o1);
   }
 }
 
-// The key of a distance from its dot product: (32 W - dot) << 15 is
-// d << 16 (32 W - dot is even), or kNone for an invalid column.
-__device__ __forceinline__ unsigned dist_key(unsigned rb15, int dot,
-                                             unsigned col_key) {
-  return (rb15 - ((unsigned)dot << 15)) | col_key;
+// The key of a distance from its dot product: with rb = 32 W << (kShift
+// - 1), rb - (dot << (kShift - 1)) is d << kShift (32 W - dot is even);
+// col_key is the column, or none() for an invalid column.
+template <typename Key>
+__device__ __forceinline__ Key dist_key(Key rb, int dot, Key col_key) {
+  return (rb - ((Key)(long long)dot << (KeyBits<Key>::kShift - 1))) |
+         col_key;
 }
 
+template <typename Key>
 __device__ __forceinline__ void write_row(long long* i1, float* d1,
                                           long long* i2, float* d2, size_t o,
-                                          unsigned b1, unsigned b2) {
-  i1[o] = b1 == kNone ? 0 : (long long)(b1 & 0xFFFFu);
-  d1[o] = b1 == kNone ? (float)kInvalid : (float)(b1 >> 16);
-  i2[o] = b2 == kNone ? 0 : (long long)(b2 & 0xFFFFu);
-  d2[o] = b2 == kNone ? (float)kInvalid : (float)(b2 >> 16);
+                                          Key b1, Key b2) {
+  constexpr int kShift = KeyBits<Key>::kShift;
+  constexpr Key kCol = ((Key)1 << kShift) - 1;
+  i1[o] = b1 == none<Key>() ? 0 : (long long)(b1 & kCol);
+  d1[o] = b1 == none<Key>() ? (float)kInvalid : (float)(b1 >> kShift);
+  i2[o] = b2 == none<Key>() ? 0 : (long long)(b2 & kCol);
+  d2[o] = b2 == none<Key>() ? (float)kInvalid : (float)(b2 >> kShift);
 }
 
 // Writes B's validity as bits into mask (4 words a tile, 0 past K), the
@@ -292,6 +324,7 @@ WgLayout wgmma_layout(int n_kst, int n_tiles) {
   return WgLayout{true, n, tail + a_bytes + (size_t)n * kOperand};
 }
 
+template <typename Key>
 __global__ void __launch_bounds__(kWgThreads, 2)
 hamming_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
                      const bool* __restrict__ valid,
@@ -322,11 +355,12 @@ hamming_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   int* live = reinterpret_cast<int*>(mask + 4 * n_tiles);
   uint32_t* lane_bits = reinterpret_cast<uint32_t*>(live + n_tiles);
 
-  const int p = blockIdx.y;
+  // grid.x holds n_tiles row tiles a pair, pair after pair.
+  const int p = blockIdx.x / n_tiles;
   const int dir = blockIdx.z;
   const int img_a = dir ? jj[p] : ii[p];
   const int img_b = dir ? ii[p] : jj[p];
-  const int row0 = blockIdx.x * kTile;
+  const int row0 = (blockIdx.x - p * n_tiles) * kTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -382,8 +416,8 @@ hamming_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   const int g = lane >> 2;
   const int t = lane & 3;
   const int r_lo = row0 + wg * 64 + (warp & 3) * 16 + g;
-  const unsigned rb15 = (unsigned)row_bytes << 15;
-  unsigned b1[2] = {kNone, kNone}, b2[2] = {kNone, kNone};
+  const Key rb = (Key)row_bytes << (KeyBits<Key>::kShift - 1);
+  Key b1[2] = {none<Key>(), none<Key>()}, b2[2] = {none<Key>(), none<Key>()};
   int d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0;
@@ -419,12 +453,12 @@ hamming_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
       // Columns 8 j + 2 t, 8 j + 2 t + 1 of rows g, g + 8.
       const uint32_t bits = vb >> (2 * j);
       const int c = col0 + 8 * j;
-      const unsigned k0 = (bits & 1u) ? (unsigned)c : kNone;
-      const unsigned k1 = (bits & 2u) ? (unsigned)(c + 1) : kNone;
-      top2(b1[0], b2[0], dist_key(rb15, d[4 * j], k0));
-      top2(b1[0], b2[0], dist_key(rb15, d[4 * j + 1], k1));
-      top2(b1[1], b2[1], dist_key(rb15, d[4 * j + 2], k0));
-      top2(b1[1], b2[1], dist_key(rb15, d[4 * j + 3], k1));
+      const Key k0 = (bits & 1u) ? (Key)c : none<Key>();
+      const Key k1 = (bits & 2u) ? (Key)(c + 1) : none<Key>();
+      top2(b1[0], b2[0], dist_key(rb, d[4 * j], k0));
+      top2(b1[0], b2[0], dist_key(rb, d[4 * j + 1], k1));
+      top2(b1[1], b2[1], dist_key(rb, d[4 * j + 2], k0));
+      top2(b1[1], b2[1], dist_key(rb, d[4 * j + 3], k1));
     }
   }
 #pragma unroll
@@ -484,20 +518,43 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   return err;
 }
 
+// One launch of the kernel on key type Key: grid.x the n_tiles row tiles of
+// every pair, grid.z the two directions.
+template <typename Key>
+cudaError_t launch_keys(const CUtensorMap& tmap, const WgLayout& l,
+                        int n_tiles, const void* valid, const void* ii,
+                        const void* jj, int n_pairs, int k, int n_words,
+                        void* i1, void* d1, void* i2, void* d2,
+                        cudaStream_t stream) {
+  static size_t allowed = 48 * 1024;
+  const cudaError_t err =
+      allow_smem(hamming_wgmma_kernel<Key>, l.bytes, allowed);
+  if (err != cudaSuccess) return err;
+  hamming_wgmma_kernel<Key><<<dim3(n_tiles * n_pairs, 1, 2), kWgThreads,
+                              l.bytes, stream>>>(
+      tmap, (const bool*)valid, (const int*)ii, (const int*)jj, n_pairs, k,
+      n_words, (int)l.resident, l.n_stages, (long long*)i1, (float*)d1,
+      (long long*)i2, (float*)d2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The run-time-width route on the +-1 rows that hamming_unpack_launch
-// writes: pm1 (n_images, k, 32 n_words) int8, any 1 <= n_words <= 2047 and
-// k <= 65536 (outside those: cudaErrorInvalidValue, no launch).  Returns
-// the runtime's error code, or kTensorMapError + the CUresult of a refused
-// tensor map.
+// K4 on the +-1 rows that hamming_unpack_launch writes: pm1 (n_images, k,
+// 32 n_words) int8, any n_words >= 1, k and n_pairs.  The keys are 32 bits
+// while k <= 65536 and 32 n_words <= 65535, else 64.  Returns the runtime's
+// error code (cudaErrorInvalidValue, no launch, for a negative count, 32
+// n_words past a signed 32-bit TMA coordinate or more blocks than grid.x
+// holds: the outputs would pass any card's memory first), or
+// kTensorMapError + the CUresult of a refused tensor map.
 extern "C" int hamming_chunked_launch(const void* pm1, const void* valid,
                                       const void* ii, const void* jj,
                                       int n_images, int n_pairs, int k,
                                       int n_words, void* i1, void* d1,
                                       void* i2, void* d2, void* stream) {
-  if (n_words < 1 || n_words > kMaxWords || k < 0 || k > kMaxK ||
-      n_pairs < 0) {
+  const int n_tiles = (k + kTile - 1) / kTile;
+  if (n_words < 1 || n_words > INT_MAX / 32 || k < 0 || n_pairs < 0 ||
+      (long long)n_tiles * n_pairs > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_pairs == 0 || k == 0) return (int)cudaGetLastError();
@@ -519,16 +576,15 @@ extern "C" int hamming_chunked_launch(const void* pm1, const void* valid,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return kTensorMapError + (int)res;
-  const int n_tiles = (k + kTile - 1) / kTile;
   const WgLayout l = wgmma_layout((int)((row_bytes + kDepth - 1) / kDepth),
                                   n_tiles);
-  static size_t allowed = 48 * 1024;
-  const cudaError_t err = allow_smem(hamming_wgmma_kernel, l.bytes, allowed);
-  if (err != cudaSuccess) return (int)err;
-  hamming_wgmma_kernel<<<dim3(n_tiles, n_pairs, 2), kWgThreads, l.bytes,
-                         (cudaStream_t)stream>>>(
-      tmap, (const bool*)valid, (const int*)ii, (const int*)jj, n_pairs, k,
-      n_words, (int)l.resident, l.n_stages, (long long*)i1, (float*)d1,
-      (long long*)i2, (float*)d2);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (k <= (1 << 16) && row_bytes <= 65535) {
+    return (int)launch_keys<unsigned>(tmap, l, n_tiles, valid, ii, jj,
+                                      n_pairs, k, n_words, i1, d1, i2, d2,
+                                      st);
+  }
+  return (int)launch_keys<unsigned long long>(tmap, l, n_tiles, valid, ii,
+                                              jj, n_pairs, k, n_words, i1,
+                                              d1, i2, d2, st);
 }

@@ -59,9 +59,6 @@ def _declare(lib) -> None:
     lib.warp_bilinear_launch.restype = ci
     lib.hamming_unpack_launch.argtypes = [vp, ctypes.c_longlong, ci, vp, vp]
     lib.hamming_unpack_launch.restype = ci
-    lib.hamming_pairs_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp,
-                                         vp, vp, vp]
-    lib.hamming_pairs_launch.restype = ci
     lib.hamming_chunked_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                            vp, vp, vp, vp, vp]
     lib.hamming_chunked_launch.restype = ci

@@ -5,22 +5,17 @@ Hopper replacement for `image_stitching_tpu/kernels/hamming_pallas.py`
 `:104`), which take descriptors of any word count W: ORB's are W = 8
 (256 bits), AKAZE's W = 12 (360 bits, zero-padded to 384), BRIEF-128's
 W = 4, BRIEF-512's, BRISK's, FREAK's and the full 486-bit MLDB's W = 16.
-The CUDA kernels are `csrc/hamming.cu` and `csrc/hamming_chunked.cu`, on
-one of two routes (`kernel_route`); on both, one launch unpacks every
-descriptor of the stack once into 32 W int8 of +-1 (`pm1_rows` is its
-plain twin) and the other takes every pair and both directions, with the
-dot products on the tensor cores (hamming = (32 W - dot) / 2):
-  * "tensor", W in `KERNEL_WORDS`: a template on W that holds each A row
-    in its `mma.sync` fragments;
-  * "chunked", every other W from 1 to `MAX_WORDS`: W at run time, the
-    rows brought into shared memory by TMA in 128-byte stages of depth
-    and multiplied by `wgmma` (`hamming_wgmma_kernel`).
-The plain version is the reference pipeline's live path, `match_pair`'s
-`_two_nn(hamming_matrix(...))` and `_two_nn` of the transposed matrix
-(`ops/matching.py:79-167`): a float32 bit-plane product for the distance
-matrix, then two masked argmins per direction.  Unlike the TPU kernel, an
-invalid column is set to exactly 2^30 rather than poisoned through its
-popcount.
+A CUDA call is two launches: `csrc/hamming.cu` unpacks every descriptor
+of the stack once into 32 W int8 of +-1 (`pm1_rows` is its plain twin),
+then `csrc/hamming_chunked.cu` takes every pair and both directions, the
+dot products by `wgmma` on the tensor cores (hamming = (32 W - dot) / 2),
+at any W, K and pair count; its (distance, column) keys are 32 or 64 bits
+(`key_bits`).  The plain version is the reference pipeline's live path,
+`match_pair`'s `_two_nn(hamming_matrix(...))` and `_two_nn` of the
+transposed matrix (`ops/matching.py:79-167`): a float32 bit-plane product
+for the distance matrix, then two masked argmins per direction.  Unlike
+the TPU kernel, an invalid column is set to exactly 2^30 rather than
+poisoned through its popcount.
 """
 
 from __future__ import annotations
@@ -31,27 +26,26 @@ from ._build import check_launch, load_library
 
 __all__ = ["hamming_two_nn_pairs", "hamming_two_nn_pairs_plain",
            "hamming_two_nn_plain", "hamming_matrix", "two_nn", "pm1_rows",
-           "pair_chunk", "unpack_pm1", "kernel_route", "KERNEL_WORDS",
-           "MAX_WORDS", "MAX_K"]
+           "pair_chunk", "unpack_pm1", "key_bits", "MAX_K", "MAX_TMA"]
 
-# The kernels pack (distance, column) into one 32-bit key: a column in 16
-# bits, a distance (at most 32 W) in the other 16.
-MAX_K = 1 << 16
-MAX_WORDS = 2047
-# The descriptor word counts the tensor-core kernel is instantiated for.
-KERNEL_WORDS = (8, 12)
+# What bounds a CUDA call: its block keeps B's validity in shared memory,
+# 36 bytes a 128-column tile, beside 3 stages of 32 KB and 1104 bytes of
+# barriers and alignment, within the 232448 bytes a block may take on the
+# H100; TMA's coordinates (32 W bytes of a row, the image) are signed
+# 32-bit; and the device's memory holds the N K 32 W bytes of +-1 rows.
+MAX_K = (232448 - 1104 - 3 * 32768) // 36 * 128
+MAX_TMA = 2 ** 31 - 1
 
 
-def kernel_route(words: int) -> str:
-    """The CUDA route of a call with W-word descriptors: "tensor" (the
-    int8 tensor-core template, W in `KERNEL_WORDS`) or "chunked" (the
-    run-time-width tensor-core kernel, any other W up to `MAX_WORDS`).
-    Raises ValueError for W < 1 or W > MAX_WORDS."""
-    if words < 1 or words > MAX_WORDS:
+def key_bits(k: int, words: int) -> int:
+    """The width of the CUDA kernel's (distance, column) keys for K
+    descriptors of W words, as `hamming_chunked_launch` picks it: 32
+    (d << 16 | column) while K <= 65536 and 32 W <= 65535, else 64
+    (d << 32 | column).  Raises ValueError for W < 1."""
+    if words < 1:
         raise ValueError(f"hamming_two_nn_pairs: descriptors of {words} "
-                         f"words; the kernels take 1 to {MAX_WORDS} words "
-                         f"(32 W bits must fit a 16-bit distance)")
-    return "tensor" if words in KERNEL_WORDS else "chunked"
+                         f"words; the kernel takes 1 or more")
+    return 32 if k <= 1 << 16 and 32 * words <= 65535 else 64
 
 
 def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
@@ -150,9 +144,6 @@ def _check(desc, valid, ii, jj):
     if ii.ndim != 1 or ii.shape != jj.shape:
         raise ValueError(f"hamming_two_nn_pairs: ii, jj must be (P,), got "
                          f"{tuple(ii.shape)} and {tuple(jj.shape)}")
-    if desc.shape[1] > MAX_K:
-        raise ValueError(f"hamming_two_nn_pairs: K = {desc.shape[1]} > "
-                         f"{MAX_K} (a column must fit 16 bits)")
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
@@ -171,28 +162,43 @@ def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch(route: str, desc, valid, ii, jj):
-    """Launch `route`'s kernels on checked CUDA inputs; (fwd, rev)."""
-    lib = load_library()
-    dev = desc.device
+def _check_kernel(desc):
+    """Raise ValueError past what the CUDA kernel's shared memory and TMA
+    coordinates hold (see MAX_K)."""
+    n_img, k, words = desc.shape
+    key_bits(k, words)
+    if k > MAX_K:
+        raise ValueError(f"hamming_two_nn_pairs: K = {k} > {MAX_K}: the "
+                         f"kernel keeps B's validity in shared memory, 36 "
+                         f"bytes a 128-column tile beside its stages")
+    if 32 * words > MAX_TMA or n_img > MAX_TMA:
+        raise ValueError(f"hamming_two_nn_pairs: {n_img} images of "
+                         f"{32 * words}-byte +-1 rows; TMA's signed 32-bit "
+                         f"coordinates take at most {MAX_TMA} of each")
+
+
+def _launch(desc, valid, ii, jj):
+    """Launch the unpack and the 2-NN kernel on checked CUDA inputs;
+    (fwd, rev)."""
     n_img, k, words = desc.shape
     p = ii.shape[0]
-    pm1 = unpack_pm1(desc)
-    i1 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
-    i2 = torch.empty((2, p, k), dtype=torch.int64, device=dev)
-    d1 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
-    d2 = torch.empty((2, p, k), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (i1.data_ptr(), d1.data_ptr(), i2.data_ptr(), d2.data_ptr())
-    if route == "tensor":
-        code = lib.hamming_pairs_launch(
-            pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-            p, k, words, *ptrs, stream)
-    else:
-        code = lib.hamming_chunked_launch(
-            pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-            n_img, p, k, words, *ptrs, stream)
-    check_launch(code, f"hamming_two_nn_pairs ({route} route)")
+    dev = desc.device
+    try:
+        pm1 = unpack_pm1(desc)
+        i1, i2 = (torch.empty((2, p, k), dtype=torch.int64, device=dev)
+                  for _ in range(2))
+        d1, d2 = (torch.empty((2, p, k), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    except torch.OutOfMemoryError as err:
+        raise torch.OutOfMemoryError(
+            f"hamming_two_nn_pairs: the {n_img} x {k} x {32 * words} bytes "
+            f"of +-1 rows and the 48 x {p} x {k} bytes of outputs do not fit "
+            f"the device's memory") from err
+    code = load_library().hamming_chunked_launch(
+        pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+        n_img, p, k, words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(),
+        d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(code, "hamming_two_nn_pairs")
     return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
 
 
@@ -200,38 +206,23 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
                          ii: torch.Tensor, jj: torch.Tensor):
     """The 2-NN of every pair (ii[p], jj[p]) of an image stack, both ways.
 
-    desc (N, K, W) int32 words (on CUDA, 1 <= W <= `MAX_WORDS` by the
-    route `kernel_route(W)` picks; any W on the CPU), valid (N, K) bool,
-    ii/jj (P,) int32 image indices.  Returns (fwd, rev), each (i1 int64,
-    d1 float32, i2 int64, d2 float32) of shape (P, K): fwd per row of
-    image ii[p] its nearest and second-nearest valid column of image
-    jj[p], rev the same with the images swapped.  The d values are exact
-    integers; an invalid column counts as 2^30.  A CUDA call counts one
-    launch in `launches` and one in `route_launches[route]`."""
+    desc (N, K, W) int32 words (W >= 1 on CUDA, K up to `MAX_K`; any shape
+    on the CPU), valid (N, K) bool, ii/jj (P,) int32 image indices.
+    Returns (fwd, rev), each (i1 int64, d1 float32, i2 int64, d2 float32)
+    of shape (P, K): fwd per row of image ii[p] its nearest and
+    second-nearest valid column of image jj[p], rev the same with the
+    images swapped.  The d values are exact integers; an invalid column
+    counts as 2^30.  A CUDA call counts one in `launches`."""
     _check(desc, valid, ii, jj)
     dev = desc.device
     if dev.type == "cpu":
         return hamming_two_nn_pairs_plain(desc, valid, ii, jj)
     if dev.type != "cuda":
         raise ValueError(f"hamming_two_nn_pairs: no kernel for device {dev}")
-    route = kernel_route(desc.shape[2])
-    out = _launch(route, desc, valid, ii, jj)
+    _check_kernel(desc)
+    out = _launch(desc, valid, ii, jj)
     hamming_two_nn_pairs.launches += 1
-    hamming_two_nn_pairs.route_launches[route] += 1
     return out
 
 
 hamming_two_nn_pairs.launches = 0
-hamming_two_nn_pairs.route_launches = {"tensor": 0, "chunked": 0}
-
-
-def _chunked_pairs(desc: torch.Tensor, valid: torch.Tensor,
-                   ii: torch.Tensor, jj: torch.Tensor):
-    """The chunked route's kernel at any W, 8 and 12 included, outside the
-    counts: a measuring aid beside the template, not a route."""
-    _check(desc, valid, ii, jj)
-    if desc.device.type != "cuda":
-        raise ValueError(f"_chunked_pairs: no kernel for device "
-                         f"{desc.device}")
-    kernel_route(desc.shape[2])
-    return _launch("chunked", desc, valid, ii, jj)

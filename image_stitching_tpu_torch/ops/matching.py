@@ -2,10 +2,11 @@
 
 For binary descriptors (ORB, AKAZE) the 2-NN of both directions of every
 pair come from one call of kernel K4 (`kernels/hamming.py`,
-`csrc/hamming.cu`) before the pairs are chunked; on CPU tensors its plain
-version computes each pair's Hamming matrix as a float32 bit-plane
-product, d = pop(a) + pop(b) - 2 <bits_a, bits_b> (exact: the counts are
-integers below 2^24), and takes two masked argmins per direction.  For
+`csrc/hamming_chunked.cu`, any K and word count) before the pairs are
+chunked; on CPU tensors its plain version computes each pair's Hamming
+matrix as a float32 bit-plane product, d = pop(a) + pop(b) - 2 <bits_a,
+bits_b> (exact: the counts are integers below 2^24), and takes two
+masked argmins per direction.  For
 float descriptors (SIFT, SURF) each chunk of pairs takes its squared L2
 matrices, na + nb - 2 a b^T clamped at 0 (`l2_matrix`, FLANN's squared
 distances, the reference's XLA product), by one float32 matmul on the

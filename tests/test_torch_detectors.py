@@ -278,8 +278,7 @@ def test_l2_matrix_squared_and_clamped():
 @pytest.mark.cuda
 def test_k4_kernel_at_12_words_matches_plain_on_cuda():
     """K4 at W = 12 on the card equals its plain version on the same CUDA
-    tensors, and a W the kernel is not built for raises naming the
-    built ones."""
+    tensors, so does the same kernel at W = 10, and W = 0 raises."""
     dev = cuda_device()
     d, valid, iu, ju = _stack12(5, n_img=4, k=1100)
     args = [t(x).to(dev) for x in (d, valid, iu, ju)]
@@ -287,13 +286,14 @@ def test_k4_kernel_at_12_words_matches_plain_on_cuda():
     got = hamming_two_nn_pairs(*args)
     torch.cuda.synchronize()
     assert hamming_two_nn_pairs.launches == before + 1
-    want = hamming_two_nn_pairs_plain(*args)
-    for g, w in zip(got, want):
-        i1, d1, i2, d2 = (n(x) for x in g)
-        np.testing.assert_array_equal(i1, n(w[0]))
-        np.testing.assert_array_equal(d1, n(w[1]))
-        np.testing.assert_array_equal(d2, n(w[3]))
-        real = n(w[3]) < BIG
-        np.testing.assert_array_equal(i2[real], n(w[2])[real])
+    cut = [args[0][..., :10].contiguous()] + args[1:]
+    for call, out in ((args, got), (cut, hamming_two_nn_pairs(*cut))):
+        for g, w in zip(out, hamming_two_nn_pairs_plain(*call)):
+            i1, d1, i2, d2 = (n(x) for x in g)
+            np.testing.assert_array_equal(i1, n(w[0]))
+            np.testing.assert_array_equal(d1, n(w[1]))
+            np.testing.assert_array_equal(d2, n(w[3]))
+            real = n(w[3]) < BIG
+            np.testing.assert_array_equal(i2[real], n(w[2])[real])
     with pytest.raises(ValueError, match="words"):
-        hamming_two_nn_pairs(args[0][..., :10].contiguous(), *args[1:])
+        hamming_two_nn_pairs(args[0][..., :0].contiguous(), *args[1:])

@@ -145,6 +145,19 @@ def test_k4_wrapper_checks_inputs():
         hamming_two_nn_pairs(desc, v, ii, jj[:1])
 
 
+def test_k4_plain_past_65536_descriptors():
+    """More than 65536 descriptors an image (the JAX CLI's --num-features
+    70000) pass the wrapper's checks, as they do in the JAX package: with
+    no pair, empty (P, K) outputs of the right types."""
+    k = 65537
+    desc = torch.zeros((2, k, 1), dtype=torch.int32)
+    valid = torch.ones((2, k), dtype=torch.bool)
+    none = torch.zeros((0,), dtype=torch.int32)
+    for side in hamming_two_nn_pairs(desc, valid, none, none):
+        assert [tuple(x.shape) for x in side] == [(0, k)] * 4
+        assert [x.dtype for x in side] == [torch.int64, torch.float32] * 2
+
+
 @pytest.mark.cuda
 def test_k4_kernel_matches_plain_on_cuda():
     dev = cuda_device()

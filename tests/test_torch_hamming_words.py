@@ -3,13 +3,14 @@ counts other than ORB's 8 and AKAZE's 12.
 
 The JAX package matches binary descriptors of any word count W
 (`ops/matching.py`'s `hamming_matrix` and `_two_nn`); on CUDA the port
-takes W = 8 and 12 to the tensor-core template and every other W from 1
-to 2047 to the chunked kernel (`kernel_route`, `csrc/hamming_chunked.cu`).
-On the CPU the wrapper runs its plain version, held here to the JAX live
-route at W in {1, 3, 4, 13, 16, 32}, at W + z zero words, and through
-`match_pair` and `match_all_pairs` on 16-word descriptors; and a plain
-emulation of the chunked kernel's walk (128-byte stages of depth,
-128-column tiles, the all-invalid skip, the key top-2) is held to the JAX
+takes every W >= 1 to one kernel (`csrc/hamming_chunked.cu`), on 32-bit
+(distance, column) keys while K <= 65536 and 32 W <= 65535 and on 64-bit
+ones past either (`key_bits`).  On the CPU the wrapper runs its plain
+version, held here to the JAX live route at W in {1, 3, 4, 13, 16, 32,
+2048, 4096}, at W + z zero words, and through `match_pair` and
+`match_all_pairs` on 16-word descriptors; and a plain emulation of the
+kernel's walk (128-byte stages of depth, 128-column tiles, the
+all-invalid skip, the key top-2 at both key widths) is held to the JAX
 reference."""
 
 import jax
@@ -27,8 +28,8 @@ from image_stitching_tpu.ops.features import Features as JFeatures
 from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
 from image_stitching_tpu_torch.interop import features_from_numpy
 from image_stitching_tpu_torch.kernels.hamming import (
-    KERNEL_WORDS, MAX_WORDS, hamming_two_nn_pairs,
-    hamming_two_nn_pairs_plain, kernel_route)
+    MAX_K, hamming_two_nn_pairs, hamming_two_nn_pairs_plain,
+    hamming_two_nn_plain, key_bits)
 from image_stitching_tpu_torch.ops import matching
 from image_stitching_tpu_torch.ops.features import Features
 
@@ -102,23 +103,41 @@ def test_zero_words_change_nothing(words, zeros):
             assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("words,route", [
-    (1, "chunked"), (3, "chunked"), (4, "chunked"), (7, "chunked"),
-    (8, "tensor"), (9, "chunked"), (12, "tensor"), (13, "chunked"),
-    (16, "chunked"), (32, "chunked"), (MAX_WORDS, "chunked")])
-def test_route_by_word_count(words, route):
-    """W in KERNEL_WORDS takes the tensor-core template, every other W up
-    to 2047 the chunked kernel."""
-    assert KERNEL_WORDS == (8, 12) and MAX_WORDS == 2047
-    assert kernel_route(words) == route
+@pytest.mark.parametrize("k,words,bits", [
+    (4000, 1, 32), (4000, 3, 32), (4000, 4, 32), (4000, 7, 32),
+    (4000, 8, 32), (4000, 9, 32), (4000, 12, 32), (4000, 13, 32),
+    (4000, 16, 32), (4000, 32, 32), (4000, 2047, 32),
+    (65536, 8, 32), (65537, 8, 64), (4000, 2048, 64)])
+def test_route_by_word_count(k, words, bits):
+    """The kernel's key is 32 bits (d << 16 | column) while a column fits
+    16 bits (K <= 65536) and a distance 16 (32 W <= 65535), else 64."""
+    assert key_bits(k, words) == bits
 
 
-@pytest.mark.parametrize("words", [0, -1, MAX_WORDS + 1, 4096])
+@pytest.mark.parametrize("words", [0, -1, 2048, 4096])
 def test_route_raises_outside_the_key(words):
-    """The kernels' 32-bit key holds a distance of at most 65535 = 32 W
-    bits; outside 1..2047 words the route raises, naming the limit."""
-    with pytest.raises(ValueError, match="1 to 2047 words"):
-        kernel_route(words)
+    """W < 1 raises.  Past the 32-bit key's 2047 words the kernel takes
+    64-bit keys, and the wrapper's plain version on the CPU (3 images of
+    K = 64) equals the JAX package's `_two_nn(hamming_matrix(...))` both
+    ways, exactly."""
+    if words < 1:
+        with pytest.raises(ValueError, match="1 or more"):
+            key_bits(64, words)
+        return
+    assert key_bits(64, words) == 64
+    d, valid, _, _ = _stack(words, words)
+    # Images 0-2, columns 0-63: near copies and the tie at 50 and 61;
+    # image 2 all the complement of image 1's row 0, which is then 32 W
+    # (past a 16-bit distance) from every column of it.
+    d, valid = d[:3, :64].copy(), valid[:3, :64]
+    d[2] = ~d[1, 0]
+    iu, ju = (x.astype(np.int32) for x in np.triu_indices(3, 1))
+    want_f, want_r = _reference(d, valid, iu, ju)
+    got_f, got_r = hamming_two_nn_pairs(*_args(d, valid, iu, ju))
+    _assert_two_nn_equal(got_f, want_f)
+    _assert_two_nn_equal(got_r, want_r)
+    assert want_f[1][2, 0] == want_f[3][2, 0] == 32 * words > 65535
+    assert (want_r[1] < 32 * words // 4).any()
 
 
 def _wide(desc):
@@ -194,7 +213,6 @@ def test_match_all_pairs_at_16_words(ring16):
 # The chunked kernel's shape (`csrc/hamming_chunked.cu`).
 TILE = 128       # A rows a block, B columns a tile
 DEPTH = 128      # bytes of depth a stage
-NONE = 0xFFFFFFFF
 CHUNKED_WORDS = (1, 3, 4, 5, 13, 16, 32)
 
 
@@ -205,14 +223,15 @@ def _pm1(words):
     return 1 - 2 * bits.reshape(*words.shape[:-1], -1).astype(np.int64)
 
 
-def _chunked_walk(a_rows, b_rows, valid_b, words):
-    """One direction's 2-NN as the chunked kernel walks it: the +-1 rows
+def _chunked_walk(a_rows, b_rows, valid_b, words, shift=16):
+    """One direction's 2-NN as the kernel walks it: the +-1 rows
     zero-filled to whole 128-byte stages and whole 128-row tiles; per
     column tile with a valid column (the others skipped), the dot products
-    summed stage by stage; each becomes the key (32 W - dot) << 15 |
-    column, or NONE for an invalid column; a key enters the row's running
-    top-2 only below the second's distance (columns come in increasing
-    order).  Returns (i1, d1, i2, d2) and the number of tiles skipped."""
+    summed stage by stage; each becomes the key (32 W - dot) << (shift -
+    1) | column (shift 16: 32-bit keys, 32: 64-bit ones), or all ones for
+    an invalid column; a key enters the row's running top-2 only below
+    the second's distance (columns come in increasing order).  Returns
+    (i1, d1, i2, d2) and the number of tiles skipped."""
     k = a_rows.shape[0]
     r = 32 * words
     depth = -(-r // DEPTH) * DEPTH
@@ -223,8 +242,9 @@ def _chunked_walk(a_rows, b_rows, valid_b, words):
     pb[:k, :r] = _pm1(b_rows)
     vb = np.zeros(kp, bool)
     vb[:k] = valid_b
-    b1 = np.full(kp, NONE, np.uint64)
-    b2 = np.full(kp, NONE, np.uint64)
+    none = np.uint64((1 << 2 * shift) - 1)
+    b1 = np.full(kp, none, np.uint64)
+    b2 = np.full(kp, none, np.uint64)
     skipped = 0
     for c0 in range(0, kp, TILE):
         cols = np.arange(c0, c0 + TILE)
@@ -235,17 +255,20 @@ def _chunked_walk(a_rows, b_rows, valid_b, words):
         for s0 in range(0, depth, DEPTH):
             acc += pa[:, s0:s0 + DEPTH] @ pb[cols, s0:s0 + DEPTH].T
         assert np.all(np.abs(acc) <= r) and np.all((r - acc) % 2 == 0)
-        keys = np.where(vb[cols], ((r - acc).astype(np.uint64) << 15) |
-                        cols.astype(np.uint64), np.uint64(NONE))
-        keys = np.where((keys >> 16) < (b2 >> 16)[:, None], keys,
-                        np.uint64(NONE))
+        keys = np.where(vb[cols], ((r - acc).astype(np.uint64) <<
+                                   np.uint64(shift - 1)) |
+                        cols.astype(np.uint64), none)
+        sh = np.uint64(shift)
+        keys = np.where((keys >> sh) < (b2 >> sh)[:, None], keys, none)
         top = np.sort(np.concatenate([b1[:, None], b2[:, None], keys], 1),
                       axis=1)
         b1, b2 = top[:, 0], top[:, 1]
     out = []
     for b in (b1[:k], b2[:k]):
-        out += [np.where(b == NONE, 0, b & 0xFFFF).astype(np.int64),
-                np.where(b == NONE, BIG, b >> 16).astype(np.float32)]
+        out += [np.where(b == none, 0, b & np.uint64((1 << shift) - 1)
+                         ).astype(np.int64),
+                np.where(b == none, BIG, b >> np.uint64(shift)
+                         ).astype(np.float32)]
     return tuple(out), skipped
 
 
@@ -278,38 +301,99 @@ def test_chunked_walk_matches_reference(words, mask):
     assert (want_f[1] == want_f[3]).any()
 
 
+@pytest.mark.parametrize("words", CHUNKED_WORDS)
+def test_chunked_walk_wide_keys_match_reference(words):
+    """The same walk on the 64-bit keys (d << 32 | column) that the kernel
+    takes past K = 65536 or 2047 words equals the JAX reference, with the
+    run-masked validity (all-invalid tiles skipped)."""
+    d, valid, iu, ju = _stack(words + 200, words, k=300)
+    valid = _runs_valid(valid)
+    want_f, want_r = _reference(d, valid, iu, ju)
+    for want, pairs in ((want_f, zip(iu, ju)), (want_r, zip(ju, iu))):
+        for p, (a, b) in enumerate(pairs):
+            got, _ = _chunked_walk(d[a], d[b], valid[b], words, shift=32)
+            _assert_two_nn_equal(got, [w[p] for w in want])
+    assert (want_f[1] == want_f[3]).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", ["stack", "runs"])
-@pytest.mark.parametrize("words", CHUNKED_WORDS)
+@pytest.mark.parametrize("words", CHUNKED_WORDS + (8, 12))
 def test_chunked_kernel_matches_plain_on_cuda(words, mask):
     dev = cuda_device()
     d, valid, iu, ju = _stack(words, words, n_img=4, k=1100)
     if mask == "runs":
         valid = _runs_valid(valid)
     args = _args(d, valid, iu, ju, dev)
-    before = dict(hamming_two_nn_pairs.route_launches)
+    before = hamming_two_nn_pairs.launches
     got = hamming_two_nn_pairs(*args)
     torch.cuda.synchronize()
-    assert hamming_two_nn_pairs.route_launches == dict(
-        before, chunked=before["chunked"] + 1)
+    assert hamming_two_nn_pairs.launches == before + 1
     want = hamming_two_nn_pairs_plain(*args)
     for g, w in zip(got, want):
         _assert_two_nn_equal(g, [n(x) for x in w])
 
 
+def _rows_plain(desc, valid, ii, jj, rows):
+    """The plain 2-NN of `rows` of each pair's A image, both directions,
+    without the whole (K, K) matrix."""
+    fwd, rev = [], []
+    for a, b in zip(ii.tolist(), jj.tolist()):
+        fwd.append(hamming_two_nn_plain(desc[a, rows], desc[b], valid[b]))
+        rev.append(hamming_two_nn_plain(desc[b, rows], desc[a], valid[a]))
+    return [tuple(torch.stack(x) for x in zip(*side)) for side in (fwd, rev)]
+
+
 @pytest.mark.cuda
 def test_chunked_route_limits_raise_on_cuda():
-    """Past 2047 words or 65536 descriptors an image the CUDA call raises,
-    naming the limit, and launches nothing."""
+    """Past K = 65536 and past 2047 words the kernel takes 64-bit keys and
+    equals its plain version (on slices of rows at K = 65537, whose
+    nearest columns lie past 65535); more than 65535 pairs go in one call;
+    a call raises only for W < 1 or past the shared-memory and TMA limits,
+    naming them, and launches nothing then."""
     dev = cuda_device()
+    rng = np.random.default_rng(7)
+    k = 65537
+    d = rng.integers(0, 2 ** 32, (2, k, 8), dtype=np.uint64).astype(np.uint32)
+    # Column c of image 1 is row c - 40000 of image 0 with a bit flipped:
+    # rows from 25537 up find their nearest past column 65535.
+    d[1] = np.roll(d[0], 40000, axis=0) ^ (np.uint32(1) << (
+        np.arange(k, dtype=np.uint32) % 32))[:, None]
+    valid = rng.random((2, k)) > 0.1
+    valid[1, 70000] = True
     pair = torch.zeros((1,), dtype=torch.int32, device=dev)
+    args = _args(d, valid, np.zeros(1, np.int32), np.ones(1, np.int32), dev)
     before = hamming_two_nn_pairs.launches
-    with pytest.raises(ValueError, match="1 to 2047 words"):
-        hamming_two_nn_pairs(
-            torch.zeros((1, 4, MAX_WORDS + 1), dtype=torch.int32, device=dev),
-            torch.ones((1, 4), dtype=torch.bool, device=dev), pair, pair)
-    with pytest.raises(ValueError, match="> 65536"):
-        hamming_two_nn_pairs(
-            torch.zeros((1, 65537, 1), dtype=torch.int32, device=dev),
-            torch.ones((1, 65537), dtype=torch.bool, device=dev), pair, pair)
+    got = hamming_two_nn_pairs(*args)
+    assert key_bits(k, 8) == 64 and hamming_two_nn_pairs.launches == before + 1
+    for rows in (slice(0, 256), slice(30000, 30256), slice(k - 256, k)):
+        want = _rows_plain(*args, torch.arange(k, device=dev)[rows])
+        for g, w in zip(got, want):
+            _assert_two_nn_equal([x[:, rows] for x in g], [n(x) for x in w])
+    assert int(got[0][0][0, 30000]) == 70000
+    for words in (2048, 4096):
+        dw, vw, iu, ju = _stack(words, words, n_img=3, k=512)
+        args = _args(dw, vw, iu, ju, dev)
+        for g, w in zip(hamming_two_nn_pairs(*args),
+                        hamming_two_nn_pairs_plain(*args)):
+            _assert_two_nn_equal(g, [n(x) for x in w])
+    # 363 images: 65703 pairs, past grid.y's 65535, in one call.
+    dp = rng.integers(0, 2 ** 32, (363, 90, 1), dtype=np.uint64).astype(
+        np.uint32)
+    vp = rng.random((363, 90)) > 0.1
+    iu, ju = (x.astype(np.int32) for x in np.triu_indices(363, 1))
+    args = _args(dp, vp, iu, ju, dev)
+    got = hamming_two_nn_pairs(*args)
+    pick = np.r_[0:64, len(iu) - 64:len(iu)]
+    want = hamming_two_nn_pairs_plain(*args[:2], *(a[pick] for a in args[2:]))
+    for g, w in zip(got, want):
+        _assert_two_nn_equal([x[pick] for x in g], [n(x) for x in w])
+    before = hamming_two_nn_pairs.launches
+    for shape, what in (((1, 4, 0), "1 or more"),
+                        ((1, MAX_K + 1, 1), "shared memory")):
+        with pytest.raises(ValueError, match=what):
+            hamming_two_nn_pairs(
+                torch.zeros(shape, dtype=torch.int32, device=dev),
+                torch.ones(shape[:2], dtype=torch.bool, device=dev), pair,
+                pair)
     assert hamming_two_nn_pairs.launches == before
