@@ -249,9 +249,8 @@ row's key width; launches those of phase 6b's call).  Every K4 row is
 the one kernel, `csrc/hamming_chunked.cu`.
 Then the smoke's total seconds and phase 15's end-to-end numbers, a JSON
 line of those kernel results with the launches on the path the kernel was
-checked on (`launches_by_path` every path's, phases 15a, 15b and 16 included),
-the nvidia-smi
-line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
+checked on (`launches_by_path` every path's, phases 15a, 15b and 16
+included), the nvidia-smi line, and a last JSON line {"ok": true, "device": {...}}.  Without a CUDA
 device it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 

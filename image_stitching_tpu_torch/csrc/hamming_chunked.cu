@@ -82,18 +82,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// The keys: a distance above a column of kShift bits, all ones for none.
-template <typename Key>
-struct KeyBits;
-template <>
-struct KeyBits<unsigned> {
-  static constexpr int kShift = 16;
-};
-template <>
-struct KeyBits<unsigned long long> {
-  static constexpr int kShift = 32;
-};
-
+// A key (unsigned or unsigned long long) holds a distance above a column,
+// each in half its bits; all ones is the sentinel for none.
 template <typename Key>
 __device__ __forceinline__ constexpr Key none() {
   return ~(Key)0;
@@ -118,20 +108,19 @@ __device__ __forceinline__ void quad_merge(Key& b1, Key& b2) {
   }
 }
 
-// The key of a distance from its dot product: with rb = 32 W << (kShift
-// - 1), rb - (dot << (kShift - 1)) is d << kShift (32 W - dot is even);
-// col_key is the column, or none() for an invalid column.
+// The key of a distance from its dot product: with s = 4 sizeof(Key) and
+// rb = 32 W << (s - 1), rb - (dot << (s - 1)) is d << s (32 W - dot is
+// even); col_key is the column, or none() for an invalid column.
 template <typename Key>
 __device__ __forceinline__ Key dist_key(Key rb, int dot, Key col_key) {
-  return (rb - ((Key)(long long)dot << (KeyBits<Key>::kShift - 1))) |
-         col_key;
+  return (rb - ((Key)(long long)dot << (4 * sizeof(Key) - 1))) | col_key;
 }
 
 template <typename Key>
 __device__ __forceinline__ void write_row(long long* i1, float* d1,
                                           long long* i2, float* d2, size_t o,
                                           Key b1, Key b2) {
-  constexpr int kShift = KeyBits<Key>::kShift;
+  constexpr int kShift = 4 * sizeof(Key);
   constexpr Key kCol = ((Key)1 << kShift) - 1;
   i1[o] = b1 == none<Key>() ? 0 : (long long)(b1 & kCol);
   d1[o] = b1 == none<Key>() ? (float)kInvalid : (float)(b1 >> kShift);
@@ -416,7 +405,7 @@ hamming_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   const int g = lane >> 2;
   const int t = lane & 3;
   const int r_lo = row0 + wg * 64 + (warp & 3) * 16 + g;
-  const Key rb = (Key)row_bytes << (KeyBits<Key>::kShift - 1);
+  const Key rb = (Key)row_bytes << (4 * sizeof(Key) - 1);
   Key b1[2] = {none<Key>(), none<Key>()}, b2[2] = {none<Key>(), none<Key>()};
   int d[64];
 #pragma unroll
