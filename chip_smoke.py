@@ -982,8 +982,11 @@ def check_k4_wide(dev):
     and plain ms and the bound on the first stack of each.  Returns the
     kernel rows."""
     from image_stitching_tpu_torch.kernels.hamming import (
-        hamming_two_nn_pairs, hamming_two_nn_pairs_plain, key_bits)
+        hamming_two_nn_pairs, hamming_two_nn_pairs_plain, key_bits, max_k)
     rows = []
+    print(f"phase 6b K4 limit: K <= {max_k(8, dev)} at 8 words, "
+          f"{max_k(4096, dev)} at 4096 (the kernel's shared-memory layout "
+          f"on this device)", flush=True)
 
     def row(what, args, plain, dev_reps, **extra):
         fn = lambda: hamming_two_nn_pairs(*args)  # noqa: E731

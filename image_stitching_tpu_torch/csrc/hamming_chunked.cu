@@ -49,8 +49,9 @@
 //     min/max operations); the four lanes that share a row merge at the
 //     end.  The key is 32 bits, d << 16 | column, while K <= 65536 and
 //     32 W <= 65535 (ORB's 8 words, AKAZE's 12, every other width in
-//     use); past either, 64 bits, d << 32 | column.  The launch picks the
-//     instantiation from (K, W).
+//     use); past either, 64 bits, d << 32 | column.  The caller picks the
+//     instantiation (kernels/hamming.py's key_bits); the launch refuses
+//     32-bit keys where they do not fit.
 // The running top-2 starts at the sentinel, read back as (column 0,
 // 2^30): a row with fewer than two valid columns reports what the plain
 // version (two argmins over the masked matrix) reports.  On an H100 80GB
@@ -58,8 +59,8 @@
 // takes 0.95 ms, 49% of the tensor-core bound: the epilogue's ~5 integer
 // operations a distance and each stage's wait for its products hold it
 // there.  What bounds the input is memory: the N K 32 W bytes of +-1 rows,
-// 36 bytes of shared memory a column tile (K <= 472960) and TMA's signed
-// 32-bit coordinates.
+// 36 bytes of shared memory a column tile (hamming_chunked_max_k: K <=
+// 472960 on the H100) and TMA's signed 32-bit coordinates.
 
 #include <climits>
 
@@ -529,21 +530,47 @@ cudaError_t launch_keys(const CUtensorMap& tmap, const WgLayout& l,
 
 }  // namespace
 
+// The most descriptors an image (k) the kernel takes at n_words on device
+// `device`: the largest k whose shared-memory layout fits the device's
+// opt-in limit a block.  Returns minus the runtime's error code if the
+// device cannot be read.
+extern "C" int hamming_chunked_max_k(int n_words, int device) {
+  int optin = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -(int)err;
+  const int n_kst = (int)((32 * (long long)n_words + kDepth - 1) / kDepth);
+  int lo = 0, hi = INT_MAX / kTile;  // lo tiles fit; hi * kTile is an int
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (wgmma_layout(n_kst, mid).bytes <= (size_t)optin) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo * kTile;
+}
+
 // K4 on the +-1 rows that hamming_unpack_launch writes: pm1 (n_images, k,
-// 32 n_words) int8, any n_words >= 1, k and n_pairs.  The keys are 32 bits
-// while k <= 65536 and 32 n_words <= 65535, else 64.  Returns the runtime's
-// error code (cudaErrorInvalidValue, no launch, for a negative count, 32
-// n_words past a signed 32-bit TMA coordinate or more blocks than grid.x
-// holds: the outputs would pass any card's memory first), or
+// 32 n_words) int8, any n_words >= 1, k and n_pairs, on (distance, column)
+// keys of key_bits 32 (d << 16 | column) or 64 (d << 32 | column).
+// Returns the runtime's error code (cudaErrorInvalidValue, no launch, for
+// a negative count, 32 n_words past a signed 32-bit TMA coordinate, more
+// blocks than grid.x holds, which the outputs would pass any card's memory
+// first, or 32-bit keys past k = 65536 or 32 n_words = 65535), or
 // kTensorMapError + the CUresult of a refused tensor map.
 extern "C" int hamming_chunked_launch(const void* pm1, const void* valid,
                                       const void* ii, const void* jj,
                                       int n_images, int n_pairs, int k,
-                                      int n_words, void* i1, void* d1,
-                                      void* i2, void* d2, void* stream) {
+                                      int n_words, int key_bits, void* i1,
+                                      void* d1, void* i2, void* d2,
+                                      void* stream) {
   const int n_tiles = (k + kTile - 1) / kTile;
   if (n_words < 1 || n_words > INT_MAX / 32 || k < 0 || n_pairs < 0 ||
-      (long long)n_tiles * n_pairs > INT_MAX) {
+      (long long)n_tiles * n_pairs > INT_MAX ||
+      (key_bits != 32 && key_bits != 64) ||
+      (key_bits == 32 && (k > (1 << 16) || 32 * n_words > 65535))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_pairs == 0 || k == 0) return (int)cudaGetLastError();
@@ -568,7 +595,7 @@ extern "C" int hamming_chunked_launch(const void* pm1, const void* valid,
   const WgLayout l = wgmma_layout((int)((row_bytes + kDepth - 1) / kDepth),
                                   n_tiles);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (k <= (1 << 16) && row_bytes <= 65535) {
+  if (key_bits == 32) {
     return (int)launch_keys<unsigned>(tmap, l, n_tiles, valid, ii, jj,
                                       n_pairs, k, n_words, i1, d1, i2, d2,
                                       st);

@@ -60,8 +60,10 @@ def _declare(lib) -> None:
     lib.hamming_unpack_launch.argtypes = [vp, ctypes.c_longlong, ci, vp, vp]
     lib.hamming_unpack_launch.restype = ci
     lib.hamming_chunked_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                           vp, vp, vp, vp, vp]
+                                           ci, vp, vp, vp, vp, vp]
     lib.hamming_chunked_launch.restype = ci
+    lib.hamming_chunked_max_k.argtypes = [ci, ci]
+    lib.hamming_chunked_max_k.restype = ci
     lib.pyramid_accumulate_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
                                               vp, vp, vp]
     lib.pyramid_accumulate_launch.restype = ci

@@ -26,22 +26,17 @@ from ._build import check_launch, load_library
 
 __all__ = ["hamming_two_nn_pairs", "hamming_two_nn_pairs_plain",
            "hamming_two_nn_plain", "hamming_matrix", "two_nn", "pm1_rows",
-           "pair_chunk", "unpack_pm1", "key_bits", "MAX_K", "MAX_TMA"]
+           "pair_chunk", "unpack_pm1", "key_bits", "max_k", "MAX_TMA"]
 
-# What bounds a CUDA call: its block keeps B's validity in shared memory,
-# 36 bytes a 128-column tile, beside 3 stages of 32 KB and 1104 bytes of
-# barriers and alignment, within the 232448 bytes a block may take on the
-# H100; TMA's coordinates (32 W bytes of a row, the image) are signed
-# 32-bit; and the device's memory holds the N K 32 W bytes of +-1 rows.
-MAX_K = (232448 - 1104 - 3 * 32768) // 36 * 128
+# TMA's coordinates (32 W bytes of a row, the image) are signed 32-bit.
 MAX_TMA = 2 ** 31 - 1
 
 
 def key_bits(k: int, words: int) -> int:
-    """The width of the CUDA kernel's (distance, column) keys for K
-    descriptors of W words, as `hamming_chunked_launch` picks it: 32
-    (d << 16 | column) while K <= 65536 and 32 W <= 65535, else 64
-    (d << 32 | column).  Raises ValueError for W < 1."""
+    """The width of the (distance, column) keys the CUDA kernel is
+    launched on for K descriptors of W words: 32 (d << 16 | column) while
+    K <= 65536 and 32 W <= 65535, else 64 (d << 32 | column).  Raises
+    ValueError for W < 1."""
     if words < 1:
         raise ValueError(f"hamming_two_nn_pairs: descriptors of {words} "
                          f"words; the kernel takes 1 or more")
@@ -162,24 +157,40 @@ def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def max_k(words: int, device: torch.device) -> int:
+    """The most descriptors an image the CUDA kernel takes at W = `words`
+    on `device`: its block keeps B's validity in shared memory, 36 bytes a
+    128-column tile beside its stages, within the device's limit a block
+    (`hamming_chunked_max_k`; 472960 on the H100)."""
+    dev = torch.device(device)
+    got = load_library().hamming_chunked_max_k(
+        words, torch.cuda.current_device() if dev.index is None else
+        dev.index)
+    if got < 0:
+        check_launch(-got, "hamming_two_nn_pairs (shared-memory limit)")
+    return got
+
+
 def _check_kernel(desc):
     """Raise ValueError past what the CUDA kernel's shared memory and TMA
-    coordinates hold (see MAX_K)."""
+    coordinates hold; the key width."""
     n_img, k, words = desc.shape
-    key_bits(k, words)
-    if k > MAX_K:
-        raise ValueError(f"hamming_two_nn_pairs: K = {k} > {MAX_K}: the "
-                         f"kernel keeps B's validity in shared memory, 36 "
-                         f"bytes a 128-column tile beside its stages")
+    bits = key_bits(k, words)
     if 32 * words > MAX_TMA or n_img > MAX_TMA:
         raise ValueError(f"hamming_two_nn_pairs: {n_img} images of "
                          f"{32 * words}-byte +-1 rows; TMA's signed 32-bit "
                          f"coordinates take at most {MAX_TMA} of each")
+    limit = max_k(words, desc.device)
+    if k > limit:
+        raise ValueError(f"hamming_two_nn_pairs: K = {k} > {limit}: the "
+                         f"kernel keeps B's validity in shared memory, 36 "
+                         f"bytes a 128-column tile beside its stages")
+    return bits
 
 
-def _launch(desc, valid, ii, jj):
-    """Launch the unpack and the 2-NN kernel on checked CUDA inputs;
-    (fwd, rev)."""
+def _launch(desc, valid, ii, jj, bits):
+    """Launch the unpack and the 2-NN kernel on checked CUDA inputs, on
+    `bits`-bit keys; (fwd, rev)."""
     n_img, k, words = desc.shape
     p = ii.shape[0]
     dev = desc.device
@@ -196,8 +207,9 @@ def _launch(desc, valid, ii, jj):
             f"the device's memory") from err
     code = load_library().hamming_chunked_launch(
         pm1.data_ptr(), valid.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-        n_img, p, k, words, i1.data_ptr(), d1.data_ptr(), i2.data_ptr(),
-        d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        n_img, p, k, words, bits, i1.data_ptr(), d1.data_ptr(),
+        i2.data_ptr(), d2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "hamming_two_nn_pairs")
     return (i1[0], d1[0], i2[0], d2[0]), (i1[1], d1[1], i2[1], d2[1])
 
@@ -206,7 +218,7 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
                          ii: torch.Tensor, jj: torch.Tensor):
     """The 2-NN of every pair (ii[p], jj[p]) of an image stack, both ways.
 
-    desc (N, K, W) int32 words (W >= 1 on CUDA, K up to `MAX_K`; any shape
+    desc (N, K, W) int32 words (W >= 1 on CUDA, K up to `max_k`; any shape
     on the CPU), valid (N, K) bool, ii/jj (P,) int32 image indices.
     Returns (fwd, rev), each (i1 int64, d1 float32, i2 int64, d2 float32)
     of shape (P, K): fwd per row of image ii[p] its nearest and
@@ -219,8 +231,7 @@ def hamming_two_nn_pairs(desc: torch.Tensor, valid: torch.Tensor,
         return hamming_two_nn_pairs_plain(desc, valid, ii, jj)
     if dev.type != "cuda":
         raise ValueError(f"hamming_two_nn_pairs: no kernel for device {dev}")
-    _check_kernel(desc)
-    out = _launch(desc, valid, ii, jj)
+    out = _launch(desc, valid, ii, jj, _check_kernel(desc))
     hamming_two_nn_pairs.launches += 1
     return out
 

@@ -28,8 +28,8 @@ from image_stitching_tpu.ops.features import Features as JFeatures
 from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
 from image_stitching_tpu_torch.interop import features_from_numpy
 from image_stitching_tpu_torch.kernels.hamming import (
-    MAX_K, hamming_two_nn_pairs, hamming_two_nn_pairs_plain,
-    hamming_two_nn_plain, key_bits)
+    hamming_two_nn_pairs, hamming_two_nn_pairs_plain, hamming_two_nn_plain,
+    key_bits, max_k)
 from image_stitching_tpu_torch.ops import matching
 from image_stitching_tpu_torch.ops.features import Features
 
@@ -347,30 +347,42 @@ def _rows_plain(desc, valid, ii, jj, rows):
 @pytest.mark.cuda
 def test_chunked_route_limits_raise_on_cuda():
     """Past K = 65536 and past 2047 words the kernel takes 64-bit keys and
-    equals its plain version (on slices of rows at K = 65537, whose
-    nearest columns lie past 65535); more than 65535 pairs go in one call;
-    a call raises only for W < 1 or past the shared-memory and TMA limits,
-    naming them, and launches nothing then."""
+    equals its plain version (on slices of rows at K = 65537 and 70000
+    whose nearest or second-nearest columns lie past 65535); more than 65535 pairs go in one call; a call raises only
+    for W < 1 or past the shared-memory and TMA limits, naming them, and
+    launches nothing then."""
     dev = cuda_device()
     rng = np.random.default_rng(7)
-    k = 65537
-    d = rng.integers(0, 2 ** 32, (2, k, 8), dtype=np.uint64).astype(np.uint32)
-    # Column c of image 1 is row c - 40000 of image 0 with a bit flipped:
-    # rows from 25537 up find their nearest past column 65535.
-    d[1] = np.roll(d[0], 40000, axis=0) ^ (np.uint32(1) << (
-        np.arange(k, dtype=np.uint32) % 32))[:, None]
-    valid = rng.random((2, k)) > 0.1
-    valid[1, 70000] = True
     pair = torch.zeros((1,), dtype=torch.int32, device=dev)
-    args = _args(d, valid, np.zeros(1, np.int32), np.ones(1, np.int32), dev)
-    before = hamming_two_nn_pairs.launches
-    got = hamming_two_nn_pairs(*args)
-    assert key_bits(k, 8) == 64 and hamming_two_nn_pairs.launches == before + 1
-    for rows in (slice(0, 256), slice(30000, 30256), slice(k - 256, k)):
-        want = _rows_plain(*args, torch.arange(k, device=dev)[rows])
-        for g, w in zip(got, want):
-            _assert_two_nn_equal([x[:, rows] for x in g], [n(x) for x in w])
-    assert int(got[0][0][0, 30000]) == 70000
+    for k in (65537, 70000):
+        d = rng.integers(0, 2 ** 32, (2, k, 8), dtype=np.uint64).astype(
+            np.uint32)
+        # Rows 2 m + 1 of image 0 are rows 2 m with one bit flipped.
+        d[0, 1:k:2] = d[0, 0:k - 1:2] ^ np.uint32(1 << 31)
+        # Column c of image 1 is row c - (k - 256) (mod k) of image 0 with
+        # a bit of each word flipped: image 0's rows 0-255 find their
+        # nearest and second nearest among columns k - 256 to k - 1, and
+        # image 1's rows 65280-65535 theirs among columns 65536 up of image
+        # 0 (at K = 65537 column 65536 alone, for some of those rows).
+        d[1] = np.roll(d[0], k - 256, axis=0) ^ (np.uint32(1) << (
+            np.arange(k, dtype=np.uint32) % 32))[:, None]
+        valid = rng.random((2, k)) > 0.1
+        valid[:, 65280:] = True
+        args = _args(d, valid, np.zeros(1, np.int32), np.ones(1, np.int32),
+                     dev)
+        before = hamming_two_nn_pairs.launches
+        got = hamming_two_nn_pairs(*args)
+        assert hamming_two_nn_pairs.launches == before + 1
+        for rows in (slice(0, 256), slice(65280, 65536), slice(k - 256, k)):
+            want = _rows_plain(*args, torch.arange(k, device=dev)[rows])
+            for g, w in zip(got, want):
+                _assert_two_nn_equal([x[:, rows] for x in g],
+                                     [n(x) for x in w])
+        for j in (0, 2):  # i1, i2
+            assert any(bool((side[j][0, rows] >= 65536).any())
+                       for side, rows in ((got[0], slice(0, 256)),
+                                          (got[1], slice(65280, 65536)))), (
+                k, j)
     for words in (2048, 4096):
         dw, vw, iu, ju = _stack(words, words, n_img=3, k=512)
         args = _args(dw, vw, iu, ju, dev)
@@ -390,7 +402,7 @@ def test_chunked_route_limits_raise_on_cuda():
         _assert_two_nn_equal([x[pick] for x in g], [n(x) for x in w])
     before = hamming_two_nn_pairs.launches
     for shape, what in (((1, 4, 0), "1 or more"),
-                        ((1, MAX_K + 1, 1), "shared memory")):
+                        ((1, max_k(1, dev) + 1, 1), "shared memory")):
         with pytest.raises(ValueError, match=what):
             hamming_two_nn_pairs(
                 torch.zeros(shape, dtype=torch.int32, device=dev),
