@@ -19,6 +19,13 @@ Phases, one line each; any failure raises and exits non-zero:
      runtime (`native/stitch_runtime.cpp`, g++ against the vendored codec
      headers) unless the tracked library loads; which runtime loaded and
      the codec files it links;
+ 1b. RANSAC's draws (`core/prng.py`, `jax.random`'s threefry): a
+     stitch's worth, split(PRNGKey(0), n) for n = 28 and 666 and under
+     each key the uniforms (512, 4) and, under fold_in(key, 1), (1024,),
+     on the card and on the CPU, equal bit for bit and equal to a handful
+     of jax.random's words (PRNG_GOLDEN, pinned by
+     tests/test_torch_prng.py); one threefry call's device ms, launches
+     and call ms at 9b's shapes;
   2. K1 (orb_sample_levels) against its plain PyTorch version on every
      level of one work-scale image (1224x1632 level 0, 1500 features), in
      the one launch per image the detector makes, gated on every level;
@@ -80,7 +87,12 @@ Phases, one line each; any failure raises and exits non-zero:
      decode at half size; the card's fast_prep equals the port's CPU
      fast_prep on the same planes (seam stack within 1), and its time;
      (b) stitch() with exactly StitchConfig() on DEFAULT_RING under phase
-     8's gates, its stage table beside phase 8's; (c) the JAX package's
+     8's gates, its stage table beside phase 8's, and held to the JAX
+     package's stitch of the same files on the CPU
+     (`tests/data/ring_reference_jax.json`, `tools/ring_reference_jax.py`;
+     the same seed, so the same RANSAC draws): kept indices equal, focal
+     within rtol 1e-3, adjacent relative rotations within 0.05 degrees,
+     each pair's n_inliers and n_matches reported; (c) the JAX package's
      bench configuration StitchConfig(num_features=1500,
      work_megapix=1.9) (the num8-4 raw route) on E2E_RING under phase 4's
      gates; (d) `python -m image_stitching_tpu_torch` on DEFAULT_RING in a
@@ -211,7 +223,8 @@ Phases, one line each; any failure raises and exits non-zero:
      mesh of this card, 64 noise pairs of 480x640 (seed 0), 1024
      features, n_hyp 512, pairs/s over 3 reps after a warm-up; 8 pairs of
      a noise base and its roll by (7, 5): every n_inliers > 20, one
-     register_pair a pair with the same per-pair seeds and a dp-2 mesh
+     register_pair a pair with the same keys (split(PRNGKey(0), B), as
+     bench.py:537 makes them) and a dp-2 mesh
      of this card against dp 1 (n_inliers equal, H within 1e-4 of its
      largest entry, `h_close`); K1 on one image and K4 on the batch's 64
      pairs against their plain versions with their bounds.  The
@@ -258,6 +271,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import hashlib
 import json
 import os
 import shutil
@@ -272,6 +286,7 @@ import torch
 from image_stitching_tpu_torch.core.logging import Recorder
 from image_stitching_tpu_torch.data.synth import DEFAULT_RING, E2E_RING
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 N_IMAGES = E2E_RING["n_images"]
 H, W = E2E_RING["hw"]
 
@@ -813,10 +828,11 @@ def check_k4_chunked(dev, feats, cfg):
     (12, 13, 16, 32) or cut to the first W words (1, 4, 5), each call with
     K4's count set to 0 just before it and read just after: one launch; at
     W >= 8 the match tables, inlier counts, homographies and confidences
-    equal the 8-word call's with the same generator.  (c) K4 at each W on
+    equal the 8-word call's with the same key.  (c) K4 at each W on
     those descriptors against its plain version, with its device, call
     and plain ms, both bounds and its share of the tensor-core bound.
     Returns the kernel rows."""
+    from image_stitching_tpu_torch.core.prng import PRNGKey
     from image_stitching_tpu_torch.kernels.hamming import (
         hamming_two_nn_pairs, hamming_two_nn_pairs_plain)
     from image_stitching_tpu_torch.ops.matching import match_all_pairs
@@ -840,7 +856,7 @@ def check_k4_chunked(dev, feats, cfg):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         g = match_all_pairs(_with_words(feats, words),
-                            torch.Generator(device=dev).manual_seed(cfg.seed),
+                            PRNGKey(cfg.seed, dev),
                             match_conf=cfg.match_conf,
                             pair_cap=cfg.num_features)
         torch.cuda.synchronize()
@@ -1289,6 +1305,123 @@ def _pil_luma(path, num8: int) -> np.ndarray:
         w, h = im.size
         im.draft("L", (w * num8 // 8, h * num8 // 8))
         return np.asarray(im.convert("L"))
+
+
+# The draws of `prng_draws` (a stitch's worth: DEFAULT_RING's 28 pairs,
+# rig37's 666) and a handful of their uint32 words as jax.random gives
+# them (pinned from jax by tests/test_torch_prng.py): (draw, index, word).
+PRNG_SPLITS = (28, 666)
+PRNG_GOLDEN = (
+    ("split_28", (27, 0), 55715830), ("split_28", (27, 1), 3256168517),
+    ("split_666", (665, 0), 3129506635), ("split_666", (665, 1), 4115858365),
+    ("hyp_28", (0, 0, 0), 1062707686), ("hyp_28", (27, 511, 3), 1062774190),
+    ("score_28", (13, 1023), 1053940244),
+    ("hyp_666", (665, 0, 1), 1059984036),
+    ("score_666", (400, 7), 1048466000))
+# The JAX package's stitch of DEFAULT_RING under StitchConfig() on the CPU
+# (`tools/ring_reference_jax.py`), which phase 9b holds its stitch to.
+RING_REFERENCE = os.path.join(ROOT, "tests", "data",
+                              "ring_reference_jax.json")
+
+
+def prng_draws(dev):
+    """A stitch's worth of RANSAC draws on `dev` (`core/prng.py`): for n
+    in PRNG_SPLITS, the pair keys split(PRNGKey(0), n), the hypothesis
+    uniforms (512, 4) under each key and the scoring uniforms (1024,)
+    under fold_in(key, 1), as `ops/ransac.py` draws them."""
+    from image_stitching_tpu_torch.core import prng
+    out = {}
+    for num in PRNG_SPLITS:
+        keys = prng.split(prng.PRNGKey(0, dev), num)
+        out[f"split_{num}"] = keys
+        out[f"hyp_{num}"] = prng.uniform(keys, (512, 4))
+        out[f"score_{num}"] = prng.uniform(prng.fold_in(keys, 1), (1024,))
+    return out
+
+
+def check_prng_golden(draws) -> int:
+    """Hold `prng_draws`' words to PRNG_GOLDEN; returns the count held."""
+    for name, index, word in PRNG_GOLDEN:
+        x = draws[name][index]
+        got = (int(x.view(torch.int32).item()) & 0xFFFFFFFF
+               if x.is_floating_point() else int(x.item()))
+        assert got == word, f"{name}{index}: {got}, jax.random's {word}"
+    return len(PRNG_GOLDEN)
+
+
+def run_phase1b(dev, smi):
+    """Phase 1b, RANSAC's draws: `prng_draws` on the card equal the same
+    draws on the CPU bit for bit, and the PRNG_GOLDEN words; the device
+    ms of one threefry call at phase 9b's shapes (the 28 pair keys'
+    uniforms (512, 4), and (1024,) under fold_in) by `device_ms`, with
+    its kernel launches (`kernel_launches`), call ms and the CPU's ms."""
+    from image_stitching_tpu_torch.core import prng
+    got, want = prng_draws(dev), prng_draws(torch.device("cpu"))
+    for name in want:
+        assert got[name].device.type == "cuda", name
+        assert torch.equal(got[name].cpu(), want[name]), \
+            f"{name}: the card's draws differ from the CPU's"
+    held = check_prng_golden(got)
+    keys = got["split_28"]
+    folded = prng.fold_in(keys, 1)
+    rows = []
+    for what, key, shape in (("(28, 512, 4)", keys, (512, 4)),
+                             ("(28, 1024) under fold_in", folded, (1024,))):
+        fn = lambda key=key, shape=shape: prng.uniform(key, shape)  # noqa
+        cpu_key = key.cpu()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            prng.uniform(cpu_key, shape)
+        cpu_ms = (time.perf_counter() - t0) / 5 * 1e3
+        rows.append(f"uniform {what}: device {device_ms(fn):.4f} ms in "
+                    f"{kernel_launches(fn)} launches, call "
+                    f"{time_ms(fn):.4f} ms, CPU {cpu_ms:.4f} ms")
+    print(f"phase 1b RANSAC draws (core/prng.py, threefry-2x32): "
+          f"split(PRNGKey(0), n) for n = {PRNG_SPLITS}, uniform (512, 4) "
+          f"and (1024,) under fold_in: the card's equal the CPU's bit for "
+          f"bit, "
+          f"{held} words equal jax.random's; " + "; ".join(rows)
+          + f"; card '{smi}'", flush=True)
+
+
+def ring_reference_check(res, graph, caps_default):
+    """Phase 9b against the JAX package's stitch of the same ring on the
+    CPU (RING_REFERENCE): kept indices equal, focal within rtol 1e-3,
+    adjacent relative rotations within 0.05 degrees (the CPU e2e tests'
+    gates); the captures' SHA-256 and each pair's n_inliers and n_matches
+    against the reference's, reported.  Returns the report line."""
+    with open(RING_REFERENCE) as f:
+        ref = json.load(f)
+    same_files = all(
+        hashlib.sha256(open(os.path.join(caps_default, name), "rb").read())
+        .hexdigest() == digest for name, digest in
+        ref["capture_sha256"].items())
+    assert res.kept_indices == ref["kept_indices"], \
+        (res.kept_indices, ref["kept_indices"])
+    cams = res.cameras.numpy()
+    focal_ref = np.asarray(ref["focal"])
+    focal_rel = float(np.max(np.abs(cams["focal"] - focal_ref) / focal_ref))
+    assert focal_rel <= 1e-3, (cams["focal"], focal_ref)
+    r_ref = np.asarray(ref["R"])
+    angles = [rel_rotation_deg(cams["R"][a + 1] @ cams["R"][a].T,
+                               r_ref[a + 1] @ r_ref[a].T)
+              for a in range(len(r_ref) - 1)]
+    assert max(angles) <= 0.05, angles
+    pairs = [(i, j) for i, j in ref["pairs"]]
+    ninl = [int(graph.num_inliers[i, j]) for i, j in pairs]
+    nm = [int(graph.num_matches[i, j]) for i, j in pairs]
+    inl_diff = [a - b for a, b in zip(ninl, ref["num_inliers"])]
+    return (f"against the JAX package's stitch on the CPU (jax "
+            f"{ref['jax']}, {os.path.relpath(RING_REFERENCE, ROOT)}): "
+            f"captures "
+            f"{'identical' if same_files else 'NOT identical'} by SHA-256; "
+            f"kept {res.kept_indices} equal; focal within "
+            f"{focal_rel:.3g} (<= 1e-3); adjacent relative rotations "
+            f"within {max(angles):.4f} deg (<= 0.05); n_matches equal on "
+            f"{sum(a == b for a, b in zip(nm, ref['num_matches']))}/"
+            f"{len(pairs)} pairs, n_inliers on "
+            f"{sum(d == 0 for d in inl_diff)}/{len(pairs)} (port - "
+            f"reference {inl_diff})")
 
 
 def check_ingest(dev, paths, seam_hw):
@@ -1931,8 +2064,11 @@ def overlapping_pairs(kept, rs_true, max_angle_deg: float):
 def rel_rotation_deg(ra, rb) -> float:
     """Angle (degrees) of ra rb^T."""
     m = np.asarray(ra, np.float64) @ np.asarray(rb, np.float64).T
-    return float(np.degrees(np.arccos(np.clip((np.trace(m) - 1) / 2,
-                                              -1.0, 1.0))))
+    # atan2 of the skew and symmetric parts: arccos((tr - 1) / 2) loses
+    # ~0.04 degree near 0 to float32 rotations' 1e-7 scale error.
+    sin = np.linalg.norm([m[2, 1] - m[1, 2], m[0, 2] - m[2, 0],
+                          m[1, 0] - m[0, 1]]) / 2
+    return float(np.degrees(np.arctan2(sin, (np.trace(m) - 1) / 2)))
 
 
 def gains_gate(compose_call):
@@ -3765,13 +3901,16 @@ def run_phase15b(counters, smi, dev):
     """Phase 15b, pairs: make_batched_register on a dp mesh of this card,
     64 noise pairs of 480x640 at 1024 features and n_hyp 512, pairs/s
     after a warm-up; 8 pairs of a noise base and its roll by (7, 5): every
-    n_inliers > 20, one register_pair call a pair with the same draws and
+    n_inliers > 20, one register_pair call a pair with the same key and
     a dp-2 mesh of this card against dp 1 (n_inliers equal, H by
-    `h_close`); K1 and K4 at this shape against their plain versions."""
+    `h_close`); K1 and K4 at this shape against their plain versions.
+    Pair p takes the key split(PRNGKey(seed), batch)[p], as bench.py:537
+    makes them."""
+    from image_stitching_tpu_torch.core.prng import PRNGKey, split
     from image_stitching_tpu_torch.ops.features.orb import orb_detect_stack
     from image_stitching_tpu_torch.ops.matching import register_pair
     from image_stitching_tpu_torch.parallel.batched import (
-        make_batched_register, pair_generators)
+        make_batched_register)
     from image_stitching_tpu_torch.parallel.mesh import make_mesh
     pp = PAIRS
     h, w = pp["hw"]
@@ -3781,11 +3920,11 @@ def run_phase15b(counters, smi, dev):
     rng = np.random.default_rng(pp["seed"])
     pairs = torch.as_tensor(rng.uniform(0, 255, (pp["batch"], 2, h, w))
                             .astype(np.float32), device=dev)
-    seeds = np.arange(pp["batch"])
-    fn(pairs, seeds)                               # warm-up
+    keys = split(PRNGKey(pp["seed"], dev), pp["batch"])
+    fn(pairs, keys)                                # warm-up
     for c in counters:
         c.launches = 0
-    fn(pairs, seeds)
+    fn(pairs, keys)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
     assert launches["orb_sample_levels"] == 2 * pp["batch"], launches
@@ -3793,7 +3932,7 @@ def run_phase15b(counters, smi, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(PHASE15_REPS):
-        out = fn(pairs + float(i + 1), seeds)
+        out = fn(pairs + float(i + 1), keys)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     pairs_per_s = PHASE15_REPS * pp["batch"] / dt
@@ -3808,27 +3947,26 @@ def run_phase15b(counters, smi, dev):
     base = rng.uniform(0, 255, (pp["check_batch"], h, w)).astype(np.float32)
     check = torch.as_tensor(np.stack(
         [base, np.roll(base, pp["roll"], (1, 2))], axis=1), device=dev)
-    cseeds = np.arange(pp["check_batch"])
-    hb, cb, nb = fn(check, cseeds)
+    ckeys = split(PRNGKey(pp["seed"], dev), pp["check_batch"])
+    hb, cb, nb = fn(check, ckeys)
     n_min = int(nb.min())
     assert n_min > 20, f"rolled pairs: n_inliers {nb.tolist()}"
-    single = [register_pair(check[i, 0], check[i, 1],
-                            pair_generators([s], dev)[0], **kw)
-              for i, s in enumerate(cseeds)]
+    single = [register_pair(check[i, 0], check[i, 1], ckeys[i], **kw)
+              for i in range(pp["check_batch"])]
     n_single = torch.stack([p.num_inliers for p in single])
     h_single = torch.stack([p.h for p in single])
     assert torch.equal(n_single, nb), (n_single.tolist(), nb.tolist())
     h_err, h_rel = h_close(h_single, hb, "single calls")
     fn2 = make_batched_register(make_mesh((2, 1), devices=[dev, dev]),
                                 (h, w), **kw)
-    h2, c2, n2 = fn2(check, cseeds)
+    h2, c2, n2 = fn2(check, ckeys)
     assert torch.equal(n2, nb), (n2.tolist(), nb.tolist())
     h2_err, h2_rel = h_close(h2, hb, "dp 2")
     print(f"phase 15b rolled pairs ({pp['check_batch']} pairs, base and its "
           f"roll by {pp['roll']}, seed {pp['check_seed']}): n_inliers "
           f"{nb.tolist()} (min {n_min} > 20), confidence "
           f"{[round(float(c), 4) for c in cb]}; one register_pair a pair "
-          f"with the same draws: n_inliers equal, H max |diff| "
+          f"with the same key: n_inliers equal, H max |diff| "
           f"{h_err:.3g} ({h_rel:.3g} of the pair's largest entry, <= 1e-4);"
           f" a dp-2 mesh of [{dev}, {dev}]: n_inliers equal, H max |diff| "
           f"{h2_err:.3g} ({h2_rel:.3g}, <= 1e-4)", flush=True)
@@ -3992,6 +4130,7 @@ def main() -> int:
               f"{rt['origin']} ({rt['path']}, {rt['seconds']:.3f} s, links "
               f"{rt['links']}); host codec {image_io.codec_name()}",
               flush=True)
+        run_phase1b(dev, smi)
 
         paths = image_io.list_images(caps)
         img0 = torch.from_numpy(image_io.orient_capture(
@@ -4098,9 +4237,11 @@ def main() -> int:
             assert cfg.fast_ingest and cfg.work_megapix < 0
             stitch(caps_default, cfg, output="", device="cuda")
             rec = Recorder(stitcher, "find_seams", "fused_compose",
-                           "fast_prep", "bundle_adjust")
+                           "fast_prep", "bundle_adjust", "match_all_pairs")
             res, wall, launches = stitch_run(stitch, caps_default, cfg,
                                              counters, rec)
+            versus_jax = ring_reference_check(
+                res, rec.calls["match_all_pairs"][0][2], caps_default)
             # Phase 10d resumes from this stitch's checkpoint.
             ck9b = os.path.join(work, "checkpoint_9b")
             os.makedirs(ck9b)
@@ -4131,7 +4272,7 @@ def main() -> int:
                   f"union = warped union ({covered} px, {cut} px cut), "
                   f"launches {launches}, wall {wall:.4f} s "
                   f"({N_IMAGES * H * W / 1e6 / wall:.3f} MP/s), stages: "
-                  f"{stages}; card '{smi}'\n" + stage_table(
+                  f"{stages}; {versus_jax}; card '{smi}'\n" + stage_table(
                       [("phase 8 legacy decode", legacy_stages),
                        ("phase 9b fast ingest", res.stage_times)]),
                   flush=True)

@@ -1,6 +1,7 @@
 """Stage logging and wall-clock timing (port of `core/logging.py`).
 
-`stage_timer` mirrors the reference's LOGLN("<stage>, time: ...") lines.
+`stage_timer` mirrors the reference's LOGLN("<stage>, time: ...") lines
+and adds each stage's seconds to a `StageTimes` dict.
 The fence that makes a stage time honest under asynchronous CUDA launches
 is `torch.cuda.synchronize` on the stage's device.  `Recorder` keeps the
 calls of chosen module functions, for diagnostics that need what one stage
@@ -18,11 +19,14 @@ import torch
 
 logger = logging.getLogger("image_stitching_tpu_torch")
 
-__all__ = ["logger", "stage_timer", "Recorder"]
+__all__ = ["logger", "stage_timer", "StageTimes", "Recorder"]
+
+# Seconds per stage name, as `StitchResult.stage_times` returns them.
+StageTimes = Dict[str, float]
 
 
 @contextlib.contextmanager
-def stage_timer(name: str, times: Optional[Dict[str, float]] = None,
+def stage_timer(name: str, times: Optional[StageTimes] = None,
                 device: Optional[torch.device] = None):
     """Time a pipeline stage; synchronises `device` first when it is CUDA.
     The stage, fence included, is also a `record_function` range, so a

@@ -16,8 +16,11 @@ duplicate suppression; RANSAC per pair, a homography or, with
 matcher_type="affine" (AffineBestOf2NearestMatcher), a similarity;
 confidence n_inliers / (8 + 0.3 n_matches) with the conf > 3 -> 0
 near-duplicate rule.  RANSAC takes the pairs on a leading axis in chunks of
-`pair_chunk(K)`.  `match_pair` and `register_pair` are one pair's match
-and, from pixels, both ORB detections (kernel K1) and the match.
+`pair_chunk(K)`; pair p draws from its own threefry key, split(key,
+n_pairs)[p] (`core/prng.py`, the reference's keys), so its draws do not
+depend on the chunk or on the pairs before it.  `match_pair` and
+`register_pair` are one pair's match and, from pixels, both ORB
+detections (kernel K1) and the match.
 """
 
 from __future__ import annotations
@@ -28,10 +31,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.prng import check_key, split
 from ..kernels.hamming import (hamming_matrix, hamming_two_nn_pairs,
                                pair_chunk, two_nn)
 from .features.types import Features
-from .ransac import ransac_affine_partial, ransac_homography
+from .ransac import ransac_affine_partial, ransac_draws, ransac_homography
+
+# Pairs whose RANSAC uniforms one `ransac_draws` call makes in
+# `match_all_pairs` (a multiple of the chunk): 179 launches a threefry
+# call whatever its size, and 8 bytes an int64 word of its temporaries.
+DRAW_PAIRS = 4096
 
 __all__ = ["PairMatches", "MatchGraph", "hamming_matrix", "l2_matrix",
            "two_nn", "l2_two_nn_pairs", "match_pair", "match_pairs",
@@ -127,14 +136,17 @@ class MatchGraph:
 
 
 def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
-                generator=None, n_hyp: int = 512, hyp_idx=None,
-                score_idx=None, nn=None, matcher_type: str = "homography"):
+                key=None, n_hyp: int = 512, hyp_idx=None,
+                score_idx=None, nn=None, matcher_type: str = "homography",
+                draws=None):
     """BestOf2NearestMatcher::match for a batch of pairs (leading axis P).
 
+    key: the pairs' threefry keys (P, 2), the RANSAC draws; or `draws`,
+    the uniforms `ops/ransac.py::ransac_draws` gives for them.
     nn: the pairs' (fwd, rev) 2-NN as `hamming_two_nn_pairs` (or, for float
     descriptors, `l2_two_nn_pairs`) returns them; computed here when not
-    given.  hyp_idx/score_idx: injected RANSAC
-    draws (the affine matcher takes no scoring indices).  Returns (a_idx,
+    given.  hyp_idx/score_idx: injected RANSAC draws in place of the
+    key's (the affine matcher takes no scoring indices).  Returns (a_idx,
     b_idx, valid, inlier (P, 2K), h (P, 3, 3), num_inliers (P,),
     confidence (P,)): K forward then K reverse slots."""
     p, ka = fa.valid.shape
@@ -159,12 +171,13 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
     dst = torch.gather(fb.xy, 1, b_idx[..., None].expand(-1, -1, 2))
     n_matches = torch.sum(valid, dim=-1)
     if matcher_type == "affine":
-        h, inlier, n_inl = ransac_affine_partial(src, dst, valid, generator,
-                                                 n_hyp=n_hyp, hyp_idx=hyp_idx)
+        h, inlier, n_inl = ransac_affine_partial(src, dst, valid, key,
+                                                 n_hyp=n_hyp, hyp_idx=hyp_idx,
+                                                 draws=draws)
     else:
-        h, inlier, n_inl = ransac_homography(src, dst, valid, generator,
+        h, inlier, n_inl = ransac_homography(src, dst, valid, key,
                                              n_hyp=n_hyp, hyp_idx=hyp_idx,
-                                             score_idx=score_idx)
+                                             score_idx=score_idx, draws=draws)
     enough = n_matches >= 6
     conf = torch.where(enough, n_inl.to(torch.float32) /
                        (8.0 + 0.3 * n_matches.to(torch.float32)), 0.0)
@@ -176,12 +189,16 @@ def match_pairs(fa: Features, fb: Features, match_conf: float = 0.32,
             torch.where(enough, n_inl, 0).to(torch.int32), conf)
 
 
-def match_all_pairs(feats: Features, generator=None,
+def match_all_pairs(feats: Features, key: torch.Tensor,
                     match_conf: float = 0.32, n_hyp: int = 512,
                     range_width: int = -1, pair_cap: int = -1,
                     matcher_type: str = "homography") -> MatchGraph:
     """All pairs i < j (within `range_width` when > 0) of stacked
     Features (N, K, ...); lower triangle mirrored with inverted H.
+
+    key: one threefry key (2,) (`core/prng.py::PRNGKey`); pair p of the
+    pairs kept draws from split(key, n_pairs)[p], as in the reference,
+    the uniforms of up to DRAW_PAIRS pairs in one `ransac_draws`.
 
     pair_cap: cap M on correspondence slots per pair; valid matches are
     compacted to the front first, so only matches beyond M drop."""
@@ -194,20 +211,30 @@ def match_all_pairs(feats: Features, generator=None,
     m_slots = 2 * k if pair_cap <= 0 else min(pair_cap, 2 * k)
     ii = torch.as_tensor(iu, dtype=torch.int32, device=dev)
     jj = torch.as_tensor(ju, dtype=torch.int32, device=dev)
+    check_key(key, ())
+    keys = split(key.to(dev), len(iu))
+    k_hyp, m_score = ((2, 0) if matcher_type == "affine"
+                      else (4, min(2 * k, 1024)))
     binary = not torch.is_floating_point(feats.desc)
     if binary:
         fwd, rev = hamming_two_nn_pairs(feats.desc, feats.valid, ii, jj)
     outs = []
     chunk = pair_chunk(k)
+    block = chunk * max(1, DRAW_PAIRS // chunk)
     for s in range(0, len(iu), chunk):
         cut = slice(s, s + chunk)
+        if s % block == 0:
+            u_hyp, u_score = ransac_draws(keys[s:s + block], n_hyp, k_hyp,
+                                          m_score)
+        rows = slice(s % block, s % block + chunk)
         if binary:
             nn = (tuple(x[cut] for x in fwd), tuple(x[cut] for x in rev))
         else:
             nn = l2_two_nn_pairs(feats.desc, feats.valid, ii[cut], jj[cut])
-        outs.append(match_pairs(feats[ii[cut]], feats[jj[cut]], match_conf,
-                                generator, n_hyp, nn=nn,
-                                matcher_type=matcher_type))
+        outs.append(match_pairs(
+            feats[ii[cut]], feats[jj[cut]], match_conf, n_hyp=n_hyp, nn=nn,
+            matcher_type=matcher_type,
+            draws=(u_hyp[rows], None if u_score is None else u_score[rows])))
     if outs:
         a_idx, b_idx, valid, inlier, h_p, ninl_p, conf_p = (
             torch.cat(x) for x in zip(*outs))
@@ -248,29 +275,26 @@ def match_all_pairs(feats: Features, generator=None,
         num_matches=torch.where(tri, nm_u, nm_u.t()))
 
 
-def match_pair(feat_a: Features, feat_b: Features, generator=None,
+def match_pair(feat_a: Features, feat_b: Features, key: torch.Tensor,
                match_conf: float = 0.32, matcher_type: str = "homography",
-               n_hyp: int = 512, hyp_idx=None,
-               score_idx=None) -> PairMatches:
+               n_hyp: int = 512) -> PairMatches:
     """BestOf2NearestMatcher::match for one pair of (K, ...) Features:
     `match_pairs` with one pair, its 2-NN by K4 (binary descriptors) or
-    the squared L2 product (float ones).  generator: a torch.Generator
-    for the RANSAC draws, or hyp_idx (1, n_hyp, k) and score_idx
-    (1, min(2K, 1024)) injected.  Returns 2K match slots."""
-    out = match_pairs(feat_a[None], feat_b[None], match_conf, generator,
-                      n_hyp, hyp_idx=hyp_idx, score_idx=score_idx,
+    the squared L2 product (float ones), its RANSAC draws from the
+    threefry key (2,).  Returns 2K match slots."""
+    out = match_pairs(feat_a[None], feat_b[None], match_conf,
+                      check_key(key, ())[None], n_hyp,
                       matcher_type=matcher_type)
     return PairMatches(*out)[0]
 
 
-def register_pair(img_a: torch.Tensor, img_b: torch.Tensor, generator=None,
-                  n_features: int = 1500, match_conf: float = 0.32,
-                  matcher_type: str = "homography", n_hyp: int = 512,
-                  hyp_idx=None, score_idx=None) -> PairMatches:
+def register_pair(img_a: torch.Tensor, img_b: torch.Tensor,
+                  key: torch.Tensor, n_features: int = 1500,
+                  match_conf: float = 0.32, matcher_type: str = "homography",
+                  n_hyp: int = 512) -> PairMatches:
     """Pixels to PairMatches: ORB on both (H, W) gray images (one K1
-    launch each), then `match_pair`."""
+    launch each), then `match_pair` with the threefry key (2,)."""
     from .features.orb import orb_detect_and_describe
     fa = orb_detect_and_describe(img_a, n_features=n_features)
     fb = orb_detect_and_describe(img_b, n_features=n_features)
-    return match_pair(fa, fb, generator, match_conf, matcher_type, n_hyp,
-                      hyp_idx, score_idx)
+    return match_pair(fa, fb, key, match_conf, matcher_type, n_hyp)

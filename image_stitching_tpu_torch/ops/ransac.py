@@ -10,11 +10,13 @@ Similarity (cv::estimateAffinePartial2D, the affine matcher's core):
 least-squares refit of (a, b, tx, ty) on the winner's consensus, kept only
 if it does not lose inliers.
 
-Randomness comes from a `torch.Generator`, or from a sequence of them, one
-per pair, so that a pair draws the same numbers alone or in a batch (the
-reference's per-pair keys).  It cannot reproduce the JAX threefry stream, so both estimators also take their hypothesis indices
-(and the homography its scoring indices) directly; the parity tests inject
-the indices the reference drew.
+Randomness is the reference's: each pair has a threefry key (`core/prng.py`,
+`jax.random`'s draws bit for bit), the hypotheses take `uniform(key,
+(n_hyp, k))` and the homography's scoring subsample `uniform(fold_in(key,
+1), (min(M, 1024),))`, so a pair draws the same numbers as in the
+reference, alone or in any batch, on any device.  Both estimators also
+take their hypothesis indices (and the homography its scoring indices)
+directly, for tests that hold one stage alone.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.prng import check_key, fold_in, uniform
+
 __all__ = ["apply_h", "h4_closed_form", "dlt_homography",
-           "sample_valid", "sample_valid_distinct", "uniforms",
+           "sample_valid", "sample_valid_distinct", "ransac_draws",
            "ransac_homography", "ransac_affine_partial"]
 
 
@@ -91,15 +95,6 @@ def h4_closed_form(s4: torch.Tensor, d4: torch.Tensor) -> torch.Tensor:
     return h / torch.where(torch.abs(h22) < 1e-12, 1e-12, h22)
 
 
-def uniforms(shape, generator, device) -> torch.Tensor:
-    """Uniforms of `shape` (P, ...) from `generator`: one generator for
-    all rows, or a sequence of P generators, row p drawn from the p-th."""
-    if isinstance(generator, (list, tuple)):
-        return torch.cat([torch.rand((1,) + tuple(shape[1:]), generator=g,
-                                     device=device) for g in generator])
-    return torch.rand(shape, generator=generator, device=device)
-
-
 def _compact_order(valid: torch.Tensor) -> torch.Tensor:
     """Indices with the valid slots first, in slot order (stable)."""
     return torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
@@ -159,26 +154,64 @@ def dlt_homography(src: torch.Tensor, dst: torch.Tensor,
     return h / torch.where(torch.abs(h22) < 1e-12, 1e-12, h22)
 
 
+def ransac_draws(key: torch.Tensor, n_hyp: int, k: int, m_score: int = 0):
+    """The uniforms pair p draws from its key[p], key (P, 2), as the
+    reference draws them: (P, n_hyp, k) under key[p] for its k-point
+    hypotheses and, when m_score > 0, (P, m_score) under fold_in(key[p],
+    1) for the homography's scoring subsample (else None).  Three
+    threefry calls for the whole block of pairs."""
+    check_key(key)
+    return (uniform(key, (n_hyp, k)),
+            uniform(fold_in(key, 1), (m_score,)) if m_score else None)
+
+
+def _pair_draws(key, draws, p: int, n_hyp: int, k: int, m_score: int,
+                device):
+    """`draws` as given (checked against the pairs' shapes), else
+    `ransac_draws` of the pairs' keys (P, 2) on the points' device."""
+    if draws is None:
+        if key is None:
+            raise ValueError("RANSAC needs the pairs' keys (P, 2) unless "
+                             "its draws are given")
+        return ransac_draws(check_key(key, (p,)).to(device), n_hyp, k,
+                            m_score)
+    u_hyp, u_score = draws
+    if tuple(u_hyp.shape) != (p, n_hyp, k) or (
+            m_score and tuple(u_score.shape) != (p, m_score)):
+        raise ValueError(f"draws of shapes {tuple(u_hyp.shape)} and "
+                         f"{None if u_score is None else tuple(u_score.shape)}"
+                         f" for {p} pairs, n_hyp {n_hyp}, {k} points, "
+                         f"{m_score} scoring slots")
+    return u_hyp, u_score
+
+
 def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
                       valid: torch.Tensor,
-                      generator: Optional[torch.Generator] = None,
+                      key: Optional[torch.Tensor] = None,
                       thresh: float = 3.0, n_hyp: int = 512,
                       hyp_idx: Optional[torch.Tensor] = None,
-                      score_idx: Optional[torch.Tensor] = None
+                      score_idx: Optional[torch.Tensor] = None,
+                      draws=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """RANSAC H per pair.  src, dst (P, M, 2); valid (P, M) bool.
-    Returns (H (P, 3, 3), inlier mask (P, M), n_inliers (P,)).
+    """RANSAC H per pair.  src, dst (P, M, 2); valid (P, M) bool; key
+    (P, 2), pair p's threefry key.  Returns (H (P, 3, 3), inlier mask
+    (P, M), n_inliers (P,)).
 
-    hyp_idx (P, n_hyp, 4) and score_idx (P, min(M, 1024)) replace the
-    draws from `generator` when given."""
+    Pair p draws its hypotheses from uniform(key[p], (n_hyp, 4)) and its
+    scoring subsample from uniform(fold_in(key[p], 1), (min(M, 1024),)),
+    as the reference does; `draws`, those uniforms as `ransac_draws` gives
+    them, replace the key (`match_all_pairs` draws a block of pairs at
+    once); hyp_idx (P, n_hyp, 4) and score_idx (P, min(M, 1024)) replace
+    the draws when given."""
     p, m = valid.shape
     m_score = min(m, 1024)
+    if hyp_idx is None or score_idx is None:
+        u_hyp, u_score = _pair_draws(key, draws, p, n_hyp, 4, m_score,
+                                     src.device)
     if hyp_idx is None:
-        hyp_idx = sample_valid_distinct(
-            uniforms((p, n_hyp, 4), generator, src.device), valid)
+        hyp_idx = sample_valid_distinct(u_hyp, valid)
     if score_idx is None:
-        score_idx = sample_valid(
-            uniforms((p, m_score), generator, src.device), valid)
+        score_idx = sample_valid(u_score, valid)
     n_hyp = hyp_idx.shape[1]
     flat = hyp_idx.reshape(p, -1)
     s4 = torch.gather(src, 1, flat[..., None].expand(-1, -1, 2)).reshape(
@@ -245,21 +278,24 @@ def _similarity(a, b, tx, ty) -> torch.Tensor:
 
 def ransac_affine_partial(src: torch.Tensor, dst: torch.Tensor,
                           valid: torch.Tensor,
-                          generator: Optional[torch.Generator] = None,
+                          key: Optional[torch.Tensor] = None,
                           thresh: float = 3.0, n_hyp: int = 512,
-                          hyp_idx: Optional[torch.Tensor] = None
+                          hyp_idx: Optional[torch.Tensor] = None,
+                          draws=None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """RANSAC similarity (rotation, scale, translation) per pair.  src, dst
-    (P, M, 2); valid (P, M) bool.  Returns (H (P, 3, 3) with affine rows,
-    inlier mask (P, M), n_inliers (P,)).
+    (P, M, 2); valid (P, M) bool; key (P, 2).  Returns (H (P, 3, 3) with
+    affine rows, inlier mask (P, M), n_inliers (P,)).
 
+    Pair p draws from uniform(key[p], (n_hyp, 2)), as the reference does
+    (or takes those uniforms from `draws`, as `ransac_draws` gives them);
     hyp_idx (P, n_hyp, 2), two distinct valid slots per hypothesis,
-    replaces the draws from `generator` when given."""
+    replaces the draws when given."""
     p = valid.shape[0]
     if hyp_idx is None:
-        hyp_idx = sample_valid_distinct(
-            uniforms((p, n_hyp, 2), generator, src.device), valid)
+        u_hyp, _ = _pair_draws(key, draws, p, n_hyp, 2, 0, src.device)
+        hyp_idx = sample_valid_distinct(u_hyp, valid)
     n_hyp = hyp_idx.shape[1]
     s2 = _gather_points(src, hyp_idx)                         # (P, R, 2, 2)
     d2 = _gather_points(dst, hyp_idx)

@@ -149,10 +149,11 @@ def batched_register_distributed(mesh: GlobalMesh, hw: Tuple[int, int],
                                  n_features: int = 1024,
                                  match_conf: float = 0.32,
                                  n_hyp: int = 512):
-    """Multi-process batched pair registration.  Returns fn(pairs, draws),
-    both ProcessBatch from `shard_local_batch` (pairs (n, 2, H, W), draws
-    the (n,) per-pair seeds): this process registers its own rows on its
-    dp devices (`parallel/batched.py::make_batched_register`), then the
+    """Multi-process batched pair registration.  Returns fn(pairs, keys),
+    both ProcessBatch from `shard_local_batch` (pairs (n, 2, H, W), keys
+    the (n, 2) threefry keys of those pairs, this process's rows of the
+    global batch's keys): this process registers its own rows on its dp
+    devices (`parallel/batched.py::make_batched_register`), then the
     processes' results are gathered, so every process returns the global
     (h (B, 3, 3), confidence (B,), n_inliers (B,)); its own rows are
     [pairs.offset, pairs.offset + n)."""
@@ -162,8 +163,8 @@ def batched_register_distributed(mesh: GlobalMesh, hw: Tuple[int, int],
     fn_local = make_batched_register(local, hw, n_features=n_features,
                                      match_conf=match_conf, n_hyp=n_hyp)
 
-    def fn(pairs: ProcessBatch, draws: ProcessBatch):
-        outs = fn_local(pairs.rows, draws.rows)
+    def fn(pairs: ProcessBatch, keys: ProcessBatch):
+        outs = fn_local(pairs.rows, keys.rows)
         world, _ = _world()
         if world == 1:
             return outs

@@ -45,7 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +53,8 @@ import torch
 from ..config import StitchConfig, WaveCorrectKind
 from ..core import exif as exif_mod
 from ..core import image_io, persistence
-from ..core.logging import logger, stage_timer
+from ..core.logging import StageTimes, logger, stage_timer
+from ..core.prng import PRNGKey
 from ..core.rig import DEFAULT_RIG
 from ..estimation.bundle_adjust import bundle_adjust, pack_correspondences
 from ..estimation.components import biggest_component
@@ -95,7 +96,7 @@ class StitchResult:
     mask: torch.Tensor
     kept_indices: List[int]
     cameras: Cameras                # at work scale
-    stage_times: Dict[str, float]
+    stage_times: StageTimes
     timelapse_frames: List[str] = dataclasses.field(default_factory=list)
     work_scale: float = 1.0
 
@@ -283,7 +284,7 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
              else list(source))
     if len(paths) < 2:
         raise ValueError("Need at least two images to stitch")
-    times: Dict[str, float] = {}
+    times: StageTimes = {}
     # Resuming (serialize_data=False) or taking the priors as the cameras
     # (find_features=False) detects no features.
     want_feats = cfg.find_features and cfg.serialize_data
@@ -370,8 +371,8 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
 
     if want_feats:
         with stage_timer("Pairwise matching", times, dev):
-            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-            pm = match_all_pairs(fstack, gen, match_conf=cfg.match_conf,
+            pm = match_all_pairs(fstack, PRNGKey(cfg.seed, dev),
+                                 match_conf=cfg.match_conf,
                                  range_width=cfg.range_width,
                                  pair_cap=cfg.num_features,
                                  matcher_type=cfg.matcher_type).numpy()

@@ -40,60 +40,49 @@ def cuda_device():
 def rel_rotation_deg(ra, rb) -> float:
     """Angle (degrees) of ra @ rb^T."""
     m = np.asarray(ra, np.float64) @ np.asarray(rb, np.float64).T
-    return float(np.degrees(np.arccos(np.clip((np.trace(m) - 1) / 2,
-                                              -1.0, 1.0))))
+    # atan2 of the skew and symmetric parts: arccos((tr - 1) / 2) loses
+    # ~0.04 degree near 0 to float32 rotations' 1e-7 scale error.
+    sin = np.linalg.norm([m[2, 1] - m[1, 2], m[0, 2] - m[2, 0],
+                          m[1, 0] - m[0, 1]]) / 2
+    return float(np.degrees(np.arctan2(sin, (np.trace(m) - 1) / 2)))
 
 
 @contextlib.contextmanager
-def reference_draws(seed: int, n_pairs: int):
-    """Inject the reference's RANSAC draws into the port's stitch: pair p
-    of `match_all_pairs` takes the hypothesis (and, for the homography,
-    scoring) indices that the reference's stitch draws from
-    split(PRNGKey(seed), n_pairs)[p]: 4 distinct points a hypothesis and
-    a scoring subsample for the homography matcher, 2 distinct points for
-    the affine one (`tests/test_torch_matching.py` and
-    `tests/test_torch_registration.py` hold RANSAC equal given them).
-    The comparisons then see the rest of the path alone: on 160x224
-    captures an adjacent pair has only ~14 inliers, and other draws pick
-    another equally good inlier set, which moves BA by ~0.1 degree.
-    Yields a one-element list counting the pairs drawn."""
+def checked_keys(seed: int, n_pairs: int):
+    """Watch the port's RANSAC draw its own numbers: `match_all_pairs`
+    draws through `ops/ransac.py::ransac_draws`, and pair p must take
+    split(PRNGKey(seed), n_pairs)[p], the reference stitch's key, bit for
+    bit; no call of `ransac_homography`/`ransac_affine_partial` takes
+    injected indices.  The calls pass through unchanged.  Yields a
+    one-element list counting the pairs drawn."""
     import jax
-    import jax.numpy as jnp
-    from image_stitching_tpu.ops import ransac as jransac
     from image_stitching_tpu_torch.ops import matching as tmatching
-    keys = jax.random.split(jax.random.PRNGKey(seed), n_pairs)
-    real_h = tmatching.ransac_homography
-    real_a = tmatching.ransac_affine_partial
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed),
+                                       n_pairs)).astype(np.int64)
+    real = {name: getattr(tmatching, name) for name in (
+        "ransac_draws", "ransac_homography", "ransac_affine_partial")}
     done = [0]
 
-    def draws(valid, n_hyp, k):
-        hyps, subs = [], []
-        for row in n(valid):
-            key = keys[done[0]]
-            done[0] += 1
-            v = jnp.asarray(row)
-            hyps.append(np.asarray(jransac._sample_valid_distinct(
-                key, v, n_hyp, k)))
-            subs.append(np.asarray(jransac._sample_valid(
-                jax.random.fold_in(key, 1), v, (min(v.shape[0], 1024),))))
-        return t(np.stack(hyps)).long(), t(np.stack(subs)).long()
+    def draws(key, *args, **kwargs):
+        rows = n(key)
+        assert np.array_equal(rows, want[done[0]:done[0] + len(rows)]), \
+            f"pairs {done[0]}.. did not take the reference's keys"
+        done[0] += len(rows)
+        return real["ransac_draws"](key, *args, **kwargs)
 
-    def homography(src, dst, valid, generator=None, n_hyp=512, hyp_idx=None,
-                   score_idx=None):
-        hyp, sub = draws(valid, n_hyp, 4)
-        return real_h(src, dst, valid, generator, n_hyp=n_hyp, hyp_idx=hyp,
-                      score_idx=sub)
-
-    def affine(src, dst, valid, generator=None, n_hyp=512, hyp_idx=None):
-        hyp, _ = draws(valid, n_hyp, 2)
-        return real_a(src, dst, valid, generator, n_hyp=n_hyp, hyp_idx=hyp)
-    tmatching.ransac_homography = homography
-    tmatching.ransac_affine_partial = affine
+    def no_injection(fn):
+        def call(*args, **kwargs):
+            assert kwargs.get("hyp_idx") is None, "draws were injected"
+            return fn(*args, **kwargs)
+        return call
+    for name, fn in real.items():
+        setattr(tmatching, name,
+                draws if name == "ransac_draws" else no_injection(fn))
     try:
         yield done
     finally:
-        tmatching.ransac_homography = real_h
-        tmatching.ransac_affine_partial = real_a
+        for name, fn in real.items():
+            setattr(tmatching, name, fn)
 
 
 def write_mixed_ring(directory, hws, fov_deg=55.0, overlap_ratio=0.6,

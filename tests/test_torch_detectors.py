@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import cuda_device, n, reference_draws, t
+from _torch_port import checked_keys, cuda_device, n, t
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.ops import imgproc as jimg
@@ -24,6 +24,7 @@ from image_stitching_tpu.ops.features import hessian as jh
 from image_stitching_tpu.ops.features import sift as jsift
 from image_stitching_tpu.ops.features.akaze import akaze_detect_and_describe
 from image_stitching_tpu.ops.features.surf import surf_detect_and_describe
+from image_stitching_tpu_torch.core.prng import PRNGKey
 from image_stitching_tpu_torch.interop import features_from_numpy
 from image_stitching_tpu_torch.kernels.hamming import (
     hamming_matrix, hamming_two_nn_pairs, hamming_two_nn_pairs_plain,
@@ -237,7 +238,7 @@ def _jstack(feats):
 @pytest.mark.parametrize("feat", ["sift", "surf"])
 def test_l2_match_all_pairs_matches_reference(feat):
     """match_all_pairs on float descriptors (the reference's SIFT and SURF
-    features of three ring views) given the reference's RANSAC draws: the
+    features of three ring views) with the reference's key: the
     ratio-test tables and inlier masks equal, n_inliers equal, H within
     rtol 1e-4 of its max entry (tests/test_torch_matching.py's bound),
     confidences rtol 1e-6."""
@@ -250,8 +251,9 @@ def test_l2_match_all_pairs_matches_reference(feat):
     stack = Features.stack([features_from_numpy(JFeatures(
         *(f[name] for name in FIELDS)), device="cpu") for f in feats])
     assert stack.desc.dtype == torch.float32
-    with reference_draws(seed, 3) as drawn:
-        got = matching.match_all_pairs(stack, match_conf=0.65).numpy()
+    with checked_keys(seed, 3) as drawn:
+        got = matching.match_all_pairs(stack, PRNGKey(seed, "cpu"),
+                                       match_conf=0.65).numpy()
     assert drawn[0] == 3
     for name in ("ii", "jj", "a_idx", "b_idx", "valid", "inlier",
                  "num_matches", "num_inliers"):

@@ -4,7 +4,8 @@ its ValueError, and a real run of two OS processes joined over a
 localhost rendezvous with gloo, as tests/test_distributed.py runs the
 reference's.  Each worker imports torch and the port only.  The gathered
 (H, confidence, n_inliers) of the two processes equal a single-process
-batch of the same global pairs and seeds, and the rolled pairs register
+batch of the same global pairs and keys (split(PRNGKey(0), 4), as the
+reference's distributed batch takes them), and the rolled pairs register
 (min n_inliers > 20).  NCCL needs a card per process, so the path is held
 on CPU processes only.
 """
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from image_stitching_tpu_torch.core import prng
 from image_stitching_tpu_torch.parallel import distributed
 from image_stitching_tpu_torch.parallel import make_mesh
 from image_stitching_tpu_torch.parallel.batched import make_batched_register
@@ -71,6 +73,7 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 sys.path.insert(0, {repo!r})
+from image_stitching_tpu_torch.core.prng import PRNGKey, split
 from image_stitching_tpu_torch.parallel.distributed import (
     init_distributed, make_global_mesh, shard_local_batch,
     batched_register_distributed)
@@ -84,11 +87,13 @@ rng = np.random.default_rng(42)
 base = rng.uniform(0, 255, (4, 96, 128)).astype(np.float32)
 pairs_global = np.stack([base, np.roll(base, (7, 5), (1, 2))], axis=1)
 pairs = shard_local_batch(mesh, pairs_global[2 * pid:2 * pid + 2])
-draws = shard_local_batch(mesh, np.arange(4)[2 * pid:2 * pid + 2])
+keys_global = split(PRNGKey(0, "cpu"), 4)
+keys = shard_local_batch(mesh, keys_global[2 * pid:2 * pid + 2])
 assert (pairs.offset, pairs.global_size) == (2 * pid, 4)
 fn = batched_register_distributed(mesh, (96, 128), n_features=256,
                                   n_hyp=128)
-h, conf, ninl = fn(pairs, draws)
+assert keys.rows.dtype == torch.int64 and keys.rows.shape == (2, 2)
+h, conf, ninl = fn(pairs, keys)
 assert sorted(sys.modules).count("jax") == 0
 assert not any(m.startswith("image_stitching_tpu.") for m in sys.modules)
 np.savez(os.path.join({out!r}, f"proc{{pid}}.npz"), h=h.numpy(),
@@ -121,7 +126,7 @@ def test_two_process_pipeline_matches_single(tmp_path):
                 p.kill()
     h, conf, ninl = make_batched_register(
         make_mesh((4, 1), devices=[CPU] * 4), HW, n_features=256,
-        n_hyp=128)(_global_batch(), np.arange(4))
+        n_hyp=128)(_global_batch(), prng.split(prng.PRNGKey(0, CPU), 4))
     for pid in range(2):
         got = np.load(tmp_path / f"proc{pid}.npz")
         assert np.array_equal(got["ninl"], ninl.numpy())

@@ -16,7 +16,7 @@ import pytest
 
 import torch
 
-from _torch_port import n, reference_draws, rel_rotation_deg
+from _torch_port import checked_keys, n, rel_rotation_deg
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -265,8 +265,8 @@ FAST = {"full scale": {},
 
 @pytest.fixture(scope="module", params=sorted(FAST))
 def both_fast(request, captures, tmp_path_factory):
-    """Both stitch()es with fast ingest on, the reference's RANSAC draws
-    injected into the port's, recording the port's fast_prep."""
+    """Both stitch()es with fast ingest on, the port drawing its own RANSAC
+    numbers from the reference's keys, recording the port's fast_prep."""
     d, rs = captures
     extra = FAST[request.param]
     run_j = tmp_path_factory.mktemp("run_jax_fast")
@@ -275,7 +275,7 @@ def both_fast(request, captures, tmp_path_factory):
     ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **cfg),
                   output="")
     rec = Recorder(stitcher, "fast_prep")
-    with rec, reference_draws(JConfig().seed, 3) as drawn:
+    with rec, checked_keys(JConfig().seed, 3) as drawn:
         got = stitch(str(d), StitchConfig(checkpoint_dir=str(run_t), **cfg),
                      output="", device="cpu")
     assert drawn[0] == 3
@@ -331,8 +331,9 @@ CYL = dict(SMALL, fast_ingest=True, warp_type="cylindrical",
 
 @pytest.fixture(scope="module")
 def both_cyl(captures, tmp_path_factory):
-    """Both stitch()es of the CYL configuration, the reference's RANSAC
-    draws injected into the port's, recording each side's seam masks;
+    """Both stitch()es of the CYL configuration, the port drawing its own
+    RANSAC numbers from the reference's keys, recording each side's seam
+    masks;
     then both resume from the reference's checkpoint
     (serialize_data=False)."""
     d, rs = captures
@@ -342,7 +343,7 @@ def both_cyl(captures, tmp_path_factory):
     with recs[0]:
         ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **CYL),
                       output="")
-    with recs[1], reference_draws(JConfig().seed, 3):
+    with recs[1], checked_keys(JConfig().seed, 3):
         got = stitch(str(d), StitchConfig(checkpoint_dir=str(run_t), **CYL),
                      output="", device="cpu")
     resume = dict(CYL, serialize_data=False, checkpoint_dir=str(run_j))

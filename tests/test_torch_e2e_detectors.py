@@ -1,6 +1,6 @@
 """Port parity of the stitch with the SIFT, SURF and AKAZE detectors: both
-stitch()es on the same captures, with the reference's RANSAC draws
-injected into the port's.
+stitch()es on the same captures, the port drawing its own RANSAC numbers
+from the reference's keys.
 
 The captures are a 3-view ring of 240x320 (55 deg FOV, 0.55 overlap,
 sigma-4 noise), where the JAX package keeps all three images with every
@@ -14,7 +14,7 @@ import sys
 import numpy as np
 import pytest
 
-from _torch_port import n, reference_draws, rel_rotation_deg
+from _torch_port import checked_keys, n, rel_rotation_deg
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -57,7 +57,7 @@ def both(request, captures, tmp_path_factory):
     run_t = tmp_path_factory.mktemp(f"run_torch_{feat}")
     ref = jstitch(str(d), JConfig(checkpoint_dir=str(run_j), **_cfg(feat)),
                   output="")
-    with reference_draws(JConfig().seed, 3) as drawn:
+    with checked_keys(JConfig().seed, 3) as drawn:
         got = stitch(str(d), StitchConfig(checkpoint_dir=str(run_t),
                                           **_cfg(feat)),
                      output="", device="cpu")

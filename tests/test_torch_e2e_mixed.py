@@ -1,6 +1,7 @@
 """Port parity of the loop compose as a whole: both stitch()es on a
 mixed-size capture set, under the timelapse (CROP and AS_IS) and with the
-auto-crop, the reference's RANSAC draws injected into the port's.
+auto-crop, the port drawing its own RANSAC numbers from the reference's
+keys.
 
 The mixed set is three ring views of 160x224, 192x256 and 160x224, each
 with its own K at 55 deg, 0.6 overlap, sigma-4 noise; the uniform set is
@@ -16,7 +17,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from _torch_port import n, reference_draws, rel_rotation_deg, write_mixed_ring
+from _torch_port import (checked_keys, n, rel_rotation_deg,
+                         write_mixed_ring)
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -54,7 +56,7 @@ def _both(caps, cfg, tmp_path_factory, name, recorder=None):
     run_t = tmp_path_factory.mktemp(f"{name}_torch")
     with _cwd(run_j):
         ref = jstitch(caps, JConfig(**cfg), output="")
-    with _cwd(run_t), reference_draws(JConfig().seed, 3), \
+    with _cwd(run_t), checked_keys(JConfig().seed, 3), \
             (recorder or contextlib.nullcontext()):
         got = stitch(caps, StitchConfig(**cfg), output="", device="cpu")
     return ref, got, run_j, run_t

@@ -3,8 +3,9 @@
 
 - the range matcher through `stitch()` on tests/test_pipeline_e2e.py's
   narrow-fov mosaic (8 x 120x160, 12 deg, overlap 0.55, detailed
-  texture, range_width=3), against the JAX package's stitch with its
-  RANSAC draws injected: the pair lists and kept indices equal;
+  texture, range_width=3), against the JAX package's stitch, both
+  drawing RANSAC from split(PRNGKey(seed), 13): the pair lists and kept
+  indices equal;
 - bundle adjustment past 64 cameras, where both packages switch the LM
   inner solver from Cholesky to Jacobi-preconditioned CG ("cg64"), on one
   packed problem of synthetic correspondences of a 72-camera ring.
@@ -15,7 +16,7 @@ import importlib
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from _torch_port import n, reference_draws
+from _torch_port import checked_keys, n
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -52,7 +53,7 @@ def test_range_matcher_mosaic_pairs_equal(tmp_path):
         ref = jstitch(str(d), JConfig(checkpoint_dir=str(runs[0]),
                                       **MOSAIC), output="")
     rec = Recorder(stitcher, "match_all_pairs")
-    with rec, reference_draws(JConfig().seed, 13) as drawn:
+    with rec, checked_keys(JConfig().seed, 13) as drawn:
         got = stitch(str(d), StitchConfig(checkpoint_dir=str(runs[1]),
                                           **MOSAIC),
                      output="", device="cpu")

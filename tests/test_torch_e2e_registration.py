@@ -1,5 +1,6 @@
 """Port parity of the registration variants, end to end: both stitch()es
-on the same captures with the reference's RANSAC draws injected.
+on the same captures, the port drawing its own RANSAC numbers from the
+reference's keys (`core/prng.py`).
 
 A 3-image ring of 180x240 (55 deg FOV, 0.55 overlap, sigma-4 noise) and
 three configurations: written without EXIF, so the cameras are seeded by
@@ -22,7 +23,7 @@ exact inverse of its camera's A instead."""
 import numpy as np
 import pytest
 
-from _torch_port import n, reference_draws, rel_rotation_deg
+from _torch_port import checked_keys, n, rel_rotation_deg
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -79,7 +80,7 @@ def both(request, capture_dirs, tmp_path_factory):
     compose_fused.warp_bilinear = recording
     # Every pair i < j is matched: 3 pairs.
     try:
-        with reference_draws(JConfig().seed, 3) as drawn:
+        with checked_keys(JConfig().seed, 3) as drawn:
             got = stitch(dirs[which], StitchConfig(
                 checkpoint_dir=str(run_t), **cfg), output="", device="cpu")
     finally:

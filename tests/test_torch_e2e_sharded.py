@@ -3,9 +3,10 @@ tests/test_pipeline_e2e.py's captures (3 images of 160x224) with
 use_sharded_compose=True.  The JAX package shards over the conftest's 8
 virtual CPU devices; the port's device list is replaced by 8 CPU shards
 (`stitcher.local_devices`), so `compose_uniform` takes
-`fused_compose_sharded` on a (1, 8) mesh.  The reference's RANSAC draws
-are injected.  Kept indices equal; the panorama within the e2e tests'
-bounds (shape within 2 px per axis, common mask > 0.9, mean |diff| <= 2).
+`fused_compose_sharded` on a (1, 8) mesh.  The port draws its own RANSAC
+numbers from the reference's keys.  Kept indices equal; the panorama
+within the e2e tests' bounds (shape within 2 px per axis, common mask >
+0.9, mean |diff| <= 2).
 """
 
 import jax
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import n, reference_draws
+from _torch_port import checked_keys, n
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -45,7 +46,7 @@ def both(tmp_path_factory):
                lambda kind: [torch.device("cpu")] * 8)
     rec = Recorder(stitcher, "fused_compose_sharded", "fused_compose")
     try:
-        with rec, reference_draws(JConfig().seed, N_IMAGES):
+        with rec, checked_keys(JConfig().seed, N_IMAGES):
             got = stitch_port(str(d), run_t)
     finally:
         mp.undo()

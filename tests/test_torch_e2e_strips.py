@@ -2,15 +2,16 @@
 CPU: tests/test_torch_e2e.py's 3 x 160x224 ring with `compose_strips_mp`
 below its canvas, so the stitch takes `fused_compose_strips` (4 strips of
 128 columns), against the JAX package's stitch of the same captures and
-configuration with the reference's RANSAC draws injected into the port's,
-and against the port's own whole-canvas stitch of the same captures.
+configuration (the port drawing its own RANSAC numbers from the
+reference's keys), and against the port's own whole-canvas stitch of the
+same captures.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import n, reference_draws, rel_rotation_deg
+from _torch_port import checked_keys, n, rel_rotation_deg
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -35,13 +36,13 @@ def strips(tmp_path_factory):
     ref = jstitch(str(d), JConfig(checkpoint_dir=str(runs[0]), **STRIPS),
                   output="")
     rec = Recorder(stitcher, "fused_compose", "fused_compose_strips")
-    with rec, reference_draws(JConfig().seed, N_IMAGES) as drawn:
+    with rec, checked_keys(JConfig().seed, N_IMAGES) as drawn:
         got = stitch(str(d), StitchConfig(checkpoint_dir=str(runs[1]),
                                           **STRIPS),
                      output=str(runs[1] / "result.jpg"), device="cpu")
     assert drawn[0] == N_IMAGES
     whole_cfg = dict(STRIPS, compose_strips_mp=0.0)
-    with reference_draws(JConfig().seed, N_IMAGES):
+    with checked_keys(JConfig().seed, N_IMAGES):
         whole = stitch(str(d), StitchConfig(checkpoint_dir=str(runs[2]),
                                             **whole_cfg),
                        output="", device="cpu")

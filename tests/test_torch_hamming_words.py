@@ -19,13 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import cuda_device, n, reference_draws, t
+from _torch_port import checked_keys, cuda_device, n, t
 from test_torch_hamming import BIG, _assert_two_nn_equal, _reference
 from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.ops import imgproc as jimg
 from image_stitching_tpu.ops import matching as jm
 from image_stitching_tpu.ops.features import Features as JFeatures
 from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
+from image_stitching_tpu_torch.core.prng import PRNGKey, split
 from image_stitching_tpu_torch.interop import features_from_numpy
 from image_stitching_tpu_torch.kernels.hamming import (
     hamming_two_nn_pairs, hamming_two_nn_pairs_plain, hamming_two_nn_plain,
@@ -175,29 +176,30 @@ def _assert_pair_equal(got, want):
 
 def test_match_pair_at_16_words(ring16):
     """match_pair on 16-word descriptors gives the JAX package's match
-    table, with the reference's RANSAC draws for the key."""
+    table, with the same key."""
     fa, fb = ring16[0], ring16[1]
     key = jax.random.split(jax.random.PRNGKey(0), 1)[0]
     want = jm.match_pair(jax.tree.map(jnp.asarray, fa),
                          jax.tree.map(jnp.asarray, fb), key)
     ta, tb = (features_from_numpy(f, device="cpu") for f in (fa, fb))
     assert ta.desc.shape == (400, 16)
-    with reference_draws(0, 1):
-        got = matching.match_pair(ta, tb)
+    with checked_keys(0, 1):
+        got = matching.match_pair(ta, tb, split(PRNGKey(0, "cpu"), 1)[0])
     assert int(got.num_inliers) > 8
     _assert_pair_equal(got, want)
 
 
 def test_match_all_pairs_at_16_words(ring16):
     """The slice as a whole: match_all_pairs on the 16-word ring equals
-    the JAX package's, pair for pair, with its draws."""
+    the JAX package's, pair for pair, with the same key."""
     stack = JFeatures(*(jnp.stack([jnp.asarray(getattr(f, name))
                                    for f in ring16]) for name in FIELDS))
     ref = jax.tree.map(np.asarray, jm.match_all_pairs(
         stack, jax.random.PRNGKey(0)))
-    with reference_draws(0, 3) as drawn:
+    with checked_keys(0, 3) as drawn:
         got = matching.match_all_pairs(Features.stack(
-            [features_from_numpy(f, device="cpu") for f in ring16])).numpy()
+            [features_from_numpy(f, device="cpu") for f in ring16]),
+            PRNGKey(0, "cpu")).numpy()
     assert drawn[0] == 3
     for name in ("ii", "jj", "a_idx", "b_idx", "valid", "inlier",
                  "num_matches", "num_inliers"):

@@ -1,9 +1,11 @@
-"""Port parity: Hamming 2-NN matching and RANSAC with injected draws.
+"""Port parity: Hamming 2-NN matching and RANSAC.
 
-The reference draws RANSAC hypotheses from the JAX threefry stream, which
-torch cannot reproduce; these tests recompute the reference's draws with
-its own `_sample_valid_distinct` / `_sample_valid` from the same key and
-inject them into the port."""
+Some tests hold one stage alone: they recompute the reference's draws
+with its own `_sample_valid_distinct` / `_sample_valid` from a key and
+inject them into the port.  The others give both packages the same key:
+the port draws the same numbers from it (`core/prng.py`,
+tests/test_torch_prng.py), and pair p of `match_all_pairs` draws from
+split(key, n_pairs)[p] alone, whatever the chunk."""
 
 import os
 
@@ -21,6 +23,7 @@ from image_stitching_tpu.ops import matching as jm
 from image_stitching_tpu.ops import ransac as jr
 from image_stitching_tpu.ops.features import Features as JFeatures
 from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
+from image_stitching_tpu_torch.core.prng import PRNGKey, split
 from image_stitching_tpu_torch.interop import (features_from_numpy,
                                                pair_matches_from_numpy)
 from image_stitching_tpu_torch.ops import matching, ransac
@@ -67,6 +70,24 @@ def test_hamming_and_two_nn_equal():
     out = matching.two_nn(got.float(), t(valid))
     for r_, o in zip(ref, out):
         np.testing.assert_array_equal(n(o), np.asarray(r_))
+
+
+@pytest.mark.parametrize("words", [1, 5, 12, 32])
+def test_hamming_matrix_at_word_counts(words):
+    """ops/matching.py's hamming_matrix (the plain bit-plane product, the
+    reference's is XLA) equals the JAX function at other word counts,
+    with all-zero and all-one words and the top bit set."""
+    rng = np.random.default_rng(words)
+    a = rng.integers(0, 2 ** 32, (40, words), dtype=np.uint64).astype(
+        np.uint32)
+    b = rng.integers(0, 2 ** 32, (33, words), dtype=np.uint64).astype(
+        np.uint32)
+    a[0], a[1], b[0] = 0, 0xFFFFFFFF, 0x80000000
+    want = np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    got = matching.hamming_matrix(t(a), t(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(n(got), want)
+    assert want[1, 0] == 32 * words - words
 
 
 def test_ransac_injected_hypotheses():
@@ -118,8 +139,8 @@ def test_match_pair_equal_given_identical_descriptors(ring_features, pair):
 
 def test_match_all_pairs_tables(ring_features):
     """Deterministic parts of the all-pairs graph (ratio-test matches,
-    pair_cap compaction, counts) equal; confidences agree to within the
-    different random hypotheses."""
+    pair_cap compaction, counts) equal; confidences agree (the same key,
+    so the same hypotheses)."""
     stack = JFeatures(*(jnp.stack([jnp.asarray(getattr(f, name))
                                    for f in ring_features])
                         for name in ("xy", "response", "angle", "octave",
@@ -129,7 +150,7 @@ def test_match_all_pairs_tables(ring_features):
     got = matching.match_all_pairs(
         Features.stack([features_from_numpy(f, device="cpu")
                         for f in ring_features]),
-        torch.Generator().manual_seed(0), pair_cap=400).numpy()
+        PRNGKey(0, "cpu"), pair_cap=400).numpy()
     for name in ("ii", "jj", "a_idx", "b_idx", "valid", "num_matches"):
         np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
     np.testing.assert_allclose(got.confidence, ref.confidence, rtol=0,
@@ -158,10 +179,41 @@ def test_match_all_pairs_slices_the_one_two_nn_call(ring_features,
     got = matching.match_all_pairs(
         Features.stack([features_from_numpy(f, device="cpu")
                         for f in ring_features]),
-        torch.Generator().manual_seed(0)).numpy()
+        PRNGKey(0, "cpu")).numpy()
     assert len(calls) == 1 and calls[0][2].tolist() == [0, 0, 1]
     for name in ("ii", "jj", "a_idx", "b_idx", "valid", "num_matches"):
         np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3])
+def test_pair_draws_depend_on_its_key_alone(ring_features, monkeypatch,
+                                            chunk):
+    """Pair p of match_all_pairs draws from split(key, 3)[p] and nothing
+    else: in chunks of 1, 2 or 3 pairs and in draw blocks of 2 or 4096
+    pairs, each pair's uniforms come from its own key, and its inlier
+    mask, n_inliers and H equal one match_pair call with that key, which
+    sees no other pair."""
+    tf = [features_from_numpy(f, device="cpu") for f in ring_features]
+    key = PRNGKey(0, "cpu")
+    real = matching.ransac_draws
+    for block in (2, 4096):
+        keys_seen = []
+
+        def draws_watch(k, *a, **kw):
+            keys_seen.append(k.clone())
+            return real(k, *a, **kw)
+        monkeypatch.setattr(matching, "pair_chunk", lambda k: chunk)
+        monkeypatch.setattr(matching, "DRAW_PAIRS", block)
+        monkeypatch.setattr(matching, "ransac_draws", draws_watch)
+        got = matching.match_all_pairs(Features.stack(tf), key)
+        assert len(keys_seen) == -(-3 // (chunk * max(1, block // chunk)))
+        assert torch.equal(torch.cat(keys_seen), split(key, 3))
+        for p, (i, j) in enumerate(((0, 1), (0, 2), (1, 2))):
+            one = matching.match_pair(tf[i], tf[j], split(key, 3)[p])
+            assert torch.equal(got.inlier[p], one.inlier)
+            assert int(got.num_inliers[i, j]) == int(one.num_inliers)
+            _assert_h_close(n(got.h[i, j]), n(one.h))
+        assert int(got.num_inliers[0, 1]) > 8
 
 
 # The 4000 full-resolution ORB features of each image of the sigma-4

@@ -2,7 +2,7 @@
 
 The capture rig, the rig captures, orthonormalize and the Euler
 extraction, the homography/affine estimators, the affine RANSAC and
-matcher (the reference's draws injected), the ray/affine/no bundle
+matcher (with the reference's keys), the ray/affine/no bundle
 adjustment costs and the pose infill, each on the same seeded inputs
 through the JAX package and the port."""
 
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from _torch_port import n, reference_draws, rel_rotation_deg, t
+from _torch_port import checked_keys, n, rel_rotation_deg, t
 from image_stitching_tpu.core import rig as jrig
 from image_stitching_tpu.data import synth as jsynth
 from image_stitching_tpu.geometry import euler as jeuler
@@ -27,6 +27,7 @@ from image_stitching_tpu.ops import ransac as jr
 from image_stitching_tpu.ops.features import Features as JFeatures
 from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
 from image_stitching_tpu_torch.core import rig
+from image_stitching_tpu_torch.core.prng import PRNGKey
 from image_stitching_tpu_torch.data import synth
 from image_stitching_tpu_torch.estimation import bundle_adjust as tba
 from image_stitching_tpu_torch.estimation import homography_estimator as the
@@ -212,14 +213,15 @@ def ring_features():
 def graphs(ring_features):
     """The reference's match graphs of the ring, homography and affine
     matcher, with numpy leaves; and the port's affine graph on the same
-    features with the reference's draws injected."""
+    features with the same key."""
     stack, _, _, tstack = ring_features
     key = jax.random.PRNGKey(0)
     ref = {mt: jax.tree.map(np.asarray, jm.match_all_pairs(
         stack, key, matcher_type=mt, pair_cap=400))
         for mt in ("homography", "affine")}
-    with reference_draws(0, 3) as drawn:
-        got = matching.match_all_pairs(tstack, pair_cap=400,
+    with checked_keys(0, 3) as drawn:
+        got = matching.match_all_pairs(tstack, PRNGKey(0, "cpu"),
+                                       pair_cap=400,
                                        matcher_type="affine").numpy()
     assert drawn[0] == 3
     return ref, got
@@ -253,7 +255,7 @@ def test_ransac_affine_injected_hypotheses():
 
 def test_affine_matcher_inlier_counts_equal(graphs):
     """match_all_pairs(matcher_type="affine") on the same features with
-    the reference's draws: ratio-test tables, inlier masks and counts
+    the same key: ratio-test tables, inlier masks and counts
     equal; confidences within 1e-6, H within 1e-4 of its largest entry."""
     ref, got = graphs
     ref = ref["affine"]
