@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
+from ..core.logging import count, span
 from ..geometry.camera import Cameras, make_k
 from ..geometry.rotation import matrix_to_rodrigues, rodrigues_to_matrix
 
@@ -268,20 +269,24 @@ def _lm_solve(prob: _Problem, params: torch.Tensor, solver: str,
     for _ in range(max_iters):
         if lam >= 1e6:
             break
-        precond = 1.0 / torch.sqrt(torch.clamp(torch.diag(jtj), min=1e-8))
-        a = jtj * precond[:, None] * precond[None, :] + float(lam) * eye
-        step = precond * _inner_solve(a, precond * jtr, solver)
-        new_p = params - step.reshape(params.shape)
-        new_c = prob.cost(new_p)
-        if bool(torch.isfinite(new_c)) and bool(new_c < c):
-            converged = bool((c - new_c) < 1e-9 * (1.0 + new_c))
-            params = new_p
-            lam = max(np.float32(lam * np.float32(0.3)), np.float32(1e-7))
-            c, jtj, jtr = prob.normal_eqs(params)
-            if converged:
-                break
-        else:
-            lam = np.float32(lam * np.float32(10.0))
+        with span("lm iteration"):
+            count("ba.iterations")
+            precond = 1.0 / torch.sqrt(torch.clamp(torch.diag(jtj),
+                                                   min=1e-8))
+            a = jtj * precond[:, None] * precond[None, :] + float(lam) * eye
+            step = precond * _inner_solve(a, precond * jtr, solver)
+            new_p = params - step.reshape(params.shape)
+            new_c = prob.cost(new_p)
+            if bool(torch.isfinite(new_c)) and bool(new_c < c):
+                converged = bool((c - new_c) < 1e-9 * (1.0 + new_c))
+                params = new_p
+                lam = max(np.float32(lam * np.float32(0.3)),
+                          np.float32(1e-7))
+                c, jtj, jtr = prob.normal_eqs(params)
+                if converged:
+                    break
+            else:
+                lam = np.float32(lam * np.float32(10.0))
     if not bool(torch.all(torch.isfinite(params))):
         raise RuntimeError("Camera parameters adjusting failed.")
     return params

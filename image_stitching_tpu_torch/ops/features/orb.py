@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...core.logging import span
 from ...kernels.orb_sample import orb_sample_levels
 from ..imgproc import gaussian_blur, resize, scale_size
 from .types import Features
@@ -212,14 +213,15 @@ def detect_levels(gray: torch.Tensor, n_features: int = 4000,
         lh, lw = scale_size(h, w, 1.0 / scale_factor ** level)
         if min(lh, lw) < patch_size + 8 or counts[level] == 0:
             continue
-        img_l = (resize(gray, (lh, lw)) if level
-                 else gray.to(torch.float32)).contiguous()
-        xy_l, top_vals, valid = detect_level(
-            img_l, gray if level == 0 else img_l, counts[level], patch_size,
-            fast_threshold)
-        levels.append((level, img_l,
-                       gaussian_blur(img_l, 2.0, 3).contiguous(), xy_l,
-                       top_vals, valid))
+        with span("orb level"):
+            img_l = (resize(gray, (lh, lw)) if level
+                     else gray.to(torch.float32)).contiguous()
+            xy_l, top_vals, valid = detect_level(
+                img_l, gray if level == 0 else img_l, counts[level],
+                patch_size, fast_threshold)
+            levels.append((level, img_l,
+                           gaussian_blur(img_l, 2.0, 3).contiguous(), xy_l,
+                           top_vals, valid))
     return levels
 
 
@@ -231,6 +233,14 @@ def orb_detect_and_describe(gray: torch.Tensor, n_features: int = 4000,
     """Detect + describe one (H, W) float32/uint8 image into exactly
     `n_features` masked slots: every level detected first, then all of
     them described by one `orb_sample_levels` call."""
+    with span("orb image"):
+        return _orb_detect_and_describe(gray, n_features, scale_factor,
+                                        n_levels, patch_size, fast_threshold,
+                                        pattern)
+
+
+def _orb_detect_and_describe(gray, n_features, scale_factor, n_levels,
+                             patch_size, fast_threshold, pattern):
     dev = gray.device
     pat = pattern_xy(resolve_pattern(pattern, patch_size), dev)
     levels = detect_levels(gray, n_features, scale_factor, n_levels,
@@ -238,10 +248,11 @@ def orb_detect_and_describe(gray: torch.Tensor, n_features: int = 4000,
     ks = [lv[3].shape[0] for lv in levels]
     lvl_idx = torch.cat([torch.full((k,), i, dtype=torch.int32, device=dev)
                          for i, k in enumerate(ks)])
-    _, angle, _, desc = orb_sample_levels(
-        [lv[1] for lv in levels], [lv[2] for lv in levels],
-        torch.cat([lv[3] for lv in levels]), lvl_idx, pat,
-        radius=patch_size // 2)
+    with span("describe (K1)"):
+        _, angle, _, desc = orb_sample_levels(
+            [lv[1] for lv in levels], [lv[2] for lv in levels],
+            torch.cat([lv[3] for lv in levels]), lvl_idx, pat,
+            radius=patch_size // 2)
     feats = []
     for (level, _, _, xy_l, top_vals, valid), a_l, d_l in zip(
             levels, angle.split(ks), desc.split(ks)):

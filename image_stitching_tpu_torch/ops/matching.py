@@ -31,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.logging import span
 from ..core.prng import check_key, split
 from ..kernels.hamming import (hamming_matrix, hamming_two_nn_pairs,
                                pair_chunk, two_nn)
@@ -217,24 +218,29 @@ def match_all_pairs(feats: Features, key: torch.Tensor,
                       else (4, min(2 * k, 1024)))
     binary = not torch.is_floating_point(feats.desc)
     if binary:
-        fwd, rev = hamming_two_nn_pairs(feats.desc, feats.valid, ii, jj)
+        with span("K4", n=n, k=k, w=feats.desc.shape[2], pairs=len(iu)):
+            fwd, rev = hamming_two_nn_pairs(feats.desc, feats.valid, ii, jj)
     outs = []
     chunk = pair_chunk(k)
     block = chunk * max(1, DRAW_PAIRS // chunk)
     for s in range(0, len(iu), chunk):
         cut = slice(s, s + chunk)
-        if s % block == 0:
-            u_hyp, u_score = ransac_draws(keys[s:s + block], n_hyp, k_hyp,
-                                          m_score)
-        rows = slice(s % block, s % block + chunk)
-        if binary:
-            nn = (tuple(x[cut] for x in fwd), tuple(x[cut] for x in rev))
-        else:
-            nn = l2_two_nn_pairs(feats.desc, feats.valid, ii[cut], jj[cut])
-        outs.append(match_pairs(
-            feats[ii[cut]], feats[jj[cut]], match_conf, n_hyp=n_hyp, nn=nn,
-            matcher_type=matcher_type,
-            draws=(u_hyp[rows], None if u_score is None else u_score[rows])))
+        with span("ransac block"):
+            if s % block == 0:
+                u_hyp, u_score = ransac_draws(keys[s:s + block], n_hyp,
+                                              k_hyp, m_score)
+            rows = slice(s % block, s % block + chunk)
+            if binary:
+                nn = (tuple(x[cut] for x in fwd),
+                      tuple(x[cut] for x in rev))
+            else:
+                nn = l2_two_nn_pairs(feats.desc, feats.valid, ii[cut],
+                                     jj[cut])
+            outs.append(match_pairs(
+                feats[ii[cut]], feats[jj[cut]], match_conf, n_hyp=n_hyp,
+                nn=nn, matcher_type=matcher_type,
+                draws=(u_hyp[rows],
+                       None if u_score is None else u_score[rows])))
     if outs:
         a_idx, b_idx, valid, inlier, h_p, ninl_p, conf_p = (
             torch.cat(x) for x in zip(*outs))

@@ -35,6 +35,7 @@ import torch
 
 from ..config import BlenderType
 from ..config import ExposureCompensatorType as ECType
+from ..core.logging import span
 from ..kernels.multiband import pyramid_accumulate
 from ..kernels.warp_gather import warp_bilinear
 from ..ops.blend import collapse, num_bands_for
@@ -481,7 +482,9 @@ def _accumulate(inp: _SampleInputs, g: ComposeRects) -> List[torch.Tensor]:
                         dtype=torch.float32, device=inp.images.device)
             for b in range(g.n_bands + 1)]
     for warped, weight, offs in _bucket_chunks(inp, g):
-        pyramid_accumulate(warped, weight, offs, accs, g.n_bands)
+        with span("K5", n=warped.shape[0], h=warped.shape[2],
+                  w=warped.shape[3], bands=g.n_bands):
+            pyramid_accumulate(warped, weight, offs, accs, g.n_bands)
         del warped, weight          # freed before the next chunk is made
     return accs
 

@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..core import native
+from ..core.logging import count, span
 from ..ops.imgproc import resize, rgb_to_gray
 
 __all__ = ["FastIngest", "start_fast_ingest", "fast_prep", "pick_num8",
@@ -122,12 +123,17 @@ class FastIngest:
         for i in range(self.n):
             last = per * (i + 1) - 1     # the RGB item; gray precedes it
             if gray_d is not None:
-                gray_d[i].copy_(torch.as_tensor(self.session.wait(last - 1)),
-                                non_blocking=async_copy)
-            rgb_d[i].copy_(torch.as_tensor(self.session.wait(last)),
-                           non_blocking=async_copy)
+                self._upload(gray_d[i], last - 1, async_copy)
+            self._upload(rgb_d[i], last, async_copy)
         self.session.finish()
         return gray_d, rgb_d
+
+    def _upload(self, dst: torch.Tensor, item: int, async_copy: bool):
+        """Wait for item's decode, then queue its copy into dst."""
+        with span("decode wait", item=item):
+            host = self.session.wait(item)
+        dst.copy_(torch.as_tensor(host), non_blocking=async_copy)
+        count("ingest.upload_bytes", dst.nbytes)
 
 
 def start_fast_ingest(paths: Sequence[str], is_portrait: bool,

@@ -53,7 +53,8 @@ import torch
 from ..config import StitchConfig, WaveCorrectKind
 from ..core import exif as exif_mod
 from ..core import image_io, persistence
-from ..core.logging import StageTimes, logger, stage_timer
+from ..core.logging import (StageTimes, Trace, count, logger, span,
+                            stage_timer, trace_stitch)
 from ..core.prng import PRNGKey
 from ..core.rig import DEFAULT_RIG
 from ..estimation.bundle_adjust import bundle_adjust, pack_correspondences
@@ -99,6 +100,8 @@ class StitchResult:
     stage_times: StageTimes
     timelapse_frames: List[str] = dataclasses.field(default_factory=list)
     work_scale: float = 1.0
+    # The stitch's spans and counters (`core/logging.py`).
+    trace: Optional[Trace] = None
 
 
 def compose_route(cfg: StitchConfig, canvas, device) -> str:
@@ -190,6 +193,12 @@ def _load_priors(paths: Sequence[str]):
                 R=np.stack(cols[4]), t=np.stack(cols[5])), is_portrait
 
 
+def _prior_cameras(priors, work_scale: float, dev) -> Optional[Cameras]:
+    """The EXIF priors' cameras at work scale on `dev`, or None."""
+    return (Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
+            if priors is not None else None)
+
+
 def _median_focal(focals: np.ndarray) -> float:
     """Sorted middle (odd) / mean of the middle two (even)."""
     f = np.sort(np.asarray(focals, np.float64))
@@ -274,8 +283,10 @@ def stitch(source, cfg: StitchConfig = StitchConfig(),
     """Stitch a directory or a list of image paths on `device`.  Writes
     `cfg.result_name` (or `output`) unless output=""."""
     dev = _resolve_device(device)
-    with _profiled(cfg.profile_dir, dev):
-        return _stitch_body(source, cfg, output, dev)
+    with _profiled(cfg.profile_dir, dev), trace_stitch() as trace:
+        result = _stitch_body(source, cfg, output, dev)
+    result.trace = trace
+    return result
 
 
 def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
@@ -292,12 +303,15 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
     fast = None
     device_imgs = None
     with stage_timer("Reading images and priors", times, dev):
-        priors, is_portrait = (_load_priors(paths) if cfg.use_sensor_priors
-                               else (None, False))
+        with span("priors"):
+            priors, is_portrait = (_load_priors(paths)
+                                   if cfg.use_sensor_priors
+                                   else (None, False))
         # Header-only sizes: the three scales are known before any pixel
         # is decoded, so the decoder can run DCT-scaled.
-        full_sizes = [image_io.probe_oriented_size(p, is_portrait)
-                      for p in paths]
+        with span("probe sizes"):
+            full_sizes = [image_io.probe_oriented_size(p, is_portrait)
+                          for p in paths]
         area0 = full_sizes[0][0] * full_sizes[0][1]
         work_scale = 1.0 if cfg.work_megapix < 0 else min(
             1.0, float(np.sqrt(cfg.work_megapix * 1e6 / area0)))
@@ -318,18 +332,24 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                              if abs(compose_scale - 1) > 1e-1 else 1.0)
         # The timelapse composes in the loop, from full-resolution pixels.
         if cfg.fast_ingest and not cfg.timelapse:
-            fast = start_fast_ingest(
-                paths, is_portrait, want_gray=want_feats,
-                gray_scale=work_scale,
-                rgb_scale=max(seam_scale, compose_src_scale), device=dev)
-        if fast is not None:
-            gray_raw, rgb_raw = fast.upload()
-        else:
-            device_imgs = []
-            for p in paths:
-                im = image_io.orient_capture(image_io.imread(p), is_portrait)
-                device_imgs.append(torch.from_numpy(im).to(dev))
-            full_sizes = [(im.shape[1], im.shape[0]) for im in device_imgs]
+            with span("start decode"):
+                fast = start_fast_ingest(
+                    paths, is_portrait, want_gray=want_feats,
+                    gray_scale=work_scale,
+                    rgb_scale=max(seam_scale, compose_src_scale), device=dev)
+        with span("upload"):
+            if fast is not None:
+                gray_raw, rgb_raw = fast.upload()
+            else:
+                # The legacy route decodes each file here, then uploads it.
+                device_imgs = []
+                for p in paths:
+                    im = image_io.orient_capture(image_io.imread(p),
+                                                 is_portrait)
+                    count("ingest.upload_bytes", im.nbytes)
+                    device_imgs.append(torch.from_numpy(im).to(dev))
+                full_sizes = [(im.shape[1], im.shape[0])
+                              for im in device_imgs]
     n = len(paths)
     uniform = len(set(full_sizes)) == 1
 
@@ -343,8 +363,9 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
             # computed from the full-resolution size.
             work_hw = (scale_size(h0, w0, work_scale) if work_scale != 1.0
                        else (h0, w0))
-            grays, stack_u8, seam_stack = fast_prep(
-                fast, gray_raw, rgb_raw, is_portrait, work_hw, seam_hw)
+            with span("fast_prep"):
+                grays, stack_u8, seam_stack = fast_prep(
+                    fast, gray_raw, rgb_raw, is_portrait, work_hw, seam_hw)
         else:
             grays, seam_list = [], []
             for im in device_imgs:
@@ -366,90 +387,99 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
         if want_feats:
             fstack = detect_stack(grays, cfg)
 
-    cameras_all = (Cameras.from_numpy(device=dev, **priors).scaled(work_scale)
-                   if priors is not None else None)
-
     if want_feats:
         with stage_timer("Pairwise matching", times, dev):
-            pm = match_all_pairs(fstack, PRNGKey(cfg.seed, dev),
-                                 match_conf=cfg.match_conf,
-                                 range_width=cfg.range_width,
-                                 pair_cap=cfg.num_features,
-                                 matcher_type=cfg.matcher_type).numpy()
-            xy_host = fstack.xy.cpu().numpy()
-        if cfg.save_graph and cfg.save_graph_to:
-            with open(cfg.save_graph_to, "w") as gf:
-                gf.write(matches_graph_dot(paths, pm.confidence,
-                                           pm.num_inliers, pm.num_matches,
-                                           cfg.conf_thresh))
-        indices, removed = biggest_component(pm.confidence, cfg.conf_thresh)
-        if removed:
-            logger.info("Removed some images, because can't match them or "
-                        "there are too similar images: (%s).",
-                        ", ".join(str(i + 1) for i in removed))
-        if len(indices) < 2:
-            raise RuntimeError("Need more images: all but one were removed "
-                               "as unmatchable")
+            graph = match_all_pairs(fstack, PRNGKey(cfg.seed, dev),
+                                    match_conf=cfg.match_conf,
+                                    range_width=cfg.range_width,
+                                    pair_cap=cfg.num_features,
+                                    matcher_type=cfg.matcher_type)
+            with span("matches to host"):
+                pm = graph.numpy()
+                xy_host = fstack.xy.cpu().numpy()
+        with stage_timer("Selecting images", times, dev):
+            cameras_all = _prior_cameras(priors, work_scale, dev)
+            if cfg.save_graph and cfg.save_graph_to:
+                with open(cfg.save_graph_to, "w") as gf:
+                    gf.write(matches_graph_dot(paths, pm.confidence,
+                                               pm.num_inliers,
+                                               pm.num_matches,
+                                               cfg.conf_thresh))
+            indices, removed = biggest_component(pm.confidence,
+                                                 cfg.conf_thresh)
+            if removed:
+                logger.info("Removed some images, because can't match them "
+                            "or there are too similar images: (%s).",
+                            ", ".join(str(i + 1) for i in removed))
+            if len(indices) < 2:
+                raise RuntimeError("Need more images: all but one were "
+                                   "removed as unmatchable")
 
-        # The seed: the priors, else (and always for the affine
-        # estimator) the estimate from the kept images' match graph.
-        pm_sub = pm.subset(indices)
-        if cameras_all is not None and cfg.estimator_type != "affine":
-            seed_cams = cameras_all[indices]
-        else:
-            estimate = (affine_based_estimate
-                        if cfg.estimator_type == "affine"
-                        else homography_based_estimate)
-            sizes_sub = [scale_size(full_sizes[i][1], full_sizes[i][0],
-                                    work_scale) for i in indices]
-            seed_cams = Cameras.from_numpy(device=dev, **estimate(
-                pm_sub, sizes_sub, cfg.conf_thresh))
+            # The seed: the priors, else (and always for the affine
+            # estimator) the estimate from the kept images' match graph.
+            pm_sub = pm.subset(indices)
+            if cameras_all is not None and cfg.estimator_type != "affine":
+                seed_cams = cameras_all[indices]
+            else:
+                estimate = (affine_based_estimate
+                            if cfg.estimator_type == "affine"
+                            else homography_based_estimate)
+                sizes_sub = [scale_size(full_sizes[i][1], full_sizes[i][0],
+                                        work_scale) for i in indices]
+                seed_cams = Cameras.from_numpy(device=dev, **estimate(
+                    pm_sub, sizes_sub, cfg.conf_thresh))
         with stage_timer("Bundle adjustment", times, dev):
-            problem = pack_correspondences(xy_host[np.asarray(indices)],
-                                           pm_sub, cfg.conf_thresh)
+            with span("pack"):
+                problem = pack_correspondences(xy_host[np.asarray(indices)],
+                                               pm_sub, cfg.conf_thresh)
             cameras = bundle_adjust(seed_cams, problem,
                                     cost_func=cfg.ba_cost_func,
                                     refine_mask=cfg.ba_refine_mask)
-        persistence.serialize_camera_params(cameras, cfg.checkpoint_dir)
-        persistence.serialize_indices(indices, cfg.checkpoint_dir)
-        if cfg.checkpoint_npz:
-            np.savez(os.path.join(cfg.checkpoint_dir, "cameras.npz"),
-                     indices=np.asarray(indices), **cameras.numpy())
+        with stage_timer("Saving checkpoint", times, dev):
+            persistence.serialize_camera_params(cameras, cfg.checkpoint_dir)
+            persistence.serialize_indices(indices, cfg.checkpoint_dir)
+            if cfg.checkpoint_npz:
+                np.savez(os.path.join(cfg.checkpoint_dir, "cameras.npz"),
+                         indices=np.asarray(indices), **cameras.numpy())
         if cfg.infill_dropped and cameras_all is not None and \
                 len(indices) < n:
-            # The ring-aware neighbour search applies to the rig's own
-            # 37-image captures.
-            rig = DEFAULT_RIG if n == DEFAULT_RIG.total_images else None
-            cameras = Cameras.from_numpy(device=dev, **infill_dropped_cameras(
-                cameras_all.numpy(), cameras.numpy(), indices, rig))
-            indices = list(range(n))
+            with stage_timer("Infilling dropped cameras", times, dev):
+                # The ring-aware neighbour search applies to the rig's own
+                # 37-image captures.
+                rig = DEFAULT_RIG if n == DEFAULT_RIG.total_images else None
+                cameras = Cameras.from_numpy(
+                    device=dev, **infill_dropped_cameras(
+                        cameras_all.numpy(), cameras.numpy(), indices, rig))
+                indices = list(range(n))
     elif cfg.find_features:
-        indices = persistence.deserialize_indices(cfg.checkpoint_dir)
-        cameras = persistence.deserialize_camera_params(cfg.checkpoint_dir,
-                                                        device=dev)
+        with stage_timer("Reading checkpoint", times, dev):
+            indices = persistence.deserialize_indices(cfg.checkpoint_dir)
+            cameras = persistence.deserialize_camera_params(
+                cfg.checkpoint_dir, device=dev)
     else:
-        indices = list(range(n))
-        cameras = (cameras_all if cameras_all is not None
-                   else Cameras.identity(n, float(np.mean(
-                       [s[0] for s in full_sizes])), device=dev))
+        with stage_timer("Selecting images", times, dev):
+            cameras_all = _prior_cameras(priors, work_scale, dev)
+            indices = list(range(n))
+            cameras = (cameras_all if cameras_all is not None
+                       else Cameras.identity(n, float(np.mean(
+                           [s[0] for s in full_sizes])), device=dev))
 
-    if cfg.do_wave_correct and cfg.wave_correct != WaveCorrectKind.NO:
-        cameras = dataclasses.replace(
-            cameras, R=wave_correct(cameras.R, cfg.wave_correct))
-
-    paths = [paths[i] for i in indices]
-    full_sizes = [full_sizes[i] for i in indices]
-    if uniform:
-        sel = torch.as_tensor(indices, device=dev)
-        stack_u8 = stack_u8[sel]
-        seam_stack = seam_stack[sel]
-    else:
-        device_imgs = [device_imgs[i] for i in indices]
-        seam_imgs = [seam_imgs[i] for i in indices]
-    n = len(indices)
-    cam_np = cameras.numpy()
-
-    warped_image_scale = _median_focal(cam_np["focal"])
+    with stage_timer("Wave correction", times, dev):
+        if cfg.do_wave_correct and cfg.wave_correct != WaveCorrectKind.NO:
+            cameras = dataclasses.replace(
+                cameras, R=wave_correct(cameras.R, cfg.wave_correct))
+        paths = [paths[i] for i in indices]
+        full_sizes = [full_sizes[i] for i in indices]
+        if uniform:
+            sel = torch.as_tensor(indices, device=dev)
+            stack_u8 = stack_u8[sel]
+            seam_stack = seam_stack[sel]
+        else:
+            device_imgs = [device_imgs[i] for i in indices]
+            seam_imgs = [seam_imgs[i] for i in indices]
+        n = len(indices)
+        cam_np = cameras.numpy()
+        warped_image_scale = _median_focal(cam_np["focal"])
     with stage_timer("Warping images", times, dev):
         swa = seam_work_aspect
         warper = make_warper(cfg.warp_type, warped_image_scale * swa)
@@ -469,15 +499,18 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
             # which pixels the padded stack holds, hence the output.  The
             # stacks stay on the device for the exposure statistics and
             # the seams.
-            images_pad, masks_pad = warp_stack(
-                seam_stack, torch.as_tensor(k_seam, device=dev),
-                torch.as_tensor(r_all, device=dev), warper.scale,
-                torch.as_tensor(np.asarray([[r[0], r[1]] for r in rois],
-                                           np.float32), device=dev),
-                warper.proj_name,
-                pad_h=-(-max(r[3] for r in rois) // 64) * 64,
-                pad_w=-(-max(r[2] for r in rois) // 64) * 64)
-            masks_host = masks_pad.cpu().numpy()
+            pad_h = -(-max(r[3] for r in rois) // 64) * 64
+            pad_w = -(-max(r[2] for r in rois) // 64) * 64
+            with span("warp_stack", n=n, h=seam_hw[0], w=seam_hw[1],
+                      pad_h=pad_h, pad_w=pad_w):
+                images_pad, masks_pad = warp_stack(
+                    seam_stack, torch.as_tensor(k_seam, device=dev),
+                    torch.as_tensor(r_all, device=dev), warper.scale,
+                    torch.as_tensor(np.asarray([[r[0], r[1]] for r in rois],
+                                               np.float32), device=dev),
+                    warper.proj_name, pad_h=pad_h, pad_w=pad_w)
+            with span("masks to host"):
+                masks_host = masks_pad.cpu().numpy()
             masks_warped = [masks_host[i, :rois[i][3], :rois[i][2]]
                             for i in range(n)]
         else:
@@ -524,9 +557,11 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                               area0)
         seam_ratio = seam_work_aspect * work_scale / comp.scale
         if uniform and not cfg.timelapse:
-            comp_imgs = (torch.stack([resize(im, hw) for im, hw in
-                                      zip(stack_u8, comp.resize_hws)])
-                         if comp.resize_hws is not None else stack_u8)
+            comp_imgs = stack_u8
+            if comp.resize_hws is not None:
+                with span("resize"):
+                    comp_imgs = torch.stack([resize(im, hw) for im, hw in
+                                             zip(stack_u8, comp.resize_hws)])
             pano, pano_mask = compose_uniform(
                 (comp_imgs, comp.ks, comp.rs, comp.warper, comp.corners,
                  comp.sizes, seam_masks, corners, seam_ratio, compensator,
@@ -544,14 +579,14 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                 pano, pano_mask = frames
                 pano = torch.clamp(pano, 0.0, 255.0)
 
-    if cfg.crop_result and not cfg.timelapse:
-        x, y, w, h = crop_rect(pano.cpu().numpy())
-        pano = pano[y:y + h, x:x + w]
-
-    if not cfg.timelapse:
-        out = output if output is not None else cfg.result_name
-        if out:
-            image_io.imwrite(out, pano.cpu().numpy())
+    with stage_timer("Writing result", times, dev):
+        if cfg.crop_result and not cfg.timelapse:
+            x, y, w, h = crop_rect(pano.cpu().numpy())
+            pano = pano[y:y + h, x:x + w]
+        if not cfg.timelapse:
+            out = output if output is not None else cfg.result_name
+            if out:
+                image_io.imwrite(out, pano.cpu().numpy())
     return StitchResult(panorama=pano, mask=pano_mask,
                         kept_indices=list(indices), cameras=cameras,
                         stage_times=times, timelapse_frames=timelapse_frames,

@@ -1,22 +1,31 @@
 """Where the time goes in the PyTorch port's stitch, on one CUDA GPU.
 
 Run from the repository root:
-    python3 -m tools.profile_torch_stitch [--legacy] [OUT_TXT]
+    python3 -m tools.profile_torch_stitch [--legacy] [--resume] [OUT_TXT]
 
 Renders the 8 x 2448x3264 ring DEFAULT_RING (`data/synth.py`, sigma-8
 noise), runs stitch() with the reference defaults, `StitchConfig()` (fast
-ingest; with --legacy the legacy decode, fast_ingest=False), once to warm
-up and three times timed, then
+ingest; with --legacy the legacy decode, fast_ingest=False; with --resume
+the stitches after a first full one resume from its checkpoint,
+serialize_data=False), once to warm up and three times timed, then
 once under torch.profiler (CPU + CUDA activities).  Prints the stage
-times, the device-busy share of the wall time, per stage its kernel
-launches and device-busy time, each hand kernel's launches and device
-time (with each launch's, in launch order), and the ops by total device
-time; with OUT_TXT, the 40-row table
-is also written there.
+times; from the program's spans (`StitchResult.trace`,
+`core/logging.py`) each top-level stage's self time (its span less its
+children) with its heaviest children, the spans a stitch, the untraced
+share of the root, the counters, and the warm-up's stages; the
+device-busy share of the wall time, per stage its kernel launches and
+device-busy time, the device's idle gaps named by the innermost span the
+host was in as each began (the 10 longest, and the 10 spans with the
+most idle time), each hand kernel's launches and device time (with each
+launch's, in launch order), and the ops by total device time; with
+OUT_TXT, the 40-row table is also written there.
 """
 
 from __future__ import annotations
 
+import bisect
+import collections
+import dataclasses
 import os
 import subprocess
 import sys
@@ -25,39 +34,15 @@ import time
 
 import torch
 
+from benchmark import spans as trace_spans
+from benchmark.yardstick import busy_seconds, device_spans, merged
+
 
 def _smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-
-
-def _device_spans(events):
-    """(start, end) us of the device's work: kernels, copies and sets, not
-    the user-annotation ranges the profiler mirrors onto the device."""
-    return sorted((e.time_range.start, e.time_range.end) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False))
-
-
-def _busy_ms(spans, lo=float("-inf"), hi=float("inf")) -> float:
-    """Union of the device spans clipped to [lo, hi] (ms): device-busy
-    time."""
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        s, e = max(s, lo), min(e, hi)
-        if e <= s:
-            continue
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3
 
 
 def _stage_lines(events, spans, stage_names):
@@ -72,12 +57,78 @@ def _stage_lines(events, spans, stage_names):
     out = []
     for name, (lo, hi) in ranges.items():
         n = sum(1 for t in launches if lo <= t <= hi)
-        busy = _busy_ms(spans, lo, hi)
+        busy = busy_seconds(spans, lo, hi) * 1e3
         wall = (hi - lo) / 1e3
         out.append(f"stage {name}: wall {wall:.3f} ms, {n} kernel launches, "
                    f"device busy {busy:.3f} ms "
                    f"({100 * busy / max(wall, 1e-9):.2f}%)")
     return out
+
+
+def _self_s(trace, index: int) -> float:
+    s = trace.spans[index]
+    return (s.end_ns - s.start_ns - trace_spans.union_ns(
+        trace.children(index), s.start_ns, s.end_ns)) / 1e9
+
+
+def _span_lines(traces):
+    """Per top-level stage, the mean a stitch of its span and self time,
+    and its children's seconds by name, heaviest first ("child >
+    grandchild" one level down), each with the first one's attributes."""
+    n = len(traces)
+    rows = collections.OrderedDict()
+    for t in traces:
+        for i, s in enumerate(t.spans):
+            if s.parent != 0:
+                continue
+            row = rows.setdefault(s.name, [0.0, 0.0, {}, {}])
+            row[0] += s.seconds / n
+            row[1] += _self_s(t, i) / n
+            for j, c in enumerate(t.spans):
+                if c.parent != i:
+                    continue
+                for g in [c] + t.children(j):
+                    key = c.name if g is c else f"{c.name} > {g.name}"
+                    row[2][key] = row[2].get(key, 0.0) + g.seconds / n
+                    row[3].setdefault(key, g.attrs)
+    out = []
+    for name, (span_s, self_s, kids, attrs) in rows.items():
+        heavy = sorted(kids.items(), key=lambda kv: -kv[1])[:8]
+        out.append(f"span {name}: {span_s:.4f} s, self {self_s:.4f} s; "
+                   + ", ".join(f"{k} {v:.4f}"
+                               + (f" {attrs[k]}" if attrs[k] else "")
+                               for k, v in heavy))
+    return out
+
+
+def _innermost_gaps(events, names, lo: float, hi: float):
+    """The device's idle gaps in [lo, hi] (profiler us) as (label,
+    seconds): the path of span ranges that held the host when the gap
+    began, innermost last, or "outside every span"."""
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name in names)
+    marks = sorted([(s, 1, i) for i, (s, _, _) in enumerate(ranges)]
+                   + [(e, 0, i) for i, (_, e, _) in enumerate(ranges)])
+    starts, labels, stack = [], [], []
+    for t, opening, i in marks:
+        if opening:
+            stack.append(i)
+        elif i in stack:
+            stack.remove(i)
+        path = [ranges[j][2] for j in stack]
+        starts.append(t)
+        labels.append(" > ".join(path[1:] if path[1:] else path))
+    busy = merged(device_spans(events), lo, hi)
+    edges = [lo] + [t for s in busy for t in s] + [hi]
+    gaps = []
+    for a, b in zip(edges[::2], edges[1::2]):
+        if b > a:
+            k = bisect.bisect_right(starts, a) - 1
+            gaps.append(((labels[k] if k >= 0 else "")
+                         or "outside every span", (b - a) / 1e6))
+    return gaps
 
 
 def main() -> int:
@@ -91,25 +142,41 @@ def main() -> int:
     from image_stitching_tpu_torch.pipeline.stitcher import stitch
     args = sys.argv[1:]
     legacy = "--legacy" in args
-    args = [a for a in args if a != "--legacy"]
+    resume = "--resume" in args
+    args = [a for a in args if a not in ("--legacy", "--resume")]
     smi = _smi()
     with tempfile.TemporaryDirectory(prefix="profile_") as work:
         caps = os.path.join(work, "caps")
         write_ring_dir(caps, **DEFAULT_RING)
         cfg = StitchConfig(fast_ingest=not legacy, checkpoint_dir=work)
+        if resume:
+            stitch(caps, cfg, output="", device="cuda")
+            cfg = dataclasses.replace(cfg, serialize_data=False)
         print(f"configuration: StitchConfig("
-              f"{'fast_ingest=False' if legacy else ''}) (checkpoints in a "
-              f"temporary directory)")
-        stitch(caps, cfg, output="", device="cuda")
-        walls = []
+              f"{'fast_ingest=False' if legacy else ''}"
+              f"{', serialize_data=False' if resume else ''}) (checkpoints "
+              f"in a temporary directory)")
+        warm = stitch(caps, cfg, output="", device="cuda").trace
+        walls, traces = [], []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = stitch(caps, cfg, output="", device="cuda")
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            traces.append(res.trace)
         print(f"walls (s): {walls}; stages of the last: "
               f"{res.stage_times}; card '{smi}'")
+        untraced = [trace_spans.untraced_pct(t) for t in traces]
+        counters = {k: [t.counters.get(k, 0) for t in traces]
+                    for k in sorted({k for t in traces for k in t.counters})}
+        print(f"spans a stitch: {[len(t.spans) for t in traces]}; untraced "
+              f"% of the root: {untraced}; counters: {counters}")
+        for line in _span_lines(traces):
+            print(line)
+        print(f"warm-up: {warm.root.seconds:.4f} s")
+        for line in _span_lines([warm]):
+            print(f"warm-up {line}")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -117,8 +184,8 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     events = prof.events()
-    spans = _device_spans(events)
-    busy = _busy_ms(spans)
+    spans = device_spans(events)
+    busy = busy_seconds(spans) * 1e3
     n_kernels = len(spans)
     print(f"profiled wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / (wall * 1e3):.2f}%), idle "
@@ -126,6 +193,18 @@ def main() -> int:
           f"events; card '{smi}'")
     for line in _stage_lines(events, spans, set(res.stage_times)):
         print(line)
+    root = [e for e in events if e.name == "stitch"
+            and e.device_type == torch.autograd.DeviceType.CPU][-1]
+    gaps = _innermost_gaps(events, {s.name for t in traces for s in t.spans},
+                           root.time_range.start, root.time_range.end)
+    idle = collections.Counter()
+    for label, secs in gaps:
+        idle[label] += secs
+    print("longest idle gaps (s): " + "; ".join(
+        f"{label} {secs:.4f}" for label, secs in
+        sorted(gaps, key=lambda g: -g[1])[:10]))
+    print("idle by innermost span (s): " + "; ".join(
+        f"{label} {secs:.4f}" for label, secs in idle.most_common(10)))
     hand = ("orb_sample_levels_kernel", "warp_bilinear_kernel",
             "hamming_unpack_kernel", "hamming_pairs_kernel",
             "pyr_down_batch_kernel", "band_accumulate_batch_kernel")
