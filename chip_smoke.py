@@ -78,8 +78,11 @@ Phases, one line each; any failure raises and exits non-zero:
   8. end to end, the default path with the legacy decode: timed after the
      warm-up, held to 8/8 kept, <= 1 px reprojection, mask coverage > 0.9,
      finite positive gains, seam-mask union equal to the warped-mask
-     union, launches of all four kernels > 0, K1 <= 8 and K4 <= 2
+     union, launches of all five kernels > 0, K1 <= 8 and K4 <= 2
      launches, K5 no more calls than phase 7's buckets (1 on the ring);
+     K6 on the stitch's 8 float32 work grays (`rgb_to_gray`'s, with
+     fractions) against its plain version, every kept level, all four
+     planes bit for bit, one launch a level in the stitch;
   9. fast ingest, the reference default: (a) on the DEFAULT_RING files the
      raw 4:2:0 route is taken for all 8 (pinned buffers); the device RGB
      of the num8-8 planes equals PIL's RGB decode of each file and the Y
@@ -92,7 +95,11 @@ Phases, one line each; any failure raises and exits non-zero:
      (`tests/data/ring_reference_jax.json`, `tools/ring_reference_jax.py`;
      the same seed, so the same RANSAC draws): kept indices equal, focal
      within rtol 1e-3, adjacent relative rotations within 0.05 degrees,
-     each pair's n_inliers and n_matches reported; (c) the JAX package's
+     each pair's n_inliers and n_matches reported, then K6
+     (orb_detect_maps) on that stitch's 8 work grays: every kept level
+     against its plain version on the card, all four planes bit for bit,
+     one launch a level and 8 a view in the stitch, a view's levels timed
+     (device, call and plain ms) against its bound; (c) the JAX package's
      bench configuration StitchConfig(num_features=1500,
      work_megapix=1.9) (the num8-4 raw route) on E2E_RING under phase 4's
      gates; (d) `python -m image_stitching_tpu_torch` on DEFAULT_RING in a
@@ -227,7 +234,9 @@ Phases, one line each; any failure raises and exits non-zero:
      bench.py:537 makes them) and a dp-2 mesh
      of this card against dp 1 (n_inliers equal, H within 1e-4 of its
      largest entry, `h_close`); K1 on one image and K4 on the batch's 64
-     pairs against their plain versions with their bounds.  The
+     pairs against their plain versions with their bounds; K6 on the
+     batch's 128 float32 images, every kept level, all four planes bit
+     for bit against its plain version, one launch a level.  The
      multi-process path (`parallel/distributed.py`) is held on CPU
      processes only (tests/test_torch_distributed.py): NCCL cannot put
      two ranks on one card;
@@ -259,7 +268,7 @@ for each W of phase 6b, its launches those of its match_all_pairs call,
 and one each for K = 70000 (its launches phase 16's; `stitch_*` that
 stitch's K4 call), W = 2048, W = 4096 and 65703 pairs (`key_bits` each
 row's key width; launches those of phase 6b's call).  Every K4 row is
-the one kernel, `csrc/hamming_chunked.cu`.
+the one kernel, `csrc/hamming_chunked.cu`.  The last row is K6's.
 Then the smoke's total seconds and phase 15's end-to-end numbers, a JSON
 line of those kernel results with the launches on the path the kernel was
 checked on (`launches_by_path` every path's, phases 15a, 15b and 16
@@ -560,6 +569,104 @@ def k1_launch_check(dev, raws, blurs, xy, lvl, pat, valid, phase: str,
     full["name"] = name
     level0 = row([0], "K1 level 0 alone")
     return full, level0
+
+# Operations a level pixel needs, counted once each (no halo recompute):
+# the resize's two row fmas and one column fma (9), FAST's 32 compares,
+# 64 bit packs and two 9-arc tests (160), Sobel and the products (23), the
+# box sums (3 x 49), Harris's det, trace and scale (7), the 3x3 NMS (9),
+# the blur's 2 x 7 taps (28).
+K6_OPS_PER_PIXEL = 9 + 160 + 23 + 147 + 7 + 9 + 28
+
+
+def _resize_taps(n_src: int, n_dst: int) -> int:
+    """Source rows (or columns) `resize` reads for n_dst outputs."""
+    s = np.float64(np.float32(n_src / n_dst))
+    src = ((np.arange(n_dst) + 0.5) * s - 0.5).astype(np.float32)
+    y0 = np.clip(np.floor(src), 0, n_src - 1).astype(np.int64)
+    return int(np.unique(np.concatenate(
+        [y0, np.minimum(y0 + 1, n_src - 1)])).size)
+
+
+def k6_equal(grays, path_launches: int, phase: str):
+    """K6 (orb_detect_maps) on each (H, W) image of `grays`, every level
+    ORB keeps, against its plain version on the card: all four planes bit
+    for bit, one launch a call; the path that detected on `grays` made
+    one launch a level and image.  Returns the levels (level, lh, lw)."""
+    from image_stitching_tpu_torch.kernels.orb_detect import (
+        orb_detect_maps, orb_detect_maps_plain)
+    from image_stitching_tpu_torch.ops.imgproc import scale_size
+    h, w = grays[0].shape
+    levels = [(lv,) + scale_size(h, w, 1.0 / 1.2 ** lv) for lv in range(8)]
+    levels = [lv for lv in levels if min(lv[1:]) >= 48]
+    names = ("plane", "blur", "harris", "rank")
+    for i, gray in enumerate(grays):
+        gray = gray.contiguous()        # as detect_levels takes it
+        for lv, lh, lw in levels:
+            before = orb_detect_maps.launches
+            got = orb_detect_maps(gray, lv, lh, lw)
+            assert orb_detect_maps.launches == before + 1
+            want = orb_detect_maps_plain(gray, lv, lh, lw)
+            for name, a, b in zip(names, got, want):
+                assert torch.equal(a.view(torch.int32),
+                                   b.view(torch.int32)), \
+                    f"phase {phase} K6 image {i} level {lv}: {name} " \
+                    f"differs from plain"
+        del got, want
+    assert path_launches == len(grays) * len(levels), \
+        (phase, path_launches)
+    print(f"phase {phase} K6 orb_detect_maps: {len(grays)} images of "
+          f"{h}x{w} {grays[0].dtype}, levels {[lv[1:] for lv in levels]}, "
+          f"all four planes equal to plain bit for bit, 1 launch a call, "
+          f"{path_launches} launches on the path", flush=True)
+    return levels
+
+
+def check_k6(dev, grays, stitch_launches: int):
+    """K6 on the main path's work images (phase 9b's fast_prep grays, u8
+    at full resolution): `k6_equal`, then one launch a level counted as
+    the kernel nodes of a CUDA graph, and a view's levels timed as one
+    call (device ms by CUDA graph replays, call ms, plain ms) against the
+    bound: the image once per level (the source rows and columns its
+    resize reads) in, the four f32 planes out, and K6_OPS_PER_PIXEL a
+    level pixel."""
+    from image_stitching_tpu_torch.kernels.orb_detect import (
+        orb_detect_maps, orb_detect_maps_plain)
+    n_img, h, w = grays.shape
+    levels = k6_equal(grays, stitch_launches, "9b")
+    per_level = [kernel_launches(lambda: orb_detect_maps(grays[0], *lv))
+                 for lv in levels]
+    assert per_level == [1] * len(levels), per_level
+
+    def view():
+        for lv in levels:
+            orb_detect_maps(grays[0], *lv)
+
+    def plain():
+        for lv in levels:
+            orb_detect_maps_plain(grays[0], *lv)
+    dev_ms = device_ms(view)
+    call_ms = time_ms(view)
+    plain_ms = time_ms(plain, reps=3)
+    px = sum(lh * lw for _, lh, lw in levels)
+    n_in = sum(h * w if lv == 0 else _resize_taps(h, lh) * _resize_taps(w, lw)
+               for lv, lh, lw in levels) * grays.element_size()
+    n_bytes = n_in + 4 * 4 * px
+    n_ops = K6_OPS_PER_PIXEL * px
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"phase 9b K6 orb_detect_maps: {n_img} views of {h}x{w} "
+          f"{grays.dtype}, levels {[lv[1:] for lv in levels]}, all four "
+          f"planes equal to plain bit for bit; 1 launch a level; a view: "
+          f"device {dev_ms:.4f} ms, call {call_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{n_bytes} bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+          f"{n_ops} operations {n_ops / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms); "
+          f"{stitch_launches} launches in 9b's stitch", flush=True)
+    return dict(name="orb_detect_maps", route="cuda",
+                source="image_stitching_tpu_torch/csrc/orb_detect.cu",
+                replaces="none (the eager chain of ops/features/orb.py)",
+                max_abs_err=0.0, ms=dev_ms, device_ms=dev_ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, levels=len(levels))
 
 
 def k2_max_diff(calls) -> float:
@@ -3903,7 +4010,8 @@ def run_phase15b(counters, smi, dev):
     after a warm-up; 8 pairs of a noise base and its roll by (7, 5): every
     n_inliers > 20, one register_pair call a pair with the same key and
     a dp-2 mesh of this card against dp 1 (n_inliers equal, H by
-    `h_close`); K1 and K4 at this shape against their plain versions.
+    `h_close`); K1 and K4 at this shape against their plain versions;
+    K6 on the batch's images, every level, bit for bit (`k6_equal`).
     Pair p takes the key split(PRNGKey(seed), batch)[p], as bench.py:537
     makes them."""
     from image_stitching_tpu_torch.core.prng import PRNGKey, split
@@ -3984,6 +4092,8 @@ def run_phase15b(counters, smi, dev):
           f"{tm['dev_ms']:.4f} ms, call {tm['call_ms']:.4f} ms, plain "
           f"{tm['plain_ms']:.4f} ms; bound over {tm['n_dist']:.0f} valid "
           f"distances {tm['bound_ms']:.4f} ms ({tm['route']})", flush=True)
+    k6_equal(pairs.reshape(2 * pp["batch"], h, w),
+             launches["orb_detect_maps"], "15b")
     return dict(launches=launches, k1=k1, k4=tm, pairs_per_s=pairs_per_s)
 
 
@@ -4053,6 +4163,7 @@ def main() -> int:
     from image_stitching_tpu_torch.kernels import _build
     from image_stitching_tpu_torch.kernels.hamming import hamming_two_nn_pairs
     from image_stitching_tpu_torch.kernels.multiband import pyramid_accumulate
+    from image_stitching_tpu_torch.kernels.orb_detect import orb_detect_maps
     from image_stitching_tpu_torch.kernels.orb_sample import orb_sample_levels
     from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
     from image_stitching_tpu_torch.ops.imgproc import (resize, rgb_to_gray,
@@ -4069,7 +4180,7 @@ def main() -> int:
           f"{'present' if os.path.exists(native._TRACKED) else 'absent'}, "
           f"a build here links {list(native.codec_libs())}", flush=True)
     counters = (orb_sample_levels, warp_bilinear, hamming_two_nn_pairs,
-                pyramid_accumulate)
+                pyramid_accumulate, orb_detect_maps)
     names = [fn.__name__ for fn in counters]
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -4184,7 +4295,7 @@ def main() -> int:
         k5 = check_k5(dev, rec.calls["fused_compose"][0])
         del warm, rec
         rec = Recorder(stitcher, "match_all_pairs", "find_seams",
-                       "fused_compose")
+                       "fused_compose", "detect_stack")
         res, wall, launches = stitch_run(stitch, caps_default, cfg, counters,
                                          rec)
         err, coverage, stages = e2e_gates(res, k_true, rs_true, launches,
@@ -4216,6 +4327,8 @@ def main() -> int:
         assert launches["pyramid_accumulate"] <= k5["buckets"], launches
         by_path["phase 8"] = launches
         legacy_stages = res.stage_times
+        k6_equal(rec.calls["detect_stack"][0][0][0],
+                 launches["orb_detect_maps"], "8")
         print(f"phase 8 per default stitch, by the counters and phases 5 and "
               f"6: K1 {launches['orb_sample_levels']} launches x "
               f"{k1_default['device_ms']:.4f} ms = "
@@ -4276,6 +4389,8 @@ def main() -> int:
                       [("phase 8 legacy decode", legacy_stages),
                        ("phase 9b fast ingest", res.stage_times)]),
                   flush=True)
+            k6 = check_k6(dev, rec.calls["fast_prep"][0][2][0],
+                          launches["orb_detect_maps"])
             del rec, comp
 
             cfg = StitchConfig(num_features=1500, work_megapix=1.9)
@@ -4443,7 +4558,7 @@ def main() -> int:
     main_path = by_path["phase 9b"]
     for row, fn in ((k1, orb_sample_levels), (k2, warp_bilinear),
                     (k3, orb_sample_levels), (k4, hamming_two_nn_pairs),
-                    (k5, pyramid_accumulate)):
+                    (k5, pyramid_accumulate), (k6, orb_detect_maps)):
         row["launches"] = main_path[fn.__name__]
         row["launches_by_path"] = {path: counts[fn.__name__]
                                    for path, counts in by_path.items()}
@@ -4465,7 +4580,7 @@ def main() -> int:
           f"bands, peak {g15['peak'] / 2 ** 30:.3f} GiB), pairs "
           f"{p15['pairs_per_s']:.2f} pairs/s; card '{smi}'", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12] + k4_chunked +
-                      k4_wide}))
+                      k4_wide + [k6]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,6 +67,10 @@ def _declare(lib) -> None:
     lib.pyramid_accumulate_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
                                               vp, vp, vp]
     lib.pyramid_accumulate_launch.restype = ci
+    lib.orb_detect_maps_launch.argtypes = [vp, ci, ci, ci, ci, ci, ci,
+                                           ctypes.POINTER(ctypes.c_float),
+                                           ci, ci, vp, vp, vp, vp, vp]
+    lib.orb_detect_maps_launch.restype = ci
 
 
 def _compile(sources, path: str, tag: str) -> None:

@@ -6,7 +6,11 @@ corners (threshold 20) found with 16-bit ring masks, Harris ranking
 a quadratic subpixel fit, and the intensity-centroid angle plus 256-bit
 rBRIEF descriptor from kernel K1 (`kernels/orb_sample.py`), one launch
 over all levels of an image.  The reference runs K1 only on levels that
-fit the TPU's VMEM budget; the CUDA kernel has no such budget.
+fit the TPU's VMEM budget; the CUDA kernel has no such budget.  Each
+level's plane, blur, Harris response and NMS-masked rank plane come from
+kernel K6 (`kernels/orb_detect.py`), one launch a level; its plain version
+is the chain of ops beside it there (`fast_corner_mask`,
+`harris_response_map`, `nms_rank`), which this module re-exports.
 """
 
 from __future__ import annotations
@@ -18,21 +22,17 @@ import torch
 import torch.nn.functional as F
 
 from ...core.logging import span
+from ...kernels.orb_detect import (fast_corner_mask, harris_response_map,
+                                    nms_rank, orb_detect_maps, pad_edge)
 from ...kernels.orb_sample import orb_sample_levels
-from ..imgproc import gaussian_blur, resize, scale_size
+from ..imgproc import scale_size
 from .types import Features
 
 __all__ = ["orb_detect_and_describe", "orb_detect_stack",
            "make_brief_pattern", "make_cv_pattern", "resolve_pattern",
            "fast_corner_mask", "fast_score_map",
-           "harris_response_map", "pattern_xy", "detect_level",
+           "harris_response_map", "pattern_xy", "nms_rank", "top_k_level",
            "detect_levels", "per_level_counts"]
-
-_FAST_RING = np.array([
-    (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
-    (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2),
-    (-1, 3),
-], dtype=np.int32)  # (dx, dy), clockwise from 12 o'clock
 
 
 def make_brief_pattern(patch_size: int = 40, n_bits: int = 256,
@@ -69,76 +69,10 @@ def pattern_xy(pattern: np.ndarray, device) -> torch.Tensor:
                            device=device)
 
 
-def _pad_edge(x: torch.Tensor, r: int) -> torch.Tensor:
-    """Edge-replicate pad of a (H, W) tensor of any dtype."""
-    h, w = x.shape
-    rows = torch.clamp(torch.arange(-r, h + r, device=x.device), 0, h - 1)
-    cols = torch.clamp(torch.arange(-r, w + r, device=x.device), 0, w - 1)
-    return x[rows][:, cols]
-
-
-def fast_corner_mask(img: torch.Tensor, threshold: float = 20.0,
-                     arc: int = 9) -> torch.Tensor:
-    """FAST-9/16 corner mask: the 16 ring comparisons packed into one
-    16-bit plane per polarity, then `arc - 1` rotate-AND steps."""
-    h, w = img.shape
-    if img.dtype.is_floating_point:
-        center = torch.round(img).to(torch.int32)
-    else:
-        center = img.to(torch.int32)
-    pad = _pad_edge(center, 3)
-    hi = center + int(threshold)
-    lo = center - int(threshold)
-    bright = torch.zeros((h, w), dtype=torch.int32, device=img.device)
-    dark = torch.zeros_like(bright)
-    for i, (dx, dy) in enumerate(_FAST_RING):
-        nb = pad[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
-        bright |= (nb > hi).to(torch.int32) << i
-        dark |= (nb < lo).to(torch.int32) << i
-
-    def run_ge(bits):
-        r = bits
-        for _ in range(arc - 1):
-            r = r & (((r << 1) | (r >> 15)) & 0xFFFF)
-        return r != 0
-
-    yy = torch.arange(h, device=img.device)[:, None]
-    xx = torch.arange(w, device=img.device)[None, :]
-    inb = (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
-    return (run_ge(bright) | run_ge(dark)) & inb
-
-
 def fast_score_map(img: torch.Tensor, threshold: float = 20.0,
                    arc: int = 9) -> torch.Tensor:
     """The FAST corner mask as a {0, 1} float32 map."""
     return fast_corner_mask(img, threshold, arc).to(torch.float32)
-
-
-def harris_response_map(img: torch.Tensor, block: int = 7,
-                        k: float = 0.04) -> torch.Tensor:
-    """Harris response (Sobel gradients, block-summed products); the box
-    sum adds the window row-major like the reference's reduce_window."""
-    x = img.to(torch.float32)
-    p = _pad_edge(x, 1)
-    gx = ((p[:-2, 2:] + 2 * p[1:-1, 2:] + p[2:, 2:]) -
-          (p[:-2, :-2] + 2 * p[1:-1, :-2] + p[2:, :-2]))
-    gy = ((p[2:, :-2] + 2 * p[2:, 1:-1] + p[2:, 2:]) -
-          (p[:-2, :-2] + 2 * p[:-2, 1:-1] + p[:-2, 2:]))
-    h, w = x.shape
-    r = block // 2
-
-    def boxsum(a):
-        ap = _pad_edge(a, r)
-        acc = torch.zeros_like(a)
-        for dy in range(block):
-            for dx in range(block):
-                acc = acc + ap[dy:dy + h, dx:dx + w]
-        return acc
-    sxx, syy, sxy = boxsum(gx * gx), boxsum(gy * gy), boxsum(gx * gy)
-    det = sxx * syy - sxy * sxy
-    tr = sxx + syy
-    scale = 1.0 / (4 * block * 255.0)
-    return (det - k * tr * tr) * (scale ** 4)
 
 
 def per_level_counts(n_features: int, n_levels: int,
@@ -153,7 +87,7 @@ def per_level_counts(n_features: int, n_levels: int,
 
 def _subpixel(harris, kyi, kxi):
     """1-D quadratic fit on the Harris surface per axis, clamped to 0.5."""
-    hpad = _pad_edge(harris, 1)
+    hpad = pad_edge(harris, 1)
     hc = hpad[kyi + 1, kxi + 1]
     hl = hpad[kyi + 1, kxi]
     hr = hpad[kyi + 1, kxi + 2]
@@ -168,26 +102,12 @@ def _subpixel(harris, kyi, kxi):
     return torch.clamp(dx, -0.5, 0.5), torch.clamp(dy, -0.5, 0.5)
 
 
-def detect_level(img_l: torch.Tensor, corner_src: torch.Tensor, k_l: int,
-                 patch_size: int = 40, fast_threshold: float = 20.0):
-    """FAST corners of `corner_src`, ranked by the Harris response of the
-    level image `img_l` with 3x3 NMS over candidates, exact top-k_l and a
-    subpixel fit.  Returns (xy (k_l, 2), response (k_l,), valid (k_l,))."""
-    lh, lw = img_l.shape
-    dev = img_l.device
-    corner = fast_corner_mask(corner_src, fast_threshold)
-    harris = harris_response_map(img_l)
-    # NMS over candidates only: non-corners must not suppress corners.
-    masked = torch.where(corner, harris, -torch.inf)
-    pooled = F.max_pool2d(masked[None, None], 3, stride=1, padding=1)[0, 0]
-    border = patch_size // 2 + 2
-    yy = torch.arange(lh, device=dev)[:, None]
-    xx = torch.arange(lw, device=dev)[None, :]
-    inb = ((yy >= border) & (yy < lh - border) &
-           (xx >= border) & (xx < lw - border))
-    cand = corner & (masked >= pooled) & inb
-    rank = torch.where(cand, harris, -torch.inf).reshape(-1)
-    # Exact top-k with lax.top_k's tie order (lower index first).
+def top_k_level(harris: torch.Tensor, rank: torch.Tensor, k_l: int):
+    """Exact top-k_l of the rank plane with lax.top_k's tie order (lower
+    index first) and a subpixel fit on the Harris surface.  Returns (xy
+    (k_l, 2), response (k_l,), valid (k_l,))."""
+    lw = harris.shape[1]
+    rank = rank.reshape(-1)
     order = torch.sort(rank, descending=True, stable=True).indices[:k_l]
     top_vals = rank[order]
     kyi = order // lw
@@ -201,11 +121,13 @@ def detect_level(img_l: torch.Tensor, corner_src: torch.Tensor, k_l: int,
 def detect_levels(gray: torch.Tensor, n_features: int = 4000,
                   scale_factor: float = 1.2, n_levels: int = 8,
                   patch_size: int = 40, fast_threshold: float = 20.0):
-    """Detect every pyramid level of one (H, W) image.  Returns the list of
-    (level index, level plane, its sigma-2 blur, xy (k_l, 2) in level
-    pixels, response (k_l,), valid (k_l,)) of the levels that take
+    """Detect every pyramid level of one (H, W) uint8 or float32 image,
+    each level's maps from one `orb_detect_maps` call (K6).  Returns the
+    list of (level index, level plane, its sigma-2 blur, xy (k_l, 2) in
+    level pixels, response (k_l,), valid (k_l,)) of the levels that take
     keypoints, in level order: what one `orb_sample_levels` call
     describes."""
+    gray = gray.contiguous()
     h, w = gray.shape
     counts = per_level_counts(n_features, n_levels, scale_factor)
     levels = []
@@ -214,14 +136,11 @@ def detect_levels(gray: torch.Tensor, n_features: int = 4000,
         if min(lh, lw) < patch_size + 8 or counts[level] == 0:
             continue
         with span("orb level"):
-            img_l = (resize(gray, (lh, lw)) if level
-                     else gray.to(torch.float32)).contiguous()
-            xy_l, top_vals, valid = detect_level(
-                img_l, gray if level == 0 else img_l, counts[level],
-                patch_size, fast_threshold)
-            levels.append((level, img_l,
-                           gaussian_blur(img_l, 2.0, 3).contiguous(), xy_l,
-                           top_vals, valid))
+            with span("K6", level=level, lh=lh, lw=lw, k=counts[level]):
+                img_l, blur, harris, rank = orb_detect_maps(
+                    gray, level, lh, lw, patch_size, fast_threshold)
+            levels.append((level, img_l, blur) +
+                          top_k_level(harris, rank, counts[level]))
     return levels
 
 

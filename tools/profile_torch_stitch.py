@@ -205,9 +205,10 @@ def main() -> int:
         sorted(gaps, key=lambda g: -g[1])[:10]))
     print("idle by innermost span (s): " + "; ".join(
         f"{label} {secs:.4f}" for label, secs in idle.most_common(10)))
-    hand = ("orb_sample_levels_kernel", "warp_bilinear_kernel",
-            "hamming_unpack_kernel", "hamming_pairs_kernel",
-            "pyr_down_batch_kernel", "band_accumulate_batch_kernel")
+    hand = ("orb_detect_maps_kernel", "orb_sample_levels_kernel",
+            "warp_bilinear_kernel", "hamming_unpack_kernel",
+            "hamming_wgmma_kernel", "pyr_down_batch_kernel",
+            "band_accumulate_batch_kernel")
     by_launch = {}
     for e in sorted(events, key=lambda e: e.time_range.start):
         if e.device_type == torch.autograd.DeviceType.CUDA and \
