@@ -27,6 +27,12 @@ the same statistics from host images of any sizes (the warped float
 seam images), by bincounts in float64, whose numbers the reference's
 non-uniform stitch reads.  `apply_gain` is the loop compose's apply:
 the block map resized over each compose-scale warped image.
+
+Both feeds trace two spans (`core/logging.py`): `exposure stats`, the
+statistics (`feed_device`: on the device, up to their copy to the host;
+`feed`: the bincounts and the system's assembly), and `gain solve`, the
+solve and the gain maps' filter (attribute `unknowns`, the block
+count).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ExposureCompensatorType as ECType
+from ..core.logging import span
 from .imgproc import resize
 from .seams import bucket_dim, overlap_box, periodic_corner
 
@@ -154,28 +161,30 @@ def _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat, nr_feeds,
                nr_filtering, per_channel: bool,
                blocks: bool) -> ExposureCompensator:
     """Solve (nr_feeds rounds, each channel), then for the block types
-    filter and pad the per-image gain maps."""
-    nch = i_mat.shape[-1]
-    gains = np.ones((b_tot, nch))
-    for _ in range(max(1, nr_feeds)):
-        i_eff = i_mat * gains[:, None, :]
-        for c in range(nch):
-            gains[:, c] *= _solve_gain_system(n_mat, i_eff[..., c])
-    if not blocks:
+    filter and pad the per-image gain maps; all in one `gain solve` span
+    (attribute `unknowns`, the system's block count)."""
+    with span("gain solve", unknowns=b_tot):
+        nch = i_mat.shape[-1]
+        gains = np.ones((b_tot, nch))
+        for _ in range(max(1, nr_feeds)):
+            i_eff = i_mat * gains[:, None, :]
+            for c in range(nch):
+                gains[:, c] *= _solve_gain_system(n_mat, i_eff[..., c])
+        if not blocks:
+            return ExposureCompensator(
+                comp_type, np.asarray(gains if per_channel else gains[:, 0],
+                                      np.float64), np.ones((n, 2), np.int32))
+        gy_max = max(g[1] for g in grids)
+        gx_max = max(g[0] for g in grids)
+        out = np.zeros((n, gy_max, gx_max, nch), np.float32)
+        grid_sizes = np.zeros((n, 2), np.int32)
+        for i in range(n):
+            gw, gh, _, _ = grids[i]
+            gm = gains[offs[i]:offs[i] + gw * gh].reshape(gh, gw, nch)
+            out[i, :gh, :gw] = _filter_gain_map(gm, nr_filtering)
+            grid_sizes[i] = (gh, gw)
         return ExposureCompensator(
-            comp_type, np.asarray(gains if per_channel else gains[:, 0],
-                                  np.float64), np.ones((n, 2), np.int32))
-    gy_max = max(g[1] for g in grids)
-    gx_max = max(g[0] for g in grids)
-    out = np.zeros((n, gy_max, gx_max, nch), np.float32)
-    grid_sizes = np.zeros((n, 2), np.int32)
-    for i in range(n):
-        gw, gh, _, _ = grids[i]
-        gm = gains[offs[i]:offs[i] + gw * gh].reshape(gh, gw, nch)
-        out[i, :gh, :gw] = _filter_gain_map(gm, nr_filtering)
-        grid_sizes[i] = (gh, gw)
-    return ExposureCompensator(comp_type, out if per_channel else out[..., 0],
-                               grid_sizes)
+            comp_type, out if per_channel else out[..., 0], grid_sizes)
 
 
 def _snap8(x: int) -> int:
@@ -300,59 +309,62 @@ def feed_device(corners, sizes, images_dev: torch.Tensor,
         grids.append(g)
         offs.append(b_tot)
         b_tot += g[0] * g[1]
-    params = torch.as_tensor(
-        np.asarray([(g[0], g[2], g[3], s[0], s[1])
-                    for g, s in zip(grids, sizes)], np.int64), device=dev)
-    hp, wp = int(masks_dev.shape[1]), int(masks_dev.shape[2])
-    gh_cap = gw_cap = 8
-    if blocks:
-        bmin = block_size // 2 + 1
-        gh_cap, gw_cap = _snap8(hp // bmin + 2), _snap8(wp // bmin + 2)
-    self_pend = _self_stats_dev(images_dev, masks_dev, params, gh_cap,
-                                gw_cap, per_channel)
+    # The statistics on the device, up to their copy to the host.
+    with span("exposure stats"):
+        params = torch.as_tensor(
+            np.asarray([(g[0], g[2], g[3], s[0], s[1])
+                        for g, s in zip(grids, sizes)], np.int64), device=dev)
+        hp, wp = int(masks_dev.shape[1]), int(masks_dev.shape[2])
+        gh_cap = gw_cap = 8
+        if blocks:
+            bmin = block_size // 2 + 1
+            gh_cap, gw_cap = _snap8(hp // bmin + 2), _snap8(wp // bmin + 2)
+        self_pend = _self_stats_dev(images_dev, masks_dev, params, gh_cap,
+                                    gw_cap, per_channel)
 
-    buckets = {}
-    for i in range(n):
-        for j in range(i + 1, n):
-            cj = periodic_corner(corners[i], sizes[i], corners[j],
-                                 sizes[j], period)
-            x, y, w, h = overlap_box(corners[i], sizes[i], cj, sizes[j])
-            if w <= 0 or h <= 0:
-                continue
-            buckets.setdefault((bucket_dim(h), bucket_dim(w)), []).append(
-                (i, j, y - corners[i][1], x - corners[i][0], y - cj[1],
-                 x - cj[0], h, w, cj))
-    pair_pend, pair_meta = [], []
-    for (bh_b, bw_b), items in buckets.items():
-        t = len(items)
-        py_cap = _rank_cap(bh_b, block_size, blocks)
-        px_cap = _rank_cap(bw_b, block_size, blocks)
-        tab = np.zeros((t, 6), np.int64)
-        pyk = np.zeros((t, bh_b), np.int64)
-        pxk = np.zeros((t, bw_b), np.int64)
-        ranks = []
-        for slot, (i, j, oyi, oxi, oyj, oxj, h, w, _cj) in enumerate(items):
-            tab[slot] = (i, j, oyi, oxi, oyj, oxj)
-            ry, ryi_u, ryj_u = _staircase(oyi, oyj, grids[i][3],
-                                          grids[j][3], h)
-            rx, rxi_u, rxj_u = _staircase(oxi, oxj, grids[i][2],
-                                          grids[j][2], w)
-            assert len(ryi_u) < py_cap and len(rxi_u) < px_cap
-            pyk[slot, :h] = ry
-            pxk[slot, :w] = rx
-            ranks.append((ryi_u, ryj_u, rxi_u, rxj_u))
-        tab_d = torch.as_tensor(tab, device=dev)
-        hw_d = torch.as_tensor(np.asarray([it[6:8] for it in items],
-                                          np.int64), device=dev)
-        pair_pend.append(_pair_stats_dev(
-            images_dev, masks_dev, tab_d[:, 0], tab_d[:, 1], tab_d[:, 2:4],
-            tab_d[:, 4:6], hw_d, torch.as_tensor(pyk, device=dev),
-            torch.as_tensor(pxk, device=dev), bh_b, bw_b, py_cap, px_cap,
-            per_channel))
-        pair_meta.append((items, ranks))
+        buckets = {}
+        for i in range(n):
+            for j in range(i + 1, n):
+                cj = periodic_corner(corners[i], sizes[i], corners[j],
+                                     sizes[j], period)
+                x, y, w, h = overlap_box(corners[i], sizes[i], cj, sizes[j])
+                if w <= 0 or h <= 0:
+                    continue
+                buckets.setdefault((bucket_dim(h), bucket_dim(w)), []).append(
+                    (i, j, y - corners[i][1], x - corners[i][0], y - cj[1],
+                     x - cj[0], h, w, cj))
+        pair_pend, pair_meta = [], []
+        for (bh_b, bw_b), items in buckets.items():
+            t = len(items)
+            py_cap = _rank_cap(bh_b, block_size, blocks)
+            px_cap = _rank_cap(bw_b, block_size, blocks)
+            tab = np.zeros((t, 6), np.int64)
+            pyk = np.zeros((t, bh_b), np.int64)
+            pxk = np.zeros((t, bw_b), np.int64)
+            ranks = []
+            for slot, (i, j, oyi, oxi, oyj, oxj, h, w, _cj) in enumerate(
+                    items):
+                tab[slot] = (i, j, oyi, oxi, oyj, oxj)
+                ry, ryi_u, ryj_u = _staircase(oyi, oyj, grids[i][3],
+                                              grids[j][3], h)
+                rx, rxi_u, rxj_u = _staircase(oxi, oxj, grids[i][2],
+                                              grids[j][2], w)
+                assert len(ryi_u) < py_cap and len(rxi_u) < px_cap
+                pyk[slot, :h] = ry
+                pxk[slot, :w] = rx
+                ranks.append((ryi_u, ryj_u, rxi_u, rxj_u))
+            tab_d = torch.as_tensor(tab, device=dev)
+            hw_d = torch.as_tensor(np.asarray([it[6:8] for it in items],
+                                              np.int64), device=dev)
+            pair_pend.append(_pair_stats_dev(
+                images_dev, masks_dev, tab_d[:, 0], tab_d[:, 1], tab_d[:, 2:4],
+                tab_d[:, 4:6], hw_d, torch.as_tensor(pyk, device=dev),
+                torch.as_tensor(pxk, device=dev), bh_b, bw_b, py_cap, px_cap,
+                per_channel))
+            pair_meta.append((items, ranks))
 
-    self_tbl = self_pend.cpu().numpy().astype(np.float64)
-    pair_stats = [p.cpu().numpy().astype(np.float64) for p in pair_pend]
+        self_tbl = self_pend.cpu().numpy().astype(np.float64)
+        pair_stats = [p.cpu().numpy().astype(np.float64) for p in pair_pend]
 
     n_mat = np.zeros((b_tot, b_tot))
     i_mat = np.zeros((b_tot, b_tot, nch))
@@ -429,42 +441,44 @@ def feed(corners, images_warped, masks_warped,
         by = (y0 + np.arange(h)) // bh
         return by[:, None] * gw + bx[None, :]
 
-    for i in range(n):
-        gw, gh, _, _ = grids[i]
-        bi = gw * gh
-        ai = offs[i] + np.arange(bi)
-        key = block_index_map(i, 0, 0, *sizes[i])[msks[i]]
-        cnt = np.bincount(key, minlength=bi).astype(np.float64)
-        n_mat[ai, ai] = np.maximum(cnt, 1.0)
-        for c in range(nch):
-            s = np.bincount(key, weights=intens[i][..., c][msks[i]],
-                            minlength=bi)
-            i_mat[ai, ai, c] = s / np.maximum(cnt, 1.0)
-        for j in range(i + 1, n):
-            cj = periodic_corner(corners[i], sizes[i], corners[j], sizes[j],
-                                 period)
-            x, y, w, h = overlap_box(corners[i], sizes[i], cj, sizes[j])
-            if w <= 0 or h <= 0:
-                continue
-            bj = grids[j][0] * grids[j][1]
-            oxi, oyi = x - corners[i][0], y - corners[i][1]
-            oxj, oyj = x - cj[0], y - cj[1]
-            both = (msks[i][oyi:oyi + h, oxi:oxi + w] &
-                    msks[j][oyj:oyj + h, oxj:oxj + w])
-            key = (block_index_map(i, oxi, oyi, w, h) * bj +
-                   block_index_map(j, oxj, oyj, w, h))[both]
-            cnt = np.bincount(key, minlength=bi * bj).astype(
-                np.float64).reshape(bi, bj)
-            ii = intens[i][oyi:oyi + h, oxi:oxi + w]
-            ij = intens[j][oyj:oyj + h, oxj:oxj + w]
-            si = np.stack([np.bincount(key, weights=ii[..., c][both],
-                                       minlength=bi * bj).reshape(bi, bj)
-                           for c in range(nch)], -1)
-            sj = np.stack([np.bincount(key, weights=ij[..., c][both],
-                                       minlength=bi * bj).reshape(bi, bj)
-                           for c in range(nch)], -1)
-            _assemble_pair(n_mat, i_mat, grids, sizes, corners[i], cj,
-                           offs, i, j, cnt, si, sj)
+    # The statistics by bincounts, assembled into the system.
+    with span("exposure stats"):
+        for i in range(n):
+            gw, gh, _, _ = grids[i]
+            bi = gw * gh
+            ai = offs[i] + np.arange(bi)
+            key = block_index_map(i, 0, 0, *sizes[i])[msks[i]]
+            cnt = np.bincount(key, minlength=bi).astype(np.float64)
+            n_mat[ai, ai] = np.maximum(cnt, 1.0)
+            for c in range(nch):
+                s = np.bincount(key, weights=intens[i][..., c][msks[i]],
+                                minlength=bi)
+                i_mat[ai, ai, c] = s / np.maximum(cnt, 1.0)
+            for j in range(i + 1, n):
+                cj = periodic_corner(corners[i], sizes[i], corners[j],
+                                     sizes[j], period)
+                x, y, w, h = overlap_box(corners[i], sizes[i], cj, sizes[j])
+                if w <= 0 or h <= 0:
+                    continue
+                bj = grids[j][0] * grids[j][1]
+                oxi, oyi = x - corners[i][0], y - corners[i][1]
+                oxj, oyj = x - cj[0], y - cj[1]
+                both = (msks[i][oyi:oyi + h, oxi:oxi + w] &
+                        msks[j][oyj:oyj + h, oxj:oxj + w])
+                key = (block_index_map(i, oxi, oyi, w, h) * bj +
+                       block_index_map(j, oxj, oyj, w, h))[both]
+                cnt = np.bincount(key, minlength=bi * bj).astype(
+                    np.float64).reshape(bi, bj)
+                ii = intens[i][oyi:oyi + h, oxi:oxi + w]
+                ij = intens[j][oyj:oyj + h, oxj:oxj + w]
+                si = np.stack([np.bincount(key, weights=ii[..., c][both],
+                                           minlength=bi * bj).reshape(bi, bj)
+                               for c in range(nch)], -1)
+                sj = np.stack([np.bincount(key, weights=ij[..., c][both],
+                                           minlength=bi * bj).reshape(bi, bj)
+                               for c in range(nch)], -1)
+                _assemble_pair(n_mat, i_mat, grids, sizes, corners[i], cj,
+                               offs, i, j, cnt, si, sj)
     return _fit_gains(comp_type, n, grids, offs, b_tot, n_mat, i_mat,
                       nr_feeds, nr_filtering, per_channel, blocks)
 

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.logging import count, span
+
 __all__ = ["bucket_dim", "overlap_box", "periodic_corner", "find_seams",
            "edt_sq"]
 
@@ -202,23 +204,25 @@ def _run_dp_tasks(tasks, grad: bool, images_dev: torch.Tensor):
     dev = images_dev.device
     for (bh, bw, transpose), idxs in groups.items():
         n = len(idxs)
-        vv = np.zeros((n, bh, bw), bool)
-        tab = np.zeros((n, 8), np.int64)   # i, j, off_i, off_j, h, w
-        pl = np.zeros((n,), bool)
-        for slot, idx in enumerate(idxs):
-            t = tasks[idx]
-            h, w = t["vc"].shape
-            vv[slot, :h, :w] = t["vc"]
-            pl[slot] = t["prefer1"]
-            tab[slot] = (t["i"], t["j"], *t["off_i"], *t["off_j"], h, w)
-        tab_d = torch.as_tensor(tab, device=dev)
-        keep = _dp_seam_batch_dev(
-            images_dev, tab_d[:, 0], tab_d[:, 1], tab_d[:, 2:4],
-            tab_d[:, 4:6], torch.as_tensor(vv, device=dev),
-            torch.as_tensor(pl, device=dev), tab_d[:, 6:8], grad, transpose)
-        for slot, idx in enumerate(idxs):
-            h, w = tasks[idx]["vc"].shape
-            out[idx] = keep[slot, :h, :w]
+        with span("dp batch", n=n, bh=bh, bw=bw):
+            vv = np.zeros((n, bh, bw), bool)
+            tab = np.zeros((n, 8), np.int64)   # i, j, off_i, off_j, h, w
+            pl = np.zeros((n,), bool)
+            for slot, idx in enumerate(idxs):
+                t = tasks[idx]
+                h, w = t["vc"].shape
+                vv[slot, :h, :w] = t["vc"]
+                pl[slot] = t["prefer1"]
+                tab[slot] = (t["i"], t["j"], *t["off_i"], *t["off_j"], h, w)
+            tab_d = torch.as_tensor(tab, device=dev)
+            keep = _dp_seam_batch_dev(
+                images_dev, tab_d[:, 0], tab_d[:, 1], tab_d[:, 2:4],
+                tab_d[:, 4:6], torch.as_tensor(vv, device=dev),
+                torch.as_tensor(pl, device=dev), tab_d[:, 6:8], grad,
+                transpose)
+            for slot, idx in enumerate(idxs):
+                h, w = tasks[idx]["vc"].shape
+                out[idx] = keep[slot, :h, :w]
     return out
 
 
@@ -302,25 +306,35 @@ def _find_seams_dp(corners, masks, sizes, grad: bool, images_dev,
     """Label every pair overlap's components on the initial masks, run
     all their DPs batched, apply the partitions in pair order
     (`_find_seams_dp`).  strict: pair by pair, each labelled from the
-    masks the earlier pairs left."""
+    masks the earlier pairs left.  Spans: `seam overlaps` (the pair
+    pass; in strict mode one a pair), `dp batch` (one a bucket, from
+    `_run_dp_tasks`), `seam apply`; the counter `seams.tasks` counts the
+    DP tasks cut."""
     n = len(masks)
     if strict:
         for i in range(n):
             for j in range(i + 1, n):
-                tasks = _dp_pair_tasks(i, j, corners, masks, sizes, period)
+                with span("seam overlaps"):
+                    tasks = _dp_pair_tasks(i, j, corners, masks, sizes,
+                                           period)
+                count("seams.tasks", len(tasks))
                 if tasks:
-                    _apply_dp_partitions(
-                        tasks, _run_dp_tasks(tasks, grad, images_dev),
-                        masks, corners)
+                    keep1_all = _run_dp_tasks(tasks, grad, images_dev)
+                    with span("seam apply"):
+                        _apply_dp_partitions(tasks, keep1_all, masks,
+                                             corners)
         return masks
-    masks0 = [m.copy() for m in masks]
-    tasks = []
-    for i in range(n):
-        for j in range(i + 1, n):
-            tasks.extend(_dp_pair_tasks(i, j, corners, masks0, sizes,
-                                        period))
+    with span("seam overlaps"):
+        masks0 = [m.copy() for m in masks]
+        tasks = []
+        for i in range(n):
+            for j in range(i + 1, n):
+                tasks.extend(_dp_pair_tasks(i, j, corners, masks0, sizes,
+                                            period))
+    count("seams.tasks", len(tasks))
     keep1_all = _run_dp_tasks(tasks, grad, images_dev)
-    _apply_dp_partitions(tasks, keep1_all, masks, corners)
+    with span("seam apply"):
+        _apply_dp_partitions(tasks, keep1_all, masks, corners)
     return masks
 
 

@@ -221,3 +221,106 @@ def test_spans_outside_a_trace_are_ranges_alone():
         log.count("nowhere")
     assert s.seconds >= 0.0
     assert log.recent_traces()[-1:] == before
+
+
+def _spans_under(trace, stage):
+    """The spans whose parent is the stage called `stage`, in order."""
+    (index,) = [i for i, s in enumerate(trace.spans)
+                if s.parent == 0 and s.name == stage]
+    return trace.children(index)
+
+
+def _host_ints(attrs):
+    return attrs is None or all(type(v) is int for v in attrs.values())
+
+
+def test_seam_and_exposure_spans_sit_under_their_stages(runs):
+    """On each route the seam finder's and the gain fit's spans sit under
+    their stages, with host-integer attributes, and the `dp batch`
+    spans' task counts add up to the `seams.tasks` counter."""
+    for route in ROUTES:
+        trace = runs["results"][route].trace
+        seams_kids = [s.name for s in _spans_under(trace, "Finding seams")]
+        assert seams_kids[0] == "seam overlaps" and seams_kids[-1] == "fence"
+        assert seams_kids[-2] == "seam apply", seams_kids
+        assert set(seams_kids[1:-2]) == {"dp batch"}, seams_kids
+        expo = _spans_under(trace, "Compensating exposure")
+        assert [s.name for s in expo] == ["exposure stats", "gain solve",
+                                          "fence"]
+        assert expo[1].attrs["unknowns"] > 0
+        for s in trace.spans:
+            assert _host_ints(s.attrs), s
+        batches = [s for s in trace.spans if s.name == "dp batch"]
+        assert all(set(s.attrs) == {"n", "bh", "bw"} for s in batches)
+        assert trace.counters["seams.tasks"] == sum(
+            s.attrs["n"] for s in batches) > 0
+
+
+def _seam_scene():
+    """Three 40 x 64 random images at staggered corners: every pair
+    overlaps, the first and last in a band that all three share."""
+    rng = np.random.default_rng(3)
+    imgs = rng.uniform(0, 255, (3, 40, 64, 3)).astype(np.float32)
+    masks = [np.full((40, 64), 255, np.uint8) for _ in range(3)]
+    masks[1][:6, :10] = 0
+    return imgs, masks, [(0, 0), (24, 4), (44, 8)]
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_seam_spans_count_the_dp_tasks(strict):
+    """Both branches of `_find_seams_dp`: `seams.tasks` is the number of
+    DP tasks `_dp_pair_tasks` cut, one `dp batch` span a shape bucket of
+    each `_run_dp_tasks` call holding that bucket's task count, and the
+    pass over the pairs in `seam overlaps` (one a pair when strict)."""
+    from image_stitching_tpu_torch.ops import seams
+    imgs, masks, corners = _seam_scene()
+    with Recorder(seams, "_dp_pair_tasks", "_run_dp_tasks") as rec, \
+            log.trace_stitch() as trace:
+        with log.stage_timer("Finding seams"):
+            seams.find_seams(corners, masks, "dp_color",
+                             images_dev=torch.as_tensor(imgs),
+                             strict=strict)
+    tasks = [t for _, _, out in rec.calls["_dp_pair_tasks"] for t in out]
+    assert trace.counters["seams.tasks"] == len(tasks) > 0
+    buckets = []
+    for (run_tasks, *_), _, _ in rec.calls["_run_dp_tasks"]:
+        shapes = {}
+        for t in run_tasks:
+            h, w = t["vc"].shape
+            key = (seams.bucket_dim(h), seams.bucket_dim(w))
+            shapes[key] = shapes.get(key, 0) + 1
+        buckets += sorted((n, bh, bw) for (bh, bw), n in shapes.items())
+    kids = _spans_under(trace, "Finding seams")
+    got = [(s.attrs["n"], s.attrs["bh"], s.attrs["bw"]) for s in kids
+           if s.name == "dp batch"]
+    assert sorted(got) == sorted(buckets)
+    names = [s.name for s in kids]
+    pairs = 3 if strict else 1
+    assert names.count("seam overlaps") == pairs
+    assert names.count("seam apply") == len(rec.calls["_run_dp_tasks"])
+    assert set(names) == {"seam overlaps", "dp batch", "seam apply",
+                          "fence"}
+    assert all(_host_ints(s.attrs) for s in kids)
+
+
+@pytest.mark.parametrize("route", ["feed", "feed_device"])
+def test_exposure_spans_of_both_feeds(route):
+    """`feed` and `feed_device` each trace `exposure stats` then `gain
+    solve`, whose `unknowns` is the block system's size: every view's
+    grid of 64-px blocks."""
+    from image_stitching_tpu_torch.ops import exposure
+    imgs, masks, corners = _seam_scene()
+    sizes = [(m.shape[1], m.shape[0]) for m in masks]
+    with log.trace_stitch() as trace:
+        with log.stage_timer("Compensating exposure"):
+            if route == "feed":
+                comp = exposure.feed(corners, list(imgs), masks)
+            else:
+                comp = exposure.feed_device(
+                    corners, sizes, torch.as_tensor(imgs.astype(np.uint8)),
+                    torch.as_tensor(np.stack(masks)))
+    kids = _spans_under(trace, "Compensating exposure")
+    assert [s.name for s in kids] == ["exposure stats", "gain solve",
+                                      "fence"]
+    assert kids[0].attrs is None
+    assert kids[1].attrs == {"unknowns": int(comp.grid_sizes.prod(1).sum())}

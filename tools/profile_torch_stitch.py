@@ -1,10 +1,14 @@
 """Where the time goes in the PyTorch port's stitch, on one CUDA GPU.
 
 Run from the repository root:
-    python3 -m tools.profile_torch_stitch [--legacy] [--resume] [OUT_TXT]
+    python3 -m tools.profile_torch_stitch [--legacy] [--resume] [--rig] \
+        [OUT_TXT]
 
 Renders the 8 x 2448x3264 ring DEFAULT_RING (`data/synth.py`, sigma-8
-noise), runs stitch() with the reference defaults, `StitchConfig()` (fast
+noise), or with --rig the benchmark's `rig37` capture set (the reference's
+37-view, 5-ring rig at 2448x3264, `benchmark/configs/rig37.json`,
+rendered on the card by `benchmark/scene.py` from seed 7), runs stitch()
+with the reference defaults, `StitchConfig()` (fast
 ingest; with --legacy the legacy decode, fast_ingest=False; with --resume
 the stitches after a first full one resume from its checkpoint,
 serialize_data=False), once to warm up and three times timed, then
@@ -12,13 +16,14 @@ once under torch.profiler (CPU + CUDA activities).  Prints the stage
 times; from the program's spans (`StitchResult.trace`,
 `core/logging.py`) each top-level stage's self time (its span less its
 children) with its heaviest children, the spans a stitch, the untraced
-share of the root, the counters, and the warm-up's stages; the
-device-busy share of the wall time, per stage its kernel launches and
-device-busy time, the device's idle gaps named by the innermost span the
-host was in as each began (the 10 longest, and the 10 spans with the
-most idle time), each hand kernel's launches and device time (with each
-launch's, in launch order), and the ops by total device time; with
-OUT_TXT, the 40-row table is also written there.
+share of the root, the counters, each span under the exposure and seam
+stages of the last timed stitch with its attributes, and the warm-up's
+stages; the device-busy share of the wall time, per stage its kernel
+launches and device-busy time, the device's idle gaps named by the
+innermost span the host was in as each began (the 10 longest, and the
+10 spans with the most idle time), each hand kernel's launches and device
+time (with each launch's, in launch order), and the ops by total device
+time; with OUT_TXT, the 40-row table is also written there.
 """
 
 from __future__ import annotations
@@ -101,6 +106,33 @@ def _span_lines(traces):
     return out
 
 
+def _attr_lines(trace):
+    """Each span under the exposure and seam stages, in order, with its
+    attributes."""
+    out = []
+    for i, s in enumerate(trace.spans):
+        if s.parent == 0 and s.name in ("Compensating exposure",
+                                        "Finding seams"):
+            out += [f"{s.name} > {c.name}: {c.seconds:.4f} s"
+                    + (f" {c.attrs}" if c.attrs else "")
+                    for c in trace.children(i)]
+    return out
+
+
+def _write_rig(directory: str) -> None:
+    """The benchmark's rig37 capture set of seed 7, rendered on the card
+    and written as JPEGs with their EXIF pose priors."""
+    from concurrent.futures import ThreadPoolExecutor
+    from benchmark import run, scene
+    capture = run.Cell("rig37.stitch").config["capture"]
+    tex_seed, noise_seed = scene.set_seeds(7, 1)[0]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        _, futures = scene.make_capture_set(directory, capture, tex_seed,
+                                            noise_seed, "cuda", pool)
+        for f in futures:
+            f.result()
+
+
 def _innermost_gaps(events, names, lo: float, hi: float):
     """The device's idle gaps in [lo, hi] (profiler us) as (label,
     seconds): the path of span ranges that held the host when the gap
@@ -143,16 +175,21 @@ def main() -> int:
     args = sys.argv[1:]
     legacy = "--legacy" in args
     resume = "--resume" in args
-    args = [a for a in args if a not in ("--legacy", "--resume")]
+    rig = "--rig" in args
+    args = [a for a in args if a not in ("--legacy", "--resume", "--rig")]
     smi = _smi()
     with tempfile.TemporaryDirectory(prefix="profile_") as work:
         caps = os.path.join(work, "caps")
-        write_ring_dir(caps, **DEFAULT_RING)
+        if rig:
+            _write_rig(caps)
+        else:
+            write_ring_dir(caps, **DEFAULT_RING)
         cfg = StitchConfig(fast_ingest=not legacy, checkpoint_dir=work)
         if resume:
             stitch(caps, cfg, output="", device="cuda")
             cfg = dataclasses.replace(cfg, serialize_data=False)
-        print(f"configuration: StitchConfig("
+        print(f"captures: {'rig37' if rig else 'DEFAULT_RING'}; "
+              f"configuration: StitchConfig("
               f"{'fast_ingest=False' if legacy else ''}"
               f"{', serialize_data=False' if resume else ''}) (checkpoints "
               f"in a temporary directory)")
@@ -173,6 +210,8 @@ def main() -> int:
         print(f"spans a stitch: {[len(t.spans) for t in traces]}; untraced "
               f"% of the root: {untraced}; counters: {counters}")
         for line in _span_lines(traces):
+            print(line)
+        for line in _attr_lines(traces[-1]):
             print(line)
         print(f"warm-up: {warm.root.seconds:.4f} s")
         for line in _span_lines([warm]):
