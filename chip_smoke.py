@@ -99,7 +99,10 @@ Phases, one line each; any failure raises and exits non-zero:
      (orb_detect_maps) on that stitch's 8 work grays: every kept level
      against its plain version on the card, all four planes bit for bit,
      one launch a level and 8 a view in the stitch, a view's levels timed
-     (device, call and plain ms) against its bound; (c) the JAX package's
+     (device, call and plain ms) against its bound; then K7
+     (ransac_score_counts, `check_k7`) on that stitch's one call of 28
+     pairs against its plain version on the card, timed likewise; (c) the
+     JAX package's
      bench configuration StitchConfig(num_features=1500,
      work_megapix=1.9) (the num8-4 raw route) on E2E_RING under phase 4's
      gates; (d) `python -m image_stitching_tpu_torch` on DEFAULT_RING in a
@@ -142,7 +145,8 @@ Phases, one line each; any failure raises and exits non-zero:
      reprojection over the pairs within 45 deg, mask > 0.9, seam union =
      warped union; its wall, MP/s, stage table, launches and peak device
      memory; K4 on its 666 pairs in one call and K5 on every bucket of its
-     compose against their plain versions; (c) StitchConfig(
+     compose against their plain versions; K7 on its RANSAC blocks' calls
+     as one of 666 pairs; (c) StitchConfig(
      num_features=1000, infill_dropped=True) on rig37 with frames 5, 15
      and 30 made noise: the component removed them, 37 cameras come back,
      each infilled camera within 1 deg of the ground truth relative to the
@@ -268,7 +272,9 @@ for each W of phase 6b, its launches those of its match_all_pairs call,
 and one each for K = 70000 (its launches phase 16's; `stitch_*` that
 stitch's K4 call), W = 2048, W = 4096 and 65703 pairs (`key_bits` each
 row's key width; launches those of phase 6b's call).  Every K4 row is
-the one kernel, `csrc/hamming_chunked.cu`.  The last row is K6's.
+the one kernel, `csrc/hamming_chunked.cu`.  The last rows are K6's and
+K7's (`check_k7`: phase 9b's 28-pair call, and phase 11b's rig37 calls as
+one of 666 pairs, `rig37_*`).
 Then the smoke's total seconds and phase 15's end-to-end numbers, a JSON
 line of those kernel results with the launches on the path the kernel was
 checked on (`launches_by_path` every path's, phases 15a, 15b and 16
@@ -667,6 +673,85 @@ def check_k6(dev, grays, stitch_launches: int):
                 max_abs_err=0.0, ms=dev_ms, device_ms=dev_ms,
                 call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, levels=len(levels))
+
+
+# A K7 point test: three rows of H times (x, y, 1), a multiply, an fma
+# and an add each (12), two divisions, two subtractions and the squared
+# error (3); the z guard and the compare are not counted.
+K7_OPS_PER_TEST = 12 + 2 + 2 + 3
+# Pairs a plain call takes at once: its (P, n_hyp, m, 3) temporaries.
+K7_PLAIN_PAIRS = 16
+
+
+def check_k7(calls, phase: str, path_launches: int):
+    """K7 (ransac_score_counts) on the calls one stitch made (Recorder on
+    `ops.ransac`), their pairs concatenated into one call: the counts
+    against the plain version on the card (K7_PLAIN_PAIRS pairs at a
+    time), equal on >= 99.9% of the hypotheses and off by one at most,
+    only where a point's squared error lies within 1e-3 of thresh^2
+    (relative, tests/test_torch_ransac_score.py's gate); one launch a call
+    counted as the kernel nodes of a CUDA graph; device ms by CUDA graph
+    replays, call and plain ms against the bound: K7_OPS_PER_TEST a point
+    test, and the hypotheses and scoring indices in, the points they
+    gather once a pair, the counts out."""
+    from image_stitching_tpu_torch.kernels.ransac_score import (
+        apply_h, ransac_score_counts, ransac_score_counts_plain)
+    args = [torch.cat([c[0][i] for c in calls]) for i in range(4)]
+    thresh = calls[0][0][4]
+    h_all, src, dst, idx = args
+    p, n_hyp = h_all.shape[:2]
+    m = idx.shape[1]
+    got = ransac_score_counts(*args, thresh)
+    diffs, unexplained = [], 0
+    for a in range(0, p, K7_PLAIN_PAIRS):
+        cut = [x[a:a + K7_PLAIN_PAIRS] for x in args]
+        want = ransac_score_counts_plain(*cut, thresh)
+        n = cut[0].shape[1]
+        src_s = torch.gather(cut[1], 1, cut[3][..., None].expand(-1, -1, 2))
+        dst_s = torch.gather(cut[2], 1, cut[3][..., None].expand(-1, -1, 2))
+        err2 = torch.sum((apply_h(cut[0], src_s[:, None].expand(
+            -1, n, -1, -1)) - dst_s[:, None]) ** 2, dim=-1)
+        near = (torch.abs(err2 / (thresh * thresh) - 1.0) <= 1e-3).sum(-1)
+        diff = got[a:a + K7_PLAIN_PAIRS] - want
+        unexplained += int(((diff != 0) & (near == 0)).sum())
+        diffs.append(diff)
+        del want, err2, src_s, dst_s
+    diff = torch.cat(diffs)
+    max_diff = int(diff.abs().max())
+    equal = float((diff == 0).float().mean())
+    assert max_diff <= 1 and equal >= 0.999 and unexplained == 0, \
+        (phase, max_diff, equal, unexplained)
+    launches = kernel_launches(lambda: ransac_score_counts(*args, thresh))
+    assert launches == 1, launches
+    dev_ms = device_ms(lambda: ransac_score_counts(*args, thresh))
+    call_ms = time_ms(lambda: ransac_score_counts(*args, thresh))
+
+    def plain():
+        for a in range(0, p, K7_PLAIN_PAIRS):
+            ransac_score_counts_plain(
+                *(x[a:a + K7_PLAIN_PAIRS] for x in args), thresh)
+    plain_ms = time_ms(plain, reps=3)
+    tests = p * n_hyp * m
+    n_bytes = p * n_hyp * (36 + 8) + p * m * (8 + 16)
+    bound_ms, bound_by = bound(n_bytes, K7_OPS_PER_TEST * tests)
+    print(f"phase {phase} K7 ransac_score_counts: the stitch's "
+          f"{len(calls)} calls as one of {p} pairs x {n_hyp} hypotheses x "
+          f"{m} scoring points (M = {src.shape[1]}): counts equal to plain "
+          f"on {equal:.6f} of the hypotheses, largest difference "
+          f"{max_diff} (each at a point within 1e-3 of thresh^2); 1 launch "
+          f"a call, {path_launches} in the stitch; device {dev_ms:.4f} ms, "
+          f"call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} bytes, "
+          f"{K7_OPS_PER_TEST * tests} operations), "
+          f"{bound_ms / dev_ms:.1%} of it reached", flush=True)
+    return dict(name="ransac_score_counts", route="cuda",
+                source="image_stitching_tpu_torch/csrc/ransac_score.cu",
+                replaces="none (the eager scoring of ops/ransac.py::"
+                         "ransac_homography)",
+                max_abs_err=float(max_diff), equal_share=equal, ms=dev_ms,
+                device_ms=dev_ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                pairs=p, n_hyp=n_hyp, m=m, calls=len(calls))
 
 
 def k2_max_diff(calls) -> float:
@@ -2243,7 +2328,10 @@ def run_phase11(stitch, stitcher, counters, names, caps11, truth,
         pair_focals)
     from image_stitching_tpu_torch.estimation.pose_infill import (
         find_nearest_kept)
+    from image_stitching_tpu_torch.kernels.ransac_score import (
+        ransac_score_counts)
     from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
+    from image_stitching_tpu_torch.ops import ransac as ransac_mod
     by_path = {}
 
     # (a) No EXIF priors: the seed from the match graph, then reproj BA.
@@ -2310,9 +2398,12 @@ def run_phase11(stitch, stitcher, counters, names, caps11, truth,
     torch.cuda.reset_peak_memory_stats()
     rec = Recorder(stitcher, "match_all_pairs", "find_seams",
                    "fused_compose")
-    res, wall, launches = stitch_run(stitch, caps11["rig37"], cfg, counters,
-                                     rec)
+    ransac_score_counts.launches = 0
+    with Recorder(ransac_mod, "ransac_score_counts") as rec7:
+        res, wall, launches = stitch_run(stitch, caps11["rig37"], cfg,
+                                         counters, rec)
     peak = torch.cuda.max_memory_allocated()
+    k7_launches = ransac_score_counts.launches
     n_rig = DEFAULT_RIG.total_images
     assert res.kept_indices == list(range(n_rig)), res.kept_indices
     pairs = overlapping_pairs(res.kept_indices, truth["rs"], 45.0)
@@ -2358,7 +2449,8 @@ def run_phase11(stitch, stitcher, counters, names, caps11, truth,
           f"{k5['bound_ms']:.4f} ms a call "
           f"({k5['bound_ms'] / k5['device_ms']:.1%} of it reached)",
           flush=True)
-    del res, rec, feats, args
+    k7 = check_k7(rec7.calls["ransac_score_counts"], "11b", k7_launches)
+    del res, rec, rec7, feats, args
 
     # (c) Pose infill: frames 5, 15, 30 are noise, so the component drops
     # them, and infill_dropped makes their cameras from their ring's
@@ -2455,7 +2547,7 @@ def run_phase11(stitch, stitcher, counters, names, caps11, truth,
           f"px cut), launches {launches}, wall {wall:.4f} s, stages: "
           f"{stages}; card '{smi}'", flush=True)
     del res, rec
-    return dict(by_path=by_path, k4=k4, k5=k5, peak_bytes=peak,
+    return dict(by_path=by_path, k4=k4, k5=k5, k7=k7, peak_bytes=peak,
                 k2=dict(device_ms=k2_ms, bound_ms=k2_bound_ms, err=k2_err))
 
 
@@ -4165,7 +4257,10 @@ def main() -> int:
     from image_stitching_tpu_torch.kernels.multiband import pyramid_accumulate
     from image_stitching_tpu_torch.kernels.orb_detect import orb_detect_maps
     from image_stitching_tpu_torch.kernels.orb_sample import orb_sample_levels
+    from image_stitching_tpu_torch.kernels.ransac_score import (
+        ransac_score_counts)
     from image_stitching_tpu_torch.kernels.warp_gather import warp_bilinear
+    from image_stitching_tpu_torch.ops import ransac as ransac_mod
     from image_stitching_tpu_torch.ops.imgproc import (resize, rgb_to_gray,
                                                       scale_size)
     from image_stitching_tpu_torch.pipeline import stitcher
@@ -4351,8 +4446,11 @@ def main() -> int:
             stitch(caps_default, cfg, output="", device="cuda")
             rec = Recorder(stitcher, "find_seams", "fused_compose",
                            "fast_prep", "bundle_adjust", "match_all_pairs")
-            res, wall, launches = stitch_run(stitch, caps_default, cfg,
-                                             counters, rec)
+            ransac_score_counts.launches = 0
+            with Recorder(ransac_mod, "ransac_score_counts") as rec7:
+                res, wall, launches = stitch_run(stitch, caps_default, cfg,
+                                                 counters, rec)
+            k7_9b = ransac_score_counts.launches
             versus_jax = ring_reference_check(
                 res, rec.calls["match_all_pairs"][0][2], caps_default)
             # Phase 10d resumes from this stitch's checkpoint.
@@ -4391,6 +4489,8 @@ def main() -> int:
                   flush=True)
             k6 = check_k6(dev, rec.calls["fast_prep"][0][2][0],
                           launches["orb_detect_maps"])
+            k7 = check_k7(rec7.calls["ransac_score_counts"], "9b", k7_9b)
+            del rec7
             del rec, comp
 
             cfg = StitchConfig(num_features=1500, work_megapix=1.9)
@@ -4450,6 +4550,11 @@ def main() -> int:
                       rig37_call_ms=phase11["k4"]["call_ms"],
                       rig37_plain_ms=phase11["k4"]["plain_ms"],
                       rig37_bound_ms=phase11["k4"]["bound_ms"])
+            k7.update({f"rig37_{key}": phase11["k7"][key] for key in (
+                "pairs", "calls", "device_ms", "call_ms", "plain_ms",
+                "bound_ms", "equal_share", "max_abs_err")})
+            k7["launches_by_path"] = {"phase 9b": k7_9b,
+                                      "phase 11b": phase11["k7"]["calls"]}
             k5.update(rig37_buckets=phase11["k5"]["buckets"],
                       rig37_device_ms_per_call=phase11["k5"]["device_ms"],
                       rig37_bound_ms_per_call=phase11["k5"]["bound_ms"])
@@ -4579,8 +4684,9 @@ def main() -> int:
           f"({g15['mp'] / g15['ms'] * 1e3:.3f} canvas MP/s, {g15['n_bands']} "
           f"bands, peak {g15['peak'] / 2 ** 30:.3f} GiB), pairs "
           f"{p15['pairs_per_s']:.2f} pairs/s; card '{smi}'", flush=True)
+    k7["launches"] = k7["launches_by_path"]["phase 9b"]
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k4_12] + k4_chunked +
-                      k4_wide + [k6]}))
+                      k4_wide + [k6, k7]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,9 @@ def _declare(lib) -> None:
                                            ctypes.POINTER(ctypes.c_float),
                                            ci, ci, vp, vp, vp, vp, vp]
     lib.orb_detect_maps_launch.restype = ci
+    lib.ransac_score_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                        ctypes.c_float, vp, vp]
+    lib.ransac_score_launch.restype = ci
 
 
 def _compile(sources, path: str, tag: str) -> None:

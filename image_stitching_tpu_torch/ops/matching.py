@@ -15,12 +15,15 @@ squared distances for float descriptors) in both directions with
 duplicate suppression; RANSAC per pair, a homography or, with
 matcher_type="affine" (AffineBestOf2NearestMatcher), a similarity;
 confidence n_inliers / (8 + 0.3 n_matches) with the conf > 3 -> 0
-near-duplicate rule.  RANSAC takes the pairs on a leading axis in chunks of
-`pair_chunk(K)`; pair p draws from its own threefry key, split(key,
-n_pairs)[p] (`core/prng.py`, the reference's keys), so its draws do not
-depend on the chunk or on the pairs before it.  `match_pair` and
-`register_pair` are one pair's match and, from pixels, both ORB
-detections (kernel K1) and the match.
+near-duplicate rule.  RANSAC takes the pairs on a leading axis in chunks
+(`ransac_chunk`): on the K4 route with the homography matcher on the card,
+as many pairs as `RANSAC_BYTES` holds (`ransac_pairs`: the scoring is
+kernel K7 there and forms no (P, n_hyp, m) tensors); else `pair_chunk(K)`,
+the plain 2-NN's budget for its (K, K) matrices.  Pair p draws from its
+own threefry key, split(key, n_pairs)[p] (`core/prng.py`, the reference's
+keys), so its draws do not depend on the chunk or on the pairs before it.
+`match_pair` and `register_pair` are one pair's match and, from pixels,
+both ORB detections (kernel K1) and the match.
 """
 
 from __future__ import annotations
@@ -43,9 +46,38 @@ from .ransac import ransac_affine_partial, ransac_draws, ransac_homography
 # call whatever its size, and 8 bytes an int64 word of its temporaries.
 DRAW_PAIRS = 4096
 
+# Device bytes one RANSAC block holds on the K4 route with the homography
+# matcher on the card, and what a pair holds there a correspondence slot
+# (353 measured on an H100 at K = 4000): match_pairs' copies of the pair's
+# features and its (M,) tables, and the IRLS refit's (2M, 9) design matrix,
+# its weighted copy and the two (M, 9) halves it is cut from
+# (`ransac.dlt_homography`).
+RANSAC_BYTES = 256 << 20
+RANSAC_SLOT_BYTES = 350
+
 __all__ = ["PairMatches", "MatchGraph", "hamming_matrix", "l2_matrix",
            "two_nn", "l2_two_nn_pairs", "match_pair", "match_pairs",
-           "match_all_pairs", "register_pair"]
+           "match_all_pairs", "register_pair", "ransac_pairs",
+           "ransac_chunk"]
+
+
+def ransac_pairs(m: int) -> int:
+    """Pairs of M correspondence slots that one RANSAC block of the K4
+    route takes: `RANSAC_BYTES` over `RANSAC_SLOT_BYTES` a slot."""
+    return max(1, RANSAC_BYTES // (RANSAC_SLOT_BYTES * max(m, 1)))
+
+
+def ransac_chunk(k: int, binary: bool, matcher_type: str, device) -> int:
+    """Pairs a RANSAC block of `match_all_pairs` takes, for K features an
+    image: `ransac_pairs(2K)` for binary descriptors (K4) with the
+    homography matcher on CUDA, whose scoring (K7) forms no (P, n_hyp, m)
+    tensors; else `pair_chunk(K)`, the budget of the (P, K, K) matrices
+    that float descriptors' L2 2-NN builds, which also bounds the affine
+    matcher's (P, n_hyp, M) scoring and the CPU's plain scoring."""
+    if (binary and matcher_type != "affine"
+            and torch.device(device).type == "cuda"):
+        return ransac_pairs(2 * k)
+    return pair_chunk(k)
 
 
 def l2_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -221,7 +253,7 @@ def match_all_pairs(feats: Features, key: torch.Tensor,
         with span("K4", n=n, k=k, w=feats.desc.shape[2], pairs=len(iu)):
             fwd, rev = hamming_two_nn_pairs(feats.desc, feats.valid, ii, jj)
     outs = []
-    chunk = pair_chunk(k)
+    chunk = ransac_chunk(k, binary, matcher_type, dev)
     block = chunk * max(1, DRAW_PAIRS // chunk)
     for s in range(0, len(iu), chunk):
         cut = slice(s, s + chunk)

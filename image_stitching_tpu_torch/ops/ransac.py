@@ -3,7 +3,8 @@
 
 Same estimators as the reference.  Homography: `n_hyp` closed-form 4-point
 hypotheses (unit-square route, no linear solve), scoring on a subsample of
-at most 1024 correspondences, the winner's full inlier mask, then four
+at most 1024 correspondences (kernel K7 for CUDA tensors,
+`kernels/ransac_score.py`), the winner's full inlier mask, then four
 Cauchy-weighted DLT refits (IRLS) kept only if they do not lose inliers.
 Similarity (cv::estimateAffinePartial2D, the affine matcher's core):
 `n_hyp` 2-point hypotheses scored on every correspondence, then one
@@ -25,19 +26,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.logging import span
 from ..core.prng import check_key, fold_in, uniform
+from ..kernels.ransac_score import apply_h, ransac_score_counts
 
 __all__ = ["apply_h", "h4_closed_form", "dlt_homography",
            "sample_valid", "sample_valid_distinct", "ransac_draws",
            "ransac_homography", "ransac_affine_partial"]
-
-
-def apply_h(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) x (..., N, 2) -> (..., N, 2) projective transform."""
-    p = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
-    q = torch.einsum("...ij,...nj->...ni", h, p)
-    z = q[..., 2:]
-    return q[..., :2] / torch.where(torch.abs(z) < 1e-12, 1e-12, z)
 
 
 def _normalizer(pts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -233,11 +228,10 @@ def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
     h_n = h4_closed_form(s4 / sc, d4 / sc)
     h_all = torch.einsum("pij,pnjk,pkl->pnil", tinv, h_n, t)
 
-    src_s = torch.gather(src, 1, score_idx[..., None].expand(-1, -1, 2))
-    dst_s = torch.gather(dst, 1, score_idx[..., None].expand(-1, -1, 2))
-    proj = apply_h(h_all, src_s[:, None].expand(-1, n_hyp, -1, -1))
-    err2 = torch.sum((proj - dst_s[:, None]) ** 2, dim=-1)
-    counts = torch.sum(err2 < thresh * thresh, dim=-1)
+    with span("K7", pairs=p, n_hyp=n_hyp, m=score_idx.shape[1]):
+        counts = ransac_score_counts(h_all.contiguous(), src.contiguous(),
+                                     dst.contiguous(), score_idx.contiguous(),
+                                     thresh)
     det = torch.abs(torch.linalg.det(h_all))
     counts = torch.where(det > 1e-8, counts, -1)
     best = torch.argmax(counts, dim=-1)

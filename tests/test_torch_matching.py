@@ -26,8 +26,12 @@ from image_stitching_tpu.ops.features.orb import orb_detect_and_describe
 from image_stitching_tpu_torch.core.prng import PRNGKey, split
 from image_stitching_tpu_torch.interop import (features_from_numpy,
                                                pair_matches_from_numpy)
+from image_stitching_tpu_torch.kernels.hamming import pair_chunk
 from image_stitching_tpu_torch.ops import matching, ransac
 from image_stitching_tpu_torch.ops.features import Features
+from image_stitching_tpu_torch.ops.features.orb import (
+    orb_detect_and_describe as port_orb)
+from image_stitching_tpu_torch.ops.imgproc import rgb_to_gray
 
 
 def _assert_h_close(got, want):
@@ -214,6 +218,59 @@ def test_pair_draws_depend_on_its_key_alone(ring_features, monkeypatch,
             assert int(got.num_inliers[i, j]) == int(one.num_inliers)
             _assert_h_close(n(got.h[i, j]), n(one.h))
         assert int(got.num_inliers[0, 1]) > 8
+
+
+@pytest.fixture(scope="module")
+def ring5_graph():
+    """A 5-view ring's port ORB features on the CPU and its MatchGraph at
+    the default block (all 10 pairs in one)."""
+    images, _, _ = make_ring_captures(n_images=5, hw=(160, 224), fov_deg=40,
+                                      overlap_ratio=0.55)
+    feats = Features.stack([port_orb(rgb_to_gray(torch.from_numpy(
+        np.asarray(im)).to(torch.float32)), n_features=400) for im in images])
+    return feats, matching.match_all_pairs(feats, PRNGKey(3, "cpu"))
+
+
+@pytest.mark.parametrize("block", [1, 2, 3, "all"])
+def test_match_all_pairs_blocking_is_invisible(ring5_graph, monkeypatch,
+                                               block):
+    """Each pair draws from its own key, so the RANSAC block size leaves
+    the MatchGraph unchanged bit for bit: blocks of 1, 2, 3 and all 10
+    pairs of a 5-view ring give the default call's graph."""
+    feats, want = ring5_graph
+    size = 10 if block == "all" else block
+    sizes = []
+
+    def chunk(*args):
+        sizes.append(args)
+        return size
+    monkeypatch.setattr(matching, "ransac_chunk", chunk)
+    got = matching.match_all_pairs(feats, PRNGKey(3, "cpu"))
+    assert sizes == [(400, True, "homography", torch.device("cpu"))]
+    for name in ("ii", "jj", "a_idx", "b_idx", "valid", "inlier", "h",
+                 "num_inliers", "confidence", "num_matches"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int((want.num_inliers > 20).sum()) >= 6
+
+
+@pytest.mark.parametrize("binary,matcher,device,budgeted", [
+    (True, "homography", "cuda", True), (False, "homography", "cuda", False),
+    (True, "affine", "cuda", False), (True, "homography", "cpu", False),
+    (False, "affine", "cpu", False)])
+def test_ransac_chunk_choice(binary, matcher, device, budgeted):
+    """The block is RANSAC's own byte budget on the K4 route with the
+    homography matcher on CUDA (K7 forms no (P, n_hyp, m) tensors there),
+    and the plain path's `pair_chunk(K)` for float descriptors, the affine
+    matcher and the CPU."""
+    for k in (400, 1000, 4000):
+        got = matching.ransac_chunk(k, binary, matcher, torch.device(device))
+        if budgeted:
+            assert got == matching.ransac_pairs(2 * k) == (
+                matching.RANSAC_BYTES // (matching.RANSAC_SLOT_BYTES * 2 * k))
+            assert got > pair_chunk(k)
+        else:
+            assert got == pair_chunk(k)
+    assert matching.ransac_pairs(10 ** 9) == 1
 
 
 # The 4000 full-resolution ORB features of each image of the sigma-4

@@ -247,7 +247,7 @@ def main() -> int:
     hand = ("orb_detect_maps_kernel", "orb_sample_levels_kernel",
             "warp_bilinear_kernel", "hamming_unpack_kernel",
             "hamming_wgmma_kernel", "pyr_down_batch_kernel",
-            "band_accumulate_batch_kernel")
+            "band_accumulate_batch_kernel", "ransac_score_kernel")
     by_launch = {}
     for e in sorted(events, key=lambda e: e.time_range.start):
         if e.device_type == torch.autograd.DeviceType.CUDA and \
