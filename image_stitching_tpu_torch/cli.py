@@ -151,8 +151,8 @@ def main(argv=None) -> int:
         result = stitch(args.image_dir, config_from_args(args),
                         device=args.device)
     except (ValueError, RuntimeError) as e:
-        # NotImplementedError (an option outside the slice) is a
-        # RuntimeError: its message names the option.
+        # A bad option or capture set ("Need at least two images", "Need
+        # more images", no CUDA device): the message says which.
         print(e, file=sys.stderr)
         return 1
     for name, secs in result.stage_times.items():

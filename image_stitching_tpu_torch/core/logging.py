@@ -3,9 +3,7 @@
 `stage_timer` mirrors the reference's LOGLN("<stage>, time: ...") lines
 and adds each stage's seconds to a `StageTimes` dict.
 The fence that makes a stage time honest under asynchronous CUDA launches
-is `torch.cuda.synchronize` on the stage's device.  `Recorder` keeps the
-calls of chosen module functions, for diagnostics that need what one stage
-handed the next.
+is `torch.cuda.synchronize` on the stage's device.
 
 `stage_timer` is also the port's one span recorder.  Inside `trace_stitch`
 each `stage_timer` and each `span` is a `Span` of the stitch's `Trace`:
@@ -37,7 +35,7 @@ import torch
 
 logger = logging.getLogger("image_stitching_tpu_torch")
 
-__all__ = ["logger", "stage_timer", "StageTimes", "Recorder", "Span",
+__all__ = ["logger", "stage_timer", "StageTimes", "Span",
            "Trace", "span", "count", "trace_stitch", "recent_traces",
            "first_trace", "RECENT_TRACES"]
 
@@ -189,30 +187,3 @@ def stage_timer(name: str, times: Optional[StageTimes] = None,
         if times is not None:
             times[name] = times.get(name, 0.0) + elapsed
         logger.info("%s, time: %.6g sec", name, elapsed)
-
-
-class Recorder:
-    """Pass-through wrappers on module attributes that keep each call's
-    (args, kwargs, result), by reference, in `calls[name]` while the
-    context is open."""
-
-    def __init__(self, module, *names):
-        self.module = module
-        self.orig = {name: getattr(module, name) for name in names}
-        self.calls = {name: [] for name in names}
-
-    def __enter__(self):
-        for name, fn in self.orig.items():
-            setattr(self.module, name, self._wrap(name, fn))
-        return self
-
-    def _wrap(self, name, fn):
-        def rec(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            self.calls[name].append((args, kwargs, out))
-            return out
-        return rec
-
-    def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.module, name, fn)

@@ -11,8 +11,15 @@
 // d1, i2, d2), ties to the lower column, invalid columns at exactly 2^30.
 // No distance matrix is written to device memory.
 //
-// What bounds it on the H100: operations.  With each descriptor bit
-// unpacked to +1 (bit 0) or -1 (bit 1) by hamming.cu's unpack kernel,
+// K4 is two launches.  The first, hamming_unpack_kernel below, unpacks
+// each descriptor once into 32 W int8 of +1 (bit 0) or -1 (bit 1), bit b
+// of word w at byte 32 w + b (zero padding bits are +1 in both rows and
+// add nothing to a distance); it is bound by bytes, W * 4 in and 32 W out
+// a descriptor, and kernels/hamming.py::pm1_rows is its plain twin.  The
+// second, hamming_wgmma_kernel, takes the pairs.
+//
+// What bounds the second on the H100: operations.  With each descriptor
+// bit unpacked to +-1,
 //     hamming = (32 W - dot) / 2,
 // exact, since dot = (#equal bits) - (#differing bits): an int8 dot
 // product of depth 32 W, 64 W operations a distance on the tensor cores
@@ -78,6 +85,27 @@ constexpr int kStageBytes = 2 * kOperand;       // A then B
 constexpr int kWgThreads = 288;                 // 2 consumer warpgroups + 1 warp
 // A return code past the CUDA runtime's: the tensor map's CUresult + this.
 constexpr int kTensorMapError = 100000;
+
+__global__ void hamming_unpack_kernel(const uint32_t* __restrict__ words,
+                                      int n_words,
+                                      uint32_t* __restrict__ out,
+                                      long long n_out) {
+  // One output word (4 bytes of +-1) per thread: bits 4 j .. 4 j + 3 of
+  // the descriptor, LSB first.
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int per_row = 8 * n_words;
+  const long long row = i / per_row;
+  const int j = (int)(i - row * per_row);
+  const uint32_t nib =
+      (words[row * n_words + (j >> 3)] >> ((j & 7) * 4)) & 0xFu;
+  uint32_t v = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    v |= ((nib >> b) & 1u ? 0xFFu : 0x01u) << (8 * b);
+  }
+  out[i] = v;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -529,6 +557,21 @@ cudaError_t launch_keys(const CUtensorMap& tmap, const WgLayout& l,
 }
 
 }  // namespace
+
+// The +-1 rows of n_desc descriptors of n_words words: pm1 (n_desc, 32
+// n_words) int8 from desc (n_desc, n_words) uint32.
+extern "C" int hamming_unpack_launch(const void* desc, long long n_desc,
+                                     int n_words, void* pm1, void* stream) {
+  const long long n_out = n_desc * 8 * n_words;
+  if (n_out > 0) {
+    const int threads = 256;
+    const long long blocks = (n_out + threads - 1) / threads;
+    hamming_unpack_kernel<<<(unsigned)blocks, threads, 0,
+                            (cudaStream_t)stream>>>(
+        (const uint32_t*)desc, n_words, (uint32_t*)pm1, n_out);
+  }
+  return (int)cudaGetLastError();
+}
 
 // The most descriptors an image (k) the kernel takes at n_words on device
 // `device`: the largest k whose shared-memory layout fits the device's

@@ -15,8 +15,9 @@
 // disk pixels (short contiguous rows, cached) and 512 scattered pixels of
 // the blurred plane; there is almost no arithmetic.  Counting each pixel
 // the keypoints read once, the default path's 4000 keypoints of one image
-// move ~18 MB, 0.005 ms at the HBM rate (chip_smoke.py phase 5); the
-// kernel's time is the latency of its dependent reads.  The TPU kernel staged
+// move ~18 MB, 0.005 ms at the HBM rate (`python3 chip_smoke.py`
+// prints the bound beside the time); the kernel's time is the latency of
+// its dependent reads.  The TPU kernel staged
 // windows in VMEM, one level per call.  Here:
 //   * one launch takes every level of an image: the level planes come as a
 //     table of up to 8 (raw, blur, h, w) entries passed by value, and each

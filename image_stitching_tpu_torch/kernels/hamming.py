@@ -5,9 +5,10 @@ Hopper replacement for `image_stitching_tpu/kernels/hamming_pallas.py`
 `:104`), which take descriptors of any word count W: ORB's are W = 8
 (256 bits), AKAZE's W = 12 (360 bits, zero-padded to 384), BRIEF-128's
 W = 4, BRIEF-512's, BRISK's, FREAK's and the full 486-bit MLDB's W = 16.
-A CUDA call is two launches: `csrc/hamming.cu` unpacks every descriptor
-of the stack once into 32 W int8 of +-1 (`pm1_rows` is its plain twin),
-then `csrc/hamming_chunked.cu` takes every pair and both directions, the
+A CUDA call is two launches of `csrc/hamming_chunked.cu`: the first
+unpacks every descriptor of the stack once into 32 W int8 of +-1
+(`pm1_rows` is its plain twin), the second takes every pair and both
+directions, the
 dot products by `wgmma` on the tensor cores (hamming = (32 W - dot) / 2),
 at any W, K and pair count; its (distance, column) keys are 32 or 64 bits
 (`key_bits`).  The plain version is the reference pipeline's live path,

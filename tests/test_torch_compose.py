@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import n, t
+from _torch_port import kernel_launches, n, t
 from image_stitching_tpu.config import BlenderType as JBlend
 from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.kernels.multiband_pallas import \
@@ -404,8 +404,9 @@ def test_k5_batched_plain_equals_single_image_calls(nb, ph, pw, canvas,
 def test_k5_kernel_matches_plain_on_cuda(nb, ph, pw, canvas, offs):
     """One batched call of overlapping rects (windows at both canvas
     edges, clamped and odd offsets; a bucket of 130) against the plain
-    version: accumulators within 2e-3 (float32 summation order), one
-    count."""
+    version: accumulators within 2e-3 (float32 summation order), the
+    finalized u8 panorama within 1 and its mask equal; one count, at most
+    2 n_bands + 1 kernels in a CUDA graph of the call."""
     from _torch_port import cuda_device
     dev = cuda_device()
     warped, weight = _k5_bucket(8, len(offs), nb, ph, pw)
@@ -420,3 +421,10 @@ def test_k5_kernel_matches_plain_on_cuda(nb, ph, pw, canvas, offs):
     assert pyramid_accumulate.launches == before + 1
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 2e-3
+    (pano_k, mask_k), (pano_p, mask_p) = (tcf._finalize(acc, nb)
+                                          for acc in (got, want))
+    assert int((pano_k.int() - pano_p.int()).abs().max()) <= 1
+    assert torch.equal(mask_k, mask_p)
+    scratch = [torch.zeros(sh, device=dev) for sh in shapes]
+    assert kernel_launches(lambda: pyramid_accumulate(
+        warped, weight, offs, scratch, nb)) <= 2 * nb + 1

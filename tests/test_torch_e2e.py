@@ -16,7 +16,7 @@ import pytest
 
 import torch
 
-from _torch_port import checked_keys, n, rel_rotation_deg
+from _torch_port import Recorder, checked_keys, n, rel_rotation_deg
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
@@ -25,7 +25,6 @@ from image_stitching_tpu.ops import seams as jseams
 from image_stitching_tpu.pipeline.stitcher import stitch as jstitch
 from image_stitching_tpu_torch.config import StitchConfig
 from image_stitching_tpu_torch.core import image_io
-from image_stitching_tpu_torch.core.logging import Recorder
 from image_stitching_tpu_torch.ops.warps import backward_xy_1d
 from image_stitching_tpu_torch.pipeline import compose_fused, ingest, stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import (compose_inputs,

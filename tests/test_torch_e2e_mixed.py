@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from _torch_port import (checked_keys, n, rel_rotation_deg,
+from _torch_port import (Recorder, checked_keys, n, rel_rotation_deg,
                          write_mixed_ring)
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
@@ -25,7 +25,6 @@ from image_stitching_tpu.data.synth import (make_ring_captures,
 from image_stitching_tpu.ops import crop as jcrop
 from image_stitching_tpu.pipeline.stitcher import stitch as jstitch
 from image_stitching_tpu_torch.config import StitchConfig
-from image_stitching_tpu_torch.core.logging import Recorder
 from image_stitching_tpu_torch.ops import blend, crop, warps
 from image_stitching_tpu_torch.pipeline import stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import stitch

@@ -16,14 +16,13 @@ import importlib
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from _torch_port import checked_keys, n
+from _torch_port import Recorder, checked_keys, n
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
 from image_stitching_tpu.geometry.camera import Cameras as JCameras
 from image_stitching_tpu.pipeline.stitcher import stitch as jstitch
 from image_stitching_tpu_torch.config import StitchConfig
-from image_stitching_tpu_torch.core.logging import Recorder
 from image_stitching_tpu_torch.estimation import bundle_adjust as tba
 from image_stitching_tpu_torch.interop import cameras_from_numpy
 from image_stitching_tpu_torch.pipeline import stitcher

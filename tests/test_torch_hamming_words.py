@@ -13,6 +13,9 @@ kernel's walk (128-byte stages of depth, 128-column tiles, the
 all-invalid skip, the key top-2 at both key widths) is held to the JAX
 reference."""
 
+import dataclasses
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +33,7 @@ from image_stitching_tpu_torch.core.prng import PRNGKey, split
 from image_stitching_tpu_torch.interop import features_from_numpy
 from image_stitching_tpu_torch.kernels.hamming import (
     hamming_two_nn_pairs, hamming_two_nn_pairs_plain, hamming_two_nn_plain,
-    key_bits, max_k)
+    key_bits, max_k, pm1_rows, unpack_pm1)
 from image_stitching_tpu_torch.ops import matching
 from image_stitching_tpu_torch.ops.features import Features
 
@@ -92,8 +95,8 @@ def test_plain_matches_reference_at_any_width(words, seed):
                                          (12, 4), (13, 19)])
 def test_zero_words_change_nothing(words, zeros):
     """Words that are 0 in every descriptor agree in every pair of rows:
-    the 2-NN at W + z words equals the 2-NN at W, bit for bit (the smoke's
-    16-word ring check on the card rests on this)."""
+    the 2-NN at W + z words equals the 2-NN at W, bit for bit (the card
+    tests' 16-word ring check rests on this)."""
     d, valid, iu, ju = _stack(words, words)
     wide = np.concatenate([d, np.zeros(d.shape[:2] + (zeros,), np.uint32)],
                           axis=-1)
@@ -411,3 +414,185 @@ def test_chunked_route_limits_raise_on_cuda():
                 torch.ones(shape[:2], dtype=torch.bool, device=dev), pair,
                 pair)
     assert hamming_two_nn_pairs.launches == before
+
+
+# ---- the card at the stitch's shapes -------------------------------------
+
+def _ring_stack(kind, words, k=4000, n_img=8, seed=0):
+    """Stacks at the ring's K, every pair i < j: `random` (images 1..n-1
+    near copies of image 0, each bit flipped with probability 0.05; 90%
+    valid), `runs` (the same, valid only in the first 84 columns of each
+    500, as ORB's per-level top-k leaves mosaic100's) and `ties` (4
+    images: image 1 repeats rows of image 0, each twice, image 0 holds
+    duplicates, image 2 has one valid descriptor, image 3 none).  `wide`
+    is `random` with columns 2 r and 2 r + 1 of images 1..n-1 near copies
+    of row r of image 0, so rows of image 0 from K / 4 up find their
+    nearest columns past K / 2."""
+    rng = np.random.default_rng(seed)
+    n_img = 4 if kind == "ties" else n_img
+    d = rng.integers(0, 2 ** 32, (n_img, k, words), dtype=np.uint64).astype(
+        np.uint32)
+    flips = np.packbits(rng.random((n_img - 1, k, words, 32),
+                                   dtype=np.float32) < 0.05, axis=-1,
+                        bitorder="little").view("<u4")[..., 0]
+    valid = rng.random((n_img, k)) > 0.1
+    if kind == "ties":
+        d[0, k // 2:] = d[0, :k - k // 2]
+        d[1] = d[0, rng.integers(0, k // 2, k)]
+        valid[2] = False
+        valid[2, k // 3] = True
+        valid[3] = False
+    elif kind == "wide":
+        d[1:] = np.repeat(d[0, :k // 2], 2, axis=0) ^ flips
+    else:
+        d[1:] = d[0] ^ flips
+    if kind == "runs":
+        valid = np.broadcast_to(np.arange(k) % 500 < 84, valid.shape)
+    iu, ju = (x.astype(np.int32) for x in np.triu_indices(n_img, 1))
+    return d, np.ascontiguousarray(valid), iu, ju
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "runs", "ties"])
+@pytest.mark.parametrize("words", CHUNKED_WORDS + (8, 12))
+def test_kernel_at_ring_k_on_cuda(words, kind):
+    """K4 at the ring's K = 4000 (28 pairs, both directions) on random,
+    run-masked (whole column tiles skipped) and tie stacks, one launch,
+    against its plain version: indices equal, distances exact."""
+    dev = cuda_device()
+    args = _args(*_ring_stack(kind, words, seed=words), dev)
+    before = hamming_two_nn_pairs.launches
+    got = hamming_two_nn_pairs(*args)
+    assert hamming_two_nn_pairs.launches == before + 1
+    for g, w in zip(got, hamming_two_nn_pairs_plain(*args)):
+        _assert_two_nn_equal(g, [n(x) for x in w])
+
+
+def _ring_features(dev):
+    """The sigma-4 8 x 2448x3264 ring's full-resolution ORB features
+    (tests/data/ring_sigma4_features.npz) on `dev`."""
+    z = np.load(os.path.join(os.path.dirname(__file__), "data",
+                             "ring_sigma4_features.npz"))
+    zeros = torch.zeros(z["valid"].shape, device=dev)
+    return Features(xy=torch.from_numpy(z["xy"]).to(dev), response=zeros,
+                    angle=zeros, octave=zeros.to(torch.int32), size=zeros,
+                    desc=torch.from_numpy(z["desc"]).to(dev),
+                    valid=torch.from_numpy(z["valid"]).to(dev))
+
+
+def _with_words(feats, words):
+    """The features with their 8-word descriptors cut to the first
+    `words` words, or widened by zero words, which change no distance."""
+    desc = feats.desc[..., :words] if words <= 8 else torch.cat(
+        [feats.desc, feats.desc.new_zeros(feats.desc.shape[:2] +
+                                          (words - 8,))], -1)
+    return dataclasses.replace(feats, desc=desc.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", (12,) + CHUNKED_WORDS)
+def test_match_all_pairs_at_other_widths_on_cuda(words):
+    """match_all_pairs on the ring's ORB features at W words, as the
+    default stitch calls it: one K4 launch; widened by zero words, the
+    match tables, inliers, homographies and confidences equal the 8-word
+    call's; cut below 8 words, finite homographies."""
+    from image_stitching_tpu_torch.config import StitchConfig
+    dev = cuda_device()
+    feats, cfg = _ring_features(dev), StitchConfig()
+
+    def graph(w):
+        before = hamming_two_nn_pairs.launches
+        g = matching.match_all_pairs(_with_words(feats, w),
+                                     PRNGKey(cfg.seed, dev),
+                                     match_conf=cfg.match_conf,
+                                     pair_cap=cfg.num_features)
+        torch.cuda.synchronize()
+        assert hamming_two_nn_pairs.launches == before + 1
+        return g
+    got, base = graph(words), graph(8)
+    if words < 8:
+        assert bool(torch.isfinite(got.h).all())
+        return
+    for name in ("ii", "jj", "a_idx", "b_idx", "valid", "inlier", "h",
+                 "num_inliers", "confidence", "num_matches"):
+        assert torch.equal(getattr(got, name), getattr(base, name)), name
+
+
+def _rows_plain_blocks(desc, valid, ii, jj, block=8192):
+    """`_rows_plain` on every row, by blocks."""
+    k = desc.shape[1]
+    parts = [_rows_plain(desc, valid, ii, jj,
+                         torch.arange(s, min(s + block, k),
+                                      device=desc.device))
+             for s in range(0, k, block)]
+    return [tuple(torch.cat(x, -1) for x in zip(*[p[side] for p in parts]))
+            for side in (0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+@pytest.mark.parametrize("kind", ["wide", "runs", "ties"])
+def test_kernel_past_65535_columns_every_row_on_cuda(kind):
+    """K = 70000 at 8 words (64-bit keys), 4 images, 6 pairs both ways,
+    one launch, against the plain version on every row: indices equal,
+    distances exact; the wide stack's nearest columns reach past 65535."""
+    dev = cuda_device()
+    args = _args(*_ring_stack(kind, 8, k=70000, n_img=4), dev)
+    assert key_bits(70000, 8) == 64
+    before = hamming_two_nn_pairs.launches
+    got = hamming_two_nn_pairs(*args)
+    assert hamming_two_nn_pairs.launches == before + 1
+    want = _rows_plain_blocks(*args)
+    for g, w in zip(got, want):
+        _assert_two_nn_equal(g, [n(x) for x in w])
+    if kind == "wide":
+        assert bool((want[0][0][:, 32768:] >= 65536).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [2048, 4096])
+def test_kernel_distance_past_16_bits_on_cuda(words):
+    """At 2048 and 4096 words (64-bit keys) a distance of 32 W, past 16
+    bits: image 3 is all the complement of image 2's row 0."""
+    dev = cuda_device()
+    args = _args(*_ring_stack("wide", words, k=512, n_img=4, seed=words),
+                 dev)
+    args[0][3] = ~args[0][2, 0]
+    before = hamming_two_nn_pairs.launches
+    got = hamming_two_nn_pairs(*args)
+    assert hamming_two_nn_pairs.launches == before + 1
+    want = hamming_two_nn_pairs_plain(*args)
+    for g, w in zip(got, want):
+        _assert_two_nn_equal(g, [n(x) for x in w])
+    assert float(want[0][1][5, 0]) == float(want[0][3][5, 0]) == 32 * words
+
+
+@pytest.mark.cuda
+def test_kernel_65703_pairs_in_one_launch_on_cuda():
+    """363 images of K = 128 at 8 words: 65703 pairs, past grid.y's 65535,
+    in one launch, against the plain version on 256 of them."""
+    dev = cuda_device()
+    args = _args(*_ring_stack("random", 8, k=128, n_img=363, seed=3), dev)
+    n_pairs = len(args[2])
+    assert n_pairs == 65703
+    before = hamming_two_nn_pairs.launches
+    got = hamming_two_nn_pairs(*args)
+    assert hamming_two_nn_pairs.launches == before + 1
+    pick = torch.as_tensor(np.r_[0:64, n_pairs - 64:n_pairs, np.random.
+                                 default_rng(0).choice(n_pairs, 128, False)],
+                           device=dev)
+    want = hamming_two_nn_pairs_plain(args[0], args[1], args[2][pick],
+                                      args[3][pick])
+    for g, w in zip(got, want):
+        _assert_two_nn_equal([x[pick] for x in g], [n(x) for x in w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["ring", "random 12 words"])
+def test_unpack_equals_pm1_rows_on_cuda(source):
+    """K4's +-1 unpack (the first of its two launches) equals `pm1_rows`
+    on the ring's ORB descriptors and on 12-word (AKAZE's) ones."""
+    dev = cuda_device()
+    desc = (_ring_features(dev).desc if source == "ring" else
+            _args(*_ring_stack("random", 12), dev)[0])
+    assert torch.equal(unpack_pm1(desc), pm1_rows(desc))

@@ -244,3 +244,45 @@ def test_start_fast_ingest_route_equal(tmp_path, capture_set):
         assert (a is None) == (b is None)
         if a is not None:
             assert tuple(a.shape) == b.shape and a.dtype == torch.uint8
+
+
+@pytest.mark.cuda
+def test_fast_ingest_planes_equal_pil_on_cuda(tmp_path):
+    """Fast ingest on the card, three 4:2:0 JPEGs at 2448x3264: the raw
+    route at num8 8 into one pinned host buffer a file; the device RGB of
+    the planes equals PIL's RGB decode and the Y plane PIL's luma decode;
+    at num8 4 the Y plane equals PIL's half-size luma decode; the card's
+    fast_prep equals the CPU's on the same planes (the seam stack within
+    1)."""
+    from _torch_port import cuda_device
+    dev = cuda_device()
+    paths = _write_set(tmp_path, [(2448, 3264)] * 3)
+
+    def luma(path, num8):
+        with Image.open(path) as im:
+            im.draft("L", (im.size[0] * num8 // 8, im.size[1] * num8 // 8))
+            return np.asarray(im.convert("L"))
+    fi = ingest.start_fast_ingest(paths, False, True, 1.0, 1.0, device=dev)
+    assert fi is not None and fi.raw_yuv and fi.raw_num8 == 8
+    assert sum(isinstance(b, torch.Tensor) and b.is_pinned()
+               for b in fi.session._buffers) == len(paths)
+    raw = fi.upload()[1]
+    y, cb, cr = ingest._unpack_planes(raw, fi.raw_layout)
+    rgb = n(ingest.yuv420_to_rgb_exact(y, cb, cr))
+    for i, p in enumerate(paths):
+        with Image.open(p) as im:
+            np.testing.assert_array_equal(rgb[i], np.asarray(im.convert(
+                "RGB")))
+        np.testing.assert_array_equal(n(y[i]), luma(p, 8))
+    half = ingest.start_fast_ingest(paths, False, True, 0.5, 0.3, device=dev)
+    assert half is not None and half.raw_yuv and half.raw_num8 == 4
+    y4 = ingest._unpack_planes(half.upload()[1], half.raw_layout)[0]
+    for i, p in enumerate(paths):
+        np.testing.assert_array_equal(n(y4[i]), luma(p, 4))
+    from image_stitching_tpu_torch.ops.imgproc import scale_size as size
+    seam_hw = size(2448, 3264, (0.1e6 / (2448 * 3264)) ** 0.5)
+    got, want = (ingest.fast_prep(fi, None, stack, False, (2448, 3264),
+                                  seam_hw) for stack in (raw, raw.cpu()))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert int((got[2].cpu().int() - want[2].int()).abs().max()) <= 1

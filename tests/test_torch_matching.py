@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import n, t
+from _torch_port import assert_h_close, n, t
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.ops import imgproc as jimg
@@ -32,14 +32,6 @@ from image_stitching_tpu_torch.ops.features import Features
 from image_stitching_tpu_torch.ops.features.orb import (
     orb_detect_and_describe as port_orb)
 from image_stitching_tpu_torch.ops.imgproc import rgb_to_gray
-
-
-def _assert_h_close(got, want):
-    """H within rtol 1e-4 in the max norm: |dH|max <= 1e-4 |H|max (the
-    eigh/inverse rounding of the IRLS refit acts on the whole matrix, so
-    a small entry may carry more relative error than the matrix)."""
-    want = np.asarray(want)
-    assert np.abs(np.asarray(got) - want).max() <= 1e-4 * np.abs(want).max()
 
 
 def _draws(key, valid, n_hyp=512):
@@ -115,7 +107,7 @@ def test_ransac_injected_hypotheses():
         score_idx=sub)
     assert int(cnt[0]) == int(n_ref)
     np.testing.assert_array_equal(n(mask[0]), np.asarray(mask_ref))
-    _assert_h_close(n(h[0]), h_ref)
+    assert_h_close(n(h[0]), h_ref)
 
 
 @pytest.mark.parametrize("pair", [(0, 1), (1, 2)])
@@ -138,7 +130,7 @@ def test_match_pair_equal_given_identical_descriptors(ring_features, pair):
     assert int(ninl[0]) == int(want["num_inliers"]) > 8
     np.testing.assert_allclose(float(conf[0]), float(want["confidence"]),
                                rtol=1e-6)
-    _assert_h_close(n(h[0]), n(want["h"]))
+    assert_h_close(n(h[0]), n(want["h"]))
 
 
 def test_match_all_pairs_tables(ring_features):
@@ -216,7 +208,7 @@ def test_pair_draws_depend_on_its_key_alone(ring_features, monkeypatch,
             one = matching.match_pair(tf[i], tf[j], split(key, 3)[p])
             assert torch.equal(got.inlier[p], one.inlier)
             assert int(got.num_inliers[i, j]) == int(one.num_inliers)
-            _assert_h_close(n(got.h[i, j]), n(one.h))
+            assert_h_close(n(got.h[i, j]), n(one.h))
         assert int(got.num_inliers[0, 1]) > 8
 
 
@@ -320,7 +312,7 @@ def test_full_resolution_ring_pair(ring_full, a):
         assert torch.equal(g[0], want[name].to(g.dtype)), name
     n_matches = int(ref.valid.sum())
     assert n_matches == int(z["n_matches"][a])
-    _assert_h_close(n(got[4][0]), ref.h)
+    assert_h_close(n(got[4][0]), ref.h)
     src, dst = fa.xy[ref.a_idx], fb.xy[ref.b_idx]
     q = np.c_[src, np.ones(len(src))] @ ref.h.astype(np.float64).T
     err2 = np.sum((q[:, :2] / q[:, 2:] - dst) ** 2, axis=-1)

@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import cuda_device, n, t
+from _torch_port import (bits, check_k1, cuda_device, kernel_launches,
+                         moment_scale, n, plain_coords, t)
 from image_stitching_tpu.data.synth import make_ring_captures
 from image_stitching_tpu.kernels.orb_sample_pallas import orb_sample_pallas
 from image_stitching_tpu.ops import imgproc as jimg
@@ -28,23 +29,6 @@ def _setup(seed=0, h=120, w=260, k=23):
     return img, blur, xy, pattern, pat_xy
 
 
-def _moment_scale(img, xy, radius=20):
-    """Sum of |v * d| over each keypoint's disk: the magnitude float32
-    summation error scales with (the moments themselves may cancel)."""
-    ys, xs = np.mgrid[-radius:radius + 1, -radius:radius + 1]
-    disk = xs * xs + ys * ys <= radius * radius
-    cx = np.round(xy[:, 0]).astype(int)
-    cy = np.round(xy[:, 1]).astype(int)
-    v = img[cy[:, None] + ys[disk][None], cx[:, None] + xs[disk][None]]
-    return np.stack([(v * np.abs(xs[disk])).sum(1),
-                     (v * np.abs(ys[disk])).sum(1)], -1)
-
-
-def _bits(words):
-    w = np.asarray(words).astype(np.uint32)
-    return (w[..., None] >> np.arange(32, dtype=np.uint32)) & 1
-
-
 @pytest.mark.parametrize("seed", [0, 3])
 def test_k1_plain_vs_pallas_interpret(seed):
     img, blur, xy, pattern, pat_xy = _setup(seed)
@@ -55,7 +39,7 @@ def test_k1_plain_vs_pallas_interpret(seed):
     s, a, m, d = orb_sample_plain(t(img), t(blur), t(xy), t(pat_xy), 20)
     # Moments: rtol 1e-5 of the disk's |v * d| magnitude (summation order).
     np.testing.assert_array_less(np.abs(n(m) - np.asarray(mom)),
-                                 1e-5 * _moment_scale(img, xy) + 1e-6)
+                                 1e-5 * moment_scale(img, xy) + 1e-6)
     # Angle: both wrappers return atan2(m01, m10); atol 1e-4 rad covers
     # the moments' summation-order error.
     np.testing.assert_allclose(n(a), np.asarray(ang), rtol=0, atol=1e-4)
@@ -63,9 +47,9 @@ def test_k1_plain_vs_pallas_interpret(seed):
     # version by cos/sin(atan2(m)); a bit flips only at an exact .5
     # rounding boundary.  Held to <= 1e-3 of the bits (measured: 0).
     s_ref = np.asarray(samples)
-    want = _bits(jorb._pack_bits(jnp.asarray(s_ref[:, :256] <
-                                             s_ref[:, 256:])))
-    flips = int((_bits(n(d)) != want).sum())
+    want = bits(jorb._pack_bits(jnp.asarray(s_ref[:, :256] <
+                                            s_ref[:, 256:])))
+    flips = int((bits(n(d)) != want).sum())
     assert flips <= 1e-3 * want.size, flips
 
 
@@ -181,17 +165,44 @@ def test_k1_kernel_matches_plain_on_cuda():
         sel = n(lvl) == i
         np.testing.assert_array_less(
             np.abs(n(m)[sel] - n(m0)[sel]),
-            1e-5 * _moment_scale(n(raw), n(xy)[sel]) + 1e-6)
-    assert int((_bits(n(d)) != _bits(n(d0))).sum()) <= 1e-4 * 500 * 256
+            1e-5 * moment_scale(n(raw), n(xy)[sel]) + 1e-6)
+    assert int((bits(n(d)) != bits(n(d0))).sum()) <= 1e-4 * 500 * 256
 
 
-def _plain_coords(xy, angle, pat_xy, h, w):
-    """orb_sample_plain's rounded, clipped endpoint coordinates."""
-    ca, sa = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
-    px, py = pat_xy[0][None], pat_xy[1][None]
-    gx = torch.clamp(torch.round(xy[:, 0:1] + (ca * px - sa * py)), 0, w - 1)
-    gy = torch.clamp(torch.round(xy[:, 1:2] + (sa * px + ca * py)), 0, h - 1)
-    return n(gx), n(gy)
+def _rendered_gray(h, w, dev):
+    """The port's synthetic scene seen by a 55-degree camera at (h, w),
+    as float32 gray with fractions (`rgb_to_gray`), on `dev`."""
+    from image_stitching_tpu_torch.data.synth import (ring_geometry,
+                                                      render_view)
+    from image_stitching_tpu_torch.ops.imgproc import rgb_to_gray
+    k, rs = ring_geometry(1, (h, w), 55.0, 0.5)
+    rgb = render_view(k, rs[0], (h, w), seed=3)
+    return rgb_to_gray(torch.from_numpy(rgb).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,n_features", [
+    (1224, 1632, 1500), (2448, 3264, 4000), (480, 640, 4000),
+    (480, 640, 1024)])
+def test_k1_kernel_on_detect_levels_on_cuda(h, w, n_features):
+    """K1 in the one launch a view that the detector makes, on the level
+    planes and keypoints of `detect_levels` at the benchmark's and the
+    JAX package's bench shapes (level 0 at 2448x3264 is past the TPU
+    kernel's 11 MB VMEM budget, K3's shape), against its plain version on
+    the card: per level moments within 1e-5 of the disk's |v * d|
+    magnitude, samples equal wherever both rounded coordinates agree,
+    <= 1e-4 of the descriptor bits flipped; one wrapper call, one kernel
+    in a CUDA graph of it."""
+    dev = cuda_device()
+    levels = torb.detect_levels(_rendered_gray(h, w, dev), n_features)
+    pat = torb.pattern_xy(torb.resolve_pattern(None), dev)
+    raws, blurs = [lv[1] for lv in levels], [lv[2] for lv in levels]
+    xy = torch.cat([lv[3] for lv in levels])
+    lvl = torch.cat([torch.full((lv[3].shape[0],), i, dtype=torch.int32,
+                                device=dev) for i, lv in enumerate(levels)])
+    check_k1(raws, blurs, xy, lvl, pat, 20)
+    assert kernel_launches(
+        lambda: orb_sample_levels(raws, blurs, xy, lvl, pat, 20)) == 1
 
 
 def _quotient_coords(xy, mom, pat_xy, h, w):
@@ -224,7 +235,7 @@ def test_k3_plain_vs_stream_pallas_interpret(seed):
         jnp.asarray(pat_xy), radius=20,
         span=max(jorb._pattern_span(pattern), 20), interpret=True)
     s, a, m, d = orb_sample_plain(t(img), t(blur), t(xy), t(pat_xy), 20)
-    scale = _moment_scale(img, xy)
+    scale = moment_scale(img, xy)
     np.testing.assert_array_less(np.abs(n(m) - np.asarray(mom)),
                                  1e-5 * scale + 1e-6)
     # Angle: the moments' error over their length (a cancelled sum turns
@@ -233,13 +244,13 @@ def test_k3_plain_vs_stream_pallas_interpret(seed):
         np.abs(n(a) - np.asarray(ang)),
         1e-5 * np.linalg.norm(scale, axis=1) /
         np.linalg.norm(np.asarray(mom), axis=1) + 1e-6)
-    gx, gy = _plain_coords(t(xy), a, t(pat_xy), h, w)
+    gx, gy = plain_coords(t(xy), a, t(pat_xy), h, w)
     qx, qy = _quotient_coords(xy, np.asarray(mom), pat_xy, h, w)
     agree = (gx == qx) & (gy == qy)
     assert agree.mean() >= 0.99
     np.testing.assert_array_equal(n(s)[agree], np.asarray(samples)[agree])
     s_ref = np.asarray(samples)
-    want = _bits(jorb._pack_bits(jnp.asarray(s_ref[:, :256] <
-                                             s_ref[:, 256:])))
-    flips = int((_bits(n(d)) != want).sum())
+    want = bits(jorb._pack_bits(jnp.asarray(s_ref[:, :256] <
+                                            s_ref[:, 256:])))
+    flips = int((bits(n(d)) != want).sum())
     assert flips <= 1e-3 * want.size, flips

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import n
+from _torch_port import assert_h_close, n
 from image_stitching_tpu.ops import matching as jm
 from image_stitching_tpu.ops.features.orb import (
     orb_detect_and_describe as j_orb)
@@ -52,20 +52,13 @@ def _pairs(b=B):
     return np.stack([base, np.roll(base, (7, 5), (1, 2))], axis=1)
 
 
-def _assert_h_close(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    scale = np.abs(want).max(axis=(-2, -1), keepdims=True)
-    assert np.all(np.abs(got - want) <= 1e-4 * scale), \
-        float(np.abs(got - want).max())
-
-
 def _assert_pair_equal(got, want):
     for name in ("a_idx", "b_idx", "valid", "inlier", "num_inliers"):
         assert np.array_equal(n(getattr(got, name)),
                               np.asarray(getattr(want, name))), name
     np.testing.assert_allclose(n(got.confidence), np.asarray(want.confidence),
                                rtol=0, atol=1e-5)
-    _assert_h_close(n(got.h), want.h)
+    assert_h_close(n(got.h), want.h)
 
 
 @pytest.mark.parametrize("p", range(B))
@@ -111,7 +104,7 @@ def test_batched_register_matches_reference():
     assert np.array_equal(n(n_inl), np.asarray(n_j))
     assert int(n_inl.min()) > 20
     np.testing.assert_allclose(n(c), np.asarray(c_j), rtol=0, atol=1e-5)
-    _assert_h_close(n(h), np.asarray(h_j))
+    assert_h_close(n(h), np.asarray(h_j))
 
 
 @pytest.mark.parametrize("dp", [1, 2, 4])

@@ -9,12 +9,10 @@ shapes.  `ransac_homography` and `ransac_affine_partial` with a key give
 the JAX functions' hypothesis indices, inlier masks and n_inliers for the
 same key, and H within rtol 1e-4 of its largest entry (the float32
 rounding of the IRLS refit, tests/test_torch_matching.py's bound).
-`chip_smoke.py`'s golden values are pinned here from jax.  On a card the
-port's draws equal its CPU draws (marked `cuda`).
+A stitch's worth of draws (`prng_draws`) gives a handful of uint32 words
+pinned from jax (`PRNG_GOLDEN`), which the card's draws are held to as
+well.  On a card the port's draws equal its CPU draws (marked `cuda`).
 """
-
-import importlib.util
-import os
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +21,7 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
-from _torch_port import cuda_device, n, t
+from _torch_port import assert_h_close, cuda_device, n, t
 from image_stitching_tpu.config import StitchConfig as JConfig
 from image_stitching_tpu.ops import ransac as jr
 from image_stitching_tpu_torch.core import prng
@@ -31,7 +29,18 @@ from image_stitching_tpu_torch.ops import ransac
 
 CPU = torch.device("cpu")
 SEED = JConfig().seed
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# The draws of `prng_draws` (a stitch's worth: DEFAULT_RING's 28 pairs,
+# rig37's 666) and a handful of their uint32 words as jax.random gives
+# them: (draw, index, word).
+PRNG_SPLITS = (28, 666)
+PRNG_GOLDEN = (
+    ("split_28", (27, 0), 55715830), ("split_28", (27, 1), 3256168517),
+    ("split_666", (665, 0), 3129506635), ("split_666", (665, 1), 4115858365),
+    ("hyp_28", (0, 0, 0), 1062707686), ("hyp_28", (27, 511, 3), 1062774190),
+    ("score_28", (13, 1023), 1053940244),
+    ("hyp_666", (665, 0, 1), 1059984036),
+    ("score_666", (400, 7), 1048466000))
 
 
 def _bits(x) -> np.ndarray:
@@ -191,11 +200,6 @@ def _similarity_case(seed, m):
     return src, dst, valid
 
 
-def _h_close(got, want):
-    want = np.asarray(want)
-    assert np.abs(np.asarray(got) - want).max() <= 1e-4 * np.abs(want).max()
-
-
 @pytest.mark.parametrize("m", [300, 1500])
 def test_ransac_homography_with_a_key(m):
     """Three pairs in one call, pair p with split(PRNGKey(3), 3)[p],
@@ -225,7 +229,7 @@ def test_ransac_homography_with_a_key(m):
             jnp.asarray(src[p]), jnp.asarray(dst[p]), v, jkeys[p])
         assert int(cnt[p]) == int(n_ref) > m // 2
         np.testing.assert_array_equal(n(mask[p]), np.asarray(mask_ref))
-        _h_close(n(h[p]), h_ref)
+        assert_h_close(n(h[p]), h_ref)
     # The injected indices give the same result as the key's own draws.
     h2, mask2, cnt2 = ransac.ransac_homography(
         t(src), t(dst), t(valid), hyp_idx=hyp, score_idx=sub)
@@ -253,26 +257,41 @@ def test_ransac_affine_partial_with_a_key():
             jnp.asarray(src[p]), jnp.asarray(dst[p]), v, jkeys[p])
         assert int(cnt[p]) == int(n_ref) > 200
         np.testing.assert_array_equal(n(mask[p]), np.asarray(mask_ref))
-        _h_close(n(h[p]), h_ref)
+        assert_h_close(n(h[p]), h_ref)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def prng_draws(dev):
+    """A stitch's worth of RANSAC draws on `dev` (`core/prng.py`): for n
+    in PRNG_SPLITS, the pair keys split(PRNGKey(0), n), the hypothesis
+    uniforms (512, 4) under each key and the scoring uniforms (1024,)
+    under fold_in(key, 1), as `ops/ransac.py` draws them."""
+    out = {}
+    for num in PRNG_SPLITS:
+        keys = prng.split(prng.PRNGKey(0, dev), num)
+        out[f"split_{num}"] = keys
+        out[f"hyp_{num}"] = prng.uniform(keys, (512, 4))
+        out[f"score_{num}"] = prng.uniform(prng.fold_in(keys, 1), (1024,))
+    return out
 
 
-def test_chip_smoke_golden_values_are_jax_draws():
-    """The uint32 words `chip_smoke.py` holds the card's draws to are
+def check_prng_golden(draws) -> int:
+    """Hold `prng_draws`' words to PRNG_GOLDEN; returns the count held."""
+    for name, index, word in PRNG_GOLDEN:
+        x = draws[name][index]
+        got = (int(x.view(torch.int32).item()) & 0xFFFFFFFF
+               if x.is_floating_point() else int(x.item()))
+        assert got == word, f"{name}{index}: {got}, jax.random's {word}"
+    return len(PRNG_GOLDEN)
+
+
+def test_golden_words_are_jax_draws():
+    """The uint32 words PRNG_GOLDEN holds the card's draws to are
     jax.random's: split(PRNGKey(0), n) for n = 28 and 666, uniform
     (512, 4) under each key and (1024,) under fold_in(key, 1); the port's
     CPU draws (`prng_draws`) give them too."""
-    smoke = _chip_smoke()
-    draws = smoke.prng_draws(CPU)
-    assert smoke.check_prng_golden(draws) == len(smoke.PRNG_GOLDEN)
-    for name, index, word in smoke.PRNG_GOLDEN:
+    draws = prng_draws(CPU)
+    assert check_prng_golden(draws) == len(PRNG_GOLDEN)
+    for name, index, word in PRNG_GOLDEN:
         kind, count = name.split("_")
         jkeys = jax.random.split(jax.random.PRNGKey(0), int(count))
         if kind == "split":
@@ -288,15 +307,15 @@ def test_chip_smoke_golden_values_are_jax_draws():
 
 @pytest.mark.cuda
 def test_draws_on_cuda_equal_the_cpu():
-    """The port's draws on the card equal its CPU draws bit for bit: a
-    stitch's worth (chip_smoke.py's `prng_draws`) and RANSAC's indices."""
+    """The port's draws on the card equal its CPU draws bit for bit and
+    PRNG_GOLDEN's words: a stitch's worth (`prng_draws`) and RANSAC's
+    indices."""
     dev = cuda_device()
-    smoke = _chip_smoke()
-    got, want = smoke.prng_draws(dev), smoke.prng_draws(CPU)
+    got, want = prng_draws(dev), prng_draws(CPU)
     for name in want:
         assert got[name].device.type == "cuda"
         assert torch.equal(got[name].cpu(), want[name]), name
-    assert smoke.check_prng_golden(got) == len(smoke.PRNG_GOLDEN)
+    assert check_prng_golden(got) == len(PRNG_GOLDEN)
     valid = t(np.stack([_homography_case(s, 1500)[2] for s in (1, 2)]))
     keys = prng.split(prng.PRNGKey(3, CPU), 2)
     for device in (CPU, dev):

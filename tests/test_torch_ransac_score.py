@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import cuda_device, n
+from _torch_port import cuda_device, kernel_launches, n, plain_err2
 from image_stitching_tpu_torch.core import logging as log
 from image_stitching_tpu_torch.core.prng import PRNGKey, split
 from image_stitching_tpu_torch.kernels import ransac_score as k7
@@ -37,15 +37,6 @@ def inline_counts(h_all, src, dst, score_idx, thresh):
     proj = ransac.apply_h(h_all, src_s[:, None].expand(-1, n_hyp, -1, -1))
     err2 = torch.sum((proj - dst_s[:, None]) ** 2, dim=-1)
     return torch.sum(err2 < thresh * thresh, dim=-1)
-
-
-def plain_err2(h_all, src, dst, score_idx):
-    """(P, n_hyp, m) squared errors of the plain version."""
-    n_hyp = h_all.shape[1]
-    src_s = torch.gather(src, 1, score_idx[..., None].expand(-1, -1, 2))
-    dst_s = torch.gather(dst, 1, score_idx[..., None].expand(-1, -1, 2))
-    proj = ransac.apply_h(h_all, src_s[:, None].expand(-1, n_hyp, -1, -1))
-    return torch.sum((proj - dst_s[:, None]) ** 2, dim=-1)
 
 
 def assert_counts_close(got, want, err2, t2=T2):
@@ -247,7 +238,8 @@ CUDA_CASES = [(5, 512, 8000, 1024), (3, 100, 1600, 1500), (1, 1, 7, 7),
 @pytest.mark.parametrize("p,n_hyp,m_slots,m", CUDA_CASES)
 def test_kernel_matches_plain_on_cuda(p, n_hyp, m_slots, m):
     """K7 on the card against its plain version on the card, one launch a
-    call; the rig's block of 666 pairs among the shapes."""
+    call, one kernel in a CUDA graph of it; the rig's block of 666 pairs
+    among the shapes."""
     dev = cuda_device()
     h_all, src, dst, idx = (x.to(dev) for x in scene(p, n_hyp, m_slots, m,
                                                        seed=p + m))
@@ -257,6 +249,8 @@ def test_kernel_matches_plain_on_cuda(p, n_hyp, m_slots, m):
     assert k7.ransac_score_counts.launches == before + 1
     want = k7.ransac_score_counts_plain(h_all, src, dst, idx, THRESH)
     assert_counts_close(got, want, plain_err2(h_all, src, dst, idx))
+    assert kernel_launches(lambda: k7.ransac_score_counts(
+        h_all, src, dst, idx, THRESH)) == 1
     if m > 100:
         assert int(want.max()) > m // 2
 

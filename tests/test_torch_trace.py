@@ -16,11 +16,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from _torch_port import Recorder
 from image_stitching_tpu.data.synth import (make_ring_captures,
                                             write_capture_dir)
 from image_stitching_tpu_torch.config import StitchConfig
 from image_stitching_tpu_torch.core import logging as log
-from image_stitching_tpu_torch.core.logging import Recorder
 from image_stitching_tpu_torch.estimation import bundle_adjust
 from image_stitching_tpu_torch.pipeline import stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import stitch

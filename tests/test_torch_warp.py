@@ -165,6 +165,38 @@ def test_k2_kernel_matches_plain_on_cuda():
     np.testing.assert_array_equal(n(out), n(warp_bilinear_plain(img, sx, sy)))
 
 
+
+@pytest.mark.cuda
+def test_k2_kernel_on_plane_maps_past_2_31_on_cuda():
+    """K2 within 1e-4 of its plain version on two 576x1024 rects of plane
+    maps whose valid coordinates reach past +-2^31, NaN-free: a camera
+    yawed 80 degrees, warper scale 1e7, the rects straddling the column
+    where the ray depth crosses 0 (depths of ~1e-7 there)."""
+    dev = cuda_device()
+    f, th, scale = 1000.0, np.radians(80.0), 1e7
+    k = np.array([[f, 0, 960], [0, f, 540], [0, 0, 1]], np.float32)
+    r = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                  [-np.sin(th), 0, np.cos(th)]], np.float32)
+    krinv = k.astype(np.float64) @ r.T.astype(np.float64)
+    u_cross = float(round(-krinv[2, 2] / krinv[2, 0] * scale))
+    src = t(np.random.default_rng(5).uniform(
+        0, 255, (1080, 1920, 3)).astype(np.float32)).to(dev)
+    n_big = 0
+    for v0 in (-288.0, 100.0):
+        us = torch.arange(-512, 512, dtype=torch.float32, device=dev) + \
+            u_cross
+        vs = torch.arange(576, dtype=torch.float32, device=dev) + v0
+        sx, sy, valid = warps.backward_xy_1d(
+            "plane", us, vs, t(k).to(dev), t(r).to(dev), scale)
+        assert bool(torch.isfinite(sx).all() and torch.isfinite(sy).all())
+        n_big += int((((sx.abs() > 2.0 ** 31) | (sy.abs() > 2.0 ** 31))
+                      & valid).sum())
+        sx, sy = sx.contiguous(), sy.contiguous()
+        err = (warp_bilinear(src, sx, sy) -
+               warp_bilinear_plain(src, sx, sy)).abs().max()
+        assert float(err) <= 1e-4
+    assert n_big > 0
+
 # ---------------------------------------------------------------------------
 # Every projection: ROIs, warp_point, backward maps, the affine split.
 # ---------------------------------------------------------------------------

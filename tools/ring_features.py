@@ -25,6 +25,7 @@ import os
 import subprocess
 import sys
 import tempfile
+from unittest import mock
 
 import numpy as np
 import torch
@@ -35,7 +36,6 @@ def main() -> int:
         print("ring_features: no CUDA device", file=sys.stderr)
         return 2
     from image_stitching_tpu_torch.config import StitchConfig
-    from image_stitching_tpu_torch.core.logging import Recorder
     from image_stitching_tpu_torch.data.synth import E2E_RING, write_ring_dir
     from image_stitching_tpu_torch.pipeline import stitcher
     out = sys.argv[1]
@@ -48,14 +48,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="ring_features_") as work:
         caps = os.path.join(work, "caps")
         write_ring_dir(caps, **E2E_RING, noise_sigma=sigma)
-        with Recorder(stitcher, "match_all_pairs") as rec:
+        real, calls = stitcher.match_all_pairs, []
+
+        def keep(feats, *args, **kwargs):
+            calls.append((feats, real(feats, *args, **kwargs)))
+            return calls[-1][1]
+        with mock.patch.object(stitcher, "match_all_pairs", keep):
             try:
                 kept = stitcher.stitch(
                     caps, dataclasses.replace(cfg, checkpoint_dir=work),
                     output="", device="cuda").kept_indices
             except RuntimeError as e:
                 kept = str(e)
-    (feats, *_), _, graph = rec.calls["match_all_pairs"][0]
+    feats, graph = calls[0]
     inl = graph.num_inliers.cpu().numpy()
     nm = graph.num_matches.cpu().numpy()
     a = np.arange(n - 1)

@@ -1,14 +1,14 @@
 """The JAX package's stitch of DEFAULT_RING under `StitchConfig()`, on the
-CPU, recorded for `chip_smoke.py` phase 9b to hold the port's card stitch
-to.
+CPU, recorded for `tests/test_torch_card_e2e.py`'s `default` case to hold
+the port's card stitch to.
 
 Run from the repository root on a machine with jax (the tools may import
 it; the port never does):
     JAX_PLATFORMS=cpu python -m tools.ring_reference_jax [OUT_JSON]
 
 Writes DEFAULT_RING (8 x 2448x3264, sigma-8 noise) with the port's
-`data/synth.py::write_ring_dir`, the files phase 0 of the smoke writes,
-then runs `image_stitching_tpu.pipeline.stitcher.stitch` on them with
+`data/synth.py::write_ring_dir`, the files that card case renders, then
+runs `image_stitching_tpu.pipeline.stitcher.stitch` on them with
 exactly `StitchConfig()` (fast ingest, 4000 ORB features at full
 resolution) in a scratch working directory, and records into OUT_JSON
 (default `tests/data/ring_reference_jax.json`): the jax version and its
