@@ -127,6 +127,12 @@ class span:
         self._range.__exit__(None, None, None)
         return False
 
+    def annotate(self, **attrs: int) -> None:
+        """Add attributes known only once the span is open."""
+        self.attrs = {**(self.attrs or {}), **attrs}
+        if self._trace is not None:
+            self._record.attrs = self.attrs
+
     @property
     def seconds(self) -> float:
         return (self.end_ns - self.start_ns) / 1e9

@@ -12,9 +12,10 @@ compose-scale RGB.  This module decodes what the stages need:
     (`yuv420_to_rgb_exact`), and the Y plane is the detection gray;
   * otherwise a DCT-scaled RGB stream, plus a luma-only stream when the
     RGB is decoded below work scale;
-  * the decode runs on the runtime's background threads (the GIL released)
-    into host buffers, pinned on CUDA, and each image's upload is queued as
-    soon as its decode is done.
+  * the decode runs on the runtime's background threads (the GIL released),
+    one a file up to the CPUs the process may use (`decode_width`), into
+    host buffers, pinned on CUDA, and each image's upload is queued as soon
+    as its decode is done.
 
 Orientation (portrait 90 degrees clockwise, landscape 180) and the resizes
 run on the device, in `fast_prep`.  Every device step is plain integer or
@@ -39,11 +40,36 @@ from ..core.logging import count, span
 from ..ops.imgproc import resize, rgb_to_gray
 
 __all__ = ["FastIngest", "start_fast_ingest", "fast_prep", "pick_num8",
-           "yuv420_to_rgb_exact"]
+           "yuv420_to_rgb_exact", "decode_width"]
 
 _JPEG_EXTS = {".jpg", ".jpeg"}
-# Decode threads, as the reference's default (its stitcher passes none).
-_DECODE_THREADS = 2
+_CPU_MAX = "/sys/fs/cgroup/cpu.max"   # cgroup v2: "<quota|max> <period>"
+
+
+def decode_width(n_items: int, cpus: int, cpu_max: Optional[str]) -> int:
+    """Threads of a background decode of n_items files: one a file, at most
+    one a CPU the process may use.  cpus: the size of its affinity set;
+    cpu_max: the text of its cgroup's `cpu.max` (None where there is
+    none), whose quota over period, rounded up, bounds the CPUs too."""
+    width = cpus
+    fields = (cpu_max or "").split()
+    if len(fields) == 2 and fields[0] != "max":
+        width = min(width, math.ceil(int(fields[0]) / int(fields[1])))
+    return max(1, min(n_items, width))
+
+
+def _cpu_limits() -> Tuple[int, Optional[str]]:
+    """(CPUs in this process's affinity set, the text of `cpu.max` or
+    None): what `decode_width` reads of the host."""
+    try:
+        cpus = len(os.sched_getaffinity(0))
+    except AttributeError:      # no affinity call on this platform
+        cpus = os.cpu_count() or 1
+    try:
+        with open(_CPU_MAX) as f:
+            return cpus, f.read()
+    except OSError:
+        return cpus, None
 
 
 def pick_num8(scale_needed: float) -> int:
@@ -104,6 +130,7 @@ class FastIngest:
     # iMCU-aligned Y strides and the valid (scaled) dims; chroma halves.
     raw_layout: Tuple[int, int, int, int] = (0, 0, 0, 0)
     device: torch.device = torch.device("cuda")
+    threads: int = 1       # the decode's width (`decode_width`)
 
     def upload(self):
         """Wait for the decodes in order, queueing each image's upload
@@ -165,12 +192,15 @@ def start_fast_ingest(paths: Sequence[str], is_portrait: bool,
     rgb_num8 = pick_num8(rgb_scale)
 
     def session(items):
+        """The decode session of items and its width."""
         buffers = None
         if device.type == "cuda":
             buffers = [torch.empty(native.item_shape(*it), dtype=torch.uint8,
                                    pin_memory=True) for it in items]
-        return native.DecodeSession(items, nthreads=_DECODE_THREADS,
-                                    buffers=buffers)
+        threads = decode_width(len(items), *_cpu_limits())
+        sess = native.DecodeSession(items, nthreads=threads, buffers=buffers)
+        count("ingest.decode_threads", threads)
+        return sess, threads
 
     # The raw 4:2:0 route when every file is h2v2 YCbCr: the codec's planes
     # at the largest scale needed, one entropy pass per file for both the
@@ -186,7 +216,8 @@ def start_fast_ingest(paths: Sequence[str], is_portrait: bool,
         if raw_num8 % 2 == 1 and raw_num8 < 8:
             raw_num8 += 1   # libjpeg-turbo's even scaled IDCTs are SIMD
         try:
-            sess = session([(p, False, raw_num8, True) for p in paths])
+            sess, threads = session([(p, False, raw_num8, True)
+                                     for p in paths])
         except OSError:
             return None
         ya_w, ya_h, _, _ = native.yuv420_layout(w_dec, h_dec, raw_num8)
@@ -196,7 +227,7 @@ def start_fast_ingest(paths: Sequence[str], is_portrait: bool,
                           rgb_num8=raw_num8, full_sizes=[full] * len(paths),
                           raw_yuv=True, decode_hw=(hd, wd),
                           raw_num8=raw_num8, raw_layout=(ya_h, ya_w, hd, wd),
-                          device=device)
+                          device=device, threads=threads)
     # Derive the detection gray from the RGB stream when that covers work
     # scale (one decode pass); a luma-only stream only when the RGB is
     # DCT-scaled below work scale.
@@ -208,13 +239,14 @@ def start_fast_ingest(paths: Sequence[str], is_portrait: bool,
             items.append((p, True, gray_num8))
         items.append((p, False, rgb_num8))
     try:
-        sess = session(items)
+        sess, threads = session(items)
     except OSError:
         return None
     return FastIngest(session=sess, n=len(paths), want_gray=decode_gray,
                       gray_from_rgb=gray_from_rgb, gray_num8=gray_num8,
                       rgb_num8=rgb_num8, full_sizes=[full] * len(paths),
-                      decode_hw=(h_dec, w_dec), device=device)
+                      decode_hw=(h_dec, w_dec), device=device,
+                      threads=threads)
 
 
 def _orient_stack(x: torch.Tensor, is_portrait: bool) -> torch.Tensor:

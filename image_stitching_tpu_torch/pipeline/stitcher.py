@@ -332,11 +332,13 @@ def _stitch_body(source, cfg: StitchConfig, output: Optional[str],
                              if abs(compose_scale - 1) > 1e-1 else 1.0)
         # The timelapse composes in the loop, from full-resolution pixels.
         if cfg.fast_ingest and not cfg.timelapse:
-            with span("start decode"):
+            with span("start decode") as started:
                 fast = start_fast_ingest(
                     paths, is_portrait, want_gray=want_feats,
                     gray_scale=work_scale,
                     rgb_scale=max(seam_scale, compose_src_scale), device=dev)
+                if fast is not None:
+                    started.annotate(threads=fast.threads)
         with span("upload"):
             if fast is not None:
                 gray_raw, rgb_raw = fast.upload()

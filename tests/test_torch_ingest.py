@@ -132,6 +132,69 @@ def test_raw_planes_and_session_equal(tmp_path, num8):
         native.DecodeSession(items[:1], buffers=[np.zeros(3, np.uint8)])
 
 
+@pytest.mark.parametrize("cpus, cpu_max, n_items, want", [
+    (8, None, 37, 8),
+    (8, None, 3, 3),
+    (1, None, 37, 1),
+    (8, "200000 100000\n", 37, 2),
+    (8, "150000 100000\n", 37, 2),
+    (8, "max 100000\n", 37, 8),
+], ids=["rig", "three items", "one cpu", "quota 2", "quota 1.5",
+        "no quota"])
+def test_decode_width(cpus, cpu_max, n_items, want):
+    """One thread a file, at most one a CPU of the affinity set, and at
+    most the cgroup quota over its period, rounded up."""
+    assert ingest.decode_width(n_items, cpus, cpu_max) == want
+
+
+@pytest.mark.parametrize("width", ["1", "2", "host", "items+3"])
+def test_decode_is_the_same_at_every_width(tmp_path, monkeypatch, width):
+    """DecodeSession fills caller-owned buffers with the same bytes at any
+    width (raw planes, luma and RGB items mixed), and FastIngest.upload
+    gives the same stacks on the raw 4:2:0 route and the two-stream
+    4:4:4 route whatever width start_fast_ingest takes."""
+    paths = _write_set(tmp_path, [(61, 77)] * 5, seed=5)
+    items = ([(p, False, 8, True) for p in paths]
+             + [(p, True, 4) for p in paths] + [(p, False, 2) for p in paths])
+
+    host = ingest.decode_width
+
+    def threads(n_items):
+        return {"1": 1, "2": 2, "items+3": n_items + 3,
+                "host": host(n_items, *ingest._cpu_limits())}[width]
+
+    def decode(nthreads):
+        bufs = [torch.zeros(native.item_shape(*it), dtype=torch.uint8)
+                for it in items]
+        sess = native.DecodeSession(items, nthreads=nthreads, buffers=bufs)
+        for i in range(len(items)):
+            assert sess.wait(i) is bufs[i]
+        sess.finish()
+        return bufs
+    for a, b in zip(decode(threads(len(items))), decode(1)):
+        assert torch.equal(a, b)
+
+    (tmp_path / "444").mkdir()
+    sets = {"4:2:0": paths,
+            "4:4:4": _write_set(tmp_path / "444", [(61, 77)] * 5,
+                                subsampling=0, seed=5)}
+    for label, files in sets.items():
+        stacks = []
+        for rule in (threads, lambda n_items: 1):
+            monkeypatch.setattr(ingest, "decode_width",
+                                lambda n_items, *limits, rule=rule:
+                                rule(n_items))
+            fi = ingest.start_fast_ingest(files, False, True, 0.5, 0.25,
+                                          device="cpu")
+            assert fi.raw_yuv == (label == "4:2:0")
+            assert fi.threads == rule(len(files) * (1 + fi.want_gray))
+            gray, rgb = fi.upload()
+            stacks.append(list(ingest._unpack_planes(rgb, fi.raw_layout))
+                          if fi.raw_yuv else [gray, rgb])
+        for a, b in zip(*stacks):
+            assert torch.equal(a, b), label
+
+
 @pytest.mark.parametrize("libs", ["system", "pillow"])
 def test_runtime_built_from_vendored_headers(tmp_path, monkeypatch, libs):
     """The port's own build of native/stitch_runtime.cpp (vendored headers;

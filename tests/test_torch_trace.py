@@ -22,7 +22,7 @@ from image_stitching_tpu.data.synth import (make_ring_captures,
 from image_stitching_tpu_torch.config import StitchConfig
 from image_stitching_tpu_torch.core import logging as log
 from image_stitching_tpu_torch.estimation import bundle_adjust
-from image_stitching_tpu_torch.pipeline import stitcher
+from image_stitching_tpu_torch.pipeline import ingest, stitcher
 from image_stitching_tpu_torch.pipeline.stitcher import stitch
 
 HW = (160, 224)
@@ -128,6 +128,24 @@ def test_upload_bytes_are_the_uploaded_tensors(runs):
     # The legacy route uploads each decoded RGB capture.
     assert runs["results"]["legacy"].trace.counters[
         "ingest.upload_bytes"] == N_IMAGES * HW[0] * HW[1] * 3
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_decode_threads_are_the_width(runs, route):
+    """Fast ingest counts `ingest.decode_threads` once a stitch with the
+    width `decode_width` gives on this host (one 4:2:0 item a view) and
+    puts it on `start decode` as `threads`; the legacy decode has
+    neither."""
+    trace = runs["results"][route].trace
+    starts = [s for s in trace.spans if s.name == "start decode"]
+    if route == "legacy":
+        assert not starts
+        assert "ingest.decode_threads" not in trace.counters
+        return
+    width = ingest.decode_width(N_IMAGES, *ingest._cpu_limits())
+    assert trace.counters["ingest.decode_threads"] == width
+    (start,) = starts
+    assert start.attrs == {"threads": width}
 
 
 def test_ba_iterations_are_the_cost_calls(runs):
